@@ -1,0 +1,104 @@
+"""The CUDA kernels against their plain versions, on the card.
+
+Marked ``cuda``: these need an NVIDIA GPU with nvcc (sm_90a) and skip
+elsewhere.  On the GPU machine:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from one_class_ffm_torch.ops import kernels
+from one_class_ffm_torch.ops import sparse_ops as ops
+from one_class_ffm_torch.ops.layout import make_blocked_layout
+
+torch.set_num_threads(1)
+
+pytestmark = pytest.mark.cuda
+
+BOUND = {torch.float32: 1e-5, torch.bfloat16: 5e-3}  # max-rel
+
+
+@pytest.fixture
+def device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the GPU machine)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _stream(seed, k, sorted_seg):
+    rng = np.random.default_rng(seed)
+    num, n_other, nnz, BM = 512, 300, 4000, 64
+    seg = rng.integers(0, num, size=nnz).astype(np.int32)
+    if sorted_seg:
+        seg = np.sort(seg)
+    take = rng.integers(0, n_other, size=nnz).astype(np.int32)
+    blk = make_blocked_layout(seg, take, num, BM, max_pad_ratio=50.0)
+    B = rng.normal(size=(n_other, k))
+    return rng, num, BM, blk, B[blk["take"]]
+
+
+def _max_rel(a, b):
+    a, b = a.double(), b.double()
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [8, 32, 40])
+@pytest.mark.parametrize("sorted_seg", [True, False])
+def test_kernels_match_plain(device, dtype, k, sorted_seg):
+    rng, num, BM, blk, rows = _stream(1, k, sorted_seg)
+
+    def T(a):
+        return torch.as_tensor(a).to(device=device, dtype=dtype).contiguous()
+
+    own = torch.as_tensor(blk["own"], device=device)
+    x_rows = T(rows)
+    phi, dP = T(rng.normal(size=(num, k))), T(rng.normal(size=(num, k)))
+    w = T(rng.random(blk["own"].shape) * (blk["own"] < BM))
+    c = T(rng.normal(size=blk["own"].shape))
+    dense = T(rng.normal(size=(k, k)))
+    cases = {
+        "pos_hv_blocked": (phi, x_rows, own, w, dense, num, BM, 0.9),
+        "pos_scatter_blocked": (c, x_rows, own, num, BM),
+        "pos_gap_blocked": (dP, x_rows, own, BM),
+    }
+    kernels.reset_launch_counts()
+    for name, args in cases.items():
+        got = getattr(ops, name)(*args)  # the dispatcher launches on CUDA
+        again = getattr(kernels, name)(*args)
+        ref = getattr(ops, name + "_plain")(*args)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == ref.shape
+        assert torch.equal(got, again), f"{name}: launches differ"
+        assert _max_rel(got, ref) <= BOUND[dtype], name
+        # the plain versions add in the kernels' order: equal bits
+        assert torch.equal(got, ref), name
+    assert kernels.launch_counts() == {name: 2 for name in kernels.KERNELS}
+
+
+def test_gap_pads_are_exactly_zero(device):
+    rng, num, BM, blk, rows = _stream(2, 32, True)
+    own = torch.as_tensor(blk["own"], device=device)
+    gap = kernels.pos_gap_blocked(
+        torch.randn(num, 32, device=device),
+        torch.as_tensor(rows, dtype=torch.float32, device=device), own, BM)
+    assert torch.all(gap.view(own.shape)[own == BM] == 0)
+
+
+def test_wrappers_reject_bad_inputs(device):
+    rng, num, BM, blk, rows = _stream(3, 32, True)
+    own = torch.as_tensor(blk["own"], device=device)
+    x = torch.as_tensor(rows, dtype=torch.float32, device=device)
+    with pytest.raises(TypeError):
+        kernels.pos_gap_blocked(torch.zeros(num, 32, device=device),
+                                x.double(), own, BM)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.pos_gap_blocked(torch.zeros(32, num, device=device).T, x,
+                                own, BM)
+    with pytest.raises(ValueError, match="shape"):
+        kernels.pos_scatter_blocked(torch.zeros(3, device=device), x, own,
+                                    num, BM)

@@ -1,0 +1,114 @@
+"""End to end: the port's command line and trainer against the JAX ones on
+one tiny MF text dataset, from one warm-start model."""
+
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from one_class_ffm_tpu import cli as jax_cli
+from one_class_ffm_tpu.data.synth import SynthSpec, write_dataset
+from one_class_ffm_tpu.train import TrainConfig, load_text_model
+from one_class_ffm_torch import cli as torch_cli
+from one_class_ffm_torch.train import Trainer
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module")
+def mf_set(tmp_path_factory):
+    """MF text files (one id field per side) and a random text model."""
+    out = tmp_path_factory.mktemp("mf")
+    item, train, va = write_dataset(
+        str(out), SynthSpec(n_users=90, n_items=30, fu=1, fv=1, avg_pos=5.0,
+                            seed=5))
+    model = str(out / "model.txt")
+    assert jax_cli.main([item, train, "--ns", "-k", "4", "-t", "0",
+                         "--platform", "cpu", "--dtype", "float64",
+                         "-o", model]) == 0
+    return item, train, va, model
+
+
+def _run(main, mf_set, tmp_path, capsys, tag, extra=()):
+    item, train, va, model = mf_set
+    jsonl = tmp_path / f"{tag}.jsonl"
+    rc = main([item, train, "-p", va, "--ns", "-k", "4", "-t", "4",
+               "--eval-every", "2", "--platform", "cpu", "--dtype",
+               "float64", "--init-model", model, "--jsonl", str(jsonl),
+               "--predict-topk", "3", "--eval-chunk", "16", *extra])
+    out = capsys.readouterr().out
+    assert rc == 0
+    return out, [json.loads(ln) for ln in jsonl.read_text().splitlines()]
+
+
+def test_cli_rows_match_jax(mf_set, tmp_path, capsys):
+    """Same header, log rows and top-K ids, byte for byte."""
+    ref_out, ref_js = _run(jax_cli.main, mf_set, tmp_path, capsys, "jax")
+    got_out, got_js = _run(torch_cli.main, mf_set, tmp_path, capsys, "torch")
+    assert got_out == ref_out
+    assert len(got_out.splitlines()) > 3
+    assert [r["epoch"] for r in got_js] == [2, 4]
+    for a, b in zip(got_js, ref_js):
+        assert set(a) == set(b)
+        for key in ("p@5", "ndcg@10", "ploss", "auc"):
+            assert a[key] == pytest.approx(b[key], rel=1e-9)
+
+
+@pytest.mark.parametrize("argv, message", [
+    (["--mesh", "2"], "--mesh"),
+    (["--distributed"], "--distributed"),
+    (["--ckpt-format", "orbax"], "orbax"),
+    (["--profile-dir", "trace"], "--profile-dir"),
+    (["--cg-precond", "jacobi"], "jacobi"),
+    ([], "self blocks"),  # no --ns
+])
+def test_cli_refuses_what_the_port_lacks(mf_set, capsys, argv, message):
+    item, train, _, _ = mf_set
+    ns = ["--ns"] if argv else []
+    rc = torch_cli.main([item, train, "--platform", "cpu", *ns, *argv])
+    assert rc == 1
+    err = capsys.readouterr().err
+    assert message in err
+    assert "ROADMAP" in err or "JAX-only" in err
+
+
+def test_cli_refuses_a_missing_gpu(mf_set, capsys):
+    """--platform defaults to cuda; without a GPU that is an error, never a
+    quiet switch to the CPU."""
+    item, train, _, _ = mf_set
+    with pytest.raises(SystemExit) as exc:
+        torch_cli.main([item, train, "--ns"])
+    assert exc.value.code == 2
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_trainer_checkpoint_resume_and_model_file(mf_set, tmp_path):
+    item, train, va, model = mf_set
+    base = dict(item_path=item, train_path=train, test_path=va, k=4,
+                self_side=False, dtype="float64", init_model=model,
+                eval_every=2, eval_chunk=16)
+    straight = Trainer(TrainConfig(nr_pass=4, **base), device="cpu")
+    straight.run(log=lambda *_: None)
+    ck = str(tmp_path / "ck")
+    first = Trainer(TrainConfig(nr_pass=2, ckpt_dir=ck, **base),
+                    device="cpu")
+    first.run(log=lambda *_: None)
+    resumed = Trainer(TrainConfig(nr_pass=4, ckpt_dir=ck, resume=True,
+                                  model_path=str(tmp_path / "out.txt"),
+                                  **base), device="cpu")
+    resumed.run(log=lambda *_: None)
+    assert resumed.epoch_idx == 4
+    ref = straight.params_numpy()
+    for f12, blk in resumed.params_numpy().items():
+        for name in ("W", "H"):
+            np.testing.assert_allclose(blk[name], ref[f12][name],
+                                       rtol=1e-12, atol=1e-15)
+    _, k, saved = load_text_model(str(tmp_path / "out.txt"))
+    assert k == 4
+    for f12, blk in saved.items():
+        np.testing.assert_allclose(blk["W"], ref[f12]["W"], rtol=2e-5,
+                                   atol=1e-7)
+    # refresh_every auto: off at float64
+    assert resumed.refresh_every == 0
+    assert resumed.dtype == torch.float64

@@ -1,0 +1,282 @@
+"""The port's MF solver against the fp64 oracle and the JAX solver.
+
+The problem is one-class MF with --ns: one identity user-id field, one
+identity item-id field, one cross block, plain CG (passed explicitly:
+conftest.make_problem defaults to jacobi).  Both solvers start from the same
+numpy tables; the JAX solver runs its k-major kernels in interpret mode with
+the per-solve pregather forced, which is the path the port mirrors."""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from conftest import dense_to_padded, make_problem, oracle_params_to_jax
+from one_class_ffm_tpu.data.dataset import PaddedFields, PaddedLabels
+from one_class_ffm_tpu.models.blocks import BlockLayout
+from one_class_ffm_tpu.solver import jax_solver, oracle
+from one_class_ffm_torch.ops import kernels
+from one_class_ffm_torch.ops.sparse_ops import gather_blocked_rows
+from one_class_ffm_torch.solver import torch_solver
+from one_class_ffm_torch.solver.convert import (
+    params_from_numpy,
+    params_to_numpy,
+)
+
+torch.set_num_threads(1)
+
+BM = 4  # rows per block at toy size
+
+
+def mf_problem(seed=0, m=13, n=9, k=3, **kw):
+    rng = np.random.default_rng(seed)
+    prob, params = make_problem(rng, m=m, n=n, Du=(m,), Dv=(n,),
+                                self_side=False, cg_precond="none", k=k, **kw)
+    prob.Xu[0][:] = np.eye(m)
+    prob.Xv[0][:] = np.eye(n)
+    prob.freq_u[0][:] = 1.0
+    prob.freq_v[0][:] = 1.0
+    return prob, params
+
+
+def padded(prob, multiple=4):
+    """Host padded views of an OracleProblem (rows and nnz rounded up)."""
+    def up(x):
+        return -(-x // multiple) * multiple
+
+    def side(Xs, freqs, mp):
+        pads = [dense_to_padded(X, mp) for X in Xs]
+        nnz = sum((X != 0).sum(axis=1) for X in Xs)
+        return PaddedFields(
+            m=mp, m_true=Xs[0].shape[0], f=len(Xs),
+            Ds=tuple(X.shape[1] for X in Xs),
+            idx=tuple(p[0] for p in pads), val=tuple(p[1] for p in pads),
+            freq=tuple(np.asarray(f, np.float64) for f in freqs),
+            row_nnz=np.concatenate([nnz, np.zeros(mp - len(nnz))])
+            .astype(np.int32))
+
+    m, n = prob.m, prob.n
+    u = side(prob.Xu, prob.freq_u, up(m))
+    v = side(prob.Xv, prob.freq_v, up(n))
+    uu, vv = np.nonzero(prob.pos)
+    nnz = up(uu.size + 3)
+    pu = np.full(nnz, m, np.int32)
+    pv = np.full(nnz, n, np.int32)
+    pw = np.zeros(nnz)
+    pu[: uu.size], pv[: uu.size], pw[: uu.size] = uu, vv, 1.0
+    cu, cv = np.zeros(u.m), np.zeros(v.m)
+    np.add.at(cu, uu, 1.0)
+    np.add.at(cv, vv, 1.0)
+    y = PaddedLabels(nnz=nnz, nnz_true=uu.size, u=pu, v=pv, w=pw,
+                     count_u=cu, count_v=cv)
+    return u, v, y
+
+
+def build_port(prob, params, dtype=torch.float64):
+    u, v, y = padded(prob)
+    meta, data = torch_solver.make_device_data(
+        u, v, y, prob.layout, prob.hp, dtype=dtype, blocked_bm=BM)
+    solver = torch_solver.FFMSolver(meta, data)
+    p_np = {f12: {"W": params["W"][f12], "H": params["H"][f12]}
+            for f12 in params["W"]}
+    state = solver.refresh_caches(
+        {"params": params_from_numpy(p_np, "cpu", dtype)})
+    return solver, state
+
+
+def build_jax(prob, params, monkeypatch):
+    monkeypatch.setenv("OCFFM_KT", "interpret")
+    monkeypatch.setenv("OCFFM_BLK_PREGATHER", "1")
+    u, v, y = padded(prob)
+    meta, data = jax_solver.make_device_data(
+        u, v, y, prob.layout, prob.hp, dtype=jnp.float64, blocked_bm=BM)
+    solver = jax_solver.FFMSolver(meta, data)
+    assert solver.kt_u and solver.kt_v and solver.blk_yt
+    assert solver.pregather_u and solver.pregather_v
+    state = solver.refresh_caches({"params": oracle_params_to_jax(params)})
+    return solver, state
+
+
+def test_device_data_matches_jax():
+    prob, _ = mf_problem()
+    u, v, y = padded(prob)
+    _, jd = jax_solver.make_device_data(u, v, y, prob.layout, prob.hp,
+                                        dtype=jnp.float64, blocked_bm=BM)
+    meta, td = torch_solver.make_device_data(
+        u, v, y, prob.layout, prob.hp, dtype=torch.float64, blocked_bm=BM)
+    assert meta.ident_u == (True,) and meta.ident_v == (True,)
+    assert set(td) <= set(jd)
+    for key, val in td.items():
+        vals = val if isinstance(val, tuple) else (val,)
+        refs = jd[key] if isinstance(jd[key], tuple) else (jd[key],)
+        assert len(vals) == len(refs), key
+        for a, b in zip(vals, refs):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b),
+                                          err_msg=key)
+
+
+def test_refresh_caches_match_jax(monkeypatch):
+    prob, params = mf_problem()
+    _, tst = build_port(prob, params)
+    _, jst = build_jax(prob, params, monkeypatch)
+    f12 = prob.layout.cross_blocks()[0].f12
+    for key in ("P", "Q"):
+        np.testing.assert_allclose(tst[key][f12].numpy(),
+                                   np.asarray(jst[key][f12]), rtol=1e-12)
+    for key in ("a", "b", "yt_u", "yt_v"):
+        np.testing.assert_allclose(tst[key].numpy(), np.asarray(jst[key]),
+                                   rtol=1e-12, atol=1e-15, err_msg=key)
+
+
+@pytest.mark.parametrize("first", [True, False])
+def test_gradient_and_hv_match_oracle(first):
+    prob, params = mf_problem()
+    solver, state = build_port(prob, params)
+    b = prob.layout.cross_blocks()[0]
+    B1 = state["Q"][b.f12] if first else state["P"][b.f12]
+    pre = "blk_u_" if first else "blk_v_"
+    rows = gather_blocked_rows(B1, solver.data[pre + "take"])
+    G_ref, hv_ref = oracle.grad_and_hv(prob, params, b, first)
+    G = solver._grad_cross(state, b, first, rows)
+    np.testing.assert_allclose(G.numpy(), G_ref, rtol=1e-8, atol=1e-10)
+    V = np.random.default_rng(3).normal(size=G_ref.shape)
+    hv = solver._hv_cross(state, b, first, rows)
+    np.testing.assert_allclose(hv(torch.from_numpy(V)).numpy(), hv_ref(V),
+                               rtol=1e-8, atol=1e-10)
+
+
+def test_objective_and_stream_residual_match_oracle():
+    prob, params = mf_problem()
+    solver, state = build_port(prob, params)
+    np.testing.assert_allclose(float(solver.objective(state)),
+                               oracle.objective(prob, params), rtol=1e-9)
+    yh = oracle.predict_dense(prob, params)
+    uu, vv = np.nonzero(prob.pos)
+    np.testing.assert_allclose(solver.yt_stream(state).numpy()[: uu.size],
+                               yh[uu, vv] - 1.0, rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(omega=1.0, r=0.0),
+                                dict(lam=0.5, k=4)])
+def test_two_epochs_match_oracle(kw):
+    prob, params = mf_problem(**kw)
+    solver, state = build_port(prob, params)
+    ref = params
+    for _ in range(2):
+        ref = oracle.oracle_epoch(prob, ref)
+        state = solver.epoch(state)
+    for f12 in ref["W"]:
+        for name in ("W", "H"):
+            np.testing.assert_allclose(
+                state["params"][f12][name].numpy(), ref[name][f12],
+                rtol=1e-6, atol=1e-9, err_msg=f"{name} {f12}")
+    np.testing.assert_allclose(float(solver.objective(state)),
+                               oracle.objective(prob, ref), rtol=1e-8)
+
+
+def test_two_epochs_match_jax_kt(monkeypatch):
+    prob, params = mf_problem(seed=4)
+    tsolver, tst = build_port(prob, params)
+    jsolver, jst = build_jax(prob, params, monkeypatch)
+    for _ in range(2):
+        tst, t_it = tsolver.epoch_stats(tst)
+        jst, j_it = jsolver.epoch_stats(jst)
+        np.testing.assert_array_equal(t_it.numpy(), np.asarray(j_it))
+        assert t_it.sum() > 0
+    for f12 in jst["params"]:
+        for name in ("W", "H"):
+            np.testing.assert_allclose(
+                tst["params"][f12][name].numpy(),
+                np.asarray(jst["params"][f12][name]), rtol=1e-9, atol=1e-12)
+    for key in ("yt_u", "yt_v", "a", "b"):
+        np.testing.assert_allclose(tst[key].numpy(), np.asarray(jst[key]),
+                                   rtol=1e-9, atol=1e-12, err_msg=key)
+    np.testing.assert_allclose(float(tsolver.objective(tst)),
+                               float(jsolver.objective(jst)), rtol=1e-10)
+
+
+def test_cache_sasb_matches_jax(monkeypatch):
+    prob, params = mf_problem()
+    tsolver, tst = build_port(prob, params)
+    jsolver, jst = build_jax(prob, params, monkeypatch)
+    for got, ref in zip(tsolver._cache_sasb(tst["P"], tst["Q"]),
+                        jsolver._cache_sasb(jst["P"], jst["Q"])):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-12)
+
+
+def test_objective_decreases_and_epoch_launches_nothing_on_cpu():
+    prob, params = mf_problem(seed=2, m=21, n=14)
+    solver, state = build_port(prob, params)
+    kernels.reset_launch_counts()
+    losses = [float(solver.objective(state))]
+    for _ in range(3):
+        state = solver.epoch(state)
+        losses.append(float(solver.objective(state)))
+    assert all(b <= a + 1e-12 for a, b in zip(losses, losses[1:]))
+    assert losses[-1] < losses[0]
+    assert sum(kernels.launch_counts().values()) == 0
+
+
+def test_init_draws_from_the_reference_law():
+    prob, params = mf_problem(k=4)
+    solver, _ = build_port(prob, params, dtype=torch.float32)
+    s1 = solver.init(torch.Generator().manual_seed(7))
+    s2 = solver.init(torch.Generator().manual_seed(7))
+    bound = 0.1 / np.sqrt(4)
+    for f12, blk in s1["params"].items():
+        for name, t in blk.items():
+            assert t.dtype == torch.float32
+            assert float(t.abs().max()) <= bound
+            assert float(t.abs().min()) > 0.0
+            assert torch.equal(t, s2["params"][f12][name])
+
+
+def test_params_numpy_round_trip():
+    rng = np.random.default_rng(0)
+    p = {3: {"W": rng.normal(size=(5, 2)), "H": rng.normal(size=(4, 2))}}
+    back = params_to_numpy(params_from_numpy(p, "cpu", torch.float64))
+    np.testing.assert_array_equal(back[3]["W"], p[3]["W"])
+    bf = params_to_numpy(params_from_numpy(p, "cpu", torch.bfloat16))
+    assert bf[3]["H"].dtype == np.float32
+    np.testing.assert_allclose(bf[3]["H"], p[3]["H"], rtol=1e-2)
+
+
+def _skewed_problem():
+    """Four power users hold most positives: the u side needs the head
+    tier."""
+    prob, params = mf_problem(m=64, n=40, density=0.05)
+    prob.pos[:4, :] = True
+    return prob, params
+
+
+OUT_OF_SLICE = {
+    "self_blocks": dict(self_side=True),
+    "jacobi": dict(cg_precond="jacobi"),
+    "non_identity_field": dict(identity=False),
+    "head_tier": dict(skewed=True),
+    "no_layout": dict(blocked_bm=0),
+    "mesh": dict(mesh=object()),
+}
+
+
+@pytest.mark.parametrize("case", sorted(OUT_OF_SLICE))
+def test_out_of_slice_configs_raise(case):
+    kw = OUT_OF_SLICE[case]
+    prob, params = _skewed_problem() if kw.get("skewed") else mf_problem()
+    if "self_side" in kw:
+        prob = dataclasses.replace(
+            prob, layout=BlockLayout.make((prob.m,), (prob.n,), True),
+            hp=dataclasses.replace(prob.hp, self_side=True))
+    if "cg_precond" in kw:
+        prob = dataclasses.replace(
+            prob, hp=dataclasses.replace(prob.hp, cg_precond="jacobi"))
+    if kw.get("identity") is False:
+        prob.Xu[0][0, :2] = 1.0  # row 0 now has two features
+    u, v, y = padded(prob)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        meta, data = torch_solver.make_device_data(
+            u, v, y, prob.layout, prob.hp, dtype=torch.float64,
+            blocked_bm=kw.get("blocked_bm", BM))
+        torch_solver.FFMSolver(meta, data, mesh=kw.get("mesh"))
