@@ -3,9 +3,11 @@
 The JAX package beside it is the reference; this package imports its
 framework-free host code (data, block layout, hyperparameters, oracle,
 numpy metrics, trainer configuration and file formats) and never imports
-``jax``.  The first slice runs one-class MF with ``--ns`` end to end: the
-three blocked stream passes of each solve are hand-written CUDA kernels for
-Hopper (``csrc/``), with plain PyTorch versions beside them for the CPU.
+``jax``.  It runs one-class MF, FM and FFM end to end on one device, with or
+without self blocks, on identity id fields and feature fields of at most
+4096 features (``solver.torch_solver.FUSED_TBL_D``): the stream and table
+passes of each solve are hand-written CUDA kernels for Hopper (``csrc/``),
+with plain PyTorch versions beside them for the CPU.
 
 Layout:
   ops/      blocked layout (numpy), plain ops, kernel build and launch

@@ -1,8 +1,10 @@
-// Hopper (sm_90a) kernels for the blocked positive-stream passes of the
-// one-class MF solve.  Built by one_class_ffm_torch/ops/kernels.py with
-//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-//        -Xcompiler -fPIC
-// into a shared library with a plain C interface, loaded with ctypes.
+// Hopper (sm_90a) kernels for the blocked positive-stream passes of a
+// cross-block solve on an identity field.  Built by
+// one_class_ffm_torch/ops/kernels.py with
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler
+//        -fPIC -c
+// (one compiler per source, in parallel) and linked with table_ops.cu into
+// one shared library with a plain C interface, loaded with ctypes.
 //
 // Layout (one_class_ffm_torch/ops/layout.py): the solve's pre-gathered
 // stream `rows` is row-major (n_blocks, MAXC, k); `own` (n_blocks, MAXC)
@@ -27,44 +29,11 @@
 // phi/dP/out rows are touched once per output row or slot.  Offsets are
 // 64-bit: n_blocks * MAXC * k passes 2^31 at web-scale configurations.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
+
+using namespace ocffm;
 
 namespace {
-
-constexpr int kMaxKPerLane = 8;  // k <= 256
-constexpr int kWarps = 8;        // warps per CTA
-constexpr unsigned kFull = 0xffffffffu;
-
-template <typename T> __device__ __forceinline__ float to_f(T x);
-template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as torch's .to()
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = __fadd_rn(v, __shfl_xor_sync(kFull, v, off));
-  return v;
-}
-
-// First slot in [lo, n) whose owner is >= key (own is non-decreasing).
-__device__ __forceinline__ int lower_bound(const int* own, int lo, int n, int key) {
-  int hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (own[mid] < key) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
 
 // Replaces pos_hv_kt_pallas / _hv_kt_kernel (and its row-major twin
 // pos_hv_blocked_pallas / _hv_blk_kernel), one_class_ffm_tpu/ops/
@@ -84,11 +53,8 @@ pos_hv_kernel(const T* __restrict__ phi, const T* __restrict__ rows,
   if (r >= block_rows) return;  // uniform across the warp
   const int64_t blk = blockIdx.x;
   const int64_t row = blk * block_rows + r;
-  const int* own_b = own + blk * maxc;
-  const int s = lower_bound(own_b, 0, maxc, r);
-  const int e = lower_bound(own_b, s, maxc, r + 1);
-  const T* rows_b = rows + blk * maxc * k;
-  const T* w_b = w + blk * maxc;
+  int s, e;
+  row_run(own + blk * maxc, maxc, r, s, e);
 
   float ph[kMaxKPerLane], acc[kMaxKPerLane];
 #pragma unroll
@@ -97,38 +63,8 @@ pos_hv_kernel(const T* __restrict__ phi, const T* __restrict__ rows,
     ph[j] = c < k ? to_f(phi[row * k + c]) : 0.f;
     acc[j] = 0.f;
   }
-  for (int t = s; t < e; ++t) {
-    const T* rt = rows_b + (int64_t)t * k;
-    float rv[kMaxKPerLane];
-    float dot = 0.f;
-#pragma unroll
-    for (int j = 0; j < kMaxKPerLane; ++j) {
-      const int c = j * 32 + lane;
-      rv[j] = c < k ? to_f(rt[c]) : 0.f;
-      dot = __fadd_rn(dot, __fmul_rn(ph[j], rv[j]));
-    }
-    const float pq = to_f(from_f<T>(warp_sum(dot)));
-    const float coef = __fmul_rn(pq, __fmul_rn(w_scale, to_f(w_b[t])));
-#pragma unroll
-    for (int j = 0; j < kMaxKPerLane; ++j)
-      acc[j] = __fadd_rn(acc[j], __fmul_rn(coef, rv[j]));
-  }
-  // dense term: out[r, l] += sum_i phi[r, i] * dense[i, l]
-#pragma unroll
-  for (int jb = 0; jb < kMaxKPerLane; ++jb) {
-    if (jb * 32 >= k) break;
-    for (int q = 0; q < 32; ++q) {
-      const int i = jb * 32 + q;
-      if (i >= k) break;
-      const float pi = __shfl_sync(kFull, ph[jb], q);
-      const T* drow = dense + (int64_t)i * k;
-#pragma unroll
-      for (int j = 0; j < kMaxKPerLane; ++j) {
-        const int c = j * 32 + lane;
-        if (c < k) acc[j] = __fadd_rn(acc[j], __fmul_rn(pi, to_f(drow[c])));
-      }
-    }
-  }
+  hv_row(ph, rows + blk * maxc * k, w + blk * maxc, s, e, dense, k, w_scale,
+         lane, acc);
 #pragma unroll
   for (int j = 0; j < kMaxKPerLane; ++j) {
     const int c = j * 32 + lane;
@@ -149,24 +85,13 @@ pos_scatter_kernel(const T* __restrict__ c, const T* __restrict__ rows,
   if (r >= block_rows) return;
   const int64_t blk = blockIdx.x;
   const int64_t row = blk * block_rows + r;
-  const int* own_b = own + blk * maxc;
-  const int s = lower_bound(own_b, 0, maxc, r);
-  const int e = lower_bound(own_b, s, maxc, r + 1);
-  const T* rows_b = rows + blk * maxc * k;
-  const T* c_b = c + blk * maxc;
+  int s, e;
+  row_run(own + blk * maxc, maxc, r, s, e);
 
   float acc[kMaxKPerLane];
 #pragma unroll
   for (int j = 0; j < kMaxKPerLane; ++j) acc[j] = 0.f;
-  for (int t = s; t < e; ++t) {
-    const T* rt = rows_b + (int64_t)t * k;
-    const float ct = to_f(c_b[t]);
-#pragma unroll
-    for (int j = 0; j < kMaxKPerLane; ++j) {
-      const int cc = j * 32 + lane;
-      if (cc < k) acc[j] = __fadd_rn(acc[j], __fmul_rn(ct, to_f(rt[cc])));
-    }
-  }
+  scatter_row(c + blk * maxc, rows + blk * maxc * k, s, e, k, lane, acc);
 #pragma unroll
   for (int j = 0; j < kMaxKPerLane; ++j) {
     const int cc = j * 32 + lane;
@@ -202,10 +127,6 @@ pos_gap_kernel(const T* __restrict__ dP, const T* __restrict__ rows,
     if (lane == 0) out[t] = from_f<T>(dot);
   }
 }
-
-// dtype codes shared with ops/kernels.py
-constexpr int kF32 = 0;
-constexpr int kBF16 = 1;
 
 }  // namespace
 

@@ -1,12 +1,13 @@
 """Build, bind and count the hand-written CUDA kernels (csrc/*.cu).
 
-The sources are compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface, the first time a kernel is launched in a process,
-and loaded with ``ctypes``.  The library lives under ``build/torch_kernels/``
-at the repository root, named by a hash of the sources and the compiler
-flags, so an edited source rebuilds and an unchanged one loads at once.  A
-missing ``nvcc`` or a failed build raises: nothing falls back to the plain
-versions.
+The sources are compiled with ``nvcc`` for ``sm_90a``, one compiler per
+source, all started together, and linked into one shared library with a
+plain C interface, the first time a kernel is launched in a process; the
+library is loaded with ``ctypes``.  It lives under ``build/torch_kernels/``
+at the repository root, named by a hash of the sources, the shared header
+and the compiler flags, so an edited source rebuilds and an unchanged one
+loads at once.  A missing ``nvcc`` or a failed build raises: nothing falls
+back to the plain versions.
 
 Each launch wrapper checks device, dtype, shape and contiguity, allocates
 its output with ``torch.empty``, launches on the current CUDA stream, raises
@@ -28,13 +29,20 @@ from typing import Dict, Optional
 
 import torch
 
+from .layout import FeatureMajor
+
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "blocked_ops.cu",)
+SOURCES = (_PKG / "csrc" / "blocked_ops.cu", _PKG / "csrc" / "table_ops.cu")
+HEADERS = (_PKG / "csrc" / "common.cuh",)
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
-KERNELS = ("pos_hv_blocked", "pos_scatter_blocked", "pos_gap_blocked")
+# one entry per ported TPU kernel: the three blocked passes of an identity
+# field's cross solve, then the four fused table-space passes of a small-D
+# feature field (each runs its row stage and the shared X^T stage)
+KERNELS = ("pos_hv_blocked", "pos_scatter_blocked", "pos_gap_blocked",
+           "pos_hv_tbl", "grad_cross_tbl", "hv_self_tbl", "grad_self_tbl")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # Launches per kernel since the last reset: a run reads them to show that
@@ -67,7 +75,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -81,17 +89,30 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [os.path.join(tmpdir, src.stem + ".o") for src in SOURCES]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                for src, obj in zip(SOURCES, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for cmd in cmds]
+        outputs = [proc.communicate() for proc in procs]
+        for cmd, proc, (stdout, stderr) in zip(cmds, procs, outputs):
+            _raise_if_failed(cmd, proc.returncode, stdout, stderr)
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o",
+                os.path.join(tmpdir, out.name), *objs]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        _raise_if_failed(link, proc.returncode, proc.stdout, proc.stderr)
+        # atomic: a concurrent loader never sees half a file
+        os.replace(os.path.join(tmpdir, out.name), out)
     return out
+
+
+def _raise_if_failed(cmd, returncode: int, stdout: str, stderr: str) -> None:
+    if returncode != 0:
+        raise RuntimeError(f"nvcc failed ({returncode}): {' '.join(cmd)}\n"
+                           f"{stdout}\n{stderr}")
 
 
 def load() -> ctypes.CDLL:
@@ -114,6 +135,21 @@ def load() -> ctypes.CDLL:
     lib.ocffm_pos_gap_blocked.argtypes = [
         i32, vp, vp, vp, vp, i64, i32, i32, i32, vp]
     lib.ocffm_pos_gap_blocked.restype = i32
+    lib.ocffm_pos_hv_tbl_rows.argtypes = [
+        i32, vp, vp, vp, i32, i32, vp, vp, vp, vp, vp, i64, i32, i32, i32,
+        f32, vp]
+    lib.ocffm_grad_cross_tbl_rows.argtypes = [
+        i32, vp, vp, vp, vp, vp, i64, i32, i32, i32, vp]
+    lib.ocffm_hv_self_tbl_rows.argtypes = [
+        i32, vp, vp, vp, i32, i32, vp, vp, vp, i64, i32, vp]
+    lib.ocffm_grad_self_tbl_rows.argtypes = [
+        i32, vp, vp, vp, vp, vp, i64, i32, i32, i32, vp]
+    lib.ocffm_xt_scatter.argtypes = [
+        i32, vp, vp, vp, vp, i32, vp, i32, i32, vp, vp, vp]
+    for fn in (lib.ocffm_pos_hv_tbl_rows, lib.ocffm_grad_cross_tbl_rows,
+               lib.ocffm_hv_self_tbl_rows, lib.ocffm_grad_self_tbl_rows,
+               lib.ocffm_xt_scatter):
+        fn.restype = i32
     _lib = lib
     build_seconds = time.perf_counter() - t0
     return lib
@@ -215,4 +251,156 @@ def pos_gap_blocked(dP, rows, own, block_rows: int) -> torch.Tensor:
         out.data_ptr(), nb, maxc, k, block_rows, _stream(dev))
     _raise_on(err, "pos_gap_blocked")
     _launches["pos_gap_blocked"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# fused table-space passes: a row stage, then the shared X^T stage
+# ---------------------------------------------------------------------------
+
+
+def _x_rows(x_idx, x_val, rows: int, dt, dev) -> int:
+    """Checks the row-major field arrays (rows, p); returns p."""
+    if x_idx.dim() != 2:
+        raise ValueError(f"x_idx must be (rows, p), got {tuple(x_idx.shape)}")
+    p = x_idx.shape[1]
+    _check("x_idx", x_idx, torch.int32, (rows, p), dev)
+    _check("x_val", x_val, dt, (rows, p), dev)
+    return p
+
+
+def _table(V, xt: FeatureMajor, dt, k: int, dev, name: str) -> int:
+    """Checks the (d, k) table of a projecting pass against the field's
+    feature-major list; returns d."""
+    if V.dim() != 2:
+        raise ValueError(f"V must be (d, k), got {tuple(V.shape)}")
+    d = V.shape[0]
+    _check("V", V, dt, (d, k), dev)
+    if xt.feat_ptr.numel() - 1 != d:
+        raise ValueError(f"{name}: V has {d} rows, the feature-major list "
+                         f"{xt.feat_ptr.numel() - 1} features")
+    return d
+
+
+def _xt_scatter(lib, payload: torch.Tensor, xt: FeatureMajor,
+                name: str) -> torch.Tensor:
+    """(d, k) float32 = X^T payload through the feature-major list."""
+    dev, dt = payload.device, payload.dtype
+    rows, k = payload.shape
+    if xt.n_rows != rows:
+        raise ValueError(f"{name}: the feature-major list scatters from "
+                         f"{xt.n_rows} rows, the payload has {rows}")
+    nnz, n_chunks, d = xt.row.numel(), xt.chunk_ptr.numel() - 1, \
+        xt.feat_ptr.numel() - 1
+    _check("xt.row", xt.row, torch.int32, (nnz,), dev)
+    _check("xt.val", xt.val, dt, (nnz,), dev)
+    _check("xt.chunk_ptr", xt.chunk_ptr, torch.int32, (n_chunks + 1,), dev)
+    _check("xt.feat_ptr", xt.feat_ptr, torch.int32, (d + 1,), dev)
+    partial = torch.empty((max(n_chunks, 1), k), dtype=torch.float32,
+                          device=dev)
+    out = torch.empty((d, k), dtype=torch.float32, device=dev)
+    err = lib.ocffm_xt_scatter(
+        _DTYPE_CODE[dt], payload.data_ptr(), xt.row.data_ptr(),
+        xt.val.data_ptr(), xt.chunk_ptr.data_ptr(), n_chunks,
+        xt.feat_ptr.data_ptr(), d, k, partial.data_ptr(), out.data_ptr(),
+        _stream(dev))
+    _raise_on(err, name)
+    return out
+
+
+def pos_hv_tbl(V, x_idx, x_val, xt, rows, own, w_blk, dense_mat,
+               block_rows: int, w_scale: float = 1.0) -> torch.Tensor:
+    lib, nb, maxc, k = _stream_rows(rows, own, block_rows)
+    dev, dt = rows.device, rows.dtype
+    num = nb * block_rows
+    d = _table(V, xt, dt, k, dev, "pos_hv_tbl")
+    p = _x_rows(x_idx, x_val, num, dt, dev)
+    _check("w_blk", w_blk, dt, (nb, maxc), dev)
+    _check("dense_mat", dense_mat, dt, (k, k), dev)
+    payload = torch.empty((num, k), dtype=dt, device=dev)
+    err = lib.ocffm_pos_hv_tbl_rows(
+        _DTYPE_CODE[dt], V.data_ptr(), x_idx.data_ptr(), x_val.data_ptr(), p,
+        d, rows.data_ptr(), own.data_ptr(), w_blk.data_ptr(),
+        dense_mat.data_ptr(), payload.data_ptr(), nb, maxc, k, block_rows,
+        float(w_scale), _stream(dev))
+    _raise_on(err, "pos_hv_tbl")
+    out = _xt_scatter(lib, payload, xt, "pos_hv_tbl")
+    _launches["pos_hv_tbl"] += 1
+    return out
+
+
+def grad_cross_tbl(xt, rows, own, c_blk, dense,
+                   block_rows: int) -> torch.Tensor:
+    lib, nb, maxc, k = _stream_rows(rows, own, block_rows)
+    dev, dt = rows.device, rows.dtype
+    num = nb * block_rows
+    _check("c_blk", c_blk, dt, (nb, maxc), dev)
+    _check("dense", dense, dt, (num, k), dev)
+    payload = torch.empty((num, k), dtype=dt, device=dev)
+    err = lib.ocffm_grad_cross_tbl_rows(
+        _DTYPE_CODE[dt], c_blk.data_ptr(), rows.data_ptr(), own.data_ptr(),
+        dense.data_ptr(), payload.data_ptr(), nb, maxc, k, block_rows,
+        _stream(dev))
+    _raise_on(err, "grad_cross_tbl")
+    out = _xt_scatter(lib, payload, xt, "grad_cross_tbl")
+    _launches["grad_cross_tbl"] += 1
+    return out
+
+
+def _rows_table(Q1: torch.Tensor):
+    """Common checks on the (rows, k) Q1 of a self-block pass."""
+    if Q1.device.type != "cuda":
+        raise ValueError(f"Q1 must be a CUDA tensor, got {Q1.device}")
+    if Q1.dtype not in _DTYPE_CODE:
+        raise TypeError(f"kernels take float32 or bfloat16, got {Q1.dtype}")
+    if Q1.dim() != 2:
+        raise ValueError(f"Q1 must be (rows, k), got {tuple(Q1.shape)}")
+    rows, k = Q1.shape
+    lib = load()
+    if not 0 < k <= lib.ocffm_max_k():
+        raise ValueError(f"k={k} outside the kernels' range "
+                         f"(1..{lib.ocffm_max_k()})")
+    _check("Q1", Q1, Q1.dtype, (rows, k), Q1.device)
+    return lib, rows, k
+
+
+def hv_self_tbl(V, x_idx, x_val, xt, Q1, dd) -> torch.Tensor:
+    lib, num, k = _rows_table(Q1)
+    dev, dt = Q1.device, Q1.dtype
+    d = _table(V, xt, dt, k, dev, "hv_self_tbl")
+    p = _x_rows(x_idx, x_val, num, dt, dev)
+    _check("dd", dd, dt, (num,), dev)
+    payload = torch.empty((num, k), dtype=dt, device=dev)
+    err = lib.ocffm_hv_self_tbl_rows(
+        _DTYPE_CODE[dt], V.data_ptr(), x_idx.data_ptr(), x_val.data_ptr(), p,
+        d, Q1.data_ptr(), dd.data_ptr(), payload.data_ptr(), num, k,
+        _stream(dev))
+    _raise_on(err, "hv_self_tbl")
+    out = _xt_scatter(lib, payload, xt, "hv_self_tbl")
+    _launches["hv_self_tbl"] += 1
+    return out
+
+
+def grad_self_tbl(xt, Q1, zdense, own, c_blk,
+                  block_rows: int) -> torch.Tensor:
+    lib, num, k = _rows_table(Q1)
+    dev, dt = Q1.device, Q1.dtype
+    if own.dim() != 2 or not 0 < block_rows < (1 << 31):
+        raise ValueError(f"own must be (n_blocks, MAXC) and block_rows "
+                         f"positive, got {tuple(own.shape)}, {block_rows}")
+    nb, maxc = own.shape
+    if nb * block_rows != num or maxc == 0:
+        raise ValueError(f"Q1 has {num} rows, the layout {nb} blocks of "
+                         f"{block_rows} rows x MAXC {maxc}")
+    _check("own", own, torch.int32, (nb, maxc), dev)
+    _check("c_blk", c_blk, dt, (nb, maxc), dev)
+    _check("zdense", zdense, dt, (num,), dev)
+    payload = torch.empty((num, k), dtype=dt, device=dev)
+    err = lib.ocffm_grad_self_tbl_rows(
+        _DTYPE_CODE[dt], Q1.data_ptr(), zdense.data_ptr(), own.data_ptr(),
+        c_blk.data_ptr(), payload.data_ptr(), nb, maxc, k, block_rows,
+        _stream(dev))
+    _raise_on(err, "grad_self_tbl")
+    out = _xt_scatter(lib, payload, xt, "grad_self_tbl")
+    _launches["grad_self_tbl"] += 1
     return out

@@ -9,9 +9,14 @@ The port's kernels rest on one property of the layout: within each block,
 ``own`` is non-decreasing and pad slots (``own == block_rows``) come last,
 so each row's slots form one contiguous run.  The stable sort and the slot
 fill below guarantee it; ``check_own_runs`` checks it.
+
+``feature_major`` builds the other static input of the fused table
+kernels: a field's X^T as a chunked feature-major list.
 """
 
 from __future__ import annotations
+
+from typing import Any, NamedTuple
 
 import numpy as np
 
@@ -234,6 +239,60 @@ def make_blocked_layout(seg_ids, take_ids, num_rows: int,
         out["src_abs"] = src
         out["src"] = np.where(valid, src - lo, 0).astype(np.int32)
     return out
+
+
+XT_CHUNK = 128  # entries per chunk of the feature-major list
+
+
+class FeatureMajor(NamedTuple):
+    """One field's X^T as a feature-major list of its nonzero entries, in
+    fixed chunks: the static input of the fused table kernels' X^T pass.
+
+    ``row``/``val`` (nnz,): the data row and value of each entry, sorted by
+    feature, then row, then slot.  ``chunk_ptr`` (n_chunks + 1,): chunk c
+    holds entries ``[chunk_ptr[c], chunk_ptr[c + 1])``, all of one feature
+    and at most ``XT_CHUNK`` of them.  ``feat_ptr`` (d + 1,): feature f owns
+    chunks ``[feat_ptr[f], feat_ptr[f + 1])``.  ``n_rows``: the row count of
+    the payload the list scatters from."""
+
+    row: Any
+    val: Any
+    chunk_ptr: Any
+    feat_ptr: Any
+    n_rows: int
+
+
+def feature_major(idx: np.ndarray, val: np.ndarray, d: int,
+                  chunk: int = XT_CHUNK) -> FeatureMajor:
+    """The feature-major list of a padded field ``(rows, p)``.  Pad slots
+    and pad rows (val == 0) are dropped: they add nothing, and left in they
+    would pile every row's pads onto feature 0.  Duplicate ids within a row
+    stay separate entries and add, as the one-hot X of the TPU kernels
+    adds them.  A feature's run is cut into chunks of ``chunk`` entries so
+    that a heavy feature (a class base carrying a tenth of all rows) is
+    summed by many warps, then combined chunk by chunk in a fixed order."""
+    idx = np.asarray(idx)
+    val = np.asarray(val)
+    rows, p = idx.shape
+    keep = (val != 0).reshape(-1)
+    feat = idx.reshape(-1)[keep].astype(np.int64)
+    if feat.size and (feat.min() < 0 or feat.max() >= d):
+        raise ValueError(f"feature ids outside [0, {d})")
+    row = np.repeat(np.arange(rows, dtype=np.int64), p)[keep]
+    v = val.reshape(-1)[keep]
+    order = np.argsort(feat, kind="stable")  # keeps (row, slot) order
+    feat, row, v = feat[order], row[order], v[order]
+    cnt = np.bincount(feat, minlength=d)
+    n_ch = -(-cnt // chunk)
+    feat_ptr = np.zeros(d + 1, np.int64)
+    feat_ptr[1:] = np.cumsum(n_ch)
+    feat_start = np.cumsum(cnt) - cnt
+    owner = np.repeat(np.arange(d), n_ch)
+    j = np.arange(owner.size) - feat_ptr[owner]
+    chunk_ptr = np.append(feat_start[owner] + j * chunk, feat.size)
+    return FeatureMajor(row=row.astype(np.int32), val=v,
+                        chunk_ptr=chunk_ptr.astype(np.int32),
+                        feat_ptr=feat_ptr.astype(np.int32), n_rows=rows)
 
 
 def check_own_runs(own: np.ndarray, block_rows: int) -> None:

@@ -1,11 +1,15 @@
-"""Alternating Gauss-Newton solver for one-class MF, in PyTorch.
+"""Alternating Gauss-Newton solver for one-class FFM / FM / MF, in PyTorch.
 
-The port of ``one_class_ffm_tpu/solver/jax_solver.py`` for its first slice:
-one-class MF with ``--ns`` — identity user-id and item-id fields and cross
-(``uv``) blocks only, plain CG, the blocked stream on both sides with the
-slot-order residual carry.  The math, the block order, the CG stop rule and
-the rounding points are the reference's; the three stream passes run the
-hand-written kernels on a CUDA device (ops/sparse_ops.py dispatches).
+The port of ``one_class_ffm_tpu/solver/jax_solver.py`` on one device, plain
+CG, the blocked stream on both sides with the slot-order residual carry.
+Every field is either an identity id field (X is the identity: projection
+and scatter are a pad and a slice) or a non-identity feature field with at
+most ``FUSED_TBL_D`` features, whose solves run the fused table-space
+passes (the JAX package's ``_fused_tbl_side`` rule, without its TPU memory
+gates).  Cross (``uv``) and self (``uu``/``vv``) blocks are both ported.
+The math, the block order, the CG stop rule and the rounding points are
+the reference's; the stream and table passes run the hand-written kernels
+on a CUDA device (ops/sparse_ops.py dispatches).
 
 Out-of-slice configurations raise ``NotImplementedError`` naming the
 ROADMAP item that ports them.
@@ -30,13 +34,26 @@ from one_class_ffm_tpu.data.dataset import PaddedFields, PaddedLabels
 from one_class_ffm_tpu.models.blocks import BlockInfo, BlockLayout
 from one_class_ffm_tpu.solver.params import HyperParams
 
-from ..ops.layout import check_own_runs, make_blocked_layout
+from ..ops.layout import (
+    FeatureMajor,
+    check_own_runs,
+    feature_major,
+    make_blocked_layout,
+)
 from ..ops.sparse_ops import (
+    acc_dtype,
+    expand_rows_blocked,
     gather_blocked_rows,
+    grad_cross_tbl,
+    grad_self_tbl,
+    hv_self_tbl,
     pos_dot,
     pos_gap_blocked,
     pos_hv_blocked,
+    pos_hv_tbl,
     pos_scatter_blocked,
+    project,
+    seg_sum_blocked,
 )
 
 Tensor = torch.Tensor
@@ -45,6 +62,10 @@ Tensor = torch.Tensor
 # (OCFFM_BLK_PAD_RATIO) and two-tier split (OCFFM_HEAD_CHUNK)
 _PAD_RATIO = 2.0
 _HEAD_CHUNK = 512
+# largest field dim whose solves run the fused table-space passes (the JAX
+# package's OCFFM_FUSED_TBL_D default); larger non-identity fields need the
+# general X^T scatter, which is not ported
+FUSED_TBL_D = 4096
 
 
 @dataclass(frozen=True)
@@ -60,6 +81,10 @@ class ProblemMeta:
     dtype: torch.dtype = torch.float32
     ident_u: Tuple[bool, ...] = ()
     ident_v: Tuple[bool, ...] = ()
+    # per field: non-identity with D <= FUSED_TBL_D (JAX _fused_field) — its
+    # solves run the fused table passes over data["xf_u"/"xf_v"]
+    fused_u: Tuple[bool, ...] = ()
+    fused_v: Tuple[bool, ...] = ()
     blocked_bm_u: int = 0
     blocked_bm_v: int = 0
 
@@ -85,9 +110,13 @@ def make_device_data(u: PaddedFields, v: PaddedFields, y: PaddedLabels,
                      device: torch.device | str = "cpu",
                      ) -> Tuple[ProblemMeta, Dict[str, Any]]:
     """Assemble the device tensor dict + static meta from host padded views
-    (jax_solver.make_device_data, restricted to the keys the MF slice
-    uses).  Builds the blocked layout of the positive stream for both
-    segment sides and checks the contiguous-run property of each."""
+    (jax_solver.make_device_data, restricted to the keys the port uses).
+    Builds the blocked layout of the positive stream for both segment sides
+    and checks the contiguous-run property of each.  For each fused field
+    (non-identity, D <= FUSED_TBL_D) it builds the feature-major list of
+    its X (``xf_u``/``xf_v``, None for other fields): the static X^T side
+    of the fused table kernels, in place of the JAX package's transposed
+    (p, rows) copies."""
     device = torch.device(device)
     if not blocked_bm:
         raise NotImplementedError(
@@ -111,11 +140,17 @@ def make_device_data(u: PaddedFields, v: PaddedFields, y: PaddedLabels,
                 "(popularity skew): ROADMAP A9")
         check_own_runs(b["own"], blocked_bm)
 
+    ident_u, ident_v = _ident_flags(u), _ident_flags(v)
+
+    def fused(pf: PaddedFields, ident):
+        return tuple(not i and d <= FUSED_TBL_D
+                     for i, d in zip(ident, pf.Ds))
+
     meta = ProblemMeta(
         layout=layout, hp=hp, m=u.m, n=v.m, m_true=u.m_true, n_true=v.m_true,
-        dtype=dtype, ident_u=_ident_flags(u),
-        ident_v=_ident_flags(v), blocked_bm_u=blocked_bm,
-        blocked_bm_v=blocked_bm)
+        dtype=dtype, ident_u=ident_u, ident_v=ident_v,
+        fused_u=fused(u, ident_u), fused_v=fused(v, ident_v),
+        blocked_bm_u=blocked_bm, blocked_bm_v=blocked_bm)
 
     def t(a, dt=None):
         x = torch.from_numpy(np.ascontiguousarray(a))
@@ -127,11 +162,23 @@ def make_device_data(u: PaddedFields, v: PaddedFields, y: PaddedLabels,
         return tuple(torch.ones(d, dtype=dtype, device=device)
                      for d in pf.Ds)
 
+    def xf(pf: PaddedFields, flags):
+        out = []
+        for fi, on in enumerate(flags):
+            fm = feature_major(pf.idx[fi], pf.val[fi], pf.Ds[fi]) if on \
+                else None
+            out.append(None if fm is None else FeatureMajor(
+                row=t(fm.row), val=t(fm.val, dtype),
+                chunk_ptr=t(fm.chunk_ptr), feat_ptr=t(fm.feat_ptr),
+                n_rows=fm.n_rows))
+        return tuple(out)
+
     data: Dict[str, Any] = dict(
         xu_idx=tuple(t(a) for a in u.idx),
         xu_val=tuple(t(a, dtype) for a in u.val),
         xv_idx=tuple(t(a) for a in v.idx),
         xv_val=tuple(t(a, dtype) for a in v.val),
+        xf_u=xf(u, meta.fused_u), xf_v=xf(v, meta.fused_v),
         pos_u=t(y.u), pos_v=t(y.v), pos_w=t(y.w, dtype),
         cnt_u=t(y.count_u, dtype), cnt_v=t(y.count_v, dtype),
         reg_u=regs(u), reg_v=regs(v),
@@ -153,7 +200,7 @@ def make_device_data(u: PaddedFields, v: PaddedFields, y: PaddedLabels,
 
 
 class FFMSolver:
-    """Solver bound to one problem instance (MF slice).
+    """Solver bound to one problem instance.
 
     Usage:
         solver = FFMSolver(meta, data)
@@ -166,12 +213,16 @@ class FFMSolver:
         if mesh is not None:
             raise NotImplementedError("multi-device runs: ROADMAP A11")
         hp = meta.hp
-        if meta.layout.user_self_blocks() or meta.layout.item_self_blocks():
-            raise NotImplementedError(
-                "self blocks (the model without --ns): ROADMAP A4")
-        if not all(meta.ident_u) or not all(meta.ident_v):
-            raise NotImplementedError(
-                "non-identity fields (FM/FFM feature fields): ROADMAP A4")
+        for side, Ds, ident, fused in (
+                ("user", meta.layout.Du, meta.ident_u, meta.fused_u),
+                ("item", meta.layout.Dv, meta.ident_v, meta.fused_v)):
+            for fi, (dim, is_ident, is_fused) in enumerate(
+                    zip(Ds, ident, fused)):
+                if not (is_ident or is_fused):
+                    raise NotImplementedError(
+                        f"{side} field {fi} is a non-identity field with "
+                        f"D={dim} > {FUSED_TBL_D}: its solves need the "
+                        "general X^T scatter, ROADMAP A4")
         self.cg_precond = "none" if hp.cg_precond == "auto" else hp.cg_precond
         if self.cg_precond == "jacobi":
             raise NotImplementedError("cg_precond='jacobi': ROADMAP A10")
@@ -187,25 +238,53 @@ class FFMSolver:
 
     # -- field accessors ------------------------------------------------------
 
+    def _u_field(self, b: BlockInfo, first: bool) -> Tuple[bool, int]:
+        """(on the user side?, field index within its side) of the block's
+        f1 or f2 side."""
+        fg = b.f1 if first else b.f2
+        return fg < self.meta.layout.fu, b.fi if first else b.fj
+
     def _side(self, b: BlockInfo, first: bool):
         """(reg, padded rows, true rows) of the block's f1 or f2 side."""
-        fg = b.f1 if first else b.f2
-        fl = b.fi if first else b.fj
-        if fg < self.meta.layout.fu:
+        u_side, fl = self._u_field(b, first)
+        if u_side:
             return self.data["reg_u"][fl], self.meta.m, self.meta.m_true
         return self.data["reg_v"][fl], self.meta.n, self.meta.n_true
 
+    def _x(self, b: BlockInfo, first: bool):
+        """(x_idx, x_val, feature-major list) of the block side's field;
+        the list is None for an identity field."""
+        u_side, fl = self._u_field(b, first)
+        s = "u" if u_side else "v"
+        d = self.data
+        return d[f"x{s}_idx"][fl], d[f"x{s}_val"][fl], d[f"xf_{s}"][fl]
+
     def _proj(self, b: BlockInfo, first: bool, T: Tensor) -> Tensor:
-        """X_side @ T for an identity field: the table zero-padded to the
-        row count (table pad rows are zero by invariant)."""
+        """X_side @ T: the gather projection for a feature field; for an
+        identity field the table zero-padded to the row count (table pad
+        rows are zero by invariant)."""
+        idx, val, xf = self._x(b, first)
+        if xf is not None:
+            return project(idx, val, T)
         _, rows, _ = self._side(b, first)
         if T.shape[0] == rows:
             return T
         return torch.nn.functional.pad(T, (0, 0, 0, rows - T.shape[0]))
 
     def _scat(self, b: BlockInfo, first: bool, Z: Tensor, dim: int) -> Tensor:
-        """X_side^T @ Z for an identity field: row d receives row d."""
+        """X_side^T @ Z for an identity field: row d receives row d.  A
+        feature field's solves scatter inside the fused table passes."""
         return Z[:dim]
+
+    def _tbl_grad(self, b: BlockInfo, first: bool, T: Tensor,
+                  Gt: Tensor) -> Tensor:
+        """lam reg T + Gt at the float32 floor: a fused pass's table-space
+        output stays unrounded through the gradient (jax_solver.py:1183-1195;
+        rounding it was the bf16 divergence of the reference's round 5)."""
+        reg, _, _ = self._side(b, first)
+        acc = acc_dtype(self.meta.dtype)
+        return (self.meta.hp.lam * (reg.to(acc)[:, None] * T.to(acc))
+                + Gt.to(acc))
 
     # -- init -----------------------------------------------------------------
 
@@ -270,8 +349,7 @@ class FFMSolver:
 
     def _cache_sasb(self, P, Q) -> Tuple[Tensor, Tensor]:
         """sa_i = sum_j cross(i, j), sb_j = sum_i cross(i, j) (cache_sasb,
-        ffm.cpp:514-535).  Only self-block gradients read them, so the MF
-        epoch does not build them."""
+        ffm.cpp:514-535); only self-block gradients read them."""
         meta = self.meta
         sa = torch.zeros(meta.m, dtype=meta.dtype, device=self.device)
         sb = torch.zeros(meta.n, dtype=meta.dtype, device=self.device)
@@ -281,6 +359,14 @@ class FFMSolver:
             sb = sb + Qb @ Pb.sum(dim=0)
         return sa, sb
 
+    def sasb(self, state):
+        """(sa, sb) for an epoch's self-block gradients, or (None, None)
+        for a model without self blocks, which never reads them."""
+        lay = self.meta.layout
+        if lay.user_self_blocks() or lay.item_self_blocks():
+            return self._cache_sasb(state["P"], state["Q"])
+        return None, None
+
     def _pos_coeff(self, yt: Tensor) -> Tensor:
         """Per-positive gradient coefficient (1-w) yt - w (1-r)
         (ffm.cpp:577-579, 684)."""
@@ -289,10 +375,10 @@ class FFMSolver:
 
     # -- gradient and Hv --------------------------------------------------------
 
-    def _blk(self, first: bool):
+    def _blk(self, u_side: bool):
         """(key prefix, output rows, block rows) of a side's blocked layout."""
         meta = self.meta
-        if first:
+        if u_side:
             return "blk_u_", meta.m, meta.blocked_bm_u
         return "blk_v_", meta.n, meta.blocked_bm_v
 
@@ -300,7 +386,8 @@ class FFMSolver:
                     rows_pre: Tensor) -> Tensor:
         """Gradient for one table of a cross block (gd_cross, ffm.cpp:630-703):
         omega part via k x k Grams, positive part by the scatter kernel over
-        the pre-gathered stream."""
+        the pre-gathered stream; on a feature field both go to table space
+        in one fused pass."""
         meta, d = self.meta, self.data
         hp = meta.hp
         reg, _, _ = self._side(b, first)
@@ -322,13 +409,52 @@ class FFMSolver:
             gram_T = gram_T + own_c[blk.f12] @ (oth_c[blk.f12].T @ B1)
         dense = hp.omega * ((side - hp.r)[:, None] * oQ[None, :]
                             + bQ[None, :] + gram_T)
+        _, _, xf = self._x(b, first)
+        if xf is not None:
+            return self._tbl_grad(b, first, T, grad_cross_tbl(
+                xf, rows_pre, d[pre + "own"], c_blk, dense, bm))
         zpos = pos_scatter_blocked(c_blk, rows_pre, d[pre + "own"], num, bm)
         return hp.lam * reg[:, None] * T + self._scat(
             b, first, dense + zpos, T.shape[0])
 
+    def _grad_self(self, state, b: BlockInfo, first: bool, sa: Tensor,
+                   sb: Tensor) -> Tensor:
+        """Gradient for one table of a self block (gd_side, ffm.cpp:537-592):
+
+            z_i = w [ n (a_i - r) + sum(b) + sa_i ] + sum_{j in pos_i} c_ij
+            G   = lam reg T + X1^T diag(z) Q1
+
+        The per-row positive sums run over the slot-order carry of the
+        block's side; on a feature field they, the dense term and the X^T
+        scatter are one fused pass."""
+        meta, d = self.meta, self.data
+        hp = meta.hp
+        T = state["params"][b.f12]["W" if first else "H"]
+        Q1 = state["Q"][b.f12] if first else state["P"][b.f12]
+        u_side = b.kind == "uu"
+        if u_side:
+            n_other, side, s_cache, other_sum = (
+                meta.n_true, state["a"], sa, state["b"].sum())
+        else:
+            n_other, side, s_cache, other_sum = (
+                meta.m_true, state["b"], sb, state["a"].sum())
+        pre, num, bm = self._blk(u_side)
+        c_blk = self._pos_coeff(state["yt_u" if u_side else "yt_v"]) \
+            * d[pre + "w"]
+        zdense = hp.omega * (n_other * (side - hp.r) + other_sum + s_cache)
+        _, _, xf = self._x(b, first)
+        if xf is not None:
+            return self._tbl_grad(b, first, T, grad_self_tbl(
+                xf, Q1, zdense, d[pre + "own"], c_blk, bm))
+        z = zdense + seg_sum_blocked(c_blk, d[pre + "own"], num, bm)
+        reg, _, _ = self._side(b, first)
+        return hp.lam * reg[:, None] * T + self._scat(
+            b, first, z[:, None] * Q1, T.shape[0])
+
     def _hv_cross(self, state, b: BlockInfo, first: bool, rows_pre: Tensor):
         """Hv closure for a cross-block table (hs_cross, ffm.cpp:706-742):
-        one kernel pass per call, the omega Q1^T Q1 term fused into it."""
+        one kernel pass per call, the omega Q1^T Q1 term fused into it (and
+        on a feature field the projection and the X^T scatter too)."""
         meta, d = self.meta, self.data
         hp = meta.hp
         reg, _, _ = self._side(b, first)
@@ -338,12 +464,41 @@ class FFMSolver:
         dmat = (hp.omega * (B1.T @ B1)).to(meta.dtype)
         own, w_blk = d[pre + "own"], d[pre + "w"]
         w_scale = 1.0 - hp.omega
+        idx, val, xf = self._x(b, first)
 
         def hv(V: Tensor) -> Tensor:
-            phi = self._proj(b, first, V)
-            zp = pos_hv_blocked(phi, rows_pre, own, w_blk, dmat, num, bm,
-                                w_scale)
+            if xf is not None:
+                G = pos_hv_tbl(V, idx, val, xf, rows_pre, own, w_blk, dmat,
+                               bm, w_scale)
+                return hp.lam * reg[:, None] * V + G.to(V.dtype)
+            zp = pos_hv_blocked(self._proj(b, first, V), rows_pre, own,
+                                w_blk, dmat, num, bm, w_scale)
             return hp.lam * reg[:, None] * V + self._scat(b, first, zp, dim)
+
+        return hv
+
+    def _hv_self(self, state, b: BlockInfo, first: bool):
+        """Hv closure for a self-block table (hs_side, ffm.cpp:594-628):
+        d_i = (1-w)|pos_i| + w n;  Hv = lam reg V + X1^T diag(d <Q1, X1 V>)
+        Q1 — one fused table pass per call on a feature field."""
+        meta, d = self.meta, self.data
+        hp = meta.hp
+        reg, _, _ = self._side(b, first)
+        Q1 = state["Q"][b.f12] if first else state["P"][b.f12]
+        if b.kind == "uu":
+            dd = (1.0 - hp.omega) * d["cnt_u"] + hp.omega * meta.n_true
+        else:
+            dd = (1.0 - hp.omega) * d["cnt_v"] + hp.omega * meta.m_true
+        dim = state["params"][b.f12]["W" if first else "H"].shape[0]
+        idx, val, xf = self._x(b, first)
+
+        def hv(V: Tensor) -> Tensor:
+            if xf is not None:
+                G = hv_self_tbl(V, idx, val, xf, Q1, dd)
+                return hp.lam * reg[:, None] * V + G.to(V.dtype)
+            s = dd * (Q1 * self._proj(b, first, V)).sum(dim=1)
+            return hp.lam * reg[:, None] * V + self._scat(
+                b, first, s[:, None] * Q1, dim)
 
         return hv
 
@@ -385,10 +540,13 @@ class FFMSolver:
     # -- block update -----------------------------------------------------------
 
     def _apply_step(self, state, b: BlockInfo, first: bool, S: Tensor,
-                    rows_pre: Tensor) -> Dict[str, Any]:
+                    rows_pre: Optional[Tensor]) -> Dict[str, Any]:
         """Apply the Newton step and refresh the cache and both sides' slot-
-        order residuals (update_cross, ffm.cpp:439-465).  The gap kernel
-        reuses the solve's stream: the other side's cache did not move."""
+        order residuals (update_cross ffm.cpp:439-465, update_side 405-437).
+        A cross step's gap kernel reuses the solve's stream: the other
+        side's cache did not move.  A self step moves the side sum a (or b)
+        by <dP, other cache> per row, and every positive of the row by the
+        same amount."""
         meta, d = self.meta, self.data
         key, cache_key = ("W", "P") if first else ("H", "Q")
         state = dict(state)
@@ -405,36 +563,63 @@ class FFMSolver:
         caches[b.f12] = caches[b.f12] + dP
         state[cache_key] = caches
 
-        pre, _, bm = self._blk(first)
-        gap = pos_gap_blocked(dP, rows_pre, d[pre + "own"], bm)
-        own_key, oth_key = ("yt_u", "yt_v") if first else ("yt_v", "yt_u")
-        oth_pre = "blk_v_" if first else "blk_u_"
-        state[own_key] = state[own_key] + gap.reshape(
-            state[own_key].shape) * d[pre + "w"]
-        cross = d["blk_v_from_u" if first else "blk_u_from_v"].long()
-        state[oth_key] = state[oth_key] + gap[cross] * d[oth_pre + "w"]
+        if b.kind == "uv":
+            pre, _, bm = self._blk(first)
+            gap = pos_gap_blocked(dP, rows_pre, d[pre + "own"], bm)
+            own_key, oth_key = ("yt_u", "yt_v") if first else ("yt_v", "yt_u")
+            oth_pre = "blk_v_" if first else "blk_u_"
+            state[own_key] = state[own_key] + gap.reshape(
+                state[own_key].shape) * d[pre + "w"]
+            cross = d["blk_v_from_u" if first else "blk_u_from_v"].long()
+            state[oth_key] = state[oth_key] + gap[cross] * d[oth_pre + "w"]
+            return state
+        other = state["Q"][b.f12] if first else state["P"][b.f12]
+        da = (dP * other).sum(dim=1)
+        own, oth = ("u", "v") if b.kind == "uu" else ("v", "u")
+        side_key = "a" if b.kind == "uu" else "b"
+        state[side_key] = state[side_key] + da
+        pre, _, bm = self._blk(b.kind == "uu")
+        # own side: da per slot of its row; other side: the other layout's
+        # take IS this side's row id in that slot order (one scalar gather)
+        state["yt_" + own] = state["yt_" + own] + expand_rows_blocked(
+            da, d[pre + "own"], bm).reshape(state["yt_" + own].shape)
+        state["yt_" + oth] = state["yt_" + oth] \
+            + da[d[f"blk_{oth}_take"].long()] * d[f"blk_{oth}_w"]
         return state
 
-    def _solve_half(self, state, b: BlockInfo, first: bool):
-        """Gradient, CG and step for one table of a cross block.  The other
-        side's cache is constant for the solve: its blocked stream is
-        gathered once and every pass streams it."""
+    def grad_and_hv(self, state, b: BlockInfo, first: bool, sa, sb):
+        """(gradient, Hv closure, the solve's stream or None) for one table
+        of a block.  In a cross solve the other side's cache is constant:
+        its blocked stream is gathered once and every pass streams it."""
+        if b.kind != "uv":
+            return (self._grad_self(state, b, first, sa, sb),
+                    self._hv_self(state, b, first), None)
         B1 = state["Q"][b.f12] if first else state["P"][b.f12]
         pre, _, _ = self._blk(first)
         rows_pre = gather_blocked_rows(B1, self.data[pre + "take"])
-        G = self._grad_cross(state, b, first, rows_pre)
-        S, it = self._cg(self._hv_cross(state, b, first, rows_pre), G)
+        return (self._grad_cross(state, b, first, rows_pre),
+                self._hv_cross(state, b, first, rows_pre), rows_pre)
+
+    def _solve_half(self, state, b: BlockInfo, first: bool, sa, sb):
+        """Gradient, CG and step for one table of a block."""
+        G, hv, rows_pre = self.grad_and_hv(state, b, first, sa, sb)
+        S, it = self._cg(hv, G)
         return self._apply_step(state, b, first, S, rows_pre), it
 
     # -- epoch ------------------------------------------------------------------
 
     def _epoch_impl(self, state):
         """One alternating sweep in reference order (one_epoch,
-        ffm.cpp:852-870): per block the f1 table, then the f2 table."""
+        ffm.cpp:852-870): per block the f1 table, then the f2 table.  sa/sb
+        are built once, at the start (jax_solver.py:2304-2312): only
+        self-block gradients read them, and a model without self blocks
+        skips them."""
+        lay = self.meta.layout
+        sa, sb = self.sasb(state)
         iters = []
-        for b in self.meta.layout.epoch_order():
-            state, it1 = self._solve_half(state, b, True)
-            state, it2 = self._solve_half(state, b, False)
+        for b in lay.epoch_order():
+            state, it1 = self._solve_half(state, b, True, sa, sb)
+            state, it2 = self._solve_half(state, b, False, sa, sb)
             iters.extend((it1, it2))
         return state, torch.tensor(iters, dtype=torch.int32)
 

@@ -12,7 +12,11 @@ import torch
 
 from one_class_ffm_torch.ops import kernels
 from one_class_ffm_torch.ops import sparse_ops as ops
-from one_class_ffm_torch.ops.layout import make_blocked_layout
+from one_class_ffm_torch.ops.layout import (
+    FeatureMajor,
+    feature_major,
+    make_blocked_layout,
+)
 
 torch.set_num_threads(1)
 
@@ -77,7 +81,97 @@ def test_kernels_match_plain(device, dtype, k, sorted_seg):
         assert _max_rel(got, ref) <= BOUND[dtype], name
         # the plain versions add in the kernels' order: equal bits
         assert torch.equal(got, ref), name
-    assert kernels.launch_counts() == {name: 2 for name in kernels.KERNELS}
+    assert kernels.launch_counts() == {
+        name: 2 if name in cases else 0 for name in kernels.KERNELS}
+
+
+def _field(rng, num, d, p=3, n_pad_rows=5):
+    """A feature field (num, p): duplicate ids within rows, pad slots (idx
+    0, val 0), pad rows at the end, and feature 3 in every real row, so
+    that its run spans several chunks."""
+    idx = rng.integers(0, d, size=(num, p)).astype(np.int32)
+    val = rng.uniform(0.5, 1.5, size=(num, p))
+    idx[:, 0] = 3
+    idx[::7, 2] = idx[::7, 1]  # duplicate ids within a row
+    pad = rng.random((num, p)) < 0.2
+    pad[:, 0] = False
+    idx[pad], val[pad] = 0, 0.0
+    idx[num - n_pad_rows:], val[num - n_pad_rows:] = 0, 0.0
+    return idx, val
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [8, 32, 40])
+@pytest.mark.parametrize("sorted_seg", [True, False])
+def test_table_kernels_match_plain(device, dtype, k, sorted_seg):
+    rng, num, BM, blk, rows = _stream(4, k, sorted_seg)
+    d = 37
+    idx, val = _field(rng, num, d)
+    fm = feature_major(idx, val, d)
+    assert int(np.diff(fm.feat_ptr)[3]) > 1  # the heavy feature is split
+
+    def T(a):
+        return torch.as_tensor(a).to(device=device, dtype=dtype).contiguous()
+
+    def I(a):
+        return torch.as_tensor(a, dtype=torch.int32, device=device)
+
+    xt = FeatureMajor(row=I(fm.row), val=T(fm.val), chunk_ptr=I(fm.chunk_ptr),
+                      feat_ptr=I(fm.feat_ptr), n_rows=fm.n_rows)
+    x_idx, x_val = I(idx), T(val)
+    own = I(blk["own"])
+    x_rows = T(rows)
+    V = T(rng.normal(size=(d, k)))
+    Q1 = T(rng.normal(size=(num, k)))
+    w = T(rng.random(blk["own"].shape) * (blk["own"] < BM))
+    c = T(rng.normal(size=blk["own"].shape))
+    dense_mat, dense = T(rng.normal(size=(k, k))), T(rng.normal(size=(num, k)))
+    dd, zdense = T(rng.random(num) * 5), T(rng.normal(size=num))
+    cases = {
+        "pos_hv_tbl": (V, x_idx, x_val, xt, x_rows, own, w, dense_mat, BM,
+                       0.9),
+        "grad_cross_tbl": (xt, x_rows, own, c, dense, BM),
+        "hv_self_tbl": (V, x_idx, x_val, xt, Q1, dd),
+        "grad_self_tbl": (xt, Q1, zdense, own, c, BM),
+    }
+    kernels.reset_launch_counts()
+    for name, args in cases.items():
+        got = getattr(ops, name)(*args)  # the dispatcher launches on CUDA
+        again = getattr(kernels, name)(*args)
+        ref = getattr(ops, name + "_plain")(*args)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32 and got.shape == (d, k)
+        assert torch.equal(got, again), f"{name}: launches differ"
+        assert _max_rel(got, ref) <= BOUND[dtype], name
+        assert torch.equal(got, ref), name  # same order, same roundings
+    assert kernels.launch_counts() == {
+        name: 2 if name in cases else 0 for name in kernels.KERNELS}
+
+
+def test_table_wrappers_reject_a_foreign_list(device):
+    rng, num, BM, blk, rows = _stream(5, 32, True)
+    idx, val = _field(rng, num, 11)
+    fm = feature_major(idx[:-8], val[:-8], 11)  # built for fewer rows
+    xt = FeatureMajor(*(torch.as_tensor(a, device=device) for a in (
+        fm.row, fm.val.astype(np.float32), fm.chunk_ptr, fm.feat_ptr)),
+        n_rows=fm.n_rows)
+    Q1 = torch.randn(num, 32, device=device)
+    with pytest.raises(ValueError, match="rows"):
+        kernels.grad_self_tbl(xt, Q1, torch.zeros(num, device=device),
+                              torch.as_tensor(blk["own"], device=device),
+                              torch.zeros(blk["own"].shape, device=device),
+                              BM)
+    # a table whose row count is not the list's feature count
+    fm = feature_major(idx, val, 11)
+    xt = FeatureMajor(*(torch.as_tensor(a, device=device) for a in (
+        fm.row, fm.val.astype(np.float32), fm.chunk_ptr, fm.feat_ptr)),
+        n_rows=fm.n_rows)
+    with pytest.raises(ValueError, match="features"):
+        kernels.hv_self_tbl(torch.zeros(12, 32, device=device),
+                            torch.as_tensor(idx, device=device),
+                            torch.as_tensor(val, dtype=torch.float32,
+                                            device=device),
+                            xt, Q1, torch.ones(num, device=device))
 
 
 def test_gap_pads_are_exactly_zero(device):

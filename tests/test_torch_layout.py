@@ -1,4 +1,5 @@
-"""The port's numpy copy of make_blocked_layout equals the original."""
+"""The port's numpy copy of make_blocked_layout equals the original, and
+the feature-major list of a field is its X^T."""
 
 import numpy as np
 import pytest
@@ -7,7 +8,11 @@ import torch
 from one_class_ffm_tpu.ops.sparse_ops import (
     make_blocked_layout as make_blocked_layout_jax,
 )
-from one_class_ffm_torch.ops.layout import check_own_runs, make_blocked_layout
+from one_class_ffm_torch.ops.layout import (
+    check_own_runs,
+    feature_major,
+    make_blocked_layout,
+)
 
 torch.set_num_threads(1)
 
@@ -77,3 +82,36 @@ def test_check_own_runs_rejects_broken_runs():
         check_own_runs(np.array([[0, 4, 1, 4]], np.int32), 4)
     with pytest.raises(ValueError, match="outside"):
         check_own_runs(np.array([[0, 5]], np.int32), 4)
+
+
+@pytest.mark.parametrize("chunk", [2, 5, 128])
+def test_feature_major_list_is_x_transposed(chunk):
+    """The feature-major list holds every nonzero entry of X once (duplicate
+    ids within a row stay separate), drops pad slots and pad rows, and cuts
+    each feature's run into chunks of at most ``chunk`` entries in row
+    order; the JAX package's transposed copies (xt_*) hold the same X."""
+    rng = np.random.default_rng(3)
+    rows, p, d = 40, 3, 9
+    idx = rng.integers(0, d, size=(rows, p)).astype(np.int32)
+    val = rng.uniform(0.5, 1.5, size=(rows, p))
+    idx[:, 0] = 4  # one heavy feature
+    idx[::3, 2] = idx[::3, 1]
+    idx[rows - 4:], val[rows - 4:] = 0, 0.0  # pad rows
+    idx[5, 1], val[5, 1] = 0, 0.0  # a pad slot
+    fm = feature_major(idx, val, d, chunk=chunk)
+    X = np.zeros((rows, d))
+    np.add.at(X, (np.repeat(np.arange(rows), p), idx.ravel()), val.ravel())
+    Xt = np.zeros((d, rows))
+    for f in range(d):
+        for c in range(fm.feat_ptr[f], fm.feat_ptr[f + 1]):
+            s, e = fm.chunk_ptr[c], fm.chunk_ptr[c + 1]
+            assert 0 < e - s <= chunk
+            assert np.all(np.diff(fm.row[s:e]) >= 0)
+            np.add.at(Xt[f], fm.row[s:e], fm.val[s:e])
+    np.testing.assert_array_equal(Xt, X.T)
+    assert fm.row.size == np.count_nonzero(val) and fm.n_rows == rows
+    assert fm.chunk_ptr[-1] == fm.row.size
+    heavy = np.count_nonzero((idx == 4) & (val != 0))
+    assert fm.feat_ptr[5] - fm.feat_ptr[4] == -(-heavy // chunk)
+    with pytest.raises(ValueError, match="outside"):
+        feature_major(idx, val, 4)

@@ -13,7 +13,11 @@ import torch
 from one_class_ffm_tpu.ops import sparse_ops as jops
 from one_class_ffm_torch.ops import kernels
 from one_class_ffm_torch.ops import sparse_ops as tops
-from one_class_ffm_torch.ops.layout import make_blocked_layout
+from one_class_ffm_torch.ops.layout import (
+    FeatureMajor,
+    feature_major,
+    make_blocked_layout,
+)
 
 torch.set_num_threads(1)
 
@@ -179,3 +183,150 @@ def test_missing_nvcc_raises(monkeypatch):
     monkeypatch.setattr(kernels.os.path, "isfile", lambda path: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         kernels._nvcc()
+
+
+# ---------------------------------------------------------------------------
+# fused table-space passes and the self-block tensor ops
+# ---------------------------------------------------------------------------
+
+TBL_RTOL = 1e-5  # float32: the port and the TPU kernels sum in other orders
+
+
+def _field(rng, num, d, p=3, n_pad_rows=3):
+    """A padded feature field (num, p) at float32: duplicate ids within some
+    rows, pad slots (idx 0, val 0) and pad rows at the end."""
+    idx = rng.integers(0, d, size=(num, p)).astype(np.int32)
+    val = rng.uniform(0.5, 1.5, size=(num, p)).astype(np.float32)
+    idx[::5, 2] = idx[::5, 1]
+    pad = rng.random((num, p)) < 0.25
+    pad[:, 0] = False
+    idx[pad], val[pad] = 0, 0.0
+    idx[num - n_pad_rows:], val[num - n_pad_rows:] = 0, 0.0
+    return idx, val
+
+
+def _torch_xt(idx, val, d):
+    fm = feature_major(idx, val, d)
+    return FeatureMajor(row=T(fm.row), val=T(fm.val), chunk_ptr=T(fm.chunk_ptr),
+                        feat_ptr=T(fm.feat_ptr), n_rows=fm.n_rows)
+
+
+def _max_rel(got, ref):
+    ref = np.asarray(ref, np.float64)
+    return float(np.abs(np.asarray(got, np.float64) - ref).max()
+                 / np.abs(ref).max())
+
+
+@pytest.mark.parametrize("op", ["pos_hv_tbl", "grad_cross_tbl", "hv_self_tbl",
+                                "grad_self_tbl"])
+def test_table_ops_match_both_jax_twins(fx, op):
+    """Each fused table pass (the port's plain version, as the CPU runs it)
+    against the row-major Pallas kernel and its k-major twin, both in
+    interpret mode, on one float32 field with duplicate ids and pads."""
+    rng, num, k, BM, own = fx["rng"], fx["num"], fx["k"], fx["BM"], fx["own"]
+    d = 13
+    idx, val = _field(rng, num, d)
+    f32 = np.float32
+    rows, rows_t = fx["rows"].astype(f32), fx["rows_t"].astype(f32)
+    V = rng.normal(size=(d, k)).astype(f32)
+    Q1 = rng.normal(size=(num, k)).astype(f32)
+    w_blk = (rng.random(own.shape) * (own < BM)).astype(f32)
+    c_blk = (rng.normal(size=own.shape) * (own < BM)).astype(f32)
+    dmat = rng.normal(size=(k, k)).astype(f32)
+    dense = rng.normal(size=(num, k)).astype(f32)
+    dd = rng.uniform(1.0, 5.0, size=num).astype(f32)
+    zdense = rng.normal(size=num).astype(f32)
+    xt = _torch_xt(idx, val, d)
+    J = jnp.asarray
+    it, vt = J(idx.T), J(val.T)
+    scale = 0.9
+    if op == "pos_hv_tbl":
+        got = tops.pos_hv_tbl(T(V), T(idx), T(val), xt, T(rows), T(own),
+                              T(w_blk), T(dmat), BM, scale)
+        refs = (jops.pos_hv_tbl_pallas(J(V), it, vt, J(rows), J(own),
+                                       J(w_blk), J(dmat), BM, w_scale=scale,
+                                       interpret=True),
+                jops.pos_hv_tbl_kt_pallas(J(V), it, vt, J(rows_t), J(own),
+                                          J(w_blk), J(dmat), BM,
+                                          w_scale=scale, interpret=True))
+    elif op == "grad_cross_tbl":
+        got = tops.grad_cross_tbl(xt, T(rows), T(own), T(c_blk), T(dense),
+                                  BM)
+        refs = (jops.grad_cross_tbl_pallas(d, it, vt, J(rows), J(own),
+                                           J(c_blk), J(dense), BM,
+                                           interpret=True),
+                jops.grad_cross_tbl_kt_pallas(d, it, vt, J(rows_t), J(own),
+                                              J(c_blk), J(dense), BM,
+                                              interpret=True))
+    elif op == "hv_self_tbl":
+        got = tops.hv_self_tbl(T(V), T(idx), T(val), xt, T(Q1), T(dd))
+        refs = (jops.hv_self_tbl_pallas(J(V), it, vt, J(Q1), J(dd[:, None]),
+                                        BM, interpret=True),
+                jops.hv_self_tbl_kt_pallas(J(V), it, vt, J(Q1),
+                                           J(dd[None, :]), BM,
+                                           interpret=True))
+    else:
+        got = tops.grad_self_tbl(xt, T(Q1), T(zdense), T(own), T(c_blk), BM)
+        refs = (jops.grad_self_tbl_pallas(d, it, vt, J(Q1),
+                                          J(zdense[:, None]), J(own),
+                                          J(c_blk), BM, interpret=True),
+                jops.grad_self_tbl_kt_pallas(d, it, vt, J(Q1),
+                                             J(zdense[None, :]), J(own),
+                                             J(c_blk), BM, interpret=True))
+    # the table-space result stays at the float32 floor, unrounded
+    assert got.dtype == torch.float32 and got.shape == (d, k)
+    for ref in refs:
+        assert np.asarray(ref).shape == (d, k)
+        assert _max_rel(got.numpy(), ref) <= TBL_RTOL
+
+
+def test_seg_sum_and_expand_rows_match_jax(fx):
+    rng, num, BM, own = fx["rng"], fx["num"], fx["BM"], fx["own"]
+    c_blk = rng.normal(size=own.shape) * (own < BM)
+    got = tops.seg_sum_blocked(T(c_blk), T(own), num, BM).numpy()
+    ref = jops.seg_sum_blocked(jnp.asarray(c_blk), jnp.asarray(own), num, BM)
+    np.testing.assert_allclose(got, np.asarray(ref), rtol=RTOL, atol=ATOL)
+    vec = rng.normal(size=num)
+    got = tops.expand_rows_blocked(T(vec), T(own), BM).numpy()
+    ref = jops.expand_rows_blocked(jnp.asarray(vec), jnp.asarray(own), BM)
+    np.testing.assert_array_equal(got, np.asarray(ref))
+    assert np.all(got.reshape(own.shape)[own == BM] == 0.0)
+
+
+def test_table_ops_on_cpu_never_launch(fx):
+    rng, num, k, BM, own = fx["rng"], fx["num"], fx["k"], fx["BM"], fx["own"]
+    idx, val = _field(rng, num, 7)
+    xt = _torch_xt(idx, val.astype(np.float64), 7)
+    Q1, V = T(rng.normal(size=(num, k))), T(rng.normal(size=(7, k)))
+    c = T(rng.normal(size=own.shape))
+    kernels.reset_launch_counts()
+    tops.pos_hv_tbl(V, T(idx), T(val.astype(np.float64)), xt, T(fx["rows"]),
+                    T(own), T(rng.random(own.shape)), T(np.eye(k)), BM)
+    tops.grad_cross_tbl(xt, T(fx["rows"]), T(own), c, Q1, BM)
+    tops.hv_self_tbl(V, T(idx), T(val.astype(np.float64)), xt, Q1,
+                     T(rng.random(num)))
+    tops.grad_self_tbl(xt, Q1, T(rng.random(num)), T(own), c, BM)
+    assert kernels.launch_counts() == {name: 0 for name in kernels.KERNELS}
+
+
+@pytest.mark.parametrize("op", ["pos_hv_tbl", "grad_cross_tbl", "hv_self_tbl",
+                                "grad_self_tbl"])
+def test_table_wrappers_reject_cpu_tensors(fx, op):
+    num, k, BM = fx["num"], fx["k"], fx["BM"]
+    own = T(fx["own"]).int()
+    rows = T(fx["rows"]).float()
+    idx, val = _field(fx["rng"], num, 5)
+    xt = _torch_xt(idx, val, 5)
+    with pytest.raises(ValueError, match="CUDA"):
+        if op == "pos_hv_tbl":
+            kernels.pos_hv_tbl(torch.zeros(5, k), T(idx), T(val), xt, rows,
+                               own, torch.zeros(own.shape), torch.eye(k), BM)
+        elif op == "grad_cross_tbl":
+            kernels.grad_cross_tbl(xt, rows, own, torch.zeros(own.shape),
+                                   torch.zeros(num, k), BM)
+        elif op == "hv_self_tbl":
+            kernels.hv_self_tbl(torch.zeros(5, k), T(idx), T(val), xt,
+                                torch.zeros(num, k), torch.zeros(num))
+        else:
+            kernels.grad_self_tbl(xt, torch.zeros(num, k), torch.zeros(num),
+                                  own, torch.zeros(own.shape), BM)

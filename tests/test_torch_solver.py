@@ -1,10 +1,12 @@
-"""The port's MF solver against the fp64 oracle and the JAX solver.
+"""The port's solver against the fp64 oracle and the JAX solver.
 
-The problem is one-class MF with --ns: one identity user-id field, one
-identity item-id field, one cross block, plain CG (passed explicitly:
-conftest.make_problem defaults to jacobi).  Both solvers start from the same
-numpy tables; the JAX solver runs its k-major kernels in interpret mode with
-the per-solve pregather forced, which is the path the port mirrors."""
+The first problems are one-class MF with --ns: one identity user-id field,
+one identity item-id field, one cross block.  The FFM problems add a small
+feature field per side (the fused table passes) and self blocks; FM has one
+mixed field per side.  CG is plain (passed explicitly: conftest.make_problem
+defaults to jacobi).  Both solvers start from the same numpy tables; the JAX
+solver runs its k-major and fused table kernels in interpret mode with the
+per-solve pregather forced, which is the path the port mirrors."""
 
 import dataclasses
 
@@ -88,6 +90,7 @@ def build_port(prob, params, dtype=torch.float64):
 
 def build_jax(prob, params, monkeypatch):
     monkeypatch.setenv("OCFFM_KT", "interpret")
+    monkeypatch.setenv("OCFFM_FUSED_TBL", "interpret")
     monkeypatch.setenv("OCFFM_BLK_PREGATHER", "1")
     u, v, y = padded(prob)
     meta, data = jax_solver.make_device_data(
@@ -107,8 +110,11 @@ def test_device_data_matches_jax():
     meta, td = torch_solver.make_device_data(
         u, v, y, prob.layout, prob.hp, dtype=torch.float64, blocked_bm=BM)
     assert meta.ident_u == (True,) and meta.ident_v == (True,)
-    assert set(td) <= set(jd)
+    assert td["xf_u"] == (None,) and td["xf_v"] == (None,)
+    assert set(td) - {"xf_u", "xf_v"} <= set(jd)
     for key, val in td.items():
+        if key in ("xf_u", "xf_v"):
+            continue
         vals = val if isinstance(val, tuple) else (val,)
         refs = jd[key] if isinstance(jd[key], tuple) else (jd[key],)
         assert len(vals) == len(refs), key
@@ -251,14 +257,24 @@ def _skewed_problem():
     return prob, params
 
 
+# self blocks and small-D feature fields run now: their cases hold what
+# still raises — self blocks under Jacobi (A10) and a non-identity field
+# above the fused cap (A4)
 OUT_OF_SLICE = {
-    "self_blocks": dict(self_side=True),
+    "self_blocks": dict(self_side=True, cg_precond="jacobi"),
     "jacobi": dict(cg_precond="jacobi"),
     "non_identity_field": dict(identity=False),
     "head_tier": dict(skewed=True),
     "no_layout": dict(blocked_bm=0),
     "mesh": dict(mesh=object()),
 }
+
+
+# a skewed side whose power rows fit no head chunk falls back to the plain
+# COO passes (A3); one that takes the head tier needs A9
+ROADMAP_ITEM = {"self_blocks": "A10", "jacobi": "A10",
+                "non_identity_field": "A4", "head_tier": "A[39]",
+                "no_layout": "A3", "mesh": "A11"}
 
 
 @pytest.mark.parametrize("case", sorted(OUT_OF_SLICE))
@@ -273,10 +289,174 @@ def test_out_of_slice_configs_raise(case):
         prob = dataclasses.replace(
             prob, hp=dataclasses.replace(prob.hp, cg_precond="jacobi"))
     if kw.get("identity") is False:
-        prob.Xu[0][0, :2] = 1.0  # row 0 now has two features
+        # an item field of FUSED_TBL_D + 1 features: no longer identity,
+        # too wide for the fused table passes
+        d = torch_solver.FUSED_TBL_D + 1
+        prob.Xv[0] = np.zeros((prob.n, d))
+        prob.Xv[0][np.arange(prob.n), 7 * np.arange(prob.n)] = 1.0
+        prob.freq_v[0] = prob.Xv[0].sum(axis=0)
+        prob = dataclasses.replace(
+            prob, layout=BlockLayout.make((prob.m,), (d,), False))
     u, v, y = padded(prob)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError,
+                       match=f"ROADMAP {ROADMAP_ITEM[case]}"):
         meta, data = torch_solver.make_device_data(
             u, v, y, prob.layout, prob.hp, dtype=torch.float64,
             blocked_bm=kw.get("blocked_bm", BM))
         torch_solver.FFMSolver(meta, data, mesh=kw.get("mesh"))
+
+
+# ---------------------------------------------------------------------------
+# FFM / FM: small-D feature fields (fused table passes) and self blocks
+# ---------------------------------------------------------------------------
+
+
+def _identity_field(prob, side: str):
+    """Make field 0 of a side an identity id field, as the data pipeline
+    builds it."""
+    Xs, fr = (prob.Xu, prob.freq_u) if side == "u" else (prob.Xv, prob.freq_v)
+    Xs[0][:] = np.eye(Xs[0].shape[0])
+    fr[0][:] = 1.0
+
+
+FFM_CASES = ("ffm_self", "ffm_ns", "mf_self", "ffm_freq", "fm")
+
+
+def ffm_problem(case, seed=1, m=13, n=9, k=3):
+    """ffm_self / ffm_ns: the bench's shape at toy size, an identity id
+    field and a small feature field per side, with or without self blocks;
+    mf_self: identity fields with self blocks; ffm_freq: two feature fields
+    per side with frequency-scaled lambda; fm: one mixed field per side
+    (the id columns and features in one field)."""
+    rng = np.random.default_rng(seed)
+    kw = dict(m=m, n=n, k=k, cg_precond="none")
+    if case in ("ffm_self", "ffm_ns"):
+        prob, params = make_problem(rng, Du=(m, 5), Dv=(n, 4), max_nnz=3,
+                                    self_side=case == "ffm_self", **kw)
+    elif case == "mf_self":
+        prob, params = make_problem(rng, Du=(m,), Dv=(n,), self_side=True,
+                                    **kw)
+    elif case == "ffm_freq":
+        return make_problem(rng, freq=True, self_side=True, **kw)
+    else:
+        prob, params = make_problem(rng, Du=(m + 6,), Dv=(n + 5,),
+                                    max_nnz=2, self_side=True, **kw)
+        for Xs, fr, rows in ((prob.Xu, prob.freq_u, m),
+                             (prob.Xv, prob.freq_v, n)):
+            Xs[0][:, :rows] = np.eye(rows)
+            fr[0][:] = Xs[0].astype(bool).sum(axis=0)
+        return prob, params
+    _identity_field(prob, "u")
+    _identity_field(prob, "v")
+    return prob, params
+
+
+def test_ffm_device_data_matches_jax():
+    """Fused-field flags and the feature-major lists: a field qualifies as
+    the JAX package's does (its transposed copy exists), and each list
+    holds that field's X."""
+    prob, _ = ffm_problem("ffm_self")
+    u, v, y = padded(prob)
+    _, jd = jax_solver.make_device_data(u, v, y, prob.layout, prob.hp,
+                                        dtype=jnp.float64, blocked_bm=BM)
+    meta, td = torch_solver.make_device_data(
+        u, v, y, prob.layout, prob.hp, dtype=torch.float64, blocked_bm=BM)
+    assert meta.ident_u == (True, False) and meta.fused_u == (False, True)
+    assert meta.ident_v == (True, False) and meta.fused_v == (False, True)
+    for s, pf in (("u", u), ("v", v)):
+        for fi, (xf, xt) in enumerate(zip(td[f"xf_{s}"], jd[f"xt_{s}"])):
+            assert (xf is None) == (xt is None), (s, fi)
+            if xf is None:
+                continue
+            X = np.zeros((pf.m, pf.Ds[fi]))
+            idx_t, val_t = np.asarray(xt[0]), np.asarray(xt[1])
+            np.add.at(X, (np.tile(np.arange(pf.m), idx_t.shape[0]),
+                          idx_t.ravel()), val_t.ravel())
+            got = np.zeros_like(X)
+            np.add.at(got, (xf.row.numpy(), _entry_features(xf)),
+                      xf.val.numpy())
+            np.testing.assert_array_equal(got, X)
+
+
+def _entry_features(xf):
+    """The feature of every entry of a feature-major list."""
+    per_chunk = np.diff(xf.chunk_ptr.numpy())
+    chunk_feat = np.repeat(np.arange(xf.feat_ptr.numel() - 1),
+                           np.diff(xf.feat_ptr.numpy()))
+    return np.repeat(chunk_feat, per_chunk)
+
+
+@pytest.mark.parametrize("case", FFM_CASES)
+def test_ffm_two_epochs_match_oracle(case):
+    prob, params = ffm_problem(case)
+    solver, state = build_port(prob, params)
+    assert any(solver.meta.fused_u + solver.meta.fused_v) or case == "mf_self"
+    kernels.reset_launch_counts()
+    ref = params
+    for _ in range(2):
+        ref = oracle.oracle_epoch(prob, ref)
+        state = solver.epoch(state)
+    for f12 in ref["W"]:
+        for name in ("W", "H"):
+            np.testing.assert_allclose(
+                state["params"][f12][name].numpy(), ref[name][f12],
+                rtol=1e-6, atol=1e-9, err_msg=f"{case} {name} {f12}")
+    np.testing.assert_allclose(float(solver.objective(state)),
+                               oracle.objective(prob, ref), rtol=1e-8)
+    assert sum(kernels.launch_counts().values()) == 0
+
+
+def test_ffm_gradient_and_hv_match_oracle():
+    """Every block side of FFM with self blocks: identity halves (plain
+    torch) and small-D halves (the fused table passes)."""
+    prob, params = ffm_problem("ffm_self")
+    solver, state = build_port(prob, params)
+    sa, sb = solver.sasb(state)
+    V_rng = np.random.default_rng(3)
+    kinds = set()
+    for b in prob.layout.all_blocks():
+        for first in (True, False):
+            G, hv, _ = solver.grad_and_hv(state, b, first, sa, sb)
+            G_ref, hv_ref = oracle.grad_and_hv(prob, params, b, first)
+            np.testing.assert_allclose(G.numpy(), G_ref, rtol=1e-8,
+                                       atol=1e-10, err_msg=f"{b.f12}")
+            V = V_rng.normal(size=G_ref.shape)
+            np.testing.assert_allclose(hv(torch.from_numpy(V)).numpy(),
+                                       hv_ref(V), rtol=1e-8, atol=1e-10,
+                                       err_msg=f"{b.f12}")
+            kinds.add((b.kind, solver._x(b, first)[2] is not None))
+    assert kinds == {(kind, fused) for kind in ("uu", "uv", "vv")
+                     for fused in (False, True)}
+
+
+@pytest.mark.parametrize("case", ["ffm_self", "fm"])
+def test_ffm_two_epochs_match_jax_fused(case, monkeypatch):
+    """Against the JAX solver on its fused table kernels (interpret mode):
+    equal per-solve CG iteration counts and matching tables."""
+    prob, params = ffm_problem(case, seed=4)
+    tsolver, tst = build_port(prob, params)
+    jsolver, jst = build_jax(prob, params, monkeypatch)
+    assert jsolver.fused_tbl and jsolver.fused_interpret
+    fused = [(b.f12, first) for b in prob.layout.all_blocks()
+             for first in (True, False) if tsolver._x(b, first)[2] is not None]
+    assert fused
+    for f12, first in fused:
+        b = next(x for x in prob.layout.all_blocks() if x.f12 == f12)
+        dim = b.d1 if first else b.d2
+        assert jsolver._fused_tbl_side(b, first, dim) is not None
+    for _ in range(2):
+        tst, t_it = tsolver.epoch_stats(tst)
+        jst, j_it = jsolver.epoch_stats(jst)
+        np.testing.assert_array_equal(t_it.numpy(), np.asarray(j_it))
+        assert t_it.sum() > 0
+    for f12 in jst["params"]:
+        for name in ("W", "H"):
+            np.testing.assert_allclose(
+                tst["params"][f12][name].numpy(),
+                np.asarray(jst["params"][f12][name]), rtol=1e-9, atol=1e-12,
+                err_msg=f"{name} {f12}")
+    for key in ("yt_u", "yt_v", "a", "b"):
+        np.testing.assert_allclose(tst[key].numpy(), np.asarray(jst[key]),
+                                   rtol=1e-9, atol=1e-12, err_msg=key)
+    np.testing.assert_allclose(float(tsolver.objective(tst)),
+                               float(jsolver.objective(jst)), rtol=1e-10)
