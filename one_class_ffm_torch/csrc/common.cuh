@@ -1,7 +1,8 @@
-// Device helpers shared by the port's kernels (blocked_ops.cu and
-// table_ops.cu): storage-dtype conversion, the warp sum, the row runs of
-// the blocked layout, and the per-row math of the blocked Hv and gradient
-// passes.  Every product and sum is rounded on its own (__fmul_rn /
+// Helpers shared by the port's kernels (blocked_ops.cu, table_ops.cu and
+// project_ops.cu): storage-dtype conversion, the warp sum, the row runs of
+// the blocked layout, the per-row math of the blocked Hv and gradient
+// passes, the projection of one row (B8 and the table passes' phi = X V),
+// the grid of a warp-per-item loop and the dtype dispatch of a launch.  Every product and sum is rounded on its own (__fmul_rn /
 // __fadd_rn: no fused multiply-add) in a fixed order, which the plain
 // PyTorch versions in ops/sparse_ops.py follow bit for bit.
 #pragma once
@@ -125,4 +126,74 @@ __device__ __forceinline__ void scatter_row(const T* __restrict__ c_b,
   }
 }
 
+// The projection of one row, lanes over k (B8; project_pallas):
+//   ph = storage(sum_s val[row, s] * V[idx[row, s]])
+// Lanes load the row's p (id, value) slots once, 32 at a time, and
+// broadcast them by shuffles; the slots are added in slot order at f32, one
+// rounding per product and per sum, and rounded to storage once at the end
+// (zero past k).  Ids outside [0, d) add nothing, as the one-hot X of the
+// TPU kernels drops them.  Offsets into the table are 64-bit.
+template <typename T>
+__device__ __forceinline__ void project_row(const T* __restrict__ V,
+                                            const int* __restrict__ xi,
+                                            const T* __restrict__ xv,
+                                            int64_t row, int p, int d, int k,
+                                            int lane,
+                                            float (&ph)[kMaxKPerLane]) {
+  float acc[kMaxKPerLane];
+#pragma unroll
+  for (int j = 0; j < kMaxKPerLane; ++j) acc[j] = 0.f;
+  const int* xi_r = xi + row * p;
+  const T* xv_r = xv + row * p;
+  for (int base = 0; base < p; base += 32) {
+    const int mine = base + lane;
+    const int my_f = mine < p ? xi_r[mine] : -1;
+    const float my_v = mine < p ? to_f(xv_r[mine]) : 0.f;
+    const int n = min(32, p - base);
+    for (int q = 0; q < n; ++q) {
+      const int f = __shfl_sync(kFull, my_f, q);
+      const float v = __shfl_sync(kFull, my_v, q);
+      if ((unsigned)f >= (unsigned)d) continue;  // uniform across the warp
+      const T* vr = V + (int64_t)f * k;
+#pragma unroll
+      for (int j = 0; j < kMaxKPerLane; ++j) {
+        const int c = j * 32 + lane;
+        if (c < k) acc[j] = __fadd_rn(acc[j], __fmul_rn(v, to_f(vr[c])));
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kMaxKPerLane; ++j) ph[j] = rnd<T>(acc[j]);
+}
+
+template <typename T>
+__device__ __forceinline__ void store_row(T* __restrict__ out, int64_t row,
+                                          int k, int lane,
+                                          const float (&v)[kMaxKPerLane]) {
+#pragma unroll
+  for (int j = 0; j < kMaxKPerLane; ++j) {
+    const int c = j * 32 + lane;
+    if (c < k) out[row * k + c] = from_f<T>(v[j]);
+  }
+}
+
+// grid for a warp-per-item grid-stride loop over n items
+inline unsigned warp_grid(long long n) {
+  const long long want = (n + kWarps - 1) / kWarps;
+  return (unsigned)(want < 65536 ? (want > 0 ? want : 1) : 65536);
+}
+
 }  // namespace ocffm
+
+// Run the launch statement in the remaining arguments with T = float or
+// __nv_bfloat16 by dtype code (variadic: the launch holds commas).
+#define OCFFM_BY_DTYPE(dtype, ...)                  \
+  if ((dtype) == ocffm::kF32) {                     \
+    using T = float;                                \
+    __VA_ARGS__;                                    \
+  } else if ((dtype) == ocffm::kBF16) {             \
+    using T = __nv_bfloat16;                        \
+    __VA_ARGS__;                                    \
+  } else {                                          \
+    return (int)cudaErrorInvalidValue;              \
+  }

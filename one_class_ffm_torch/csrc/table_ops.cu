@@ -1,7 +1,9 @@
 // Hopper (sm_90a) kernels for the fused table-space passes of a solve on
 // a small-D feature field (D <= 4096): the cross-block Hv and gradient and
-// the self-block Hv and gradient.  Built with blocked_ops.cu into one
-// shared library (ops/kernels.py), bound with ctypes.
+// the self-block Hv and gradient.  Built with the other sources into one
+// shared library (ops/kernels.py), bound with ctypes.  Stage 2 below, the
+// X^T stage, is also the general scatter G = X^T Z of a wide field
+// (ops/sparse_ops.py scatter); stage 1's phi = X V is B8's project_row.
 //
 // The TPU kernels keep the (D, k) table-space output in VMEM across a
 // sequential grid over row blocks (out_ref[...] += X_b^T payload_b).  Here
@@ -37,45 +39,6 @@
 using namespace ocffm;
 
 namespace {
-
-// phi[row] = storage(sum_s val[row, s] * V[idx[row, s]]), slots added in
-// slot order at f32, lanes over k; zero past k.  Ids outside [0, d) add
-// nothing, as the one-hot X of the TPU kernels drops them.
-template <typename T>
-__device__ __forceinline__ void project_row(const T* __restrict__ V,
-                                            const int* __restrict__ xi,
-                                            const T* __restrict__ xv,
-                                            int64_t row, int p, int d, int k,
-                                            int lane,
-                                            float (&ph)[kMaxKPerLane]) {
-  float acc[kMaxKPerLane];
-#pragma unroll
-  for (int j = 0; j < kMaxKPerLane; ++j) acc[j] = 0.f;
-  for (int s = 0; s < p; ++s) {
-    const int f = xi[row * p + s];
-    if ((unsigned)f >= (unsigned)d) continue;  // uniform across the warp
-    const float v = to_f(xv[row * p + s]);
-    const T* vr = V + (int64_t)f * k;
-#pragma unroll
-    for (int j = 0; j < kMaxKPerLane; ++j) {
-      const int c = j * 32 + lane;
-      if (c < k) acc[j] = __fadd_rn(acc[j], __fmul_rn(v, to_f(vr[c])));
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < kMaxKPerLane; ++j) ph[j] = rnd<T>(acc[j]);
-}
-
-template <typename T>
-__device__ __forceinline__ void store_row(T* __restrict__ out, int64_t row,
-                                          int k, int lane,
-                                          const float (&v)[kMaxKPerLane]) {
-#pragma unroll
-  for (int j = 0; j < kMaxKPerLane; ++j) {
-    const int c = j * 32 + lane;
-    if (c < k) out[row * k + c] = from_f<T>(v[j]);
-  }
-}
 
 // Stage 1 of pos_hv_tbl, replacing pos_hv_tbl_pallas / _hv_tbl_kernel and
 // its k-major twin pos_hv_tbl_kt_pallas / _hv_tbl_kt_kernel
@@ -270,26 +233,7 @@ xt_feature_kernel(const float* __restrict__ partial,
   }
 }
 
-// grid for a warp-per-item grid-stride loop over n items
-unsigned warp_grid(long long n) {
-  const long long want = (n + kWarps - 1) / kWarps;
-  return (unsigned)(want < 65536 ? (want > 0 ? want : 1) : 65536);
-}
-
 }  // namespace
-
-// Run the launch statement in the remaining arguments with T = float or
-// __nv_bfloat16 by dtype code (variadic: the launch holds commas).
-#define OCFFM_BY_DTYPE(dtype, ...)                  \
-  if ((dtype) == kF32) {                            \
-    using T = float;                                \
-    __VA_ARGS__;                                    \
-  } else if ((dtype) == kBF16) {                    \
-    using T = __nv_bfloat16;                        \
-    __VA_ARGS__;                                    \
-  } else {                                          \
-    return (int)cudaErrorInvalidValue;              \
-  }
 
 extern "C" {
 

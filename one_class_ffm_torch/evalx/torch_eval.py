@@ -18,11 +18,10 @@ from typing import Any, Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from one_class_ffm_tpu.data.dataset import PaddedFields
-from one_class_ffm_tpu.evalx.numpy_metrics import TOP_K_LADDER
-from one_class_ffm_tpu.models.blocks import BlockLayout
-
+from ..data.dataset import PaddedFields
+from ..models.blocks import BlockLayout
 from ..ops.sparse_ops import project
+from .numpy_metrics import TOP_K_LADDER
 
 Tensor = torch.Tensor
 

@@ -32,17 +32,21 @@ import torch
 from .layout import FeatureMajor
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "blocked_ops.cu", _PKG / "csrc" / "table_ops.cu")
+SOURCES = (_PKG / "csrc" / "blocked_ops.cu", _PKG / "csrc" / "table_ops.cu",
+           _PKG / "csrc" / "project_ops.cu")
 HEADERS = (_PKG / "csrc" / "common.cuh",)
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
-# one entry per ported TPU kernel: the three blocked passes of an identity
-# field's cross solve, then the four fused table-space passes of a small-D
-# feature field (each runs its row stage and the shared X^T stage)
+# one entry per launch wrapper: the three blocked passes of a cross solve,
+# the four fused table-space passes of a small-D feature field (each runs
+# its row stage and the shared X^T stage), the projection X W of a feature
+# field (B8), and the general scatter X^T Z of a wide field (the X^T stage
+# on its own)
 KERNELS = ("pos_hv_blocked", "pos_scatter_blocked", "pos_gap_blocked",
-           "pos_hv_tbl", "grad_cross_tbl", "hv_self_tbl", "grad_self_tbl")
+           "pos_hv_tbl", "grad_cross_tbl", "hv_self_tbl", "grad_self_tbl",
+           "project", "scatter")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # Launches per kernel since the last reset: a run reads them to show that
@@ -146,9 +150,10 @@ def load() -> ctypes.CDLL:
         i32, vp, vp, vp, vp, vp, i64, i32, i32, i32, vp]
     lib.ocffm_xt_scatter.argtypes = [
         i32, vp, vp, vp, vp, i32, vp, i32, i32, vp, vp, vp]
+    lib.ocffm_project.argtypes = [i32, vp, vp, vp, vp, i64, i32, i32, i32, vp]
     for fn in (lib.ocffm_pos_hv_tbl_rows, lib.ocffm_grad_cross_tbl_rows,
                lib.ocffm_hv_self_tbl_rows, lib.ocffm_grad_self_tbl_rows,
-               lib.ocffm_xt_scatter):
+               lib.ocffm_xt_scatter, lib.ocffm_project):
         fn.restype = i32
     _lib = lib
     build_seconds = time.perf_counter() - t0
@@ -404,3 +409,52 @@ def grad_self_tbl(xt, Q1, zdense, own, c_blk,
     out = _xt_scatter(lib, payload, xt, "grad_self_tbl")
     _launches["grad_self_tbl"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# the projection of a feature field (B8) and the general scatter
+# ---------------------------------------------------------------------------
+
+
+def _table_dtype(name: str, t: torch.Tensor):
+    """Common checks on a (rows, k) storage tensor; returns (lib, k)."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype not in _DTYPE_CODE:
+        raise TypeError(f"kernels take float32 or bfloat16, got {t.dtype}")
+    if t.dim() != 2:
+        raise ValueError(f"{name} must be 2-d, got {tuple(t.shape)}")
+    k = t.shape[1]
+    lib = load()
+    if not 0 < k <= lib.ocffm_max_k():
+        raise ValueError(f"k={k} outside the kernels' range "
+                         f"(1..{lib.ocffm_max_k()})")
+    _check(name, t, t.dtype, tuple(t.shape), t.device)
+    return lib, k
+
+
+def project(idx, val, W) -> torch.Tensor:
+    """(rows, k) storage = X W (B8)."""
+    lib, k = _table_dtype("W", W)
+    dev, dt = W.device, W.dtype
+    if idx.dim() != 2:
+        raise ValueError(f"idx must be (rows, p), got {tuple(idx.shape)}")
+    rows, p = idx.shape
+    _check("idx", idx, torch.int32, (rows, p), dev)
+    _check("val", val, dt, (rows, p), dev)
+    out = torch.empty((rows, k), dtype=dt, device=dev)
+    err = lib.ocffm_project(_DTYPE_CODE[dt], idx.data_ptr(), val.data_ptr(),
+                            W.data_ptr(), out.data_ptr(), rows, p,
+                            W.shape[0], k, _stream(dev))
+    _raise_on(err, "project")
+    _launches["project"] += 1
+    return out
+
+
+def scatter(xt: FeatureMajor, Z) -> torch.Tensor:
+    """(d, k) storage = X^T Z: the X^T stage sums at float32, then one cast
+    to storage (a no-op at float32)."""
+    lib, _ = _table_dtype("Z", Z)
+    out = _xt_scatter(lib, Z, xt, "scatter")
+    _launches["scatter"] += 1
+    return out.to(Z.dtype)

@@ -8,16 +8,18 @@ same reason the fused table passes take a field's X untransposed,
 (``layout.FeatureMajor``).
 
 The three blocked passes (``pos_hv_blocked``, ``pos_scatter_blocked``,
-``pos_gap_blocked``) and the four fused table-space passes
-(``pos_hv_tbl``, ``grad_cross_tbl``, ``hv_self_tbl``, ``grad_self_tbl``)
-each have a plain version here (``*_plain``) and a hand-written CUDA kernel
-(csrc/*.cu via ops/kernels.py).  The dispatching function takes the plain
-version only because its tensors lie on the CPU; on a CUDA tensor it
-launches the kernel or raises.  Storage is float32 or bfloat16 (float64 on
-the CPU), sums run at a float32 floor, and the plain versions round where
-the kernels round: pq to storage, the output to storage, and for the table
-passes phi = X V and the per-row payload to storage, the (D, k) table-space
-result left at the float32 floor.
+``pos_gap_blocked``), the four fused table-space passes (``pos_hv_tbl``,
+``grad_cross_tbl``, ``hv_self_tbl``, ``grad_self_tbl``), the projection of
+a feature field (``project``, B8) and the general scatter of a wide field
+(``scatter``, the table passes' X^T stage on its own) each have a plain
+version here (``*_plain``) and a hand-written CUDA kernel (csrc/*.cu via
+ops/kernels.py).  The dispatching function takes the plain version only
+because its tensors lie on the CPU; on a CUDA tensor it launches the kernel
+or raises.  Storage is float32 or bfloat16 (float64 on the CPU), sums run
+at a float32 floor, and the plain versions round where the kernels round:
+pq to storage, the output to storage, and for the table passes phi = X V
+and the per-row payload to storage, the (D, k) table-space result left at
+the float32 floor (the general scatter casts it to storage).
 
 The plain versions also add in the kernels' order, one rounding per
 product and per sum (the kernels use no fused multiply-add): a k-long dot
@@ -58,15 +60,6 @@ def _plain_device(t: torch.Tensor) -> bool:
 # ---------------------------------------------------------------------------
 # plain tensor ops (no kernel of their own)
 # ---------------------------------------------------------------------------
-
-
-def project(idx: torch.Tensor, val: torch.Tensor,
-            W: torch.Tensor) -> torch.Tensor:
-    """P[i] = sum_s val[i, s] * W[idx[i, s]] (``project_xla``)."""
-    out = val[:, 0, None] * W[idx[:, 0].long()]
-    for s in range(1, idx.shape[1]):
-        out = out + val[:, s, None] * W[idx[:, s].long()]
-    return out
 
 
 def pos_dot(A: torch.Tensor, u_ids: torch.Tensor, B: torch.Tensor,
@@ -268,22 +261,6 @@ def pos_gap_blocked(dP, rows, own, block_rows: int):
 # ---------------------------------------------------------------------------
 
 
-def _project_rows(V: torch.Tensor, x_idx: torch.Tensor,
-                  x_val: torch.Tensor) -> torch.Tensor:
-    """phib = storage(X V): each row's slot products added in slot order at
-    the accumulation type.  Ids outside the table add nothing, as the TPU
-    kernels' one-hot X drops them."""
-    dt, acc = V.dtype, acc_dtype(V.dtype)
-    d = V.shape[0]
-    out = torch.zeros((x_idx.shape[0], V.shape[1]), dtype=acc,
-                      device=V.device)
-    for s in range(x_idx.shape[1]):
-        f = x_idx[:, s].long()
-        term = x_val[:, s].to(acc)[:, None] * V[f.clamp(0, d - 1)].to(acc)
-        out = out + torch.where(((f >= 0) & (f < d))[:, None], term, 0)
-    return out.to(dt)
-
-
 def _xt_scatter_plain(payload: torch.Tensor, xt: FeatureMajor):
     """(d, k) = X^T payload at the accumulation type, in the kernels'
     order: each chunk's entries in list order, then each feature's chunk
@@ -315,7 +292,7 @@ def pos_hv_tbl_plain(V, x_idx, x_val, xt, rows, own, w_blk, dense_mat,
     """X^T [B1 math on phib] with phib = storage(X V): the cross-block Hv of
     a small-D field in table space (pos_hv_tbl_pallas / _kt_pallas)."""
     num = own.shape[0] * block_rows
-    zpb = pos_hv_blocked_plain(_project_rows(V, x_idx, x_val), rows, own,
+    zpb = pos_hv_blocked_plain(project_plain(x_idx, x_val, V), rows, own,
                                w_blk, dense_mat, num, block_rows, w_scale)
     return _xt_scatter_plain(zpb, xt)
 
@@ -336,7 +313,7 @@ def hv_self_tbl_plain(V, x_idx, x_val, xt, Q1, dd):
     space (hv_self_tbl_pallas / _kt_pallas)."""
     dt, acc = Q1.dtype, acc_dtype(Q1.dtype)
     q = Q1.to(acc)
-    dot = _lane_dot(q, _project_rows(V, x_idx, x_val).to(acc))
+    dot = _lane_dot(q, project_plain(x_idx, x_val, V).to(acc))
     s = (dd.to(acc) * dot.to(dt).to(acc)).to(dt).to(acc)
     return _xt_scatter_plain((s[:, None] * q).to(dt), xt)
 
@@ -348,6 +325,60 @@ def grad_self_tbl_plain(xt, Q1, zdense, own, c_blk, block_rows: int):
     dt, acc = Q1.dtype, acc_dtype(Q1.dtype)
     zb = (zdense.to(acc) + _run_sums(c_blk, own, block_rows)).to(dt)
     return _xt_scatter_plain((zb.to(acc)[:, None] * Q1.to(acc)).to(dt), xt)
+
+
+# ---------------------------------------------------------------------------
+# the projection of a feature field (B8) and the general scatter X^T Z
+# ---------------------------------------------------------------------------
+
+
+def project_plain(idx: torch.Tensor, val: torch.Tensor,
+                  W: torch.Tensor) -> torch.Tensor:
+    """P[i] = storage(sum_s val[i, s] W[idx[i, s]]) in B8's order, with
+    ``project_pallas``'s rounding: each row's slot products added in slot
+    order at the accumulation type, one rounding per product and per sum,
+    one cast to storage at the end.  At float32 and float64 that is
+    ``project_xla``'s slot-order sum bit for bit; at bfloat16 project_xla
+    rounds every product and sum to bfloat16 instead.  Ids outside the
+    table add nothing, as the TPU kernel's one-hot X drops them.  The fused
+    table passes' phi = X V is this function too.  Mixed value and table
+    types promote, as ``project_xla``'s products do (B8 takes one type)."""
+    dt = torch.promote_types(val.dtype, W.dtype)
+    acc = acc_dtype(dt)
+    d = W.shape[0]
+    out = torch.zeros((idx.shape[0], W.shape[1]), dtype=acc, device=W.device)
+    for s in range(idx.shape[1]):
+        f = idx[:, s].long()
+        term = val[:, s].to(acc)[:, None] * W[f.clamp(0, d - 1)].to(acc)
+        out = out + torch.where(((f >= 0) & (f < d))[:, None], term, 0)
+    return out.to(dt)
+
+
+def project(idx: torch.Tensor, val: torch.Tensor,
+            W: torch.Tensor) -> torch.Tensor:
+    """P = X W of a feature field (``project``): B8 on a CUDA tensor."""
+    if _plain_device(W):
+        return project_plain(idx, val, W)
+    return kernels.project(idx, val, W)
+
+
+def scatter_plain(xt: FeatureMajor, Z: torch.Tensor) -> torch.Tensor:
+    """G = X^T Z through the field's feature-major list, summed at the
+    accumulation type in the X^T stage's order, then cast once to
+    storage."""
+    return _xt_scatter_plain(Z, xt).to(Z.dtype)
+
+
+def scatter(xt: FeatureMajor, Z: torch.Tensor) -> torch.Tensor:
+    """G = X^T Z of a feature field of any width (the JAX package's
+    ``scatter(idx, val, Z, d)``, an XLA segment sum there; ``xt`` holds
+    idx, val and d).  Pad rows (val == 0) are not in the list.  On a CUDA
+    tensor it runs the X^T stage kernel: per-feature sums in a fixed order,
+    no float atomics, so the result is deterministic.  Returns storage, as
+    ``scatter_xla`` returns Z's dtype."""
+    if _plain_device(Z):
+        return scatter_plain(xt, Z)
+    return kernels.scatter(xt, Z)
 
 
 # ---------------------------------------------------------------------------

@@ -2,11 +2,15 @@
 
 The port of ``one_class_ffm_tpu/solver/jax_solver.py`` on one device, plain
 CG, the blocked stream on both sides with the slot-order residual carry.
-Every field is either an identity id field (X is the identity: projection
-and scatter are a pad and a slice) or a non-identity feature field with at
-most ``FUSED_TBL_D`` features, whose solves run the fused table-space
-passes (the JAX package's ``_fused_tbl_side`` rule, without its TPU memory
-gates).  Cross (``uv``) and self (``uu``/``vv``) blocks are both ported.
+A field is an identity id field (X is the identity: projection and scatter
+are a pad and a slice), a non-identity feature field with at most
+``FUSED_TBL_D`` features, whose solves run the fused table-space passes
+(the JAX package's ``_fused_tbl_side`` rule, without its TPU memory gates),
+or a wider feature field, whose solves project through B8 (``project``)
+and scatter through the X^T stage (``scatter``) around the blocked stream
+passes, as the JAX package's non-fused branches do.  Every non-identity
+field's projections (init, refresh, each step's dP) go through B8.  Cross
+(``uv``) and self (``uu``/``vv``) blocks are both ported.
 The math, the block order, the CG stop rule and the rounding points are
 the reference's; the stream and table passes run the hand-written kernels
 on a CUDA device (ops/sparse_ops.py dispatches).
@@ -30,10 +34,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from one_class_ffm_tpu.data.dataset import PaddedFields, PaddedLabels
-from one_class_ffm_tpu.models.blocks import BlockInfo, BlockLayout
-from one_class_ffm_tpu.solver.params import HyperParams
-
+from ..data.dataset import PaddedFields, PaddedLabels
+from ..models.blocks import BlockInfo, BlockLayout
 from ..ops.layout import (
     FeatureMajor,
     check_own_runs,
@@ -53,8 +55,10 @@ from ..ops.sparse_ops import (
     pos_hv_tbl,
     pos_scatter_blocked,
     project,
+    scatter,
     seg_sum_blocked,
 )
+from .params import HyperParams
 
 Tensor = torch.Tensor
 
@@ -63,8 +67,8 @@ Tensor = torch.Tensor
 _PAD_RATIO = 2.0
 _HEAD_CHUNK = 512
 # largest field dim whose solves run the fused table-space passes (the JAX
-# package's OCFFM_FUSED_TBL_D default); larger non-identity fields need the
-# general X^T scatter, which is not ported
+# package's OCFFM_FUSED_TBL_D default); a wider non-identity field projects
+# and scatters around the blocked passes
 FUSED_TBL_D = 4096
 
 
@@ -82,7 +86,8 @@ class ProblemMeta:
     ident_u: Tuple[bool, ...] = ()
     ident_v: Tuple[bool, ...] = ()
     # per field: non-identity with D <= FUSED_TBL_D (JAX _fused_field) — its
-    # solves run the fused table passes over data["xf_u"/"xf_v"]
+    # solves run the fused table passes; every non-identity field has its
+    # feature-major list in data["xf_u"/"xf_v"]
     fused_u: Tuple[bool, ...] = ()
     fused_v: Tuple[bool, ...] = ()
     blocked_bm_u: int = 0
@@ -112,11 +117,12 @@ def make_device_data(u: PaddedFields, v: PaddedFields, y: PaddedLabels,
     """Assemble the device tensor dict + static meta from host padded views
     (jax_solver.make_device_data, restricted to the keys the port uses).
     Builds the blocked layout of the positive stream for both segment sides
-    and checks the contiguous-run property of each.  For each fused field
-    (non-identity, D <= FUSED_TBL_D) it builds the feature-major list of
-    its X (``xf_u``/``xf_v``, None for other fields): the static X^T side
-    of the fused table kernels, in place of the JAX package's transposed
-    (p, rows) copies."""
+    and checks the contiguous-run property of each.  For each non-identity
+    field it builds the feature-major list of its X (``xf_u``/``xf_v``,
+    None for an identity field): the static X^T side of the fused table
+    kernels (in place of the JAX package's transposed (p, rows) copies) and
+    of the general scatter.  Building it rejects ids outside the field
+    (ghost ids)."""
     device = torch.device(device)
     if not blocked_bm:
         raise NotImplementedError(
@@ -178,7 +184,8 @@ def make_device_data(u: PaddedFields, v: PaddedFields, y: PaddedLabels,
         xu_val=tuple(t(a, dtype) for a in u.val),
         xv_idx=tuple(t(a) for a in v.idx),
         xv_val=tuple(t(a, dtype) for a in v.val),
-        xf_u=xf(u, meta.fused_u), xf_v=xf(v, meta.fused_v),
+        xf_u=xf(u, [not i for i in ident_u]),
+        xf_v=xf(v, [not i for i in ident_v]),
         pos_u=t(y.u), pos_v=t(y.v), pos_w=t(y.w, dtype),
         cnt_u=t(y.count_u, dtype), cnt_v=t(y.count_v, dtype),
         reg_u=regs(u), reg_v=regs(v),
@@ -213,16 +220,6 @@ class FFMSolver:
         if mesh is not None:
             raise NotImplementedError("multi-device runs: ROADMAP A11")
         hp = meta.hp
-        for side, Ds, ident, fused in (
-                ("user", meta.layout.Du, meta.ident_u, meta.fused_u),
-                ("item", meta.layout.Dv, meta.ident_v, meta.fused_v)):
-            for fi, (dim, is_ident, is_fused) in enumerate(
-                    zip(Ds, ident, fused)):
-                if not (is_ident or is_fused):
-                    raise NotImplementedError(
-                        f"{side} field {fi} is a non-identity field with "
-                        f"D={dim} > {FUSED_TBL_D}: its solves need the "
-                        "general X^T scatter, ROADMAP A4")
         self.cg_precond = "none" if hp.cg_precond == "auto" else hp.cg_precond
         if self.cg_precond == "jacobi":
             raise NotImplementedError("cg_precond='jacobi': ROADMAP A10")
@@ -259,8 +256,13 @@ class FFMSolver:
         d = self.data
         return d[f"x{s}_idx"][fl], d[f"x{s}_val"][fl], d[f"xf_{s}"][fl]
 
+    def _fused(self, b: BlockInfo, first: bool) -> bool:
+        """True when the block side's field runs the fused table passes."""
+        u_side, fl = self._u_field(b, first)
+        return (self.meta.fused_u if u_side else self.meta.fused_v)[fl]
+
     def _proj(self, b: BlockInfo, first: bool, T: Tensor) -> Tensor:
-        """X_side @ T: the gather projection for a feature field; for an
+        """X_side @ T: the projection B8 for a feature field; for an
         identity field the table zero-padded to the row count (table pad
         rows are zero by invariant)."""
         idx, val, xf = self._x(b, first)
@@ -272,8 +274,14 @@ class FFMSolver:
         return torch.nn.functional.pad(T, (0, 0, 0, rows - T.shape[0]))
 
     def _scat(self, b: BlockInfo, first: bool, Z: Tensor, dim: int) -> Tensor:
-        """X_side^T @ Z for an identity field: row d receives row d.  A
-        feature field's solves scatter inside the fused table passes."""
+        """X_side^T @ Z at storage dtype: for an identity field row d
+        receives row d; a wide feature field scatters through its
+        feature-major list (pad rows carry val == 0 and are not in it, so
+        nothing is masked).  A small-D field's solves scatter inside the
+        fused table passes."""
+        _, _, xf = self._x(b, first)
+        if xf is not None:
+            return scatter(xf, Z)
         return Z[:dim]
 
     def _tbl_grad(self, b: BlockInfo, first: bool, T: Tensor,
@@ -386,8 +394,8 @@ class FFMSolver:
                     rows_pre: Tensor) -> Tensor:
         """Gradient for one table of a cross block (gd_cross, ffm.cpp:630-703):
         omega part via k x k Grams, positive part by the scatter kernel over
-        the pre-gathered stream; on a feature field both go to table space
-        in one fused pass."""
+        the pre-gathered stream; on a small-D feature field both go to table
+        space in one fused pass, on a wide one the X^T stage scatters them."""
         meta, d = self.meta, self.data
         hp = meta.hp
         reg, _, _ = self._side(b, first)
@@ -410,7 +418,7 @@ class FFMSolver:
         dense = hp.omega * ((side - hp.r)[:, None] * oQ[None, :]
                             + bQ[None, :] + gram_T)
         _, _, xf = self._x(b, first)
-        if xf is not None:
+        if self._fused(b, first):
             return self._tbl_grad(b, first, T, grad_cross_tbl(
                 xf, rows_pre, d[pre + "own"], c_blk, dense, bm))
         zpos = pos_scatter_blocked(c_blk, rows_pre, d[pre + "own"], num, bm)
@@ -425,8 +433,8 @@ class FFMSolver:
             G   = lam reg T + X1^T diag(z) Q1
 
         The per-row positive sums run over the slot-order carry of the
-        block's side; on a feature field they, the dense term and the X^T
-        scatter are one fused pass."""
+        block's side; on a small-D feature field they, the dense term and
+        the X^T scatter are one fused pass."""
         meta, d = self.meta, self.data
         hp = meta.hp
         T = state["params"][b.f12]["W" if first else "H"]
@@ -443,7 +451,7 @@ class FFMSolver:
             * d[pre + "w"]
         zdense = hp.omega * (n_other * (side - hp.r) + other_sum + s_cache)
         _, _, xf = self._x(b, first)
-        if xf is not None:
+        if self._fused(b, first):
             return self._tbl_grad(b, first, T, grad_self_tbl(
                 xf, Q1, zdense, d[pre + "own"], c_blk, bm))
         z = zdense + seg_sum_blocked(c_blk, d[pre + "own"], num, bm)
@@ -454,7 +462,8 @@ class FFMSolver:
     def _hv_cross(self, state, b: BlockInfo, first: bool, rows_pre: Tensor):
         """Hv closure for a cross-block table (hs_cross, ffm.cpp:706-742):
         one kernel pass per call, the omega Q1^T Q1 term fused into it (and
-        on a feature field the projection and the X^T scatter too)."""
+        on a small-D feature field the projection and the X^T scatter too;
+        a wide field projects with B8 before it and scatters after it)."""
         meta, d = self.meta, self.data
         hp = meta.hp
         reg, _, _ = self._side(b, first)
@@ -465,9 +474,10 @@ class FFMSolver:
         own, w_blk = d[pre + "own"], d[pre + "w"]
         w_scale = 1.0 - hp.omega
         idx, val, xf = self._x(b, first)
+        fused = self._fused(b, first)
 
         def hv(V: Tensor) -> Tensor:
-            if xf is not None:
+            if fused:
                 G = pos_hv_tbl(V, idx, val, xf, rows_pre, own, w_blk, dmat,
                                bm, w_scale)
                 return hp.lam * reg[:, None] * V + G.to(V.dtype)
@@ -480,7 +490,8 @@ class FFMSolver:
     def _hv_self(self, state, b: BlockInfo, first: bool):
         """Hv closure for a self-block table (hs_side, ffm.cpp:594-628):
         d_i = (1-w)|pos_i| + w n;  Hv = lam reg V + X1^T diag(d <Q1, X1 V>)
-        Q1 — one fused table pass per call on a feature field."""
+        Q1 — one fused table pass per call on a small-D feature field, B8
+        and the X^T stage on a wide one."""
         meta, d = self.meta, self.data
         hp = meta.hp
         reg, _, _ = self._side(b, first)
@@ -491,9 +502,10 @@ class FFMSolver:
             dd = (1.0 - hp.omega) * d["cnt_v"] + hp.omega * meta.m_true
         dim = state["params"][b.f12]["W" if first else "H"].shape[0]
         idx, val, xf = self._x(b, first)
+        fused = self._fused(b, first)
 
         def hv(V: Tensor) -> Tensor:
-            if xf is not None:
+            if fused:
                 G = hv_self_tbl(V, idx, val, xf, Q1, dd)
                 return hp.lam * reg[:, None] * V + G.to(V.dtype)
             s = dd * (Q1 * self._proj(b, first, V)).sum(dim=1)

@@ -196,3 +196,65 @@ def test_wrappers_reject_bad_inputs(device):
     with pytest.raises(ValueError, match="shape"):
         kernels.pos_scatter_blocked(torch.zeros(3, device=device), x, own,
                                     num, BM)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [8, 32, 40])
+@pytest.mark.parametrize("p", [3, 4, 37])
+def test_project_matches_plain(device, dtype, k, p):
+    """B8 on a wide table (D = 5000) with duplicate ids, pad slots, pad
+    rows and ghost ids (>= D or negative, which add nothing); p = 37 takes
+    two 32-slot loads of a row's ids."""
+    rng = np.random.default_rng(7)
+    num, d = 700, 5000
+    idx, val = _field(rng, num, d, p=p)
+    idx[::11, 1] = d + 3
+    idx[::13, p - 1] = -2
+
+    def T(a):
+        return torch.as_tensor(a).to(device=device, dtype=dtype).contiguous()
+
+    x_idx = torch.as_tensor(idx, dtype=torch.int32, device=device)
+    W = T(rng.normal(size=(d, k)))
+    kernels.reset_launch_counts()
+    got = ops.project(x_idx, T(val), W)  # the dispatcher launches on CUDA
+    again = kernels.project(x_idx, T(val), W)
+    ref = ops.project_plain(x_idx, T(val), W)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (num, k)
+    assert torch.equal(got, again)
+    assert torch.equal(got, ref)  # same order, same roundings
+    assert kernels.launch_counts()["project"] == 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [8, 32, 40])
+def test_scatter_matches_plain(device, dtype, k):
+    """The general scatter X^T Z on a wide field (D = 5000) with a heavy
+    feature split over chunks: bit-equal to its plain version, returned at
+    storage dtype."""
+    rng = np.random.default_rng(8)
+    num, d = 900, 5000
+    idx, val = _field(rng, num, d)
+    fm = feature_major(idx, val, d)
+
+    def T(a):
+        return torch.as_tensor(a).to(device=device, dtype=dtype).contiguous()
+
+    def I(a):
+        return torch.as_tensor(a, dtype=torch.int32, device=device)
+
+    xt = FeatureMajor(row=I(fm.row), val=T(fm.val), chunk_ptr=I(fm.chunk_ptr),
+                      feat_ptr=I(fm.feat_ptr), n_rows=fm.n_rows)
+    Z = T(rng.normal(size=(num, k)))
+    kernels.reset_launch_counts()
+    got = ops.scatter(xt, Z)
+    again = kernels.scatter(xt, Z)
+    ref = ops.scatter_plain(xt, Z)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (d, k)
+    assert torch.equal(got, again)
+    assert torch.equal(got, ref)
+    assert kernels.launch_counts()["scatter"] == 2
+    with pytest.raises(ValueError, match="rows"):
+        kernels.scatter(xt, Z[:-1].contiguous())

@@ -1,5 +1,5 @@
 """End to end: the port's command line and trainer against the JAX ones on
-tiny MF and FFM text datasets, each from one warm-start model."""
+tiny MF, FFM and FM text datasets, each from one warm-start model."""
 
 import json
 
@@ -8,10 +8,17 @@ import pytest
 import torch
 
 from one_class_ffm_tpu import cli as jax_cli
-from one_class_ffm_tpu.data.synth import SynthSpec, write_dataset
+from one_class_ffm_tpu.data.synth import (
+    SynthSpec,
+    _write_rows,
+    generate,
+    write_dataset,
+)
 from one_class_ffm_tpu.train import TrainConfig, load_text_model
 from one_class_ffm_torch import cli as torch_cli
+from one_class_ffm_torch.solver import torch_solver
 from one_class_ffm_torch.train import Trainer
+from test_torch_copies import _flatten
 
 torch.set_num_threads(1)
 
@@ -80,6 +87,66 @@ def test_cli_ffm_rows_match_jax(ffm_set, tmp_path, capsys):
     for a, b in zip(got_js, ref_js):
         for key in ("p@5", "ndcg@10", "ploss", "auc"):
             assert a[key] == pytest.approx(b[key], rel=1e-9)
+
+
+@pytest.fixture(scope="module")
+def fm_set(tmp_path_factory):
+    """FM text files (one field per side: the id and the feature columns,
+    140 and 60 features), split as write_dataset splits, and a random text
+    model with self blocks and one without."""
+    out = tmp_path_factory.mktemp("fm")
+    spec = SynthSpec(n_users=90, n_items=30, avg_pos=5.0, seed=7)
+    du, dv = spec.resolve()
+    users, items = generate(spec)
+    rng = np.random.default_rng(spec.seed + 1)
+    tr_rows, va_rows = [], []
+    for labels, feats in _flatten(users, du):
+        labels = list(labels)
+        rng.shuffle(labels)
+        n_va = min(int(len(labels) * 0.2), len(labels) - 1)
+        tr_rows.append((sorted(labels[n_va:]), feats))
+        if n_va > 0:
+            va_rows.append((sorted(labels[:n_va]), feats))
+    item, train, va = (str(out / n) for n in ("items.fm", "train.fm",
+                                               "va.fm"))
+    _write_rows(item, _flatten(items, dv), with_labels=False)
+    _write_rows(train, tr_rows, with_labels=True)
+    _write_rows(va, va_rows, with_labels=True)
+    models = {}
+    for tag, flags in (("self", []), ("ns", ["--ns"])):
+        models[tag] = str(out / f"model_{tag}.txt")
+        assert jax_cli.main([item, train, *flags, "-k", "4", "-t", "0",
+                             "--platform", "cpu", "--dtype", "float64",
+                             "-o", models[tag]]) == 0
+    return item, train, va, models
+
+
+@pytest.mark.parametrize("extra", [(), ("--ns",)], ids=["self", "ns"])
+def test_cli_fm_rows_match_jax(fm_set, tmp_path, capsys, monkeypatch, extra):
+    """FM with and without self blocks, its fields (140 and 60 features)
+    above a lowered fused-table cap, so the port projects with B8 and
+    scatters with the X^T stage: same header, log rows and top-K ids as
+    the JAX CLI, byte for byte."""
+    monkeypatch.setattr(torch_solver, "FUSED_TBL_D", 8)
+    monkeypatch.setenv("OCFFM_FUSED_TBL_D", "8")
+    item, train, va, models = fm_set
+    data_set = (item, train, va, models["ns" if extra else "self"])
+    ref_out, ref_js = _run(jax_cli.main, data_set, tmp_path, capsys, "jax",
+                           extra=extra)
+    got_out, got_js = _run(torch_cli.main, data_set, tmp_path, capsys,
+                           "torch", extra=extra)
+    assert got_out == ref_out
+    assert len(got_out.splitlines()) > 3
+    for a, b in zip(got_js, ref_js):
+        for key in ("p@5", "ndcg@10", "ploss", "auc"):
+            assert a[key] == pytest.approx(b[key], rel=1e-9)
+    trainer = Trainer(TrainConfig(item_path=item, train_path=train, k=4,
+                                  dtype="float64",
+                                  self_side=not extra), device="cpu")
+    meta = trainer.meta
+    assert trainer.data.layout.Du == (140,) and trainer.data.layout.Dv == (60,)
+    assert meta.fused_u == (False,) and meta.fused_v == (False,)
+    assert meta.ident_u == (False,) and meta.ident_v == (False,)
 
 
 # models without --ns run now; the last case is such a model with a flag

@@ -36,39 +36,24 @@ def test_port_modules_import_without_jax():
     assert int(proc.stdout.strip()) >= 10
 
 
-# the JAX package's modules that the port and chip_smoke.py import: each
-# must import without jax (the card's machine has none)
-JAX_PACKAGE_MODULES = (
-    "one_class_ffm_tpu.cli",
-    "one_class_ffm_tpu.data.dataset",
-    "one_class_ffm_tpu.data.synth",
-    "one_class_ffm_tpu.evalx.numpy_metrics",
-    "one_class_ffm_tpu.models.blocks",
-    "one_class_ffm_tpu.solver.oracle",
-    "one_class_ffm_tpu.solver.params",
-    "one_class_ffm_tpu.train",
-    "one_class_ffm_tpu.utils.profiling",
-)
-
-
 def test_jax_package_modules_the_port_uses_import_without_jax():
-    """The listed modules import without jax, and the port and
-    chip_smoke.py load nothing of the JAX package beyond what the listed
-    modules themselves load."""
+    """The port uses no module of the JAX package: importing every module
+    of one_class_ffm_torch and chip_smoke.py loads no one_class_ffm_tpu
+    module and no jax (the port keeps its own copies of the host code,
+    tests/test_torch_copies.py)."""
     code = (
         "import importlib, pkgutil, sys\n"
-        "def tpu():\n"
-        "    return {n for n in sys.modules\n"
-        "            if n.startswith('one_class_ffm_tpu.')}\n"
-        f"for n in {JAX_PACKAGE_MODULES!r}: importlib.import_module(n)\n"
-        "listed = tpu()\n"
         "import one_class_ffm_torch as p\n"
-        "for m in pkgutil.walk_packages(p.__path__, 'one_class_ffm_torch.'):\n"
-        "    if m.name != 'one_class_ffm_torch.__main__':\n"
-        "        importlib.import_module(m.name)\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    p.__path__, 'one_class_ffm_torch.')\n"
+        "    if m.name != 'one_class_ffm_torch.__main__']\n"
+        "for n in names: importlib.import_module(n)\n"
         "import chip_smoke\n"
-        "assert tpu() == listed, sorted(tpu() - listed)\n"
-        "assert 'jax' not in sys.modules, 'jax imported'\n")
+        "tpu = sorted(n for n in sys.modules\n"
+        "             if n.split('.')[0] == 'one_class_ffm_tpu')\n"
+        "assert not tpu, tpu\n"
+        "assert 'jax' not in sys.modules, 'jax imported'\n"
+        "assert len(names) >= 20, names\n")
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
 
@@ -148,7 +133,7 @@ def test_chip_smoke_ffm_rehearsal_on_cpu():
     solver = trainer.solver
     state = trainer.init_state()
     names = {n for case in chip_smoke.ffm_cases(trainer) for n in case[0]}
-    assert names == set(chip_smoke.TABLE)
+    assert names == set(chip_smoke.TABLE) | {"project"}
     b = next(b for b in solver.blocks if b.kind == "uu" and b.f1 == 1)
     with chip_smoke.first_calls(chip_smoke.TABLE) as seen:
         solver._solve_half(state, b, True, *solver.sasb(state))
@@ -157,3 +142,84 @@ def test_chip_smoke_ffm_rehearsal_on_cpu():
     chip_smoke.check_main_path(res)
     assert all(len(i) == 2 * len(solver.blocks) for i in res["iters"])
     assert res["metrics"]["auc"] > 0.5
+
+
+def test_chip_smoke_fm_rehearsal_on_cpu(tmp_path):
+    """The smoke script's FM data (one flattened field per side, above a
+    lowered cap), its FM cases, the FM main-path loop, its work counts and
+    library yardsticks, and its FM text files, at toy size on the CPU."""
+    sys.path.insert(0, ROOT)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(ROOT)
+    from one_class_ffm_torch import train
+
+    data = chip_smoke.build_data(600, 120, 5.0, seed=2, dims_u=(600, 30),
+                                 dims_v=(120, 20), self_side=True, fm=True)
+    assert data.u_pad.Ds == (630,) and data.v_pad.Ds == (140,)
+    assert data.uva_pad.f == 1 and data.uva_pad.Ds == (630,)
+    with chip_smoke.fused_cap(8):
+        trainer = chip_smoke.make_trainer(data, "cpu", k=4)
+    meta = trainer.solver.meta
+    assert meta.fused_u == (False,) and meta.fused_v == (False,)
+    assert meta.ident_u == (False,) and meta.ident_v == (False,)
+    names = {n for case in chip_smoke.fm_cases(trainer) for n in case[0]}
+    assert names == set(chip_smoke.BLOCKED + chip_smoke.WIDE)
+    res = chip_smoke.train_and_validate(trainer, epochs=3)
+    chip_smoke.check_main_path(res)
+    assert all(len(i) == 6 for i in res["iters"])  # uv, uu, vv x 2 sides
+    assert res["metrics"]["auc"] > 0.5
+
+    # work and yardsticks of B8 and the scatter on a tiny field
+    idx = torch.tensor([[0, 2, 2], [1, 0, 0]], dtype=torch.int32)
+    val = torch.tensor([[1.0, 0.5, 0.5], [2.0, 0.0, 0.0]])
+    W = torch.arange(12, dtype=torch.float32).reshape(4, 3)
+    nbytes, ops = chip_smoke.work("project", (idx, val, W), torch.empty(2, 3))
+    assert ops == 2 * 3 * 4  # four nonzero entries
+    assert nbytes == 24 + 24 + 3 * 12 + 24  # idx, val, rows 0-2, out
+    lib = chip_smoke.library_call("project", (idx, val, W))
+    assert torch.equal(lib(), ops_mod().project_plain(idx, val, W))
+    xt = trainer.solver.data["xf_u"][0]
+    Z = torch.rand(xt.n_rows, 4)
+    np.testing.assert_allclose(
+        chip_smoke.library_call("scatter", (xt, Z))().numpy(),
+        ops_mod().scatter_plain(xt, Z).numpy(), rtol=1e-5, atol=1e-6)
+    # the blocked gradient scatter's sparse-product yardstick
+    from one_class_ffm_torch.ops.layout import make_blocked_layout
+
+    rng = np.random.default_rng(0)
+    seg = np.sort(rng.integers(0, 32, size=90)).astype(np.int32)
+    blk = make_blocked_layout(seg, seg, 32, 8, max_pad_ratio=50.0)
+    own = torch.from_numpy(blk["own"])
+    c = torch.from_numpy(rng.normal(size=own.shape).astype(np.float32))
+    rows = torch.from_numpy(
+        rng.normal(size=own.shape + (4,)).astype(np.float32))
+    args = (c, rows, own, 32, 8)
+    np.testing.assert_allclose(
+        chip_smoke.library_call("pos_scatter_blocked", args)().numpy(),
+        ops_mod().pos_scatter_blocked_plain(*args).numpy(), rtol=1e-5,
+        atol=1e-6)
+    assert chip_smoke.library_call("pos_gap_blocked", args) is None
+    assert chip_smoke.bound_of(3.35e9, 0) == (1.0, "bytes")
+    assert chip_smoke.bound_of(0, 67e9) == (1.0, "operations")
+
+    chip_smoke.write_fm_dataset(str(tmp_path), chip_smoke_spec())
+    loaded = train.load_problem(train.TrainConfig(
+        item_path=str(tmp_path / "items.ffm"),
+        train_path=str(tmp_path / "train.ffm"),
+        test_path=str(tmp_path / "va.ffm")))
+    assert loaded.layout.fu == 1 and loaded.layout.fv == 1
+    assert loaded.u_pad.Ds == (90 + 50,) and loaded.v_pad.Ds == (30 + 30,)
+
+
+def ops_mod():
+    from one_class_ffm_torch.ops import sparse_ops
+
+    return sparse_ops
+
+
+def chip_smoke_spec():
+    from one_class_ffm_torch.data.synth import SynthSpec
+
+    return SynthSpec(n_users=90, n_items=30, avg_pos=5.0, seed=3)

@@ -257,13 +257,14 @@ def _skewed_problem():
     return prob, params
 
 
-# self blocks and small-D feature fields run now: their cases hold what
-# still raises — self blocks under Jacobi (A10) and a non-identity field
-# above the fused cap (A4)
+# self blocks, small-D feature fields and wide feature fields run now: their
+# cases hold what still raises — self blocks under Jacobi (A10) and a wide
+# non-identity field under Jacobi (A10; without Jacobi it trains,
+# tests/test_torch_wide.py)
 OUT_OF_SLICE = {
     "self_blocks": dict(self_side=True, cg_precond="jacobi"),
     "jacobi": dict(cg_precond="jacobi"),
-    "non_identity_field": dict(identity=False),
+    "non_identity_field": dict(identity=False, cg_precond="jacobi"),
     "head_tier": dict(skewed=True),
     "no_layout": dict(blocked_bm=0),
     "mesh": dict(mesh=object()),
@@ -273,7 +274,7 @@ OUT_OF_SLICE = {
 # a skewed side whose power rows fit no head chunk falls back to the plain
 # COO passes (A3); one that takes the head tier needs A9
 ROADMAP_ITEM = {"self_blocks": "A10", "jacobi": "A10",
-                "non_identity_field": "A4", "head_tier": "A[39]",
+                "non_identity_field": "A10", "head_tier": "A[39]",
                 "no_layout": "A3", "mesh": "A11"}
 
 
