@@ -8,7 +8,8 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
 
 1. device: the card's name and power limit, torch and CUDA versions;
 2. build: compile the port's CUDA kernels from csrc/ (nvcc, sm_90a, one
-   compiler per source, in parallel);
+   compiler per source, in parallel) and print each kernel's registers per
+   thread (cuobjdump), which set how many CTAs an SM holds;
 3. kernels: each kernel against its plain PyTorch version on the card, on
    the arguments its first call receives in a real half-solve, at float32
    and bfloat16: bit-identical on repeat, max-rel within the bound (1e-5 /
@@ -21,11 +22,16 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
    (the same rows, u-side field D=1000 and v-side field D=500); the blocked
    kernels, B8 and the general scatter in FM solves (one flattened field
    per side, D=201,000 and 20,500);
+   Then the Jacobi variants of three of them (the second output of B2, B5
+   and B7) on arguments recorded from real Jacobi half-solves of the FFM,
+   and B9 and B10 on the MF streams, each also against B1's output;
 4. reference: on a small MF problem, a small FFM problem with self blocks
    and a small FM problem whose fields are above a lowered fused-table cap,
    the gradients and Hv products the kernels give on the card match the
    fp64 numpy oracle, and the objective the solver tracks through two
-   kernel-driven epochs matches the oracle's brute-force loss;
+   kernel-driven epochs matches the oracle's brute-force loss; the FFM and
+   FM problems again under Jacobi, with the Hessian diagonal against the
+   oracle's and two epochs against the oracle's Jacobi epochs;
 5. main path, MF: the port's Trainer trains MF --ns at 200,000 users x
    20,000 items, ~5 positives per user, k=32, float32 for 3 epochs and
    validates once; its three kernels and B8 must have launched;
@@ -38,16 +44,21 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
    every path the objective must fall every epoch and every metric must be
    finite; one more epoch under torch.profiler gives the device's idle
    share and the kernels that take the time;
-8. entry point: ``python -m one_class_ffm_torch`` on small text datasets,
+   FFM and FM again under Jacobi-preconditioned CG: the three diagonal
+   variants must have launched, and the CG counts print beside plain CG's;
+8. the Hv variants' path: ``hv_pack_bench`` checks B1, B9 and B10 on its
+   synthetic stream and times them; B9 and B10 must have launched;
+9. entry point: ``python -m one_class_ffm_torch`` on small text datasets,
    MF with --ns, FFM without, and FM with its user field above the cap,
    must exit 0.
 
 The line before the last is a JSON object with one entry per kernel: its
-launches summed over the three main paths, its largest error against the
-plain version, and its times and bound summed over the sides and shapes
-of phase 3.  The last line is ``{"ok": true, "device": {...}}``.  Without a
-CUDA device, or without the one_class_ffm_torch package beside this file,
-it exits 1 and prints no result.  Nothing here imports jax or the JAX
+launches summed over the five main paths (B9 and B10: over the bench's
+run), its largest error against the plain version, and its times and bound
+summed over the sides and shapes of phase 3.  The last line is ``{"ok":
+true, "device": {...}}``.  Without a CUDA device, or without the
+one_class_ffm_torch package beside this file, it exits 1 and prints no
+result.  Nothing here imports jax or the JAX
 package.
 """
 
@@ -79,15 +90,25 @@ REPLACES = {
     "grad_self_tbl": f"{_JAX_OPS}:1900",
     "project": f"{_JAX_OPS}:81",
     "scatter": f"{_JAX_OPS}:190",
+    # the same TPU kernels' Jacobi outputs (w_blk / w_blk / dd)
+    "pos_scatter_blocked_diag": f"{_JAX_OPS}:1623",
+    "grad_cross_tbl_diag": f"{_JAX_OPS}:1695",
+    "grad_self_tbl_diag": f"{_JAX_OPS}:1900",
+    "pos_hv_packed": "scripts/hv_pack_bench.py:84",
+    "pos_hv_blocked_g": "scripts/hv_pack_bench.py:150",
 }
 BLOCKED = ("pos_hv_blocked", "pos_scatter_blocked", "pos_gap_blocked")
 TABLE = ("pos_hv_tbl", "grad_cross_tbl", "hv_self_tbl", "grad_self_tbl")
 WIDE = ("project", "scatter")
+DIAG = ("pos_scatter_blocked_diag", "grad_cross_tbl_diag",
+        "grad_self_tbl_diag")
+VARIANTS = ("pos_hv_packed", "pos_hv_blocked_g")
 _CSRC = "one_class_ffm_torch/csrc/"
-SOURCE = {name: _CSRC + ("blocked_ops.cu" if name in BLOCKED
-                         else "project_ops.cu" if name == "project"
-                         else "table_ops.cu")
-          for name in REPLACES}
+SOURCE = {name: _CSRC + (
+    "blocked_ops.cu" if name in BLOCKED + ("pos_scatter_blocked_diag",)
+    else "project_ops.cu" if name == "project"
+    else "hv_variants.cu" if name in VARIANTS
+    else "table_ops.cu") for name in REPLACES}
 BOUND = {"float32": 1e-5, "bfloat16": 5e-3}  # max-rel, scripts/kt_debug.py
 # the H100 SXM's published peaks (NVIDIA's H100 datasheet): device memory
 # and float32 outside the tensor cores, which is what these kernels use
@@ -211,13 +232,13 @@ def build_data(n_users: int, n_items: int, avg_pos: float, seed: int,
 
 
 def make_trainer(data, device, k: int = 32, dtype: str = "float32",
-                 epochs: int = 3):
+                 epochs: int = 3, cg_precond: str = "auto"):
     from one_class_ffm_torch.train import TrainConfig, Trainer
 
     cfg = TrainConfig(item_path="<memory>", train_path="<memory>", k=k,
                       lam=0.05, omega=0.1, r=-1.0, nr_pass=epochs,
                       self_side=data.layout.self_side, dtype=dtype,
-                      eval_every=epochs, seed=0)
+                      eval_every=epochs, seed=0, cg_precond=cg_precond)
     return Trainer(cfg, data=data, device=device)
 
 
@@ -275,27 +296,59 @@ def check_main_path(res) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _nbytes(a) -> int:
+def _nbytes(a, squared: bool = False) -> int:
+    """Bytes of a tensor, of a tuple of outputs, or of a feature-major list
+    (with its squared values when the function reads them)."""
     import torch
 
     from one_class_ffm_torch.ops.layout import FeatureMajor
 
     if isinstance(a, torch.Tensor):
         return a.numel() * a.element_size()
+    if isinstance(a, tuple) and not isinstance(a, FeatureMajor):
+        return sum(_nbytes(t) for t in a)
     if isinstance(a, FeatureMajor):
         return sum(_nbytes(t) for t in (a.row, a.val, a.chunk_ptr,
-                                        a.feat_ptr))
+                                        a.feat_ptr)) + (
+            _nbytes(a.val_sq) if squared else 0)
     return 0
 
 
 def work(name: str, args, out):
     """(bytes, operations) that the function needs on these inputs: each
     input read once and the output written once (for ``project`` only the
-    table rows its ids name), and the products and sums of the entries
-    these inputs hold (valid slots, nonzero X entries), not of padding."""
+    table rows its ids name; for B9 one lane of each 32-lane group of the
+    packed owners and weights), and the products and sums of the entries
+    these inputs hold (valid slots, nonzero X entries), not of padding.  A
+    Jacobi variant adds its second payload (rows^2 scaled and summed per
+    slot, or dd Q1 Q1 per row) and its X^2 pass."""
     import torch
 
-    nbytes = sum(_nbytes(a) for a in args) + _nbytes(out)
+    diag = name.endswith("_diag")
+    nbytes = (sum(_nbytes(a, squared=diag) for a in args) + _nbytes(out))
+    if name == "pos_hv_packed":
+        phi, rows_p, own_p, w_p, dense, num_out, bm = args[:7]
+        nbytes -= (_nbytes(own_p) + _nbytes(w_p)) * 31 // 32
+        k = phi.shape[1]
+        live = int((own_p[:, :, ::k] < bm).sum())
+        return nbytes, live * (4 * k + 2) + num_out * 2 * k * k
+    if name == "pos_hv_blocked_g":
+        name = "pos_hv_blocked"
+    if name == "pos_scatter_blocked_diag":
+        _, rows, own, _, bm = args[:5]
+        k = rows.shape[2]
+        return nbytes, int((own < bm).sum()) * (5 * k + 1)
+    if diag:
+        k = out[0].shape[1]
+        xt = next(a for a in args if hasattr(a, "feat_ptr"))
+        xt_ops = 4 * k * xt.row.numel()
+        if name == "grad_cross_tbl_diag":
+            _, rows, own, _, dense, bm = args[:6]
+            return nbytes, (int((own < bm).sum()) * (5 * k + 1)
+                            + dense.numel() + xt_ops)
+        _, Q1, _, own, _, bm = args[:6]  # grad_self_tbl_diag
+        return nbytes, (int((own < bm).sum()) + Q1.shape[0] * (3 * k + 1)
+                        + xt_ops)
     if name == "project":
         idx, val, W = args
         live = val != 0
@@ -303,7 +356,9 @@ def work(name: str, args, out):
         nbytes += used * W.shape[1] * W.element_size() - _nbytes(W)
         return nbytes, 2 * W.shape[1] * int(live.sum())
     if name == "scatter":
-        xt, Z = args
+        xt, Z = args[:2]
+        if args[2:] and args[2]:  # through X^2: val_sq is read, not val
+            nbytes += _nbytes(xt.val_sq) - _nbytes(xt.val)
         return nbytes, 2 * Z.shape[1] * xt.row.numel()
     if name == "pos_hv_blocked":
         _, rows, own, _, _, num_out, bm = args[:7]
@@ -363,10 +418,11 @@ def library_call(name: str, args):
         return lambda: torch.nn.functional.embedding_bag(
             idx_l, W, mode="sum", per_sample_weights=val)
     if name == "scatter":
-        xt, Z = args
+        xt, Z = args[:2]
         d = xt.feat_ptr.numel() - 1
         Xt = torch.sparse_csr_tensor(
-            xt.chunk_ptr.long()[xt.feat_ptr.long()], xt.row.long(), xt.val,
+            xt.chunk_ptr.long()[xt.feat_ptr.long()], xt.row.long(),
+            xt.val_sq if args[2:] and args[2] else xt.val,
             size=(d, Z.shape[0]))
         return lambda: torch.sparse.mm(Xt, Z)
     if name == "pos_scatter_blocked":
@@ -398,6 +454,34 @@ def gpu_line() -> str:
     return out.strip().splitlines()[0]
 
 
+def kernel_registers(lib_path: str):
+    """{(kernel, dtype, Jacobi variant?): registers per thread} of the
+    built library, from ``cuobjdump -res-usage`` of the CUDA toolkit, or
+    None where it is missing: with 256 threads per CTA the register count
+    sets how many CTAs an SM holds, which the latency-bound stream kernels
+    need."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    out = subprocess.run([tool, "-res-usage", lib_path], capture_output=True,
+                         text=True, timeout=120).stdout
+    regs, name = {}, None
+    for line in out.splitlines():
+        m = re.search(r"\d+([a-z][a-z_]*_kernel)I(13__nv_bfloat16|f)E?"
+                      r"(Lb[01])?", line)
+        if m:
+            name = (m.group(1), "bf16" if m.group(2) != "f" else "f32",
+                    m.group(3) == "Lb1")
+        m = re.search(r"REG:(\d+)", line)
+        if m and name:
+            regs[name] = int(m.group(1))
+            name = None
+    return regs
+
+
 def time_ms(fn, reps: int = 10, rounds: int = 5) -> float:
     """Median over rounds of the mean time of ``reps`` back-to-back calls,
     by CUDA events, after warm-up."""
@@ -425,32 +509,53 @@ def new_report():
             for name in REPLACES}
 
 
-def compare(name: str, side: str, dt_name: str, args, kw, report, gpu: str):
-    """One kernel against its plain version on the same inputs: two
-    launches bit-identical, max-rel within the bound; at float32 also the
-    kernel, plain and library times and the work's bound."""
+def _outputs(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+def compare(name: str, side: str, dt_name: str, args, kw, report, gpu: str,
+            same_as=None):
+    """One kernel against its plain version on the same inputs (a Jacobi
+    variant: both outputs against the plain version called with the
+    diagonal's argument): two launches bit-identical, max-rel within the
+    bound; ``same_as``: a tensor the kernel must reproduce bit for bit (B1's
+    output, for its variants).  At float32 also the kernel, plain and
+    library times and the work's bound."""
     import torch
 
     from one_class_ffm_torch.ops import kernels
     from one_class_ffm_torch.ops import sparse_ops as ops
 
-    kern, plain = getattr(kernels, name), getattr(ops, name + "_plain")
+    kern = getattr(kernels, name)
+    plain = getattr(ops, name.removesuffix("_diag") + "_plain")
     got, got2 = kern(*args, **kw), kern(*args, **kw)
     ref = plain(*args, **kw)
     torch.cuda.synchronize()
-    check(torch.equal(got, got2), f"{name} {side} {dt_name}: two launches "
+    pairs = list(zip(_outputs(got), _outputs(got2), _outputs(ref)))
+    check(len(pairs) == len(_outputs(ref)),
+          f"{name} {side} {dt_name}: {len(_outputs(got))} outputs, plain "
+          f"{len(_outputs(ref))}")
+    err = rel = 0.0
+    equal = True
+    for g, g2, f in pairs:
+        check(torch.equal(g, g2), f"{name} {side} {dt_name}: two launches "
                                   "differ")
-    check(got.shape == ref.shape and got.dtype == ref.dtype,
-          f"{name} {side} {dt_name}: {got.shape} {got.dtype} vs plain "
-          f"{ref.shape} {ref.dtype}")
-    err = (got.double() - ref.double()).abs().max().item()
-    scale = ref.double().abs().max().item()
-    rel = err / scale if scale > 0 else err
+        check(g.shape == f.shape and g.dtype == f.dtype,
+              f"{name} {side} {dt_name}: {g.shape} {g.dtype} vs plain "
+              f"{f.shape} {f.dtype}")
+        e = (g.double() - f.double()).abs().max().item()
+        scale = f.double().abs().max().item()
+        err, rel = max(err, e), max(rel, e / scale if scale > 0 else e)
+        equal = equal and torch.equal(g, f)
     r = report[name]
     r["max_abs_err"] = max(r["max_abs_err"], err)
-    line = (f"[kernels] {name:20s} {side} {dt_name:8s} max-rel {rel:.3e} "
+    line = (f"[kernels] {name:24s} {side} {dt_name:8s} max-rel {rel:.3e} "
             f"(bound {BOUND[dt_name]:g}) max-abs {err:.3e} bit-equal "
-            f"{torch.equal(got, ref)}")
+            f"{equal}")
+    if same_as is not None:
+        b1_equal = torch.equal(_outputs(got)[0], same_as)
+        line += f" B1-bits {b1_equal}"
+        check(b1_equal, f"{name} {side} {dt_name}: not B1's bits")
     if dt_name == "float32":
         ms = time_ms(lambda: kern(*args, **kw))
         pms = time_ms(lambda: plain(*args, **kw))
@@ -507,7 +612,8 @@ def _cast(a, dt):
     if isinstance(a, torch.Tensor) and a.is_floating_point():
         return a.to(dt).contiguous()
     if isinstance(a, FeatureMajor):
-        return a._replace(val=a.val.to(dt))
+        v = a.val.to(dt)
+        return a._replace(val=v, val_sq=None if a.val_sq is None else v * v)
     return a
 
 
@@ -581,6 +687,56 @@ def fm_cases(trainer):
     return [(names, b, True, "u"), (names, b, False, "v")]
 
 
+def jacobi_cases(trainer):
+    """The FFM solves under Jacobi whose gradient passes carry the Hessian
+    diagonal's second output: the id fields' cross block (B2's payload, on
+    the MF streams), the categorical fields' cross block (B5's) and each
+    categorical self block (B7's)."""
+    lay = trainer.solver.meta.layout
+    blocks = {(b.f1, b.f2): b for b in lay.all_blocks()}
+    fu = lay.fu
+    scat, cross, self_ = (("pos_scatter_blocked_diag",),
+                          ("grad_cross_tbl_diag",), ("grad_self_tbl_diag",))
+    return [(scat, blocks[(0, fu)], True, "u"),
+            (scat, blocks[(0, fu)], False, "v"),
+            (cross, blocks[(1, fu + 1)], True, "u"),
+            (cross, blocks[(1, fu + 1)], False, "v"),
+            (self_, blocks[(1, 1)], True, "u"),
+            (self_, blocks[(fu + 1, fu + 1)], True, "v")]
+
+
+def variant_phase(trainer, gpu: str, report) -> None:
+    """B9 and B10 on the arguments B1 receives in a real MF half-solve, on
+    each side: B9 on the stream packed as the TPU experiment packed it, B10
+    at G = 2 where the block count allows it (u: 782 blocks) and G = 1
+    otherwise (v: 79 blocks, a prime).  Each against its plain version and
+    against B1's output on the same inputs, at float32 and bfloat16."""
+    import torch
+
+    from one_class_ffm_torch.ops import kernels
+    from one_class_ffm_torch.ops import sparse_ops as ops
+
+    solver = trainer.solver
+    state = trainer.init_state()
+    b = solver.meta.layout.cross_blocks()[0]
+    for first, side in ((True, "u"), (False, "v")):
+        with first_calls(("pos_hv_blocked",)) as seen:
+            solver._solve_half(state, b, first, None, None)
+        args = seen["pos_hv_blocked"][0]
+        groups = 2 if args[1].shape[0] % 2 == 0 else 1
+        for dt_name, dt in (("float32", torch.float32),
+                            ("bfloat16", torch.bfloat16)):
+            a = [_cast(x, dt) for x in args]
+            phi, rows, own, w, dense, num, bm, w_scale = a
+            b1 = kernels.pos_hv_blocked(*a)
+            compare("pos_hv_packed", f"MF {side}", dt_name,
+                    [phi, *ops.pack_rows(rows, own, w), dense, num, bm,
+                     w_scale], {}, report, gpu, same_as=b1)
+            compare("pos_hv_blocked_g", f"MF {side} G={groups}", dt_name,
+                    [phi, rows, own, w, dense, num, bm, groups, w_scale], {},
+                    report, gpu, same_as=b1)
+
+
 def _dense_fields(pf):
     """Dense (m_true, D) matrices of a side's padded fields (pad slots and
     rows add nothing)."""
@@ -596,27 +752,62 @@ def _dense_fields(pf):
     return out
 
 
-def reference_phase(device, tag: str) -> None:
+def _without_repeated_ids(data):
+    """The data with each row's repeated feature ids dropped (value 0 after
+    the first).  The Jacobi diagonal squares X slot by slot, as the JAX
+    package does (its kernels' _xoh_block(square=True), its _scat_sq): that
+    is the oracle's dense X^2 unless a row holds one feature twice, which
+    the synthetic categorical fields do in a few rows."""
+    import dataclasses
+
+    import numpy as np
+
+    def side(pf):
+        vals = []
+        for idx, val in zip(pf.idx, pf.val):
+            val = val.copy()
+            live = val != 0
+            for s_ in range(1, idx.shape[1]):
+                rep_ = (idx[:, :s_] == idx[:, s_:s_ + 1]) & live[:, :s_]
+                val[rep_.any(axis=1) & live[:, s_], s_] = 0
+            vals.append(val)
+        return dataclasses.replace(pf, val=tuple(vals))
+
+    return dataclasses.replace(data, u_pad=side(data.u_pad),
+                               v_pad=side(data.v_pad))
+
+
+def reference_phase(device, tag: str, cg_precond: str = "auto") -> None:
     """Small MF problem, small FFM problem with self blocks, or small FM
     problem with self blocks whose fields are above a lowered fused-table
     cap: the kernel-driven gradient and Hv of every block side and the
-    tracked objective on the card against the fp64 numpy oracle."""
+    tracked objective on the card against the fp64 numpy oracle.  Under
+    Jacobi also the Hessian diagonal of every block side against
+    ``oracle.diag_hessian``, and two epochs against ``oracle_epoch``."""
     import numpy as np
     import torch
 
     from one_class_ffm_torch.solver import oracle
     from one_class_ffm_torch.solver.convert import params_to_numpy
 
+    jacobi = cg_precond == "jacobi"
+    if jacobi:
+        tag += " jacobi"
     if tag == "MF":
         data = build_data(2048, 512, 5.0, seed=3)
         tr = make_trainer(data, device, k=8)
     else:
+        fm = tag.startswith("FM")
         data = build_data(1024, 256, 5.0, seed=3, dims_u=(1024, 40),
-                          dims_v=(256, 24), self_side=True, fm=tag == "FM")
-        with fused_cap(8) if tag == "FM" else contextlib.nullcontext():
-            tr = make_trainer(data, device, k=8)
+                          dims_v=(256, 24), self_side=True, fm=fm)
+        if jacobi:
+            data = _without_repeated_ids(data)
+        with fused_cap(8) if fm else contextlib.nullcontext():
+            tr = make_trainer(data, device, k=8, cg_precond=cg_precond)
     solver = tr.solver
-    if tag == "FM":
+    check(solver.cg_precond == ("jacobi" if jacobi else "none"),
+          f"{tag} reference: CG is {solver.cg_precond}")
+    if tag.startswith("FM"):
         check(not any(solver.meta.fused_u + solver.meta.fused_v),
               "FM reference: a field took the fused table passes")
     state = tr.init_state()
@@ -641,10 +832,10 @@ def reference_phase(device, tag: str) -> None:
     sa, sb = solver.sasb(state)
     ref_params = dense_params(state)
     rng = np.random.default_rng(4)
-    worst_g = worst_h = 0.0
+    worst_g = worst_h = worst_d = 0.0
     for b in data.layout.all_blocks():
         for first in (True, False):
-            G, hv, _ = solver.grad_and_hv(state, b, first, sa, sb)
+            G, hv, _, D = solver.solve_inputs(state, b, first, sa, sb)
             G_ref, hv_ref = oracle.grad_and_hv(prob, ref_params, b, first)
             V = rng.normal(size=G_ref.shape)
             H = hv(torch.as_tensor(V, dtype=solver.meta.dtype,
@@ -652,22 +843,47 @@ def reference_phase(device, tag: str) -> None:
             worst_g = max(worst_g, rel(G.double().cpu().numpy(), G_ref))
             worst_h = max(worst_h, rel(H.double().cpu().numpy(),
                                        hv_ref(V)))
+            if jacobi:
+                worst_d = max(worst_d, rel(
+                    D.double().cpu().numpy(),
+                    oracle.diag_hessian(prob, ref_params, b, first)))
     print(f"[reference] {tag}: {len(data.layout.all_blocks())} blocks x 2 "
           f"sides vs fp64 oracle: gradient max-rel {worst_g:.3e}, Hv "
-          f"max-rel {worst_h:.3e}")
+          f"max-rel {worst_h:.3e}" + (
+              f", Jacobi diagonal max-rel {worst_d:.3e}" if jacobi else ""))
     check(worst_g < 1e-4, f"{tag} gradient disagrees with the oracle: "
                           f"{worst_g:.3e}")
     check(worst_h < 1e-4, f"{tag} Hv disagrees with the oracle: "
                           f"{worst_h:.3e}")
+    check(worst_d < 1e-4, f"{tag} Jacobi diagonal disagrees with the "
+                          f"oracle: {worst_d:.3e}")
+    oracle_params = ref_params
     for ep in range(2):
-        state = solver.epoch(state)
+        state, iters = solver.epoch_stats(state)
         got = float(solver.objective(state))
         ref = oracle.objective(prob, dense_params(state))
         r = abs(got - ref) / abs(ref)
         print(f"[reference] {tag} epoch {ep + 1} objective {got:.6f} vs "
-              f"oracle {ref:.6f}: rel {r:.3e}")
+              f"oracle {ref:.6f}: rel {r:.3e}; CG iterations per solve "
+              f"{iters.tolist()}")
         check(r < 1e-4, f"{tag} tracked objective disagrees with the "
                         f"oracle: {r:.3e}")
+        if not jacobi:
+            continue
+        # the oracle's own Jacobi epoch from the same start, at float64:
+        # a float32 solve may stop one CG iteration apart from it (the
+        # 0.09 relative stop rule), so the bound is on the objective
+        oracle_params = oracle.oracle_epoch(prob, oracle_params)
+        ref_ep = oracle.objective(prob, oracle_params)
+        got_p = dense_params(state)
+        p_rel = max(rel(got_p[n][f], oracle_params[n][f])
+                    for n in ("W", "H") for f in got_p["W"])
+        r = abs(got - ref_ep) / abs(ref_ep)
+        print(f"[reference] {tag} epoch {ep + 1} vs oracle_epoch: objective "
+              f"{got:.6f} vs {ref_ep:.6f}, rel {r:.3e}; tables max-rel "
+              f"{p_rel:.3e}")
+        check(r < 1e-2, f"{tag} epoch {ep + 1} objective is {r:.3e} from "
+                        "oracle_epoch's")
 
 
 def profile_epoch(tag: str, trainer, gpu: str) -> None:
@@ -734,7 +950,7 @@ def main_path(tag: str, trainer, names, gpu: str, epochs: int = 3):
         check(launches[name] > 0,
               f"{name} never launched on the {tag} main path")
     profile_epoch(tag, trainer, gpu)
-    return launches
+    return launches, res
 
 
 def write_fm_dataset(work: str, spec):
@@ -836,6 +1052,13 @@ def main() -> int:
         kernels.load()
         print(f"[build] {kernels.library_path().name} in "
               f"{kernels.build_seconds:.2f} s")
+        regs = kernel_registers(str(kernels.library_path()))
+        for (kname, dt_name, diag), n in sorted((regs or {}).items()):
+            print(f"[build] {kname}{' (Jacobi)' if diag else ''} {dt_name}: "
+                  f"{n} registers per thread")
+        if regs is None:
+            print("[build] registers per thread: not measured (no "
+                  "cuobjdump)")
 
         # 3. kernels vs plain at the slices' shapes
         report = new_report()
@@ -865,29 +1088,63 @@ def main() -> int:
         fm_trainer = make_trainer(fm, device)
         print(f"[data] FM trainer (device data, both lists, evaluator) in "
               f"{time.perf_counter() - t0:.2f} s")
+        ffm_jac = make_trainer(ffm, device, cg_precond="jacobi")
+        fm_jac = make_trainer(fm, device, cg_precond="jacobi")
         meta = fm_trainer.solver.meta
         check(not any(meta.fused_u + meta.fused_v + meta.ident_u
                       + meta.ident_v),
               "FM: a field is identity or takes the fused table passes")
         kernel_phase(mf_trainer, mf_cases(mf_trainer), "MF", gpu, report)
+        variant_phase(mf_trainer, gpu, report)
         kernel_phase(ffm_trainer, ffm_cases(ffm_trainer), "FFM", gpu, report)
         kernel_phase(fm_trainer, fm_cases(fm_trainer), "FM", gpu, report)
+        kernel_phase(ffm_jac, jacobi_cases(ffm_jac), "FFM jacobi", gpu,
+                     report)
 
         # 4. small-input references
         for tag in ("MF", "FFM", "FM"):
             reference_phase(device, tag)
+        for tag in ("FFM", "FM"):
+            reference_phase(device, tag, cg_precond="jacobi")
 
         # 5.-7. the main paths at full width, each with its own counts
         launches = {name: 0 for name in REPLACES}
+        jac_blocked = ("pos_hv_blocked", "pos_gap_blocked",
+                       "pos_scatter_blocked_diag")
+        results = {}
         for tag, trainer, names in (
                 ("mf", mf_trainer, BLOCKED + ("project",)),
                 ("ffm", ffm_trainer, BLOCKED + TABLE + ("project",)),
-                ("fm", fm_trainer, BLOCKED + WIDE)):
-            got = main_path(tag, trainer, names, gpu)
+                ("fm", fm_trainer, BLOCKED + WIDE),
+                ("ffm-jacobi", ffm_jac, jac_blocked + (
+                    "pos_hv_tbl", "hv_self_tbl", "grad_cross_tbl_diag",
+                    "grad_self_tbl_diag", "project")),
+                ("fm-jacobi", fm_jac, jac_blocked + WIDE)):
+            got, results[tag] = main_path(tag, trainer, names, gpu)
             for name in REPLACES:
                 launches[name] += got[name]
+        for tag in ("ffm", "fm"):
+            plain, jac = results[tag], results[tag + "-jacobi"]
+            for i, (ip, ij) in enumerate(zip(plain["iters"], jac["iters"])):
+                print(f"[main {tag}-jacobi] epoch {i + 1}: CG iterations "
+                      f"per solve, jacobi {ij} (sum {sum(ij)}, "
+                      f"{jac['seconds'][i]:.4f} s) vs plain CG {ip} (sum "
+                      f"{sum(ip)}, {plain['seconds'][i]:.4f} s) [{gpu}]")
 
-        # 8. the command-line entry point
+        # 8. the Hv variants' path: the comparison of hv_pack_bench
+        from one_class_ffm_torch import hv_pack_bench
+
+        kernels.reset_launch_counts()
+        rc = hv_pack_bench.main([])
+        got = kernels.launch_counts()
+        print(f"[hv_pack_bench] exit {rc}, kernel launches "
+              f"{ {name: got[name] for name in VARIANTS} }")
+        check(rc == 0, "hv_pack_bench: a variant is not B1's bits")
+        for name in VARIANTS:
+            check(got[name] > 0, f"{name} never launched in hv_pack_bench")
+            launches[name] += got[name]
+
+        # 9. the command-line entry point
         cli_phase()
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) kernels for the blocked positive-stream passes of a
-// cross-block solve on an identity field.  Built by
+// cross-block solve on an identity or wide field (B1-B3; B2 also with the
+// Jacobi diagonal's payload).  Built by
 // one_class_ffm_torch/ops/kernels.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler
 //        -fPIC -c
@@ -52,34 +53,23 @@ pos_hv_kernel(const T* __restrict__ phi, const T* __restrict__ rows,
   const int r = blockIdx.y * kWarps + (threadIdx.x >> 5);
   if (r >= block_rows) return;  // uniform across the warp
   const int64_t blk = blockIdx.x;
-  const int64_t row = blk * block_rows + r;
-  int s, e;
-  row_run(own + blk * maxc, maxc, r, s, e);
-
-  float ph[kMaxKPerLane], acc[kMaxKPerLane];
-#pragma unroll
-  for (int j = 0; j < kMaxKPerLane; ++j) {
-    const int c = j * 32 + lane;
-    ph[j] = c < k ? to_f(phi[row * k + c]) : 0.f;
-    acc[j] = 0.f;
-  }
-  hv_row(ph, rows + blk * maxc * k, w + blk * maxc, s, e, dense, k, w_scale,
-         lane, acc);
-#pragma unroll
-  for (int j = 0; j < kMaxKPerLane; ++j) {
-    const int c = j * 32 + lane;
-    if (c < k) out[row * k + c] = from_f<T>(acc[j]);
-  }
+  hv_out_row(phi, rows + blk * maxc * k, own + blk * maxc, w + blk * maxc,
+             dense, out, blk * block_rows + r, r, maxc, k, w_scale, lane,
+             RowMajor{k});
 }
 
-// Replaces pos_scatter_kt_pallas / _scatter_kt_kernel (without the Jacobi
-// w_blk payload).  One warp per output row, lanes over k:
+// Replaces pos_scatter_kt_pallas / _scatter_kt_kernel.  One warp per output
+// row, lanes over k:
 //   out[r] = sum_{t: own_t = r} c_t * rows_t
-template <typename T>
+// kDiag (the Jacobi w_blk payload, from the same read of each slot's row):
+//   outq[r] = storage(sum_{t: own_t = r} storage(storage(rows_t^2) * wq_t)),
+//   wq_t = storage(w_t * storage(wq_scale))
+template <typename T, bool kDiag>
 __global__ void __launch_bounds__(kWarps * 32)
 pos_scatter_kernel(const T* __restrict__ c, const T* __restrict__ rows,
-                   const int* __restrict__ own, T* __restrict__ out, int maxc,
-                   int k, int block_rows) {
+                   const int* __restrict__ own, const T* __restrict__ w,
+                   float wq_scale, T* __restrict__ out, T* __restrict__ outq,
+                   int maxc, int k, int block_rows) {
   const int lane = threadIdx.x & 31;
   const int r = blockIdx.y * kWarps + (threadIdx.x >> 5);
   if (r >= block_rows) return;
@@ -88,15 +78,17 @@ pos_scatter_kernel(const T* __restrict__ c, const T* __restrict__ rows,
   int s, e;
   row_run(own + blk * maxc, maxc, r, s, e);
 
-  float acc[kMaxKPerLane];
+  float acc[kMaxKPerLane], accq[kMaxKPerLane];
 #pragma unroll
-  for (int j = 0; j < kMaxKPerLane; ++j) acc[j] = 0.f;
-  scatter_row(c + blk * maxc, rows + blk * maxc * k, s, e, k, lane, acc);
-#pragma unroll
-  for (int j = 0; j < kMaxKPerLane; ++j) {
-    const int cc = j * 32 + lane;
-    if (cc < k) out[row * k + cc] = from_f<T>(acc[j]);
+  for (int j = 0; j < kMaxKPerLane; ++j) acc[j] = accq[j] = 0.f;
+  if constexpr (kDiag) {
+    scatter_diag_row<T, true>(c + blk * maxc, w + blk * maxc, wq_scale,
+                              rows + blk * maxc * k, s, e, k, lane, acc, accq);
+    store_row(outq, row, k, lane, accq);
+  } else {
+    scatter_row(c + blk * maxc, rows + blk * maxc * k, s, e, k, lane, acc);
   }
+  store_row(out, row, k, lane, acc);
 }
 
 // Replaces pos_gap_kt_pallas / _gap_kt_kernel.  One warp per slot t (grid-
@@ -139,41 +131,29 @@ int ocffm_pos_hv_blocked(int dtype, const void* phi, const void* rows,
                          void* out, long long n_blocks, int maxc, int k,
                          int block_rows, float w_scale, void* stream) {
   const dim3 grid((unsigned)n_blocks, (block_rows + kWarps - 1) / kWarps);
-  const dim3 block(kWarps * 32);
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == kF32) {
-    pos_hv_kernel<float><<<grid, block, 0, st>>>(
-        (const float*)phi, (const float*)rows, (const int*)own,
-        (const float*)w, (const float*)dense, (float*)out, maxc, k,
-        block_rows, w_scale);
-  } else if (dtype == kBF16) {
-    pos_hv_kernel<__nv_bfloat16><<<grid, block, 0, st>>>(
-        (const __nv_bfloat16*)phi, (const __nv_bfloat16*)rows,
-        (const int*)own, (const __nv_bfloat16*)w,
-        (const __nv_bfloat16*)dense, (__nv_bfloat16*)out, maxc, k,
-        block_rows, w_scale);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  OCFFM_BY_DTYPE(dtype, pos_hv_kernel<T><<<grid, kWarps * 32, 0, st>>>(
+      (const T*)phi, (const T*)rows, (const int*)own, (const T*)w,
+      (const T*)dense, (T*)out, maxc, k, block_rows, w_scale));
   return (int)cudaGetLastError();
 }
 
+// w == nullptr: the gradient scatter alone; otherwise also the Jacobi
+// payload into outq.
 int ocffm_pos_scatter_blocked(int dtype, const void* c, const void* rows,
-                              const void* own, void* out, long long n_blocks,
+                              const void* own, const void* w, float wq_scale,
+                              void* out, void* outq, long long n_blocks,
                               int maxc, int k, int block_rows, void* stream) {
   const dim3 grid((unsigned)n_blocks, (block_rows + kWarps - 1) / kWarps);
-  const dim3 block(kWarps * 32);
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == kF32) {
-    pos_scatter_kernel<float><<<grid, block, 0, st>>>(
-        (const float*)c, (const float*)rows, (const int*)own, (float*)out,
-        maxc, k, block_rows);
-  } else if (dtype == kBF16) {
-    pos_scatter_kernel<__nv_bfloat16><<<grid, block, 0, st>>>(
-        (const __nv_bfloat16*)c, (const __nv_bfloat16*)rows,
-        (const int*)own, (__nv_bfloat16*)out, maxc, k, block_rows);
+  if (w == nullptr) {
+    OCFFM_BY_DTYPE(dtype, pos_scatter_kernel<T, false><<<grid, kWarps * 32, 0, st>>>(
+        (const T*)c, (const T*)rows, (const int*)own, nullptr, wq_scale,
+        (T*)out, nullptr, maxc, k, block_rows));
   } else {
-    return (int)cudaErrorInvalidValue;
+    OCFFM_BY_DTYPE(dtype, pos_scatter_kernel<T, true><<<grid, kWarps * 32, 0, st>>>(
+        (const T*)c, (const T*)rows, (const int*)own, (const T*)w, wq_scale,
+        (T*)out, (T*)outq, maxc, k, block_rows));
   }
   return (int)cudaGetLastError();
 }
@@ -182,21 +162,10 @@ int ocffm_pos_gap_blocked(int dtype, const void* dP, const void* rows,
                           const void* own, void* out, long long n_blocks,
                           int maxc, int k, int block_rows, void* stream) {
   const long long n_slots = n_blocks * (long long)maxc;
-  const long long want = (n_slots + kWarps - 1) / kWarps;
-  const unsigned grid = (unsigned)(want < 65536 ? want : 65536);
-  const dim3 block(kWarps * 32);
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == kF32) {
-    pos_gap_kernel<float><<<grid, block, 0, st>>>(
-        (const float*)dP, (const float*)rows, (const int*)own, (float*)out,
-        n_slots, maxc, k, block_rows);
-  } else if (dtype == kBF16) {
-    pos_gap_kernel<__nv_bfloat16><<<grid, block, 0, st>>>(
-        (const __nv_bfloat16*)dP, (const __nv_bfloat16*)rows,
-        (const int*)own, (__nv_bfloat16*)out, n_slots, maxc, k, block_rows);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  OCFFM_BY_DTYPE(dtype, pos_gap_kernel<T><<<warp_grid(n_slots), kWarps * 32, 0, st>>>(
+      (const T*)dP, (const T*)rows, (const int*)own, (T*)out, n_slots, maxc,
+      k, block_rows));
   return (int)cudaGetLastError();
 }
 

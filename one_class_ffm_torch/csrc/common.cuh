@@ -1,8 +1,10 @@
-// Helpers shared by the port's kernels (blocked_ops.cu, table_ops.cu and
-// project_ops.cu): storage-dtype conversion, the warp sum, the row runs of
-// the blocked layout, the per-row math of the blocked Hv and gradient
-// passes, the projection of one row (B8 and the table passes' phi = X V),
-// the grid of a warp-per-item loop and the dtype dispatch of a launch.  Every product and sum is rounded on its own (__fmul_rn /
+// Helpers shared by the port's kernels (blocked_ops.cu, table_ops.cu,
+// project_ops.cu and hv_variants.cu): storage-dtype conversion, the warp
+// sum, the slot layouts and row runs of the blocked stream, the per-row
+// math of the blocked Hv and gradient passes (the latter with the Jacobi
+// diagonal's second payload), the projection of one row (B8 and the table
+// passes' phi = X V), the grid of a warp-per-item loop and the dtype
+// dispatch of a launch.  Every product and sum is rounded on its own (__fmul_rn /
 // __fadd_rn: no fused multiply-add) in a fixed order, which the plain
 // PyTorch versions in ops/sparse_ops.py follow bit for bit.
 #pragma once
@@ -45,37 +47,65 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// First slot in [lo, n) whose owner is >= key (own is non-decreasing).
-__device__ __forceinline__ int lower_bound(const int* own, int lo, int n, int key) {
+// Where slot t of a block lives.  RowMajor: the port's stream
+// (MAXC, k), owner and weight at t.  Packed4: the lane-packed stream
+// (MAXC/4, 128) of pos_hv_packed_pallas, entry t = j * MAXC/4 + c at
+// [c, 32j:32j+32] with k = 32; its owner and weight are read from lane 0
+// of the group (the other 31 copies are a TPU layout artefact).
+struct RowMajor {
+  int k;
+  __device__ __forceinline__ int64_t row(int t) const { return (int64_t)t * k; }
+  __device__ __forceinline__ int64_t scalar(int t) const { return t; }
+};
+struct Packed4 {
+  int m4;  // MAXC / 4
+  __device__ __forceinline__ int64_t row(int t) const {
+    return (int64_t)(t % m4) * 128 + 32 * (t / m4);
+  }
+  __device__ __forceinline__ int64_t scalar(int t) const { return row(t); }
+};
+
+// First slot in [lo, n) whose owner is >= key (own is non-decreasing in
+// slot order).
+template <typename Slots>
+__device__ __forceinline__ int lower_bound(const int* own, int lo, int n, int key,
+                                           Slots sl) {
   int hi = n;
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
-    if (own[mid] < key) lo = mid + 1; else hi = mid;
+    if (own[sl.scalar(mid)] < key) lo = mid + 1; else hi = mid;
   }
   return lo;
 }
 
 // The slots [s, e) of row r in its block's `own` row.
+template <typename Slots>
+__device__ __forceinline__ void row_run(const int* own_b, int maxc, int r, int& s,
+                                        int& e, Slots sl) {
+  s = lower_bound(own_b, 0, maxc, r, sl);
+  e = lower_bound(own_b, s, maxc, r + 1, sl);
+}
 __device__ __forceinline__ void row_run(const int* own_b, int maxc, int r, int& s,
                                         int& e) {
-  s = lower_bound(own_b, 0, maxc, r);
-  e = lower_bound(own_b, s, maxc, r + 1);
+  row_run(own_b, maxc, r, s, e, RowMajor{0});
 }
 
 // The blocked Hv of one row, lanes over k (B1; pos_hv_kt_pallas):
 //   acc += sum_{t in [s, e)} (w_scale * w_t) * pq_t * rows_t + ph @ dense,
 //   pq_t = storage(<ph, rows_t>)
 // ph holds the row's phi (zero past k); it stays in registers and is
-// broadcast by shuffles for the dense term.
-template <typename T>
+// broadcast by shuffles for the dense term.  Slots are walked in slot
+// order whatever their layout, so every layout gives B1's bits.
+template <typename T, typename Slots>
 __device__ __forceinline__ void hv_row(const float (&ph)[kMaxKPerLane],
                                        const T* __restrict__ rows_b,
                                        const T* __restrict__ w_b, int s, int e,
                                        const T* __restrict__ dense, int k,
                                        float w_scale, int lane,
-                                       float (&acc)[kMaxKPerLane]) {
+                                       float (&acc)[kMaxKPerLane],
+                                       Slots sl) {
   for (int t = s; t < e; ++t) {
-    const T* rt = rows_b + (int64_t)t * k;
+    const T* rt = rows_b + sl.row(t);
     float rv[kMaxKPerLane];
     float dot = 0.f;
 #pragma unroll
@@ -85,7 +115,7 @@ __device__ __forceinline__ void hv_row(const float (&ph)[kMaxKPerLane],
       dot = __fadd_rn(dot, __fmul_rn(ph[j], rv[j]));
     }
     const float pq = rnd<T>(warp_sum(dot));
-    const float coef = __fmul_rn(pq, __fmul_rn(w_scale, to_f(w_b[t])));
+    const float coef = __fmul_rn(pq, __fmul_rn(w_scale, to_f(w_b[sl.scalar(t)])));
 #pragma unroll
     for (int j = 0; j < kMaxKPerLane; ++j)
       acc[j] = __fadd_rn(acc[j], __fmul_rn(coef, rv[j]));
@@ -122,6 +152,35 @@ __device__ __forceinline__ void scatter_row(const T* __restrict__ c_b,
     for (int j = 0; j < kMaxKPerLane; ++j) {
       const int cc = j * 32 + lane;
       if (cc < k) acc[j] = __fadd_rn(acc[j], __fmul_rn(ct, to_f(rt[cc])));
+    }
+  }
+}
+
+// scatter_row plus the Jacobi diagonal's positive term from the same read
+// of each slot's row (the with_diag outputs of B2 and B5):
+//   accq += sum_{t in [s, e)} q_t,   wq_t = storage(w_t * storage(wq_scale)),
+//   q_t = storage(storage(rows_t^2) * wq_t)   kRoundQ (_scatter_kt_kernel)
+//   q_t = wq_t * storage(rows_t^2) at f32     otherwise (the one-hot matmul
+//                                             of _grad_cross_tbl_kernel)
+template <typename T, bool kRoundQ>
+__device__ __forceinline__ void scatter_diag_row(
+    const T* __restrict__ c_b, const T* __restrict__ w_b, float wq_scale,
+    const T* __restrict__ rows_b, int s, int e, int k, int lane,
+    float (&acc)[kMaxKPerLane], float (&accq)[kMaxKPerLane]) {
+  const float wq = rnd<T>(wq_scale);
+  for (int t = s; t < e; ++t) {
+    const T* rt = rows_b + (int64_t)t * k;
+    const float ct = to_f(c_b[t]);
+    const float wt = rnd<T>(__fmul_rn(to_f(w_b[t]), wq));
+#pragma unroll
+    for (int j = 0; j < kMaxKPerLane; ++j) {
+      const int cc = j * 32 + lane;
+      if (cc < k) {
+        const float r = to_f(rt[cc]);
+        acc[j] = __fadd_rn(acc[j], __fmul_rn(ct, r));
+        const float q = __fmul_rn(rnd<T>(__fmul_rn(r, r)), wt);
+        accq[j] = __fadd_rn(accq[j], kRoundQ ? rnd<T>(q) : q);
+      }
     }
   }
 }
@@ -175,6 +234,32 @@ __device__ __forceinline__ void store_row(T* __restrict__ out, int64_t row,
     const int c = j * 32 + lane;
     if (c < k) out[row * k + c] = from_f<T>(v[j]);
   }
+}
+
+// One output row of B1 (and of its variants B9, B10, which differ only in
+// the slot layout or in which CTA runs the row): row r of block blk, lanes
+// over k, its run found by binary search over the block's owners, phi[row]
+// held in registers, the result written once at storage dtype.
+template <typename T, typename Slots>
+__device__ __forceinline__ void hv_out_row(const T* __restrict__ phi,
+                                           const T* __restrict__ rows_b,
+                                           const int* __restrict__ own_b,
+                                           const T* __restrict__ w_b,
+                                           const T* __restrict__ dense,
+                                           T* __restrict__ out, int64_t row,
+                                           int r, int maxc, int k,
+                                           float w_scale, int lane, Slots sl) {
+  int s, e;
+  row_run(own_b, maxc, r, s, e, sl);
+  float ph[kMaxKPerLane], acc[kMaxKPerLane];
+#pragma unroll
+  for (int j = 0; j < kMaxKPerLane; ++j) {
+    const int c = j * 32 + lane;
+    ph[j] = c < k ? to_f(phi[row * k + c]) : 0.f;
+    acc[j] = 0.f;
+  }
+  hv_row(ph, rows_b, w_b, s, e, dense, k, w_scale, lane, acc, sl);
+  store_row(out, row, k, lane, acc);
 }
 
 // grid for a warp-per-item grid-stride loop over n items

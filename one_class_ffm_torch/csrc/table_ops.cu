@@ -1,6 +1,9 @@
 // Hopper (sm_90a) kernels for the fused table-space passes of a solve on
 // a small-D feature field (D <= 4096): the cross-block Hv and gradient and
-// the self-block Hv and gradient.  Built with the other sources into one
+// the self-block Hv and gradient, the two gradients optionally with the
+// Jacobi diagonal's term, a second per-row payload from the same stage 1
+// that stage 2 scatters through the field's X^2 (its feature-major list's
+// squared values).  Built with the other sources into one
 // shared library (ops/kernels.py), bound with ctypes.  Stage 2 below, the
 // X^T stage, is also the general scatter G = X^T Z of a wide field
 // (ops/sparse_ops.py scatter); stage 1's phi = X V is B8's project_row.
@@ -64,22 +67,26 @@ hv_tbl_rows_kernel(const T* __restrict__ V, const int* __restrict__ xi,
 #pragma unroll
   for (int j = 0; j < kMaxKPerLane; ++j) acc[j] = 0.f;
   hv_row(ph, rows + blk * maxc * k, w + blk * maxc, s, e, dense, k, w_scale,
-         lane, acc);
+         lane, acc, RowMajor{k});
   store_row(payload, row, k, lane, acc);
 }
 
 // Stage 1 of grad_cross_tbl, replacing grad_cross_tbl_pallas /
-// _grad_cross_tbl_kernel and grad_cross_tbl_kt_pallas (without the Jacobi
-// w_blk output).  One warp per row:
+// _grad_cross_tbl_kernel and grad_cross_tbl_kt_pallas.  One warp per row:
 //   payload[r] = storage(dense[r] + storage(sum_{t: own_t = r} c_t rows_t))
-template <typename T>
+// kDiag (the Jacobi w_blk output, from the same read of each slot's row):
+//   payload_q[r] = storage(sum_{t: own_t = r} wq_t * storage(rows_t^2)),
+//   wq_t = storage(w_t * storage(wq_scale)), the product at f32
+// which stage 2 scatters through the field's X^2.
+template <typename T, bool kDiag>
 __global__ void __launch_bounds__(kWarps * 32)
 grad_cross_tbl_rows_kernel(const T* __restrict__ c,
+                           const T* __restrict__ w, float wq_scale,
                            const T* __restrict__ rows,
                            const int* __restrict__ own,
                            const T* __restrict__ dense,
-                           T* __restrict__ payload, int maxc, int k,
-                           int block_rows) {
+                           T* __restrict__ payload, T* __restrict__ payload_q,
+                           int maxc, int k, int block_rows) {
   const int lane = threadIdx.x & 31;
   const int r = blockIdx.y * kWarps + (threadIdx.x >> 5);
   if (r >= block_rows) return;
@@ -87,10 +94,17 @@ grad_cross_tbl_rows_kernel(const T* __restrict__ c,
   const int64_t row = blk * block_rows + r;
   int s, e;
   row_run(own + blk * maxc, maxc, r, s, e);
-  float acc[kMaxKPerLane];
+  float acc[kMaxKPerLane], accq[kMaxKPerLane];
 #pragma unroll
-  for (int j = 0; j < kMaxKPerLane; ++j) acc[j] = 0.f;
-  scatter_row(c + blk * maxc, rows + blk * maxc * k, s, e, k, lane, acc);
+  for (int j = 0; j < kMaxKPerLane; ++j) acc[j] = accq[j] = 0.f;
+  if constexpr (kDiag) {
+    scatter_diag_row<T, false>(c + blk * maxc, w + blk * maxc, wq_scale,
+                               rows + blk * maxc * k, s, e, k, lane, acc,
+                               accq);
+    store_row(payload_q, row, k, lane, accq);
+  } else {
+    scatter_row(c + blk * maxc, rows + blk * maxc * k, s, e, k, lane, acc);
+  }
 #pragma unroll
   for (int j = 0; j < kMaxKPerLane; ++j) {
     const int cc = j * 32 + lane;
@@ -130,18 +144,22 @@ hv_self_tbl_rows_kernel(const T* __restrict__ V, const int* __restrict__ xi,
 }
 
 // Stage 1 of grad_self_tbl, replacing grad_self_tbl_pallas /
-// _grad_self_tbl_kernel and grad_self_tbl_kt_pallas (without the Jacobi dd
-// output).  One warp per row r of block b; every lane adds the row's run of
-// slot coefficients in slot order:
+// _grad_self_tbl_kernel and grad_self_tbl_kt_pallas.  One warp per row r of
+// block b; every lane adds the row's run of slot coefficients in slot
+// order:
 //   payload[r] = storage(zb_r * Q1[r]),
 //   zb_r = storage(zdense[r] + sum_{t: own_t = r} c_t)
-template <typename T>
+// kDiag (the Jacobi dd output): payload_q[r] = storage(storage(dd_r Q1[r])
+// Q1[r]), which stage 2 scatters through the field's X^2.
+template <typename T, bool kDiag>
 __global__ void __launch_bounds__(kWarps * 32)
 grad_self_tbl_rows_kernel(const T* __restrict__ q1,
                           const T* __restrict__ zdense,
+                          const T* __restrict__ dd,
                           const int* __restrict__ own,
                           const T* __restrict__ c, T* __restrict__ payload,
-                          int maxc, int k, int block_rows) {
+                          T* __restrict__ payload_q, int maxc, int k,
+                          int block_rows) {
   const int lane = threadIdx.x & 31;
   const int r = blockIdx.y * kWarps + (threadIdx.x >> 5);
   if (r >= block_rows) return;
@@ -153,13 +171,16 @@ grad_self_tbl_rows_kernel(const T* __restrict__ q1,
   float z = 0.f;
   for (int t = s; t < e; ++t) z = __fadd_rn(z, to_f(c_b[t]));
   const float zb = rnd<T>(__fadd_rn(to_f(zdense[row]), z));
-  float v[kMaxKPerLane];
+  float v[kMaxKPerLane], vq[kMaxKPerLane];
 #pragma unroll
   for (int j = 0; j < kMaxKPerLane; ++j) {
     const int cc = j * 32 + lane;
-    v[j] = cc < k ? __fmul_rn(zb, to_f(q1[row * k + cc])) : 0.f;
+    const float q = cc < k ? to_f(q1[row * k + cc]) : 0.f;
+    v[j] = __fmul_rn(zb, q);
+    if constexpr (kDiag) vq[j] = __fmul_rn(rnd<T>(__fmul_rn(to_f(dd[row]), q)), q);
   }
   store_row(payload, row, k, lane, v);
+  if constexpr (kDiag) store_row(payload_q, row, k, lane, vq);
 }
 
 // Stage 2a, shared by the four passes: one warp per chunk (grid-stride),
@@ -251,15 +272,25 @@ int ocffm_pos_hv_tbl_rows(int dtype, const void* V, const void* xi,
   return (int)cudaGetLastError();
 }
 
-int ocffm_grad_cross_tbl_rows(int dtype, const void* c, const void* rows,
+// w == nullptr: the gradient payload alone; otherwise also the Jacobi
+// payload into payload_q.
+int ocffm_grad_cross_tbl_rows(int dtype, const void* c, const void* w,
+                              float wq_scale, const void* rows,
                               const void* own, const void* dense,
-                              void* payload, long long n_blocks, int maxc,
-                              int k, int block_rows, void* stream) {
+                              void* payload, void* payload_q,
+                              long long n_blocks, int maxc, int k,
+                              int block_rows, void* stream) {
   const dim3 grid((unsigned)n_blocks, (block_rows + kWarps - 1) / kWarps);
   cudaStream_t st = (cudaStream_t)stream;
-  OCFFM_BY_DTYPE(dtype, grad_cross_tbl_rows_kernel<T><<<grid, kWarps * 32, 0, st>>>(
-                     (const T*)c, (const T*)rows, (const int*)own,
-                     (const T*)dense, (T*)payload, maxc, k, block_rows));
+  if (w == nullptr) {
+    OCFFM_BY_DTYPE(dtype, grad_cross_tbl_rows_kernel<T, false><<<grid, kWarps * 32, 0, st>>>(
+        (const T*)c, nullptr, wq_scale, (const T*)rows, (const int*)own,
+        (const T*)dense, (T*)payload, nullptr, maxc, k, block_rows));
+  } else {
+    OCFFM_BY_DTYPE(dtype, grad_cross_tbl_rows_kernel<T, true><<<grid, kWarps * 32, 0, st>>>(
+        (const T*)c, (const T*)w, wq_scale, (const T*)rows, (const int*)own,
+        (const T*)dense, (T*)payload, (T*)payload_q, maxc, k, block_rows));
+  }
   return (int)cudaGetLastError();
 }
 
@@ -275,15 +306,24 @@ int ocffm_hv_self_tbl_rows(int dtype, const void* V, const void* xi,
   return (int)cudaGetLastError();
 }
 
+// dd == nullptr: the gradient payload alone; otherwise also the Jacobi
+// payload into payload_q.
 int ocffm_grad_self_tbl_rows(int dtype, const void* q1, const void* zdense,
-                             const void* own, const void* c, void* payload,
+                             const void* dd, const void* own, const void* c,
+                             void* payload, void* payload_q,
                              long long n_blocks, int maxc, int k,
                              int block_rows, void* stream) {
   const dim3 grid((unsigned)n_blocks, (block_rows + kWarps - 1) / kWarps);
   cudaStream_t st = (cudaStream_t)stream;
-  OCFFM_BY_DTYPE(dtype, grad_self_tbl_rows_kernel<T><<<grid, kWarps * 32, 0, st>>>(
-                     (const T*)q1, (const T*)zdense, (const int*)own,
-                     (const T*)c, (T*)payload, maxc, k, block_rows));
+  if (dd == nullptr) {
+    OCFFM_BY_DTYPE(dtype, grad_self_tbl_rows_kernel<T, false><<<grid, kWarps * 32, 0, st>>>(
+        (const T*)q1, (const T*)zdense, nullptr, (const int*)own, (const T*)c,
+        (T*)payload, nullptr, maxc, k, block_rows));
+  } else {
+    OCFFM_BY_DTYPE(dtype, grad_self_tbl_rows_kernel<T, true><<<grid, kWarps * 32, 0, st>>>(
+        (const T*)q1, (const T*)zdense, (const T*)dd, (const int*)own,
+        (const T*)c, (T*)payload, (T*)payload_q, maxc, k, block_rows));
+  }
   return (int)cudaGetLastError();
 }
 

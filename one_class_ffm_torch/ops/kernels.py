@@ -32,8 +32,8 @@ import torch
 from .layout import FeatureMajor
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "blocked_ops.cu", _PKG / "csrc" / "table_ops.cu",
-           _PKG / "csrc" / "project_ops.cu")
+SOURCES = tuple(_PKG / "csrc" / name for name in (
+    "blocked_ops.cu", "table_ops.cu", "project_ops.cu", "hv_variants.cu"))
 HEADERS = (_PKG / "csrc" / "common.cuh",)
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -42,11 +42,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # one entry per launch wrapper: the three blocked passes of a cross solve,
 # the four fused table-space passes of a small-D feature field (each runs
 # its row stage and the shared X^T stage), the projection X W of a feature
-# field (B8), and the general scatter X^T Z of a wide field (the X^T stage
-# on its own)
+# field (B8), the general scatter X^T Z of a wide field (the X^T stage on
+# its own, through X or X^2), the three gradient passes with the Jacobi
+# diagonal's second output, and the two Hv variants of hv_pack_bench (B9,
+# B10)
 KERNELS = ("pos_hv_blocked", "pos_scatter_blocked", "pos_gap_blocked",
            "pos_hv_tbl", "grad_cross_tbl", "hv_self_tbl", "grad_self_tbl",
-           "project", "scatter")
+           "project", "scatter", "pos_scatter_blocked_diag",
+           "grad_cross_tbl_diag", "grad_self_tbl_diag", "pos_hv_packed",
+           "pos_hv_blocked_g")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # Launches per kernel since the last reset: a run reads them to show that
@@ -134,7 +138,7 @@ def load() -> ctypes.CDLL:
         i32, vp, vp, vp, vp, vp, vp, i64, i32, i32, i32, f32, vp]
     lib.ocffm_pos_hv_blocked.restype = i32
     lib.ocffm_pos_scatter_blocked.argtypes = [
-        i32, vp, vp, vp, vp, i64, i32, i32, i32, vp]
+        i32, vp, vp, vp, vp, f32, vp, vp, i64, i32, i32, i32, vp]
     lib.ocffm_pos_scatter_blocked.restype = i32
     lib.ocffm_pos_gap_blocked.argtypes = [
         i32, vp, vp, vp, vp, i64, i32, i32, i32, vp]
@@ -143,17 +147,22 @@ def load() -> ctypes.CDLL:
         i32, vp, vp, vp, i32, i32, vp, vp, vp, vp, vp, i64, i32, i32, i32,
         f32, vp]
     lib.ocffm_grad_cross_tbl_rows.argtypes = [
-        i32, vp, vp, vp, vp, vp, i64, i32, i32, i32, vp]
+        i32, vp, vp, f32, vp, vp, vp, vp, vp, i64, i32, i32, i32, vp]
     lib.ocffm_hv_self_tbl_rows.argtypes = [
         i32, vp, vp, vp, i32, i32, vp, vp, vp, i64, i32, vp]
     lib.ocffm_grad_self_tbl_rows.argtypes = [
-        i32, vp, vp, vp, vp, vp, i64, i32, i32, i32, vp]
+        i32, vp, vp, vp, vp, vp, vp, vp, i64, i32, i32, i32, vp]
     lib.ocffm_xt_scatter.argtypes = [
         i32, vp, vp, vp, vp, i32, vp, i32, i32, vp, vp, vp]
     lib.ocffm_project.argtypes = [i32, vp, vp, vp, vp, i64, i32, i32, i32, vp]
+    lib.ocffm_pos_hv_packed.argtypes = [
+        i32, vp, vp, vp, vp, vp, vp, i64, i32, i32, f32, vp]
+    lib.ocffm_pos_hv_blocked_g.argtypes = [
+        i32, vp, vp, vp, vp, vp, vp, i64, i32, i32, i32, i32, f32, vp]
     for fn in (lib.ocffm_pos_hv_tbl_rows, lib.ocffm_grad_cross_tbl_rows,
                lib.ocffm_hv_self_tbl_rows, lib.ocffm_grad_self_tbl_rows,
-               lib.ocffm_xt_scatter, lib.ocffm_project):
+               lib.ocffm_xt_scatter, lib.ocffm_project,
+               lib.ocffm_pos_hv_packed, lib.ocffm_pos_hv_blocked_g):
         fn.restype = i32
     _lib = lib
     build_seconds = time.perf_counter() - t0
@@ -209,17 +218,28 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def pos_hv_blocked(phi, rows, own, w_blk, dense_mat, num_out: int,
-                   block_rows: int, w_scale: float = 1.0) -> torch.Tensor:
-    lib, nb, maxc, k = _stream_rows(rows, own, block_rows)
+def _ptr(t: Optional[torch.Tensor]):
+    """A tensor's device pointer, or NULL for an absent optional input."""
+    return None if t is None else t.data_ptr()
+
+
+def _hv_out(phi, dense_mat, num_out: int, nb: int, k: int, block_rows: int,
+            dev, dt) -> torch.Tensor:
+    """Checks B1's per-row inputs; returns the output to fill."""
     if num_out != nb * block_rows:
         raise ValueError(f"num_out={num_out} != n_blocks*block_rows="
                          f"{nb * block_rows}")
-    dev, dt = rows.device, rows.dtype
     _check("phi", phi, dt, (num_out, k), dev)
-    _check("w_blk", w_blk, dt, (nb, maxc), dev)
     _check("dense_mat", dense_mat, dt, (k, k), dev)
-    out = torch.empty((num_out, k), dtype=dt, device=dev)
+    return torch.empty((num_out, k), dtype=dt, device=dev)
+
+
+def pos_hv_blocked(phi, rows, own, w_blk, dense_mat, num_out: int,
+                   block_rows: int, w_scale: float = 1.0) -> torch.Tensor:
+    lib, nb, maxc, k = _stream_rows(rows, own, block_rows)
+    dev, dt = rows.device, rows.dtype
+    _check("w_blk", w_blk, dt, (nb, maxc), dev)
+    out = _hv_out(phi, dense_mat, num_out, nb, k, block_rows, dev, dt)
     err = lib.ocffm_pos_hv_blocked(
         _DTYPE_CODE[dt], phi.data_ptr(), rows.data_ptr(), own.data_ptr(),
         w_blk.data_ptr(), dense_mat.data_ptr(), out.data_ptr(), nb, maxc, k,
@@ -229,8 +249,10 @@ def pos_hv_blocked(phi, rows, own, w_blk, dense_mat, num_out: int,
     return out
 
 
-def pos_scatter_blocked(c_blk, rows, own, num_out: int,
-                        block_rows: int) -> torch.Tensor:
+def _scatter_blocked(name: str, c_blk, rows, own, num_out: int,
+                     block_rows: int, w_blk=None, wq_scale: float = 1.0):
+    """B2; with ``w_blk`` also the Jacobi payload, from one launch.
+    Returns (zpos, posq), posq None without w_blk."""
     lib, nb, maxc, k = _stream_rows(rows, own, block_rows)
     if num_out != nb * block_rows:
         raise ValueError(f"num_out={num_out} != n_blocks*block_rows="
@@ -238,12 +260,31 @@ def pos_scatter_blocked(c_blk, rows, own, num_out: int,
     dev, dt = rows.device, rows.dtype
     _check("c_blk", c_blk, dt, (nb, maxc), dev)
     out = torch.empty((num_out, k), dtype=dt, device=dev)
+    outq = None
+    if w_blk is not None:
+        _check("w_blk", w_blk, dt, (nb, maxc), dev)
+        outq = torch.empty((num_out, k), dtype=dt, device=dev)
     err = lib.ocffm_pos_scatter_blocked(
         _DTYPE_CODE[dt], c_blk.data_ptr(), rows.data_ptr(), own.data_ptr(),
-        out.data_ptr(), nb, maxc, k, block_rows, _stream(dev))
-    _raise_on(err, "pos_scatter_blocked")
-    _launches["pos_scatter_blocked"] += 1
-    return out
+        _ptr(w_blk), float(wq_scale), out.data_ptr(), _ptr(outq), nb, maxc,
+        k, block_rows, _stream(dev))
+    _raise_on(err, name)
+    _launches[name] += 1
+    return out, outq
+
+
+def pos_scatter_blocked(c_blk, rows, own, num_out: int,
+                        block_rows: int) -> torch.Tensor:
+    return _scatter_blocked("pos_scatter_blocked", c_blk, rows, own, num_out,
+                            block_rows)[0]
+
+
+def pos_scatter_blocked_diag(c_blk, rows, own, num_out: int, block_rows: int,
+                             w_blk, wq_scale: float = 1.0):
+    """(zpos, posq) from one read of the stream (B2 with the Jacobi w_blk
+    payload)."""
+    return _scatter_blocked("pos_scatter_blocked_diag", c_blk, rows, own,
+                            num_out, block_rows, w_blk, wq_scale)
 
 
 def pos_gap_blocked(dP, rows, own, block_rows: int) -> torch.Tensor:
@@ -288,9 +329,16 @@ def _table(V, xt: FeatureMajor, dt, k: int, dev, name: str) -> int:
 
 
 def _xt_scatter(lib, payload: torch.Tensor, xt: FeatureMajor,
-                name: str) -> torch.Tensor:
-    """(d, k) float32 = X^T payload through the feature-major list."""
+                name: str, squared: bool = False) -> torch.Tensor:
+    """(d, k) float32 = X^T payload (X^2 with ``squared``: the list's
+    squared values) through the feature-major list."""
     dev, dt = payload.device, payload.dtype
+    vals = xt.val
+    if squared:
+        if xt.val_sq is None:
+            raise ValueError(f"{name}: the feature-major list carries no "
+                             "squared values (val_sq)")
+        vals = xt.val_sq
     rows, k = payload.shape
     if xt.n_rows != rows:
         raise ValueError(f"{name}: the feature-major list scatters from "
@@ -298,7 +346,7 @@ def _xt_scatter(lib, payload: torch.Tensor, xt: FeatureMajor,
     nnz, n_chunks, d = xt.row.numel(), xt.chunk_ptr.numel() - 1, \
         xt.feat_ptr.numel() - 1
     _check("xt.row", xt.row, torch.int32, (nnz,), dev)
-    _check("xt.val", xt.val, dt, (nnz,), dev)
+    _check("xt.val_sq" if squared else "xt.val", vals, dt, (nnz,), dev)
     _check("xt.chunk_ptr", xt.chunk_ptr, torch.int32, (n_chunks + 1,), dev)
     _check("xt.feat_ptr", xt.feat_ptr, torch.int32, (d + 1,), dev)
     partial = torch.empty((max(n_chunks, 1), k), dtype=torch.float32,
@@ -306,7 +354,7 @@ def _xt_scatter(lib, payload: torch.Tensor, xt: FeatureMajor,
     out = torch.empty((d, k), dtype=torch.float32, device=dev)
     err = lib.ocffm_xt_scatter(
         _DTYPE_CODE[dt], payload.data_ptr(), xt.row.data_ptr(),
-        xt.val.data_ptr(), xt.chunk_ptr.data_ptr(), n_chunks,
+        vals.data_ptr(), xt.chunk_ptr.data_ptr(), n_chunks,
         xt.feat_ptr.data_ptr(), d, k, partial.data_ptr(), out.data_ptr(),
         _stream(dev))
     _raise_on(err, name)
@@ -334,21 +382,45 @@ def pos_hv_tbl(V, x_idx, x_val, xt, rows, own, w_blk, dense_mat,
     return out
 
 
-def grad_cross_tbl(xt, rows, own, c_blk, dense,
-                   block_rows: int) -> torch.Tensor:
+def _grad_cross_tbl(xt, rows, own, c_blk, dense, block_rows: int,
+                    w_blk=None, wq_scale: float = 1.0):
+    """B5's row stage (one launch, both payloads with ``w_blk``), then the
+    X^T stage of each payload: through X, and through X^2 for the Jacobi
+    payload.  Returns the (d, k) float32 results, Qt None without w_blk."""
     lib, nb, maxc, k = _stream_rows(rows, own, block_rows)
     dev, dt = rows.device, rows.dtype
     num = nb * block_rows
     _check("c_blk", c_blk, dt, (nb, maxc), dev)
     _check("dense", dense, dt, (num, k), dev)
     payload = torch.empty((num, k), dtype=dt, device=dev)
+    payload_q = None
+    if w_blk is not None:
+        _check("w_blk", w_blk, dt, (nb, maxc), dev)
+        payload_q = torch.empty((num, k), dtype=dt, device=dev)
     err = lib.ocffm_grad_cross_tbl_rows(
-        _DTYPE_CODE[dt], c_blk.data_ptr(), rows.data_ptr(), own.data_ptr(),
-        dense.data_ptr(), payload.data_ptr(), nb, maxc, k, block_rows,
-        _stream(dev))
+        _DTYPE_CODE[dt], c_blk.data_ptr(), _ptr(w_blk), float(wq_scale),
+        rows.data_ptr(), own.data_ptr(), dense.data_ptr(), payload.data_ptr(),
+        _ptr(payload_q), nb, maxc, k, block_rows, _stream(dev))
     _raise_on(err, "grad_cross_tbl")
-    out = _xt_scatter(lib, payload, xt, "grad_cross_tbl")
+    gt = _xt_scatter(lib, payload, xt, "grad_cross_tbl")
+    if payload_q is None:
+        return gt, None
+    return gt, _xt_scatter(lib, payload_q, xt, "grad_cross_tbl", True)
+
+
+def grad_cross_tbl(xt, rows, own, c_blk, dense,
+                   block_rows: int) -> torch.Tensor:
+    gt, _ = _grad_cross_tbl(xt, rows, own, c_blk, dense, block_rows)
     _launches["grad_cross_tbl"] += 1
+    return gt
+
+
+def grad_cross_tbl_diag(xt, rows, own, c_blk, dense, block_rows: int, w_blk,
+                        wq_scale: float = 1.0):
+    """(Gt, Qt): B5 with the Jacobi w_blk output."""
+    out = _grad_cross_tbl(xt, rows, own, c_blk, dense, block_rows, w_blk,
+                          wq_scale)
+    _launches["grad_cross_tbl_diag"] += 1
     return out
 
 
@@ -386,8 +458,9 @@ def hv_self_tbl(V, x_idx, x_val, xt, Q1, dd) -> torch.Tensor:
     return out
 
 
-def grad_self_tbl(xt, Q1, zdense, own, c_blk,
-                  block_rows: int) -> torch.Tensor:
+def _grad_self_tbl(xt, Q1, zdense, own, c_blk, block_rows: int, dd=None):
+    """B7's row stage (one launch, both payloads with ``dd``), then the X^T
+    stage of each: through X, and through X^2 for the Jacobi payload."""
     lib, num, k = _rows_table(Q1)
     dev, dt = Q1.device, Q1.dtype
     if own.dim() != 2 or not 0 < block_rows < (1 << 31):
@@ -401,13 +474,32 @@ def grad_self_tbl(xt, Q1, zdense, own, c_blk,
     _check("c_blk", c_blk, dt, (nb, maxc), dev)
     _check("zdense", zdense, dt, (num,), dev)
     payload = torch.empty((num, k), dtype=dt, device=dev)
+    payload_q = None
+    if dd is not None:
+        _check("dd", dd, dt, (num,), dev)
+        payload_q = torch.empty((num, k), dtype=dt, device=dev)
     err = lib.ocffm_grad_self_tbl_rows(
-        _DTYPE_CODE[dt], Q1.data_ptr(), zdense.data_ptr(), own.data_ptr(),
-        c_blk.data_ptr(), payload.data_ptr(), nb, maxc, k, block_rows,
-        _stream(dev))
+        _DTYPE_CODE[dt], Q1.data_ptr(), zdense.data_ptr(), _ptr(dd),
+        own.data_ptr(), c_blk.data_ptr(), payload.data_ptr(),
+        _ptr(payload_q), nb, maxc, k, block_rows, _stream(dev))
     _raise_on(err, "grad_self_tbl")
-    out = _xt_scatter(lib, payload, xt, "grad_self_tbl")
+    gt = _xt_scatter(lib, payload, xt, "grad_self_tbl")
+    if payload_q is None:
+        return gt, None
+    return gt, _xt_scatter(lib, payload_q, xt, "grad_self_tbl", True)
+
+
+def grad_self_tbl(xt, Q1, zdense, own, c_blk,
+                  block_rows: int) -> torch.Tensor:
+    gt, _ = _grad_self_tbl(xt, Q1, zdense, own, c_blk, block_rows)
     _launches["grad_self_tbl"] += 1
+    return gt
+
+
+def grad_self_tbl_diag(xt, Q1, zdense, own, c_blk, block_rows: int, dd):
+    """(Gt, Dq): B7 with the Jacobi dd output."""
+    out = _grad_self_tbl(xt, Q1, zdense, own, c_blk, block_rows, dd)
+    _launches["grad_self_tbl_diag"] += 1
     return out
 
 
@@ -451,10 +543,64 @@ def project(idx, val, W) -> torch.Tensor:
     return out
 
 
-def scatter(xt: FeatureMajor, Z) -> torch.Tensor:
-    """(d, k) storage = X^T Z: the X^T stage sums at float32, then one cast
-    to storage (a no-op at float32)."""
+def scatter(xt: FeatureMajor, Z, squared: bool = False) -> torch.Tensor:
+    """(d, k) storage = X^T Z (X^2 with ``squared``): the X^T stage sums at
+    float32, then one cast to storage (a no-op at float32)."""
     lib, _ = _table_dtype("Z", Z)
-    out = _xt_scatter(lib, Z, xt, "scatter")
+    out = _xt_scatter(lib, Z, xt, "scatter", squared)
     _launches["scatter"] += 1
     return out.to(Z.dtype)
+
+
+# ---------------------------------------------------------------------------
+# the Hv variants of hv_pack_bench (B9, B10)
+# ---------------------------------------------------------------------------
+
+
+def pos_hv_packed(phi, rows_p, own_p, w_p, dense_mat, num_out: int,
+                  block_rows: int, w_scale: float = 1.0) -> torch.Tensor:
+    """B9: B1's function from the lane-packed stream (n_blocks, MAXC/4,
+    128) of ``sparse_ops.pack_rows``, k = 32."""
+    if rows_p.device.type != "cuda":
+        raise ValueError(f"rows_p must be a CUDA tensor, got {rows_p.device}")
+    if rows_p.dtype not in _DTYPE_CODE:
+        raise TypeError(f"kernels take float32 or bfloat16, got "
+                        f"{rows_p.dtype}")
+    if rows_p.dim() != 3 or rows_p.shape[2] != 128 or 0 in rows_p.shape:
+        raise ValueError(f"rows_p must be (n_blocks, MAXC/4, 128), got "
+                         f"{tuple(rows_p.shape)}")
+    if not 0 < block_rows < (1 << 31):
+        raise ValueError(f"block_rows={block_rows}")
+    dev, dt = rows_p.device, rows_p.dtype
+    nb, m4, _ = rows_p.shape
+    lib = load()
+    for name, t, t_dt in (("rows_p", rows_p, dt), ("w_p", w_p, dt),
+                          ("own_p", own_p, torch.int32)):
+        _check(name, t, t_dt, (nb, m4, 128), dev)
+    out = _hv_out(phi, dense_mat, num_out, nb, 32, block_rows, dev, dt)
+    err = lib.ocffm_pos_hv_packed(
+        _DTYPE_CODE[dt], phi.data_ptr(), rows_p.data_ptr(), own_p.data_ptr(),
+        w_p.data_ptr(), dense_mat.data_ptr(), out.data_ptr(), nb, 4 * m4,
+        block_rows, float(w_scale), _stream(dev))
+    _raise_on(err, "pos_hv_packed")
+    _launches["pos_hv_packed"] += 1
+    return out
+
+
+def pos_hv_blocked_g(phi, rows, own, w_blk, dense_mat, num_out: int,
+                     block_rows: int, groups: int,
+                     w_scale: float = 1.0) -> torch.Tensor:
+    """B10: B1 with ``groups`` row blocks per CTA (n_blocks % G == 0)."""
+    lib, nb, maxc, k = _stream_rows(rows, own, block_rows)
+    if groups < 1 or nb % groups:
+        raise ValueError(f"G={groups} must divide n_blocks={nb}")
+    dev, dt = rows.device, rows.dtype
+    _check("w_blk", w_blk, dt, (nb, maxc), dev)
+    out = _hv_out(phi, dense_mat, num_out, nb, k, block_rows, dev, dt)
+    err = lib.ocffm_pos_hv_blocked_g(
+        _DTYPE_CODE[dt], phi.data_ptr(), rows.data_ptr(), own.data_ptr(),
+        w_blk.data_ptr(), dense_mat.data_ptr(), out.data_ptr(), nb, maxc, k,
+        block_rows, groups, float(w_scale), _stream(dev))
+    _raise_on(err, "pos_hv_blocked_g")
+    _launches["pos_hv_blocked_g"] += 1
+    return out

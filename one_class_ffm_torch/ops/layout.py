@@ -11,7 +11,8 @@ so each row's slots form one contiguous run.  The stable sort and the slot
 fill below guarantee it; ``check_own_runs`` checks it.
 
 ``feature_major`` builds the other static input of the fused table
-kernels: a field's X^T as a chunked feature-major list.
+kernels: a field's X^T as a chunked feature-major list (with X^2 beside it
+once the solver has squared the values at storage dtype).
 """
 
 from __future__ import annotations
@@ -253,13 +254,16 @@ class FeatureMajor(NamedTuple):
     holds entries ``[chunk_ptr[c], chunk_ptr[c + 1])``, all of one feature
     and at most ``XT_CHUNK`` of them.  ``feat_ptr`` (d + 1,): feature f owns
     chunks ``[feat_ptr[f], feat_ptr[f + 1])``.  ``n_rows``: the row count of
-    the payload the list scatters from."""
+    the payload the list scatters from.  ``val_sq`` (nnz,) or None: each
+    entry's squared value at storage dtype, the list of X^2 that the Jacobi
+    diagonal scatters through (the solver's device data fills it)."""
 
     row: Any
     val: Any
     chunk_ptr: Any
     feat_ptr: Any
     n_rows: int
+    val_sq: Any = None
 
 
 def feature_major(idx: np.ndarray, val: np.ndarray, d: int,

@@ -13,11 +13,17 @@ The three blocked passes (``pos_hv_blocked``, ``pos_scatter_blocked``,
 a feature field (``project``, B8) and the general scatter of a wide field
 (``scatter``, the table passes' X^T stage on its own) each have a plain
 version here (``*_plain``) and a hand-written CUDA kernel (csrc/*.cu via
-ops/kernels.py).  The dispatching function takes the plain version only
-because its tensors lie on the CPU; on a CUDA tensor it launches the kernel
-or raises.  Storage is float32 or bfloat16 (float64 on the CPU), sums run
-at a float32 floor, and the plain versions round where the kernels round:
-pq to storage, the output to storage, and for the table passes phi = X V
+ops/kernels.py).  Three of them take the Jacobi diagonal's second output
+(``pos_scatter_blocked(w_blk=)``, ``grad_cross_tbl(w_blk=)``,
+``grad_self_tbl(dd=)``: a second payload from the same read of the stream,
+scattered through the field's X^2).  Two Hv variants off the solver's path,
+the lane-packed ``pos_hv_packed`` (B9) and ``pos_hv_blocked_g`` with G
+blocks per CTA (B10), compute B1's function and serve ``hv_pack_bench``.
+The dispatching function takes the plain version only because its tensors
+lie on the CPU; on a CUDA tensor it launches the kernel or raises.
+Storage is float32 or bfloat16 (float64 on the CPU), sums run at a
+float32 floor, and the plain versions round where the kernels round: pq
+to storage, the output to storage, and for the table passes phi = X V
 and the per-row payload to storage, the (D, k) table-space result left at
 the float32 floor (the general scatter casts it to storage).
 
@@ -208,13 +214,33 @@ def pos_hv_blocked_plain(phi, rows, own, w_blk, dense_mat, num_out: int,
     return out.to(dt)
 
 
+def _storage_scale(w_blk, scale: float):
+    """storage(w * storage(scale)): the slot weights of the Jacobi
+    diagonal's positive term, rounded as the TPU kernels round
+    ``w_ref * jnp.asarray(wq_scale, dt)``."""
+    return w_blk * torch.tensor(scale, dtype=w_blk.dtype, device=w_blk.device)
+
+
 def pos_scatter_blocked_plain(c_blk, rows, own, num_out: int,
-                              block_rows: int):
-    """zpos[r] = sum_{t: own_t=r} c_t rows_t (pos_scatter_kt_pallas)."""
+                              block_rows: int, w_blk=None,
+                              wq_scale: float = 1.0):
+    """zpos[r] = sum_{t: own_t=r} c_t rows_t (pos_scatter_kt_pallas).  With
+    ``w_blk`` also the Jacobi diagonal's positive term from the same slots,
+    returned as (zpos, posq):
+
+        posq[r] = sum_{t: own_t=r} storage(storage(rows_t^2) * wq_t),
+        wq_t = storage(w_t * storage(wq_scale)),
+
+    the payload formed at storage dtype, as ``_scatter_kt_kernel`` forms
+    it, summed at the float32 floor in slot order, cast once to storage."""
     dt, acc = rows.dtype, acc_dtype(rows.dtype)
     seg, valid = _slot_rows(own, block_rows)
     terms = c_blk.to(acc)[..., None] * rows.to(acc)
-    return _slot_sum(seg, valid, own, terms, num_out).to(dt)
+    zpos = _slot_sum(seg, valid, own, terms, num_out).to(dt)
+    if w_blk is None:
+        return zpos
+    termq = (rows * rows) * _storage_scale(w_blk, wq_scale)[..., None]
+    return zpos, _slot_sum(seg, valid, own, termq.to(acc), num_out).to(dt)
 
 
 def pos_gap_blocked_plain(dP, rows, own, block_rows: int):
@@ -241,12 +267,18 @@ def pos_hv_blocked(phi, rows, own, w_blk, dense_mat, num_out: int,
                                   block_rows, w_scale)
 
 
-def pos_scatter_blocked(c_blk, rows, own, num_out: int, block_rows: int):
-    """The gradient's positive scatter."""
+def pos_scatter_blocked(c_blk, rows, own, num_out: int, block_rows: int,
+                        w_blk=None, wq_scale: float = 1.0):
+    """The gradient's positive scatter; with ``w_blk`` (Jacobi) also the
+    diagonal's positive term from the same read of the stream."""
     if _plain_device(rows):
         return pos_scatter_blocked_plain(c_blk, rows, own, num_out,
-                                         block_rows)
-    return kernels.pos_scatter_blocked(c_blk, rows, own, num_out, block_rows)
+                                         block_rows, w_blk, wq_scale)
+    if w_blk is None:
+        return kernels.pos_scatter_blocked(c_blk, rows, own, num_out,
+                                           block_rows)
+    return kernels.pos_scatter_blocked_diag(c_blk, rows, own, num_out,
+                                            block_rows, w_blk, wq_scale)
 
 
 def pos_gap_blocked(dP, rows, own, block_rows: int):
@@ -261,12 +293,24 @@ def pos_gap_blocked(dP, rows, own, block_rows: int):
 # ---------------------------------------------------------------------------
 
 
-def _xt_scatter_plain(payload: torch.Tensor, xt: FeatureMajor):
-    """(d, k) = X^T payload at the accumulation type, in the kernels'
-    order: each chunk's entries in list order, then each feature's chunk
-    sums in chunk order."""
+def _list_values(xt: FeatureMajor, squared: bool):
+    """The entry values the X^T stage multiplies by: X's, or X^2's."""
+    if not squared:
+        return xt.val
+    if xt.val_sq is None:
+        raise ValueError("the feature-major list carries no squared values "
+                         "(val_sq): the Jacobi diagonal needs X^2")
+    return xt.val_sq
+
+
+def _xt_scatter_plain(payload: torch.Tensor, xt: FeatureMajor,
+                      squared: bool = False):
+    """(d, k) = X^T payload (X^2 with ``squared``) at the accumulation type,
+    in the kernels' order: each chunk's entries in list order, then each
+    feature's chunk sums in chunk order."""
     acc = acc_dtype(payload.dtype)
     k = payload.shape[1]
+    vals = _list_values(xt, squared)
     cptr, fptr = xt.chunk_ptr.long(), xt.feat_ptr.long()
     n_chunks, d = cptr.numel() - 1, fptr.numel() - 1
     part = torch.zeros((max(n_chunks, 1), k), dtype=acc,
@@ -276,7 +320,7 @@ def _xt_scatter_plain(payload: torch.Tensor, xt: FeatureMajor):
         last = xt.row.numel() - 1
         for j in range(int(length.max())):
             e = (start + j).clamp(max=last)
-            term = (xt.val[e].to(acc)[:, None]
+            term = (vals[e].to(acc)[:, None]
                     * payload[xt.row[e].long()].to(acc))
             part = part + torch.where((length > j)[:, None], term, 0)
     out = torch.zeros((d, k), dtype=acc, device=payload.device)
@@ -297,14 +341,29 @@ def pos_hv_tbl_plain(V, x_idx, x_val, xt, rows, own, w_blk, dense_mat,
     return _xt_scatter_plain(zpb, xt)
 
 
-def grad_cross_tbl_plain(xt, rows, own, c_blk, dense, block_rows: int):
+def grad_cross_tbl_plain(xt, rows, own, c_blk, dense, block_rows: int,
+                         w_blk=None, wq_scale: float = 1.0):
     """X^T storage(dense + storage(blocked scatter of c)): the cross-block
     gradient of a small-D field in table space (grad_cross_tbl_pallas /
-    _kt_pallas, without the Jacobi output)."""
+    _kt_pallas).  With ``w_blk`` also the Jacobi diagonal's positive term
+    in table space, returned as (Gt, Qt):
+
+        Qt = (X^2)^T posq,  posq[r] = storage(sum_{t: own_t=r} wq_t rows_t^2)
+
+    with wq_t = storage(w_t * storage(wq_scale)) and rows_t^2 at storage
+    dtype, their product at the float32 floor (the TPU kernel's one-hot
+    matmul of (w * wq) against rows * rows); Qt stays unrounded."""
     dt, acc = rows.dtype, acc_dtype(rows.dtype)
-    zpos = pos_scatter_blocked_plain(c_blk, rows, own, dense.shape[0],
-                                     block_rows)
-    return _xt_scatter_plain((dense.to(acc) + zpos.to(acc)).to(dt), xt)
+    num = dense.shape[0]
+    zpos = pos_scatter_blocked_plain(c_blk, rows, own, num, block_rows)
+    gt = _xt_scatter_plain((dense.to(acc) + zpos.to(acc)).to(dt), xt)
+    if w_blk is None:
+        return gt
+    seg, valid = _slot_rows(own, block_rows)
+    termq = (_storage_scale(w_blk, wq_scale).to(acc)[..., None]
+             * (rows * rows).to(acc))
+    posq = _slot_sum(seg, valid, own, termq, num).to(dt)
+    return gt, _xt_scatter_plain(posq, xt, squared=True)
 
 
 def hv_self_tbl_plain(V, x_idx, x_val, xt, Q1, dd):
@@ -318,13 +377,18 @@ def hv_self_tbl_plain(V, x_idx, x_val, xt, Q1, dd):
     return _xt_scatter_plain((s[:, None] * q).to(dt), xt)
 
 
-def grad_self_tbl_plain(xt, Q1, zdense, own, c_blk, block_rows: int):
+def grad_self_tbl_plain(xt, Q1, zdense, own, c_blk, block_rows: int,
+                        dd=None):
     """X^T diag(storage(zdense + per-row sums of c)) Q1: the self-block
     gradient of a small-D field in table space (grad_self_tbl_pallas /
-    _kt_pallas, without the Jacobi output)."""
+    _kt_pallas).  With ``dd`` also the Jacobi diagonal's term, returned as
+    (Gt, Dq): Dq = (X^2)^T storage(storage(dd Q1) Q1), unrounded."""
     dt, acc = Q1.dtype, acc_dtype(Q1.dtype)
     zb = (zdense.to(acc) + _run_sums(c_blk, own, block_rows)).to(dt)
-    return _xt_scatter_plain((zb.to(acc)[:, None] * Q1.to(acc)).to(dt), xt)
+    gt = _xt_scatter_plain((zb.to(acc)[:, None] * Q1.to(acc)).to(dt), xt)
+    if dd is None:
+        return gt
+    return gt, _xt_scatter_plain((dd[:, None] * Q1) * Q1, xt, squared=True)
 
 
 # ---------------------------------------------------------------------------
@@ -362,23 +426,27 @@ def project(idx: torch.Tensor, val: torch.Tensor,
     return kernels.project(idx, val, W)
 
 
-def scatter_plain(xt: FeatureMajor, Z: torch.Tensor) -> torch.Tensor:
-    """G = X^T Z through the field's feature-major list, summed at the
-    accumulation type in the X^T stage's order, then cast once to
-    storage."""
-    return _xt_scatter_plain(Z, xt).to(Z.dtype)
+def scatter_plain(xt: FeatureMajor, Z: torch.Tensor,
+                  squared: bool = False) -> torch.Tensor:
+    """G = X^T Z (X^2 with ``squared``) through the field's feature-major
+    list, summed at the accumulation type in the X^T stage's order, then
+    cast once to storage."""
+    return _xt_scatter_plain(Z, xt, squared).to(Z.dtype)
 
 
-def scatter(xt: FeatureMajor, Z: torch.Tensor) -> torch.Tensor:
+def scatter(xt: FeatureMajor, Z: torch.Tensor,
+            squared: bool = False) -> torch.Tensor:
     """G = X^T Z of a feature field of any width (the JAX package's
     ``scatter(idx, val, Z, d)``, an XLA segment sum there; ``xt`` holds
-    idx, val and d).  Pad rows (val == 0) are not in the list.  On a CUDA
-    tensor it runs the X^T stage kernel: per-feature sums in a fixed order,
-    no float atomics, so the result is deterministic.  Returns storage, as
+    idx, val and d); with ``squared``, (X^2)^T Z through the list's
+    ``val_sq`` (the JAX ``scatter(idx, val * val, Z, d)`` of the Jacobi
+    diagonal).  Pad rows (val == 0) are not in the list.  On a CUDA tensor
+    it runs the X^T stage kernel: per-feature sums in a fixed order, no
+    float atomics, so the result is deterministic.  Returns storage, as
     ``scatter_xla`` returns Z's dtype."""
     if _plain_device(Z):
-        return scatter_plain(xt, Z)
-    return kernels.scatter(xt, Z)
+        return scatter_plain(xt, Z, squared)
+    return kernels.scatter(xt, Z, squared)
 
 
 # ---------------------------------------------------------------------------
@@ -397,12 +465,19 @@ def pos_hv_tbl(V, x_idx, x_val, xt, rows, own, w_blk, dense_mat,
                               dense_mat, block_rows, w_scale)
 
 
-def grad_cross_tbl(xt, rows, own, c_blk, dense, block_rows: int):
+def grad_cross_tbl(xt, rows, own, c_blk, dense, block_rows: int,
+                   w_blk=None, wq_scale: float = 1.0):
     """The cross-block gradient pass of a small-D field.  Only its X^T side
-    reads the field (through ``xt``): the payload is per data row."""
+    reads the field (through ``xt``): the payload is per data row.  With
+    ``w_blk`` (Jacobi) it also returns the diagonal's table-space term."""
     if _plain_device(rows):
-        return grad_cross_tbl_plain(xt, rows, own, c_blk, dense, block_rows)
-    return kernels.grad_cross_tbl(xt, rows, own, c_blk, dense, block_rows)
+        return grad_cross_tbl_plain(xt, rows, own, c_blk, dense, block_rows,
+                                    w_blk, wq_scale)
+    if w_blk is None:
+        return kernels.grad_cross_tbl(xt, rows, own, c_blk, dense,
+                                      block_rows)
+    return kernels.grad_cross_tbl_diag(xt, rows, own, c_blk, dense,
+                                       block_rows, w_blk, wq_scale)
 
 
 def hv_self_tbl(V, x_idx, x_val, xt, Q1, dd):
@@ -412,8 +487,106 @@ def hv_self_tbl(V, x_idx, x_val, xt, Q1, dd):
     return kernels.hv_self_tbl(V, x_idx, x_val, xt, Q1, dd)
 
 
-def grad_self_tbl(xt, Q1, zdense, own, c_blk, block_rows: int):
-    """The self-block gradient pass of a small-D field."""
+def grad_self_tbl(xt, Q1, zdense, own, c_blk, block_rows: int, dd=None):
+    """The self-block gradient pass of a small-D field; with ``dd``
+    (Jacobi) it also returns the diagonal's table-space term."""
     if _plain_device(Q1):
-        return grad_self_tbl_plain(xt, Q1, zdense, own, c_blk, block_rows)
-    return kernels.grad_self_tbl(xt, Q1, zdense, own, c_blk, block_rows)
+        return grad_self_tbl_plain(xt, Q1, zdense, own, c_blk, block_rows,
+                                   dd)
+    if dd is None:
+        return kernels.grad_self_tbl(xt, Q1, zdense, own, c_blk, block_rows)
+    return kernels.grad_self_tbl_diag(xt, Q1, zdense, own, c_blk,
+                                      block_rows, dd)
+
+
+# ---------------------------------------------------------------------------
+# Hv variants off the solver's path (B9, B10): B1's function from a
+# lane-packed stream, and B1 with G blocks per CTA
+# ---------------------------------------------------------------------------
+
+PACK_LANES = 128  # four k = 32 entries per packed row, as the TPU's lanes
+
+
+def pack_rows(rows: torch.Tensor, own: torch.Tensor, w_blk: torch.Tensor):
+    """(rows_p, own_p, w_p): a blocked stream (n_blocks, MAXC, 32) in the
+    lane-packed layout (n_blocks, MAXC/4, 128) of ``pos_hv_packed_pallas``
+    (scripts/hv_pack_bench.py pack_stream).  Entry e = j * MAXC/4 + c lands
+    at [c, 32j:32j+32]; its owner and weight are copied to all 32 lanes of
+    that group (int32 owners, storage-dtype weights)."""
+    nb, maxc, k = rows.shape
+    if maxc % 4 or 4 * k != PACK_LANES:
+        raise ValueError(f"the packed layout needs k = {PACK_LANES // 4} and "
+                         f"MAXC % 4 == 0, got k={k}, MAXC={maxc}")
+    m4 = maxc // 4
+    rows_p = rows.reshape(nb, 4, m4, k).transpose(1, 2).reshape(
+        nb, m4, PACK_LANES)
+
+    def scal(x, dtype):
+        xp = x.reshape(nb, 4, m4).transpose(1, 2)[..., None]
+        return xp.expand(nb, m4, 4, k).reshape(nb, m4, PACK_LANES).to(dtype)
+
+    return rows_p, scal(own, torch.int32), scal(w_blk, rows.dtype)
+
+
+def pack_stream(B: torch.Tensor, take: torch.Tensor, own: torch.Tensor,
+                w_blk: torch.Tensor):
+    """The per-solve relayout of the packed variant: B's rows gathered in
+    slot order (``gather_blocked_rows``), then packed (``pack_rows``)."""
+    return pack_rows(gather_blocked_rows(B, take), own, w_blk)
+
+
+def unpack_rows(rows_p: torch.Tensor, own_p: torch.Tensor,
+                w_p: torch.Tensor):
+    """The inverse of ``pack_rows``: (rows, own, w_blk) in slot order, the
+    owner and weight read from lane 0 of each 32-lane group."""
+    nb, m4, lanes = rows_p.shape
+    k = lanes // 4
+    rows = rows_p.reshape(nb, m4, 4, k).transpose(1, 2).reshape(
+        nb, 4 * m4, k)
+
+    def scal(x):
+        return x[:, :, ::k].transpose(1, 2).reshape(nb, 4 * m4)
+
+    return rows, scal(own_p), scal(w_p)
+
+
+def pos_hv_packed_plain(phi, rows_p, own_p, w_p, dense_mat, num_out: int,
+                        block_rows: int, w_scale: float = 1.0):
+    """B1's function (``pos_hv_blocked_plain``) read from the lane-packed
+    stream: each row's slots walked in entry order e, so the result is B1's
+    bit for bit (pos_hv_packed_pallas, whose own roundings differ)."""
+    rows, own, w_blk = unpack_rows(rows_p, own_p, w_p)
+    return pos_hv_blocked_plain(phi, rows, own, w_blk, dense_mat, num_out,
+                                block_rows, w_scale)
+
+
+def pos_hv_blocked_g_plain(phi, rows, own, w_blk, dense_mat, num_out: int,
+                           block_rows: int, groups: int,
+                           w_scale: float = 1.0):
+    """B1 with G blocks per CTA (pos_hv_kt_g_pallas): the same function,
+    the same bits as ``pos_hv_blocked_plain``."""
+    if groups < 1 or rows.shape[0] % groups:
+        raise ValueError(f"G={groups} must divide n_blocks={rows.shape[0]} "
+                         "(pos_hv_kt_g_pallas's rule)")
+    return pos_hv_blocked_plain(phi, rows, own, w_blk, dense_mat, num_out,
+                                block_rows, w_scale)
+
+
+def pos_hv_packed(phi, rows_p, own_p, w_p, dense_mat, num_out: int,
+                  block_rows: int, w_scale: float = 1.0):
+    """B9 on a CUDA tensor, its plain version on a CPU one."""
+    if _plain_device(rows_p):
+        return pos_hv_packed_plain(phi, rows_p, own_p, w_p, dense_mat,
+                                   num_out, block_rows, w_scale)
+    return kernels.pos_hv_packed(phi, rows_p, own_p, w_p, dense_mat,
+                                 num_out, block_rows, w_scale)
+
+
+def pos_hv_blocked_g(phi, rows, own, w_blk, dense_mat, num_out: int,
+                     block_rows: int, groups: int, w_scale: float = 1.0):
+    """B10 on a CUDA tensor, its plain version on a CPU one."""
+    if _plain_device(rows):
+        return pos_hv_blocked_g_plain(phi, rows, own, w_blk, dense_mat,
+                                      num_out, block_rows, groups, w_scale)
+    return kernels.pos_hv_blocked_g(phi, rows, own, w_blk, dense_mat,
+                                    num_out, block_rows, groups, w_scale)

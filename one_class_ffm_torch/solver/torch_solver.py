@@ -1,7 +1,8 @@
 """Alternating Gauss-Newton solver for one-class FFM / FM / MF, in PyTorch.
 
 The port of ``one_class_ffm_tpu/solver/jax_solver.py`` on one device, plain
-CG, the blocked stream on both sides with the slot-order residual carry.
+or Jacobi-preconditioned CG, the blocked stream on both sides with the
+slot-order residual carry.
 A field is an identity id field (X is the identity: projection and scatter
 are a pad and a slice), a non-identity feature field with at most
 ``FUSED_TBL_D`` features, whose solves run the fused table-space passes
@@ -119,10 +120,12 @@ def make_device_data(u: PaddedFields, v: PaddedFields, y: PaddedLabels,
     Builds the blocked layout of the positive stream for both segment sides
     and checks the contiguous-run property of each.  For each non-identity
     field it builds the feature-major list of its X (``xf_u``/``xf_v``,
-    None for an identity field): the static X^T side of the fused table
-    kernels (in place of the JAX package's transposed (p, rows) copies) and
-    of the general scatter.  Building it rejects ids outside the field
-    (ghost ids)."""
+    None for an identity field) with X^2's values beside X's: the static
+    X^T side of the fused table kernels (in place of the JAX package's
+    transposed (p, rows) copies), of the general scatter and of the Jacobi
+    diagonal.  Building it rejects ids outside the field (ghost ids).  A
+    fused field also gets its per-feature sums of squared values
+    (``colsq_u``/``colsq_v``)."""
     device = torch.device(device)
     if not blocked_bm:
         raise NotImplementedError(
@@ -171,12 +174,34 @@ def make_device_data(u: PaddedFields, v: PaddedFields, y: PaddedLabels,
     def xf(pf: PaddedFields, flags):
         out = []
         for fi, on in enumerate(flags):
-            fm = feature_major(pf.idx[fi], pf.val[fi], pf.Ds[fi]) if on \
-                else None
-            out.append(None if fm is None else FeatureMajor(
-                row=t(fm.row), val=t(fm.val, dtype),
-                chunk_ptr=t(fm.chunk_ptr), feat_ptr=t(fm.feat_ptr),
-                n_rows=fm.n_rows))
+            if not on:
+                out.append(None)
+                continue
+            fm = feature_major(pf.idx[fi], pf.val[fi], pf.Ds[fi])
+            val = t(fm.val, dtype)
+            # X^2 for the Jacobi diagonal, squared at storage dtype: the
+            # rounding of both JAX forms, _scat_sq's v1 * v1 and the fused
+            # kernels' _xoh_block(square=True) (jax_solver.py:1916,
+            # sparse_ops.py:1094), which square the stored value and round
+            # the square to storage
+            out.append(FeatureMajor(
+                row=t(fm.row), val=val, chunk_ptr=t(fm.chunk_ptr),
+                feat_ptr=t(fm.feat_ptr), n_rows=fm.n_rows, val_sq=val * val))
+        return tuple(out)
+
+    def colsq(pf: PaddedFields, flags):
+        # per-feature sum of squared values ((X^2)^T 1) of a fused field,
+        # the omega term of its table-space Jacobi diagonal (jax_solver.py
+        # colsq): float64 sums, one cast to storage
+        out = []
+        for fi, on in enumerate(flags):
+            if not on:
+                out.append(None)
+                continue
+            a = np.zeros(pf.Ds[fi], np.float64)
+            np.add.at(a, np.asarray(pf.idx[fi]).ravel(),
+                      np.asarray(pf.val[fi], np.float64).ravel() ** 2)
+            out.append(t(a, dtype))
         return tuple(out)
 
     data: Dict[str, Any] = dict(
@@ -186,6 +211,7 @@ def make_device_data(u: PaddedFields, v: PaddedFields, y: PaddedLabels,
         xv_val=tuple(t(a, dtype) for a in v.val),
         xf_u=xf(u, [not i for i in ident_u]),
         xf_v=xf(v, [not i for i in ident_v]),
+        colsq_u=colsq(u, meta.fused_u), colsq_v=colsq(v, meta.fused_v),
         pos_u=t(y.u), pos_v=t(y.v), pos_w=t(y.w, dtype),
         cnt_u=t(y.count_u, dtype), cnt_v=t(y.count_v, dtype),
         reg_u=regs(u), reg_v=regs(v),
@@ -220,10 +246,10 @@ class FFMSolver:
         if mesh is not None:
             raise NotImplementedError("multi-device runs: ROADMAP A11")
         hp = meta.hp
+        # "auto" is plain CG, the reference's exact solver; Jacobi-PCG is
+        # an opt-in (jax_solver.py:517-519)
         self.cg_precond = "none" if hp.cg_precond == "auto" else hp.cg_precond
-        if self.cg_precond == "jacobi":
-            raise NotImplementedError("cg_precond='jacobi': ROADMAP A10")
-        if self.cg_precond != "none":
+        if self.cg_precond not in ("none", "jacobi"):
             raise ValueError(f"unknown cg_precond {hp.cg_precond!r}")
         if not (meta.blocked_bm_u and meta.blocked_bm_v):
             raise NotImplementedError(
@@ -283,6 +309,24 @@ class FFMSolver:
         if xf is not None:
             return scatter(xf, Z)
         return Z[:dim]
+
+    def _scat_sq(self, b: BlockInfo, first: bool, Z: Tensor,
+                 dim: int) -> Tensor:
+        """(X_side^2)^T @ Z at storage dtype, the squared-feature scatter of
+        the Jacobi diagonal (jax_solver.py _scat_sq): for an identity field
+        X^2 == X, the slice; a wide field scatters through its list's
+        squared values."""
+        _, _, xf = self._x(b, first)
+        if xf is not None:
+            return scatter(xf, Z, squared=True)
+        return Z[:dim]
+
+    def _side_colsq(self, b: BlockInfo, first: bool) -> Tensor:
+        """Per-feature sum of squared values of a fused field, (D,): the
+        (X^2)^T of a constant row is colsq times that row (the omega term of
+        the table-space Jacobi diagonal)."""
+        u_side, fl = self._u_field(b, first)
+        return self.data["colsq_u" if u_side else "colsq_v"][fl]
 
     def _tbl_grad(self, b: BlockInfo, first: bool, T: Tensor,
                   Gt: Tensor) -> Tensor:
@@ -391,11 +435,17 @@ class FFMSolver:
         return "blk_v_", meta.n, meta.blocked_bm_v
 
     def _grad_cross(self, state, b: BlockInfo, first: bool,
-                    rows_pre: Tensor) -> Tensor:
+                    rows_pre: Tensor, with_diag_pos: bool = False):
         """Gradient for one table of a cross block (gd_cross, ffm.cpp:630-703):
         omega part via k x k Grams, positive part by the scatter kernel over
         the pre-gathered stream; on a small-D feature field both go to table
-        space in one fused pass, on a wide one the X^T stage scatters them."""
+        space in one fused pass, on a wide one the X^T stage scatters them.
+
+        ``with_diag_pos`` (Jacobi): returns (G, term) where term is the
+        Hessian diagonal's positive part from the same read of the stream:
+        on a fused field ("tbl", the complete table-space scatter term at
+        the float32 floor), else the row-space posq[r] = sum_t (1-w) w_t
+        rows_t^2 that _diag_H scatters through X^2."""
         meta, d = self.meta, self.data
         hp = meta.hp
         reg, _, _ = self._side(b, first)
@@ -418,15 +468,30 @@ class FFMSolver:
         dense = hp.omega * ((side - hp.r)[:, None] * oQ[None, :]
                             + bQ[None, :] + gram_T)
         _, _, xf = self._x(b, first)
+        # the diagonal's weights are static: (1 - omega) times the slot
+        # order's pad mask, scaled inside the pass
+        diag_w = dict(w_blk=d[pre + "w"], wq_scale=1.0 - hp.omega) \
+            if with_diag_pos else {}
         if self._fused(b, first):
-            return self._tbl_grad(b, first, T, grad_cross_tbl(
-                xf, rows_pre, d[pre + "own"], c_blk, dense, bm))
-        zpos = pos_scatter_blocked(c_blk, rows_pre, d[pre + "own"], num, bm)
-        return hp.lam * reg[:, None] * T + self._scat(
+            res = grad_cross_tbl(xf, rows_pre, d[pre + "own"], c_blk, dense,
+                                 bm, **diag_w)
+            if not with_diag_pos:
+                return self._tbl_grad(b, first, T, res)
+            Gt, Qt = res
+            qtq_d = (B1 * B1).sum(dim=0)  # pad rows are zero
+            acc = acc_dtype(meta.dtype)
+            tbl_d = (hp.omega * (self._side_colsq(b, first).to(acc)[:, None]
+                                 * qtq_d.to(acc)[None, :]) + Qt.to(acc))
+            return self._tbl_grad(b, first, T, Gt), ("tbl", tbl_d)
+        res = pos_scatter_blocked(c_blk, rows_pre, d[pre + "own"], num, bm,
+                                  **diag_w)
+        zpos = res[0] if with_diag_pos else res
+        G = hp.lam * reg[:, None] * T + self._scat(
             b, first, dense + zpos, T.shape[0])
+        return (G, res[1]) if with_diag_pos else G
 
     def _grad_self(self, state, b: BlockInfo, first: bool, sa: Tensor,
-                   sb: Tensor) -> Tensor:
+                   sb: Tensor, want_diag: bool = False):
         """Gradient for one table of a self block (gd_side, ffm.cpp:537-592):
 
             z_i = w [ n (a_i - r) + sum(b) + sa_i ] + sum_{j in pos_i} c_ij
@@ -434,7 +499,10 @@ class FFMSolver:
 
         The per-row positive sums run over the slot-order carry of the
         block's side; on a small-D feature field they, the dense term and
-        the X^T scatter are one fused pass."""
+        the X^T scatter are one fused pass.  ``want_diag`` (Jacobi): returns
+        (G, term), term the fused pass's table-space diagonal ("tbl",
+        (X^2)^T diag(dd) Q1^2) or None off the fused path (_diag_H then
+        scatters its own)."""
         meta, d = self.meta, self.data
         hp = meta.hp
         T = state["params"][b.f12]["W" if first else "H"]
@@ -452,12 +520,26 @@ class FFMSolver:
         zdense = hp.omega * (n_other * (side - hp.r) + other_sum + s_cache)
         _, _, xf = self._x(b, first)
         if self._fused(b, first):
-            return self._tbl_grad(b, first, T, grad_self_tbl(
-                xf, Q1, zdense, d[pre + "own"], c_blk, bm))
+            if not want_diag:
+                return self._tbl_grad(b, first, T, grad_self_tbl(
+                    xf, Q1, zdense, d[pre + "own"], c_blk, bm))
+            Gt, Dq = grad_self_tbl(xf, Q1, zdense, d[pre + "own"], c_blk,
+                                   bm, dd=self._self_dd(b))
+            return (self._tbl_grad(b, first, T, Gt),
+                    ("tbl", Dq.to(acc_dtype(meta.dtype))))
         z = zdense + seg_sum_blocked(c_blk, d[pre + "own"], num, bm)
         reg, _, _ = self._side(b, first)
-        return hp.lam * reg[:, None] * T + self._scat(
+        G = hp.lam * reg[:, None] * T + self._scat(
             b, first, z[:, None] * Q1, T.shape[0])
+        return (G, None) if want_diag else G
+
+    def _self_dd(self, b: BlockInfo) -> Tensor:
+        """d_i = (1-w)|pos_i| + w n of a self block's side, at storage
+        dtype: the per-row weight of its Hv and of its Jacobi diagonal."""
+        meta, d, hp = self.meta, self.data, self.meta.hp
+        if b.kind == "uu":
+            return (1.0 - hp.omega) * d["cnt_u"] + hp.omega * meta.n_true
+        return (1.0 - hp.omega) * d["cnt_v"] + hp.omega * meta.m_true
 
     def _hv_cross(self, state, b: BlockInfo, first: bool, rows_pre: Tensor):
         """Hv closure for a cross-block table (hs_cross, ffm.cpp:706-742):
@@ -492,14 +574,10 @@ class FFMSolver:
         d_i = (1-w)|pos_i| + w n;  Hv = lam reg V + X1^T diag(d <Q1, X1 V>)
         Q1 — one fused table pass per call on a small-D feature field, B8
         and the X^T stage on a wide one."""
-        meta, d = self.meta, self.data
-        hp = meta.hp
+        hp = self.meta.hp
         reg, _, _ = self._side(b, first)
         Q1 = state["Q"][b.f12] if first else state["P"][b.f12]
-        if b.kind == "uu":
-            dd = (1.0 - hp.omega) * d["cnt_u"] + hp.omega * meta.n_true
-        else:
-            dd = (1.0 - hp.omega) * d["cnt_v"] + hp.omega * meta.m_true
+        dd = self._self_dd(b)
         dim = state["params"][b.f12]["W" if first else "H"].shape[0]
         idx, val, xf = self._x(b, first)
         fused = self._fused(b, first)
@@ -514,22 +592,57 @@ class FFMSolver:
 
         return hv
 
+    # -- Jacobi preconditioner ------------------------------------------------
+
+    def _diag_H(self, state, b: BlockInfo, first: bool, term=None):
+        """Exact diagonal of the block-table Hessian (oracle diag_hessian),
+        or None under plain CG:
+
+          cross: D[d,l] = lam reg[d] + X1s^T [ w diag(Q1^T Q1)
+                                               + (1-w) pos-scatter of Q1^2 ]
+          self : D[d,l] = lam reg[d] + X1s^T (dd_i Q1[i,l]^2)
+
+        ``term``: the gradient pass's diagonal output — ("tbl", the whole
+        scatter term) from a fused pass, or a cross solve's row-space posq;
+        None for a self block off the fused path, whose term is scattered
+        here.  Clamped at 1e-12, so that a pad table row (D == 0, R == 0)
+        gives R / D == 0, not NaN (jax_solver.py:1918-1961)."""
+        if self.cg_precond != "jacobi":
+            return None
+        hp = self.meta.hp
+        reg, _, _ = self._side(b, first)
+        if isinstance(term, tuple):
+            return (hp.lam * reg[:, None] + term[1]).clamp_min(1e-12)
+        Q1 = state["Q"][b.f12] if first else state["P"][b.f12]
+        dim = state["params"][b.f12]["W" if first else "H"].shape[0]
+        if b.kind == "uv":
+            qtq_d = (Q1 * Q1).sum(dim=0)  # pad rows are zero
+            rowq = hp.omega * qtq_d[None, :] + term
+        else:
+            rowq = self._self_dd(b)[:, None] * (Q1 * Q1)
+        D = hp.lam * reg[:, None] + self._scat_sq(b, first, rowq, dim)
+        return D.clamp_min(1e-12)
+
     # -- conjugate gradient -----------------------------------------------------
 
-    def _cg(self, hv, G: Tensor) -> Tuple[Tensor, int]:
+    def _cg(self, hv, G: Tensor, D: Optional[Tensor] = None):
         """Newton-step CG (cg, ffm.cpp:744-813): stop when ||r||^2 <=
-        cg_eps ||g||^2 or after cg_max_iter iterations.  The recurrence runs
-        at a float32 floor; Hv is evaluated at storage dtype.  One host sync
-        per iteration reads the stop condition."""
+        cg_eps ||g||^2 or after cg_max_iter iterations.  With ``D``,
+        Jacobi-preconditioned CG on the same system with the same
+        true-residual stop rule: only the search directions change.  The
+        recurrence runs at a float32 floor; Hv is evaluated at storage
+        dtype.  One host sync per iteration reads the stop condition."""
         hp = self.meta.hp
         storage = self.meta.dtype
         ct = torch.promote_types(G.dtype, torch.float32)
         Gc = G.to(ct)
+        Dc = None if D is None else D.to(ct)
         g2 = (Gc * Gc).sum()
         S = torch.zeros_like(Gc)
         R = -Gc
-        V = -Gc
+        V = -Gc if Dc is None else -Gc / Dc
         r2 = g2
+        rz = g2 if Dc is None else (Gc * (Gc / Dc)).sum()
         it = 0
         one = torch.ones((), dtype=ct, device=Gc.device)
         zero = torch.zeros((), dtype=ct, device=Gc.device)
@@ -540,12 +653,19 @@ class FFMSolver:
             # converged f32 block can underflow V.Hv to 0 — take no step
             # and force the stop instead of writing inf/nan
             ok = den > 0
-            alpha = torch.where(ok, r2 / torch.where(ok, den, one), zero)
+            alpha = torch.where(ok, rz / torch.where(ok, den, one), zero)
             S = S + alpha * V
             R = R - alpha * Hv
             r2_new = torch.where(ok, (R * R).sum(), zero)
-            V = R + (r2_new / torch.where(r2 > 0, r2, one)) * V
-            r2 = r2_new
+            rz_safe = torch.where(rz > 0, rz, one)
+            if Dc is None:
+                rz_new = r2_new
+                V = R + (rz_new / rz_safe) * V
+            else:
+                Z = R / Dc
+                rz_new = (R * Z).sum()
+                V = Z + (rz_new / rz_safe) * V
+            r2, rz = r2_new, rz_new
             it += 1
         return S, it
 
@@ -603,19 +723,30 @@ class FFMSolver:
         """(gradient, Hv closure, the solve's stream or None) for one table
         of a block.  In a cross solve the other side's cache is constant:
         its blocked stream is gathered once and every pass streams it."""
+        return self.solve_inputs(state, b, first, sa, sb)[:3]
+
+    def solve_inputs(self, state, b: BlockInfo, first: bool, sa, sb):
+        """``grad_and_hv`` plus the Jacobi diagonal (None under plain CG),
+        whose scatter term the gradient's pass computes from the same read
+        of the stream (jax_solver.py:2278-2298)."""
+        jac = self.cg_precond == "jacobi"
         if b.kind != "uv":
-            return (self._grad_self(state, b, first, sa, sb),
-                    self._hv_self(state, b, first), None)
+            res = self._grad_self(state, b, first, sa, sb, want_diag=jac)
+            G, term = res if jac else (res, None)
+            return (G, self._hv_self(state, b, first), None,
+                    self._diag_H(state, b, first, term))
         B1 = state["Q"][b.f12] if first else state["P"][b.f12]
         pre, _, _ = self._blk(first)
         rows_pre = gather_blocked_rows(B1, self.data[pre + "take"])
-        return (self._grad_cross(state, b, first, rows_pre),
-                self._hv_cross(state, b, first, rows_pre), rows_pre)
+        res = self._grad_cross(state, b, first, rows_pre, with_diag_pos=jac)
+        G, term = res if jac else (res, None)
+        return (G, self._hv_cross(state, b, first, rows_pre), rows_pre,
+                self._diag_H(state, b, first, term))
 
     def _solve_half(self, state, b: BlockInfo, first: bool, sa, sb):
-        """Gradient, CG and step for one table of a block."""
-        G, hv, rows_pre = self.grad_and_hv(state, b, first, sa, sb)
-        S, it = self._cg(hv, G)
+        """Gradient, (P)CG and step for one table of a block."""
+        G, hv, rows_pre, D = self.solve_inputs(state, b, first, sa, sb)
+        S, it = self._cg(hv, G, D)
         return self._apply_step(state, b, first, S, rows_pre), it
 
     # -- epoch ------------------------------------------------------------------

@@ -88,8 +88,9 @@ class TrainConfig:
     # the catalog exceeds eval_item_threshold)
     eval_shard: str = "auto"
     eval_item_threshold: int = 1 << 18
-    # CG flavor: "auto" (jacobi except plain-COO bf16 — the measured
-    # winners per config), "jacobi", or "none" (reference-exact plain CG)
+    # CG flavor: "auto" (plain CG, the reference-exact solver;
+    # jax_solver.py:517-519), "jacobi" (diagonal-preconditioned opt-in, same
+    # stop rule), or "none" (plain CG)
     cg_precond: str = "auto"
     # rows per block for the blocked-sorted positive ops (u-side segment
     # sums as one-hot MXU matmuls).  0 disables.  Auto-disabled when the

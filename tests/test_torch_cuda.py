@@ -258,3 +258,119 @@ def test_scatter_matches_plain(device, dtype, k):
     assert kernels.launch_counts()["scatter"] == 2
     with pytest.raises(ValueError, match="rows"):
         kernels.scatter(xt, Z[:-1].contiguous())
+
+
+# ---------------------------------------------------------------------------
+# the Jacobi diagonal's outputs (B2, B5, B7 with_diag) and the Hv variants
+# of hv_pack_bench (B9, B10)
+# ---------------------------------------------------------------------------
+
+
+def _squared(xt):
+    return xt._replace(val_sq=xt.val * xt.val)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [8, 32, 40])
+def test_diag_kernels_match_plain(device, dtype, k):
+    """The three gradient passes with the Jacobi output: one launch each,
+    both outputs bit-equal to the plain versions, and the first output
+    bit-equal to the pass without the diagonal."""
+    rng, num, BM, blk, rows = _stream(9, k, False)
+    d = 37
+    idx, val = _field(rng, num, d)
+    fm = feature_major(idx, val, d)
+
+    def T(a):
+        return torch.as_tensor(a).to(device=device, dtype=dtype).contiguous()
+
+    def I(a):
+        return torch.as_tensor(a, dtype=torch.int32, device=device)
+
+    xt = _squared(FeatureMajor(row=I(fm.row), val=T(fm.val),
+                               chunk_ptr=I(fm.chunk_ptr),
+                               feat_ptr=I(fm.feat_ptr), n_rows=fm.n_rows))
+    own = I(blk["own"])
+    x_rows = T(rows)
+    w = T(rng.random(blk["own"].shape) * (blk["own"] < BM))
+    c = T(rng.normal(size=blk["own"].shape))
+    Q1 = T(rng.normal(size=(num, k)))
+    dense = T(rng.normal(size=(num, k)))
+    dd, zdense = T(rng.random(num) * 5), T(rng.normal(size=num))
+    cases = {
+        "pos_scatter_blocked": ((c, x_rows, own, num, BM),
+                                dict(w_blk=w, wq_scale=0.9)),
+        "grad_cross_tbl": ((xt, x_rows, own, c, dense, BM),
+                           dict(w_blk=w, wq_scale=0.9)),
+        "grad_self_tbl": ((xt, Q1, zdense, own, c, BM), dict(dd=dd)),
+    }
+    kernels.reset_launch_counts()
+    for name, (args, kw) in cases.items():
+        got = getattr(ops, name)(*args, **kw)  # dispatches to the _diag kernel
+        again = getattr(kernels, name + "_diag")(*args, *kw.values())
+        ref = getattr(ops, name + "_plain")(*args, **kw)
+        alone = getattr(kernels, name)(*args)
+        torch.cuda.synchronize()
+        for g, a, r in zip(got, again, ref):
+            assert g.shape == r.shape and g.dtype == r.dtype, name
+            assert torch.equal(g, a), f"{name}: launches differ"
+            assert _max_rel(g, r) <= BOUND[dtype], name
+            assert torch.equal(g, r), name  # same order, same roundings
+        assert torch.equal(got[0], alone), name
+    assert kernels.launch_counts() == {
+        name: 2 if name.endswith("_diag") else 1 if name in cases else 0
+        for name in kernels.KERNELS}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_squared_scatter_matches_plain(device, dtype):
+    rng = np.random.default_rng(10)
+    num, d = 600, 5000
+    idx, val = _field(rng, num, d)
+    fm = feature_major(idx, val, d)
+    T = lambda a: torch.as_tensor(a).to(device=device, dtype=dtype)  # noqa
+    xt = _squared(FeatureMajor(
+        row=torch.as_tensor(fm.row, device=device), val=T(fm.val),
+        chunk_ptr=torch.as_tensor(fm.chunk_ptr, device=device),
+        feat_ptr=torch.as_tensor(fm.feat_ptr, device=device),
+        n_rows=fm.n_rows))
+    Z = T(rng.normal(size=(num, 32))).contiguous()
+    got = ops.scatter(xt, Z, squared=True)
+    assert torch.equal(got, ops.scatter_plain(xt, Z, squared=True))
+    assert not torch.equal(got, ops.scatter(xt, Z))
+    with pytest.raises(ValueError, match="val_sq"):
+        kernels.scatter(xt._replace(val_sq=None), Z, squared=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("groups", [1, 2, 4])
+def test_hv_variants_match_b1(device, dtype, groups):
+    """B9 on the packed stream and B10 at G blocks per CTA give B1's bits
+    and their plain versions' bits."""
+    rng = np.random.default_rng(11)
+    nb, maxc, BM, k = 8, 64, 32, 32
+    own = np.sort(rng.integers(0, BM + 1, size=(nb, maxc)), axis=1)
+    w = (own < BM) * rng.random((nb, maxc))
+
+    def T(a):
+        return torch.as_tensor(a).to(device=device, dtype=dtype).contiguous()
+
+    own_t = torch.as_tensor(own, dtype=torch.int32, device=device)
+    rows, w_t = T(rng.normal(size=(nb, maxc, k))), T(w)
+    phi, dmat = T(rng.normal(size=(nb * BM, k))), T(rng.normal(size=(k, k)))
+    rows_p, own_p, w_p = ops.pack_rows(rows, own_t, w_t)
+    kernels.reset_launch_counts()
+    b1 = kernels.pos_hv_blocked(phi, rows, own_t, w_t, dmat, nb * BM, BM, 0.9)
+    b9 = ops.pos_hv_packed(phi, rows_p, own_p, w_p, dmat, nb * BM, BM, 0.9)
+    b10 = ops.pos_hv_blocked_g(phi, rows, own_t, w_t, dmat, nb * BM, BM,
+                               groups, 0.9)
+    torch.cuda.synchronize()
+    assert torch.equal(b9, b1) and torch.equal(b10, b1)
+    assert torch.equal(b9, ops.pos_hv_packed_plain(
+        phi, rows_p, own_p, w_p, dmat, nb * BM, BM, 0.9))
+    assert torch.equal(b10, ops.pos_hv_blocked_g_plain(
+        phi, rows, own_t, w_t, dmat, nb * BM, BM, groups, 0.9))
+    counts = kernels.launch_counts()
+    assert counts["pos_hv_packed"] == 1 and counts["pos_hv_blocked_g"] == 1
+    with pytest.raises(ValueError, match="divide"):
+        kernels.pos_hv_blocked_g(phi, rows, own_t, w_t, dmat, nb * BM, BM, 3)

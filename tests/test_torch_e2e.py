@@ -149,14 +149,14 @@ def test_cli_fm_rows_match_jax(fm_set, tmp_path, capsys, monkeypatch, extra):
     assert meta.ident_u == (False,) and meta.ident_v == (False,)
 
 
-# models without --ns run now; the last case is such a model with a flag
-# the port still lacks
+# models without --ns and --cg-precond jacobi run now (test_torch_jacobi.py);
+# the last two cases are MF and such a model without the blocked layout
 @pytest.mark.parametrize("argv, message", [
     (["--ns", "--mesh", "2"], "--mesh"),
     (["--ns", "--distributed"], "--distributed"),
     (["--ns", "--ckpt-format", "orbax"], "orbax"),
     (["--ns", "--profile-dir", "trace"], "--profile-dir"),
-    (["--ns", "--cg-precond", "jacobi"], "jacobi"),
+    (["--ns", "--blocked-bm", "0"], "blocked_bm=0"),
     (["--blocked-bm", "0"], "blocked_bm=0"),
 ])
 def test_cli_refuses_what_the_port_lacks(mf_set, capsys, argv, message):
