@@ -20,11 +20,15 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
    blocked kernels in MF solves (200k users x 20k items, k=32, both solve
    sides); the four fused table kernels and the projection B8 in FFM solves
    (the same rows, u-side field D=1000 and v-side field D=500); the blocked
-   kernels, B8 and the general scatter in FM solves (one flattened field
-   per side, D=201,000 and 20,500);
+   kernels, B8 and the general scatter (through X, and untimed through
+   X^2) in FM solves (one flattened field per side, D=201,000 and 20,500);
    Then the Jacobi variants of three of them (the second output of B2, B5
    and B7) on arguments recorded from real Jacobi half-solves of the FFM,
-   and B9 and B10 on the MF streams, each also against B1's output;
+   and B9 and B10 on the MF streams, each also against B1's output.
+   Before them, ``[data]`` lines give the static plans the redesigned
+   kernels read: each stream side's row runs (mean and longest) and each
+   feature-major list's single-chunk, multi-chunk and featureless
+   features;
 4. reference: on a small MF problem, a small FFM problem with self blocks
    and a small FM problem whose fields are above a lowered fused-table cap,
    the gradients and Hv products the kernels give on the card match the
@@ -281,6 +285,32 @@ def train_and_validate(trainer, epochs: int):
                 validate_s=trainer.timer.summary()["validate"]["seconds"])
 
 
+def print_static_plan(tag: str, data) -> None:
+    """The static structures the redesigned kernels read, per solver: each
+    stream side's row runs (B2's span per CTA and its longest dependent
+    chain, the longest run) and each feature-major list's split into
+    single-chunk features (written by the X^T stage's first pass), features
+    with several chunks and features with none (both by its second)."""
+    for side in ("u", "v"):
+        runs = data[f"blk_{side}_runs"]
+        length = (runs[:, 1:] - runs[:, :-1]).float()
+        print(f"[data] {tag} stream {side}: {runs.shape[0]} blocks x MAXC "
+              f"{data[f'blk_{side}_own'].shape[1]}, "
+              f"{int(runs[:, -1].sum())} valid slots, row runs mean "
+              f"{length.mean().item():.2f} longest {int(length.max())} "
+              "slots")
+        for fi, xt in enumerate(data[f"xf_{side}"]):
+            if xt is None:
+                continue
+            nch = (xt.feat_ptr[1:] - xt.feat_ptr[:-1])
+            print(f"[data] {tag} {side} field {fi}: D={nch.numel()} "
+                  f"chunks={xt.chunk_dst.numel()}: single-chunk features "
+                  f"{int((nch == 1).sum())}, multi-chunk "
+                  f"{int((nch > 1).sum())} (their chunks "
+                  f"{int(nch[nch > 1].sum())}), featureless "
+                  f"{int((nch == 0).sum())}")
+
+
 def check_main_path(res) -> None:
     obj = res["objectives"]
     check(all(math.isfinite(o) for o in obj), f"non-finite objective {obj}")
@@ -309,23 +339,28 @@ def _nbytes(a, squared: bool = False) -> int:
         return sum(_nbytes(t) for t in a)
     if isinstance(a, FeatureMajor):
         return sum(_nbytes(t) for t in (a.row, a.val, a.chunk_ptr,
-                                        a.feat_ptr)) + (
+                                        a.feat_ptr, a.combine, a.chunk_dst,
+                                        a.slot_feat)) + (
             _nbytes(a.val_sq) if squared else 0)
     return 0
 
 
-def work(name: str, args, out):
+def work(name: str, args, out, kw=None):
     """(bytes, operations) that the function needs on these inputs: each
     input read once and the output written once (for ``project`` only the
     table rows its ids name; for B9 one lane of each 32-lane group of the
-    packed owners and weights), and the products and sums of the entries
-    these inputs hold (valid slots, nonzero X entries), not of padding.  A
-    Jacobi variant adds its second payload (rows^2 scaled and summed per
-    slot, or dd Q1 Q1 per row) and its X^2 pass."""
+    packed owners and weights; for B2 given its rows' runs, the runs in
+    place of the owners), and the products and sums of the entries these
+    inputs hold (valid slots, nonzero X entries), not of padding.  A Jacobi
+    variant adds its second payload (rows^2 scaled and summed per slot, or
+    dd Q1 Q1 per row) and its X^2 pass."""
     import torch
 
     diag = name.endswith("_diag")
     nbytes = (sum(_nbytes(a, squared=diag) for a in args) + _nbytes(out))
+    runs = (kw or {}).get("runs")
+    if runs is not None:  # B2 reads the runs, not the owners
+        nbytes += _nbytes(runs) - _nbytes(args[2])
     if name == "pos_hv_packed":
         phi, rows_p, own_p, w_p, dense, num_out, bm = args[:7]
         nbytes -= (_nbytes(own_p) + _nbytes(w_p)) * 31 // 32
@@ -455,11 +490,13 @@ def gpu_line() -> str:
 
 
 def kernel_registers(lib_path: str):
-    """{(kernel, dtype, Jacobi variant?): registers per thread} of the
-    built library, from ``cuobjdump -res-usage`` of the CUDA toolkit, or
-    None where it is missing: with 256 threads per CTA the register count
-    sets how many CTAs an SM holds, which the latency-bound stream kernels
-    need."""
+    """{(kernel, dtype, Jacobi variant?, integer template arguments):
+    registers per thread} of the built library, from ``cuobjdump
+    -res-usage`` of the CUDA toolkit, or None where it is missing: with 256
+    threads per CTA the register count sets how many CTAs an SM holds,
+    which the latency-bound stream kernels need.  The integer arguments are
+    a width plan's (G, NV, VE) (common.cuh by_width); a kernel without a
+    storage type (the X^T stage's combine pass) sums f32 partials."""
     import re
     import shutil
 
@@ -470,11 +507,13 @@ def kernel_registers(lib_path: str):
                          text=True, timeout=120).stdout
     regs, name = {}, None
     for line in out.splitlines():
-        m = re.search(r"\d+([a-z][a-z_]*_kernel)I(13__nv_bfloat16|f)E?"
-                      r"(Lb[01])?", line)
-        if m:
-            name = (m.group(1), "bf16" if m.group(2) != "f" else "f32",
-                    m.group(3) == "Lb1")
+        m = re.search(r"\d+([a-z][a-z_]*_kernel)I(13__nv_bfloat16|f)?"
+                      r"((?:Li\d+E|Lb[01]E?)*)", line)
+        if m and (m.group(2) or m.group(3)):
+            targs = m.group(3)
+            name = (m.group(1), "bf16" if m.group(2) == "13__nv_bfloat16"
+                    else "f32", "Lb1" in targs,
+                    tuple(int(x) for x in re.findall(r"Li(\d+)E", targs)))
         m = re.search(r"REG:(\d+)", line)
         if m and name:
             regs[name] = int(m.group(1))
@@ -482,14 +521,21 @@ def kernel_registers(lib_path: str):
     return regs
 
 
-def time_ms(fn, reps: int = 10, rounds: int = 5) -> float:
+def time_ms(fn, reps: int = 10, rounds: int = 5,
+            warm_ms: float = 25.0) -> float:
     """Median over rounds of the mean time of ``reps`` back-to-back calls,
-    by CUDA events, after warm-up."""
+    by CUDA events, after ``warm_ms`` of warm-up calls (at least two): the
+    card idles at a low clock (345 MHz at the start of a run) and reaches
+    its boost clock only after milliseconds of work, so a short function
+    timed right after a pause would be timed at the low clock."""
     import torch
 
-    for _ in range(2):
+    t0 = time.perf_counter()
+    for i in range(1 << 30):
         fn()
-    torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        if i >= 1 and (time.perf_counter() - t0) * 1e3 >= warm_ms:
+            break
     out = []
     for _ in range(rounds):
         s = torch.cuda.Event(enable_timing=True)
@@ -514,13 +560,13 @@ def _outputs(x):
 
 
 def compare(name: str, side: str, dt_name: str, args, kw, report, gpu: str,
-            same_as=None):
+            same_as=None, timed: bool = True):
     """One kernel against its plain version on the same inputs (a Jacobi
     variant: both outputs against the plain version called with the
     diagonal's argument): two launches bit-identical, max-rel within the
     bound; ``same_as``: a tensor the kernel must reproduce bit for bit (B1's
-    output, for its variants).  At float32 also the kernel, plain and
-    library times and the work's bound."""
+    output, for its variants).  At float32 (where ``timed``) also the
+    kernel, plain and library times and the work's bound."""
     import torch
 
     from one_class_ffm_torch.ops import kernels
@@ -528,8 +574,11 @@ def compare(name: str, side: str, dt_name: str, args, kw, report, gpu: str,
 
     kern = getattr(kernels, name)
     plain = getattr(ops, name.removesuffix("_diag") + "_plain")
+    # B2's rows' runs are the kernel's encoding of ``own``: the plain
+    # version reads ``own``
+    pkw = {key: a for key, a in kw.items() if key != "runs"}
     got, got2 = kern(*args, **kw), kern(*args, **kw)
-    ref = plain(*args, **kw)
+    ref = plain(*args, **pkw)
     torch.cuda.synchronize()
     pairs = list(zip(_outputs(got), _outputs(got2), _outputs(ref)))
     check(len(pairs) == len(_outputs(ref)),
@@ -556,10 +605,10 @@ def compare(name: str, side: str, dt_name: str, args, kw, report, gpu: str,
         b1_equal = torch.equal(_outputs(got)[0], same_as)
         line += f" B1-bits {b1_equal}"
         check(b1_equal, f"{name} {side} {dt_name}: not B1's bits")
-    if dt_name == "float32":
+    if dt_name == "float32" and timed:
         ms = time_ms(lambda: kern(*args, **kw))
-        pms = time_ms(lambda: plain(*args, **kw))
-        nbytes, nops = work(name, args, got)
+        pms = time_ms(lambda: plain(*args, **pkw))
+        nbytes, nops = work(name, args, got, kw)
         bms, by = bound_of(nbytes, nops)
         lib = library_call(name, args)
         lms = time_ms(lib) if lib is not None else None
@@ -653,10 +702,13 @@ def kernel_phase(trainer, cases, tag: str, gpu: str, report) -> None:
                             ("bfloat16", torch.bfloat16)):
             for name in names:
                 args, kw = seen[name]
-                compare(name, f"{tag} {side}", dt_name,
-                        [_cast(a, dt) for a in args],
-                        {key: _cast(a, dt) for key, a in kw.items()},
-                        report, gpu)
+                args = [_cast(a, dt) for a in args]
+                kw = {key: _cast(a, dt) for key, a in kw.items()}
+                compare(name, f"{tag} {side}", dt_name, args, kw, report,
+                        gpu)
+                if name == "scatter":  # the same list through X^2 (Jacobi)
+                    compare(name, f"{tag} {side} X^2", dt_name,
+                            [*args[:2], True], kw, report, gpu, timed=False)
 
 
 def mf_cases(trainer):
@@ -1053,9 +1105,10 @@ def main() -> int:
         print(f"[build] {kernels.library_path().name} in "
               f"{kernels.build_seconds:.2f} s")
         regs = kernel_registers(str(kernels.library_path()))
-        for (kname, dt_name, diag), n in sorted((regs or {}).items()):
-            print(f"[build] {kname}{' (Jacobi)' if diag else ''} {dt_name}: "
-                  f"{n} registers per thread")
+        for (kname, dt_name, diag, targs), n in sorted((regs or {}).items()):
+            plan = f"<{','.join(map(str, targs))}>" if targs else ""
+            print(f"[build] {kname}{plan}{' (Jacobi)' if diag else ''} "
+                  f"{dt_name}: {n} registers per thread")
         if regs is None:
             print("[build] registers per thread: not measured (no "
                   "cuobjdump)")
@@ -1094,6 +1147,9 @@ def main() -> int:
         check(not any(meta.fused_u + meta.fused_v + meta.ident_u
                       + meta.ident_v),
               "FM: a field is identity or takes the fused table passes")
+        for tag, tr in (("MF", mf_trainer), ("FFM", ffm_trainer),
+                        ("FM", fm_trainer)):
+            print_static_plan(tag, tr.solver.data)
         kernel_phase(mf_trainer, mf_cases(mf_trainer), "MF", gpu, report)
         variant_phase(mf_trainer, gpu, report)
         kernel_phase(ffm_trainer, ffm_cases(ffm_trainer), "FFM", gpu, report)

@@ -11,10 +11,11 @@
 // stream `rows` is row-major (n_blocks, MAXC, k); `own` (n_blocks, MAXC)
 // names each slot's row inside its block of `block_rows` rows, with the pad
 // marker own == block_rows.  Within a block `own` is non-decreasing and pads
-// come last, so the slots of one row form one contiguous run.  Each row's
-// run is found by binary search over its block's `own`, so the per-row sums
-// need no atomics and run in a fixed order: two launches on the same input
-// give the same bits.
+// come last, so the slots of one row form one contiguous run.  B1 finds
+// each row's run by binary search over its block's `own`; B2 reads it from
+// the static run pointer `runs` (layout.row_runs, built once with the
+// layout).  Either way the per-row sums need no atomics and run in a fixed
+// order: two launches on the same input give the same bits.
 //
 // Every kernel reads storage-dtype values (f32 or bf16), accumulates in f32
 // and writes storage dtype, with the rounding points of the TPU kernels
@@ -25,10 +26,11 @@
 //
 // All three kernels stream `rows` once per call and do O(k) flops per
 // loaded element: they are bound by device-memory bandwidth, not by the
-// tensor cores.  The design keeps every load of `rows` coalesced (lanes
-// over k, 128 bytes per warp-row at k=32 f32) and reads it exactly once;
-// phi/dP/out rows are touched once per output row or slot.  Offsets are
-// 64-bit: n_blocks * MAXC * k passes 2^31 at web-scale configurations.
+// tensor cores.  B1 and B3 keep every load of `rows` coalesced (lanes over
+// k, 128 bytes per warp-row at k=32 f32); B2 brings its rows' span into
+// shared memory with bulk copies (below).  Each reads the stream exactly
+// once; phi/dP/out rows are touched once per output row or slot.  Offsets
+// are 64-bit: n_blocks * MAXC * k passes 2^31 at web-scale configurations.
 
 #include "common.cuh"
 
@@ -58,38 +60,253 @@ pos_hv_kernel(const T* __restrict__ phi, const T* __restrict__ rows,
              RowMajor{k});
 }
 
-// Replaces pos_scatter_kt_pallas / _scatter_kt_kernel.  One warp per output
-// row, lanes over k:
-//   out[r] = sum_{t: own_t = r} c_t * rows_t
+// ---------------------------------------------------------------------------
+// B2, the blocked gradient scatter.  Replaces pos_scatter_kt_pallas /
+// _scatter_kt_kernel:
+//   out[r] = sum_{t: own_t = r} c_t * rows_t                       (slot order)
 // kDiag (the Jacobi w_blk payload, from the same read of each slot's row):
 //   outq[r] = storage(sum_{t: own_t = r} storage(storage(rows_t^2) * wq_t)),
 //   wq_t = storage(w_t * storage(wq_scale))
-template <typename T, bool kDiag>
-__global__ void __launch_bounds__(kWarps * 32)
-pos_scatter_kernel(const T* __restrict__ c, const T* __restrict__ rows,
-                   const int* __restrict__ own, const T* __restrict__ w,
-                   float wq_scale, T* __restrict__ out, T* __restrict__ outq,
-                   int maxc, int k, int block_rows) {
-  const int lane = threadIdx.x & 31;
-  const int r = blockIdx.y * kWarps + (threadIdx.x >> 5);
-  if (r >= block_rows) return;
-  const int64_t blk = blockIdx.x;
-  const int64_t row = blk * block_rows + r;
-  int s, e;
-  row_run(own + blk * maxc, maxc, r, s, e);
+//
+// What bounds it on the H100: the stream (124 MB on the u side, 117 MB on
+// the v side at the headline shapes) is larger than the 50 MB L2, so the
+// floor is one pass over it at 3.35 TB/s.  A warp per row that searches
+// its run and then adds one slot's row per dependent round trip to memory
+// reaches about a quarter of that on the H100.  Here a CTA of two warps
+// owns kRows consecutive rows of one block (8 at k = 32 f32: a slice of
+// it, so that the v side's 79 blocks still give thousands of CTAs); their
+// runs are one contiguous span of the block's slots, read from the static
+// run pointer `runs` (no search).  One thread streams the span into a ring
+// of kStages shared-memory stages with bulk asynchronous copies
+// (cp.async.bulk, completed on an mbarrier per stage: the copy engine
+// moves the bytes, no thread waits on a load), and a group of G lanes per
+// row adds its slots from shared memory in slot order while the next stage
+// is in flight.  Small CTAs with two stages of ~8 KB measured best on the
+// H100 (u and v streams at k = 32 f32): a CTA of 32 rows walked the v
+// side's spans of ~1,400 slots stage after stage with only one or two
+// groups busy in each, and more or larger stages cost CTAs per SM.  A bulk
+// copy needs 16-byte-aligned addresses and sizes: the span is widened to
+// multiples of 8 slots (MAXC is one) and the path needs k * sizeof(T) % 16
+// == 0 (VE > 1).  Any other k takes the plain-load path of the same kernel
+// (VE = 1): each group reads its run from device memory in batches of D
+// slots, with the same adds in the same order, so both paths give the
+// same bits.
+// ---------------------------------------------------------------------------
 
-  float acc[kMaxKPerLane], accq[kMaxKPerLane];
-#pragma unroll
-  for (int j = 0; j < kMaxKPerLane; ++j) acc[j] = accq[j] = 0.f;
-  if constexpr (kDiag) {
-    scatter_diag_row<T, true>(c + blk * maxc, w + blk * maxc, wq_scale,
-                              rows + blk * maxc * k, s, e, k, lane, acc, accq);
-    store_row(outq, row, k, lane, accq);
-  } else {
-    scatter_row(c + blk * maxc, rows + blk * maxc * k, s, e, k, lane, acc);
-  }
-  store_row(out, row, k, lane, acc);
+constexpr int kScatterThreads = 64;  // threads per CTA
+constexpr int kStages = 2;           // shared-memory stages in the ring
+constexpr int kStageBytes = 8192;    // stream bytes per stage (about)
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// wait until the phase of the given parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// bytes (a multiple of 16) from device memory into shared memory, both
+// 16-byte aligned; completion is counted on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Adds the slots [lo, hi) to one row's sums, slot t's row at rows_p +
+// (t - base) * k and its coefficient (weight) at c_p[t - base] (w_p[...]):
+// device memory on the plain-load path, a shared-memory stage otherwise.
+// Batches of D slots: their loads first, then the adds in slot order.
+template <typename T, int G, int NV, int VE, bool kDiag>
+__device__ __forceinline__ void scatter_slots(
+    const T* rows_p, const T* c_p, const T* w_p, int base, int lo, int hi,
+    int k, int lane, float wq, float (&acc)[NV][VE], float (&accq)[NV][VE]) {
+  constexpr int D = batch_depth<T, NV, VE>();
+  for (int t0 = lo; t0 < hi; t0 += D) {
+    RawVec<T, VE> raw[D][NV];
+    float ct[D], wt[D];
+#pragma unroll
+    for (int j = 0; j < D; ++j)
+      if (t0 + j < hi) {
+        const int64_t o = t0 + j - base;
+        ct[j] = to_f(c_p[o]);
+        if constexpr (kDiag) wt[j] = rnd<T>(__fmul_rn(to_f(w_p[o]), wq));
+#pragma unroll
+        for (int v = 0; v < NV; ++v) {
+          const int c0 = (v * G + lane) * VE;
+          if (c0 < k) raw[j][v] = load_raw<T, VE>(rows_p + o * k + c0);
+        }
+      }
+#pragma unroll
+    for (int j = 0; j < D; ++j)
+      if (t0 + j < hi) {
+#pragma unroll
+        for (int v = 0; v < NV; ++v) {
+          if ((v * G + lane) * VE >= k) continue;
+          float r[VE];
+          unpack(raw[j][v], r);
+#pragma unroll
+          for (int i = 0; i < VE; ++i) {
+            acc[v][i] = __fadd_rn(acc[v][i], __fmul_rn(ct[j], r[i]));
+            if constexpr (kDiag) {
+              const float q = __fmul_rn(rnd<T>(__fmul_rn(r[i], r[i])), wt[j]);
+              accq[v][i] = __fadd_rn(accq[v][i], rnd<T>(q));
+            }
+          }
+        }
+      }
+  }
+}
+
+// One CTA per (block, slice of kRows rows); dynamic shared memory: kStages
+// stages of `stage_slots` slots, each the slots' rows, then their
+// coefficients, then (kDiag) their weights.
+template <typename T, int G, int NV, int VE, bool kDiag>
+__global__ void __launch_bounds__(kScatterThreads)
+pos_scatter_kernel(const T* __restrict__ c, const T* __restrict__ rows,
+                   const int* __restrict__ runs, const T* __restrict__ w,
+                   float wq_scale, T* __restrict__ out, T* __restrict__ outq,
+                   int maxc, int k, int block_rows, int stage_slots) {
+  constexpr int kRows = kScatterThreads / G;
+  const int lane = threadIdx.x % G;
+  const int64_t blk = blockIdx.x;
+  const int r0 = blockIdx.y * kRows;
+  const int r = r0 + (int)threadIdx.x / G;
+  const int* runs_b = runs + blk * (block_rows + 1);
+  const T* c_b = c + blk * maxc;
+  const T* w_b = kDiag ? w + blk * maxc : nullptr;
+  const T* rows_b = rows + blk * maxc * k;
+  int rs = 0, re = 0;
+  if (r < block_rows) {
+    rs = runs_b[r];
+    re = runs_b[r + 1];
+  }
+  const float wq = kDiag ? rnd<T>(wq_scale) : 0.f;
+  float acc[NV][VE], accq[NV][VE];
+#pragma unroll
+  for (int v = 0; v < NV; ++v)
+#pragma unroll
+    for (int i = 0; i < VE; ++i) acc[v][i] = accq[v][i] = 0.f;
+
+  if constexpr (VE == 1) {
+    scatter_slots<T, G, NV, VE, kDiag>(rows_b, c_b, w_b, 0, rs, re, k, lane,
+                                       wq, acc, accq);
+  } else {
+    extern __shared__ __align__(128) unsigned char stage_smem[];
+    __shared__ uint64_t full[kStages];
+    // the span of the CTA's rows, widened to whole 8-slot groups
+    const int s = runs_b[r0], e = runs_b[min(r0 + kRows, block_rows)];
+    const int w0 = s & ~7, w1 = (e + 7) & ~7;
+    const int n_st = s < e ? (w1 - w0 + stage_slots - 1) / stage_slots : 0;
+    const int stage_elems = stage_slots * (k + (kDiag ? 2 : 1));
+    T* sm = reinterpret_cast<T*>(stage_smem);
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < kStages; ++i) mbar_init(&full[i]);
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+    auto issue = [&](int j) {  // thread 0: stage j into its buffer
+      const int ws = w0 + j * stage_slots;
+      const int n = min(stage_slots, w1 - ws);  // a multiple of 8 slots
+      T* buf = sm + (j % kStages) * stage_elems;
+      uint64_t* bar = &full[j % kStages];
+      const uint32_t row_bytes = (uint32_t)n * k * sizeof(T);
+      const uint32_t col_bytes = (uint32_t)n * sizeof(T);
+      mbar_expect_tx(bar, row_bytes + col_bytes * (kDiag ? 2 : 1));
+      bulk_load(buf, rows_b + (int64_t)ws * k, row_bytes, bar);
+      bulk_load(buf + stage_slots * k, c_b + ws, col_bytes, bar);
+      if constexpr (kDiag)
+        bulk_load(buf + stage_slots * (k + 1), w_b + ws, col_bytes, bar);
+    };
+    if (threadIdx.x == 0)
+      for (int j = 0; j < min(kStages, n_st); ++j) issue(j);
+    for (int j = 0; j < n_st; ++j) {
+      mbar_wait(&full[j % kStages], (uint32_t)(j / kStages) & 1u);
+      const int ws = w0 + j * stage_slots;
+      const T* buf = sm + (j % kStages) * stage_elems;
+      scatter_slots<T, G, NV, VE, kDiag>(
+          buf, buf + stage_slots * k, buf + stage_slots * (k + 1), ws,
+          max(rs, ws), min(re, ws + stage_slots), k, lane, wq, acc, accq);
+      __syncthreads();  // every group is done with buffer j % kStages
+      if (threadIdx.x == 0 && j + kStages < n_st) issue(j + kStages);
+    }
+  }
+  if (r >= block_rows) return;
+  const int64_t row = blk * block_rows + r;
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    const int c0 = (v * G + lane) * VE;
+    if (c0 >= k) continue;
+    store_vals<T, VE>(out + row * k + c0, acc[v]);
+    if constexpr (kDiag) store_vals<T, VE>(outq + row * k + c0, accq[v]);
+  }
+}
+
+// slots per shared-memory stage for rows of `row_bytes`: about kStageBytes
+// of the stream, a multiple of 8 slots
+inline int stage_slots_for(int row_bytes) {
+  const int n = (kStageBytes / row_bytes) & ~7;
+  return n > 8 ? n : 8;
+}
+
+template <typename T, bool kDiag>
+struct ScatterLaunch {
+  const T* c;
+  const T* rows;
+  const int* runs;
+  const T* w;
+  float wq_scale;
+  T *out, *outq;
+  long long n_blocks;
+  int maxc, k, block_rows;
+  cudaStream_t st;
+  template <int G, int NV, int VE>
+  int run() const {
+    constexpr int kRows = kScatterThreads / G;
+    const dim3 grid((unsigned)n_blocks, (block_rows + kRows - 1) / kRows);
+    int slots = 0;
+    size_t smem = 0;
+    if (VE > 1) {
+      slots = stage_slots_for(k * (int)sizeof(T));
+      smem = (size_t)kStages * slots * (k + (kDiag ? 2 : 1)) * sizeof(T);
+      const cudaError_t err = cudaFuncSetAttribute(
+          pos_scatter_kernel<T, G, NV, VE, kDiag>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    pos_scatter_kernel<T, G, NV, VE, kDiag><<<grid, kScatterThreads, smem,
+                                              st>>>(
+        c, rows, runs, w, wq_scale, out, outq, maxc, k, block_rows, slots);
+    return (int)cudaGetLastError();
+  }
+};
 
 // Replaces pos_gap_kt_pallas / _gap_kt_kernel.  One warp per slot t (grid-
 // stride), lanes over k:  gap_t = <dP[own_t], rows_t>, written flat in slot
@@ -139,23 +356,24 @@ int ocffm_pos_hv_blocked(int dtype, const void* phi, const void* rows,
 }
 
 // w == nullptr: the gradient scatter alone; otherwise also the Jacobi
-// payload into outq.
+// payload into outq.  runs: (n_blocks, block_rows + 1) row runs of slots.
 int ocffm_pos_scatter_blocked(int dtype, const void* c, const void* rows,
-                              const void* own, const void* w, float wq_scale,
-                              void* out, void* outq, long long n_blocks,
-                              int maxc, int k, int block_rows, void* stream) {
-  const dim3 grid((unsigned)n_blocks, (block_rows + kWarps - 1) / kWarps);
+                              const void* runs, const void* w,
+                              float wq_scale, void* out, void* outq,
+                              long long n_blocks, int maxc, int k,
+                              int block_rows, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  const void* ptrs[] = {c, rows, w, out, outq};
+  // the bulk copies start at 8-slot boundaries of each block's MAXC slots
+  const bool vec = maxc % 8 == 0 && vec_ok(k, dtype == kF32 ? 4 : 2, ptrs, 5);
   if (w == nullptr) {
-    OCFFM_BY_DTYPE(dtype, pos_scatter_kernel<T, false><<<grid, kWarps * 32, 0, st>>>(
-        (const T*)c, (const T*)rows, (const int*)own, nullptr, wq_scale,
-        (T*)out, nullptr, maxc, k, block_rows));
-  } else {
-    OCFFM_BY_DTYPE(dtype, pos_scatter_kernel<T, true><<<grid, kWarps * 32, 0, st>>>(
-        (const T*)c, (const T*)rows, (const int*)own, (const T*)w, wq_scale,
-        (T*)out, (T*)outq, maxc, k, block_rows));
+    OCFFM_BY_DTYPE(dtype, return by_width<T>(k, vec, ScatterLaunch<T, false>{
+        (const T*)c, (const T*)rows, (const int*)runs, nullptr, wq_scale,
+        (T*)out, nullptr, n_blocks, maxc, k, block_rows, st}));
   }
-  return (int)cudaGetLastError();
+  OCFFM_BY_DTYPE(dtype, return by_width<T>(k, vec, ScatterLaunch<T, true>{
+      (const T*)c, (const T*)rows, (const int*)runs, (const T*)w, wq_scale,
+      (T*)out, (T*)outq, n_blocks, maxc, k, block_rows, st}));
 }
 
 int ocffm_pos_gap_blocked(int dtype, const void* dP, const void* rows,

@@ -3,8 +3,10 @@
 // sum, the slot layouts and row runs of the blocked stream, the per-row
 // math of the blocked Hv and gradient passes (the latter with the Jacobi
 // diagonal's second payload), the projection of one row (B8 and the table
-// passes' phi = X V), the grid of a warp-per-item loop and the dtype
-// dispatch of a launch.  Every product and sum is rounded on its own (__fmul_rn /
+// passes' phi = X V), the grid of a warp-per-item loop, the dtype dispatch
+// of a launch, and the rows of a width fixed at compile time (vector loads
+// and stores, and the dispatch over width plans) that the X^T stage and B2
+// use.  Every product and sum is rounded on its own (__fmul_rn /
 // __fadd_rn: no fused multiply-add) in a fixed order, which the plain
 // PyTorch versions in ops/sparse_ops.py follow bit for bit.
 #pragma once
@@ -138,8 +140,8 @@ __device__ __forceinline__ void hv_row(const float (&ph)[kMaxKPerLane],
   }
 }
 
-// The blocked gradient scatter of one row, lanes over k (B2;
-// pos_scatter_kt_pallas):  acc += sum_{t in [s, e)} c_t * rows_t
+// The blocked gradient scatter of one row, lanes over k (B5's row stage;
+// B2's function):  acc += sum_{t in [s, e)} c_t * rows_t
 template <typename T>
 __device__ __forceinline__ void scatter_row(const T* __restrict__ c_b,
                                             const T* __restrict__ rows_b, int s,
@@ -157,12 +159,12 @@ __device__ __forceinline__ void scatter_row(const T* __restrict__ c_b,
 }
 
 // scatter_row plus the Jacobi diagonal's positive term from the same read
-// of each slot's row (the with_diag outputs of B2 and B5):
+// of each slot's row (B5's with_diag output; B2 rounds q_t to storage
+// before its sum, blocked_ops.cu scatter_slots):
 //   accq += sum_{t in [s, e)} q_t,   wq_t = storage(w_t * storage(wq_scale)),
-//   q_t = storage(storage(rows_t^2) * wq_t)   kRoundQ (_scatter_kt_kernel)
-//   q_t = wq_t * storage(rows_t^2) at f32     otherwise (the one-hot matmul
-//                                             of _grad_cross_tbl_kernel)
-template <typename T, bool kRoundQ>
+//   q_t = wq_t * storage(rows_t^2) at f32 (the one-hot matmul of
+//   _grad_cross_tbl_kernel)
+template <typename T>
 __device__ __forceinline__ void scatter_diag_row(
     const T* __restrict__ c_b, const T* __restrict__ w_b, float wq_scale,
     const T* __restrict__ rows_b, int s, int e, int k, int lane,
@@ -178,8 +180,7 @@ __device__ __forceinline__ void scatter_diag_row(
       if (cc < k) {
         const float r = to_f(rt[cc]);
         acc[j] = __fadd_rn(acc[j], __fmul_rn(ct, r));
-        const float q = __fmul_rn(rnd<T>(__fmul_rn(r, r)), wt);
-        accq[j] = __fadd_rn(accq[j], kRoundQ ? rnd<T>(q) : q);
+        accq[j] = __fadd_rn(accq[j], __fmul_rn(rnd<T>(__fmul_rn(r, r)), wt));
       }
     }
   }
@@ -266,6 +267,122 @@ __device__ __forceinline__ void hv_out_row(const T* __restrict__ phi,
 inline unsigned warp_grid(long long n) {
   const long long want = (n + kWarps - 1) / kWarps;
   return (unsigned)(want < 65536 ? (want > 0 ? want : 1) : 65536);
+}
+
+// ---------------------------------------------------------------------------
+// Rows of a width fixed at compile time (the X^T stage and B2).  A row of k
+// values is read by a group of G lanes; lane l of a group holds NV vectors
+// of VE consecutive values, vector v at columns (v * G + l) * VE ..
+// + VE - 1.  On the vector path VE = 16 / sizeof(T): one 16-byte load per
+// vector, which needs k * sizeof(T) % 16 == 0 and 16-byte aligned rows.
+// The plain-load path (VE = 1, G = 32, NV = kMaxKPerLane) takes any k up to
+// 256 with one load per value.  Either way every value is summed at f32 in
+// the same order, so both paths give the same bits.
+// ---------------------------------------------------------------------------
+
+// VE values of T as loaded: one 16-byte word, or one T
+template <typename T, int VE> struct RawVec { uint4 v; };
+template <typename T> struct RawVec<T, 1> { T v; };
+
+template <typename T, int VE>
+__device__ __forceinline__ RawVec<T, VE> load_raw(const T* p) {
+  RawVec<T, VE> r;
+  if constexpr (VE == 1) {
+    r.v = *p;
+  } else {
+    static_assert(VE * sizeof(T) == 16, "one 16-byte vector");
+    r.v = *reinterpret_cast<const uint4*>(p);
+  }
+  return r;
+}
+
+template <typename T, int VE>
+__device__ __forceinline__ void unpack(const RawVec<T, VE>& r,
+                                       float (&f)[VE]) {
+  if constexpr (VE == 1) {
+    f[0] = to_f(r.v);
+  } else if constexpr (sizeof(T) == 4) {
+    f[0] = __uint_as_float(r.v.x);
+    f[1] = __uint_as_float(r.v.y);
+    f[2] = __uint_as_float(r.v.z);
+    f[3] = __uint_as_float(r.v.w);
+  } else {  // eight bf16, value 2i in the low half of word i: exact widening
+    const uint32_t w[4] = {r.v.x, r.v.y, r.v.z, r.v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+}
+
+// VE values stored at storage dtype T (rounded once each)
+template <typename T, int VE>
+__device__ __forceinline__ void store_vals(T* p, const float (&f)[VE]) {
+  if constexpr (VE == 1) {
+    *p = from_f<T>(f[0]);
+  } else if constexpr (sizeof(T) == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
+  } else {
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      w[i] = (uint32_t)__bfloat16_as_ushort(__float2bfloat16(f[2 * i])) |
+             ((uint32_t)__bfloat16_as_ushort(__float2bfloat16(f[2 * i + 1]))
+              << 16);
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// VE values stored at f32 (16-byte stores where VE > 1: k % 4 == 0 there)
+template <int VE>
+__device__ __forceinline__ void store_f32(float* p, const float (&f)[VE]) {
+  if constexpr (VE == 1) {
+    *p = f[0];
+  } else {
+#pragma unroll
+    for (int i = 0; i < VE; i += 4)
+      *reinterpret_cast<float4*>(p + i) =
+          make_float4(f[i], f[i + 1], f[i + 2], f[i + 3]);
+  }
+}
+
+// Entries gathered per batch: their loads are all issued before the first
+// of their ordered adds (about 32 registers of loaded values per lane).
+template <typename T, int NV, int VE>
+__host__ __device__ constexpr int batch_depth() {
+  constexpr int regs = NV * (VE * (int)sizeof(T) >= 4 ? VE * (int)sizeof(T) / 4
+                                                       : 1);
+  return regs >= 16 ? 2 : regs >= 8 ? 4 : 8;
+}
+
+// Calls l.template run<G, NV, VE>() with the width plan of k: the vector
+// path where `vec` (the smallest power-of-two group that covers k with
+// 16-byte vectors, NV = 2 only for f32 k > 128), else the plain-load path.
+// Returns cudaErrorInvalidValue for a k the plan does not cover.
+template <typename T, typename L>
+int by_width(int k, bool vec, const L& l) {
+  constexpr int VE = 16 / (int)sizeof(T);
+  if (!vec) return l.template run<32, kMaxKPerLane, 1>();
+  const int n = k / VE;  // vectors per row
+  if (n <= 1) return l.template run<1, 1, VE>();
+  if (n <= 2) return l.template run<2, 1, VE>();
+  if (n <= 4) return l.template run<4, 1, VE>();
+  if (n <= 8) return l.template run<8, 1, VE>();
+  if (n <= 16) return l.template run<16, 1, VE>();
+  if (n <= 32) return l.template run<32, 1, VE>();
+  if constexpr (VE * 64 <= kMaxKPerLane * 32) {
+    if (n <= 64) return l.template run<32, 2, VE>();
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// the vector path applies: whole 16-byte vectors per row, aligned base
+inline bool vec_ok(int k, int elem_bytes, const void* const* ptrs, int n) {
+  if ((k * elem_bytes) % 16) return false;
+  for (int i = 0; i < n; ++i)
+    if (ptrs[i] != nullptr && ((uintptr_t)ptrs[i]) % 16) return false;
+  return true;
 }
 
 }  // namespace ocffm

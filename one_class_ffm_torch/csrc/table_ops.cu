@@ -19,23 +19,44 @@
 //      at storage dtype: the same single rounding the TPU kernels apply to
 //      their zpb / zb block.  phi = X V never leaves registers.
 //   2. X^T payload: over the field's static feature-major list
-//      (ops/layout.py FeatureMajor).  One warp per chunk of at most
-//      XT_CHUNK entries of one feature sums val * payload[row] in list
-//      order into an f32 partial; one warp per feature then adds its
-//      chunks' partials in chunk order.  The chunks split the few heavy
-//      features (class bases carrying ~25k rows each) over many warps.
+//      (ops/layout.py FeatureMajor) and its plan (layout.xt_plan), in one
+//      launch.  A group of lanes per chunk of at most XT_CHUNK entries of
+//      one feature sums val * payload[row] in list order at f32.  The chunk
+//      of a feature that has only one writes its sum straight to the
+//      output; the chunks of the other features write partial rows, and
+//      the group that finishes a feature's last chunk adds its partials in
+//      chunk order.  Features with no entries get a zero row.  The chunks
+//      split the few heavy features (class bases carrying ~25k rows each)
+//      over many groups.
 //
-// No atomics anywhere: every sum runs in a fixed order, so two launches
-// give the same bits and the plain versions in ops/sparse_ops.py, which add
-// in the same order with the same roundings (no fused multiply-add),
-// agree with the kernels bit for bit.
+// No float atomics: every sum runs in a fixed order, so two launches give
+// the same bits and the plain versions in ops/sparse_ops.py, which add in
+// the same order with the same roundings (no fused multiply-add), agree
+// with the kernels bit for bit.  (An integer ticket per feature picks
+// which group adds a feature's partial rows, not the order it adds them.)
 //
 // Bounds on the H100: stage 1 streams the blocked stream `rows` once (as
 // B1/B2 do) and reads each data row's p table rows from L2 (D x k is at
 // most 512 KB); it is bound by device-memory bandwidth.  Stage 2 gathers
-// one payload row (k values, 128 bytes at k=32 f32) per X entry: about
-// 400k random 128-byte reads per pass at the headline shapes, bound by
-// memory latency, which the many independent chunk warps hide.
+// one payload row (k values, 128 bytes at k=32 f32) per X entry and writes
+// one output row per feature: on FM's u field 600k random 128-byte reads
+// and a 26 MB output, bound by device-memory bandwidth once enough reads
+// are in flight, by latency otherwise.  What the design does about it:
+//   - most of FM's features (ids) have one entry and so one chunk; their
+//     sums go straight to the output, with no partial row written and read
+//     back and no pass over every feature;
+//   - a short chunk gets a group of G lanes, not a warp: at k = 32 one
+//     16-byte load per lane covers a row with 8 lanes (f32) or 4 (bf16),
+//     so a warp serves 4 or 8 chunks;
+//   - a batch of D payload rows is loaded before the first of its ordered
+//     adds, and the next batch's (row, val) while they are in flight, so a
+//     128-entry chunk is 32 round trips to memory (D = 4), not 128;
+//   - the width is a template argument (common.cuh by_width), so a lane
+//     holds k / G values in registers, not eight generic ones (B9's
+//     lesson: registers set occupancy in these latency-bound loops);
+//   - one launch, not two: a short scatter (FM's item field, 60k entries)
+//     costs about as much host time as device time.
+// Gathers of random payload rows gain nothing from TMA or tensor cores.
 
 #include "common.cuh"
 
@@ -98,9 +119,8 @@ grad_cross_tbl_rows_kernel(const T* __restrict__ c,
 #pragma unroll
   for (int j = 0; j < kMaxKPerLane; ++j) acc[j] = accq[j] = 0.f;
   if constexpr (kDiag) {
-    scatter_diag_row<T, false>(c + blk * maxc, w + blk * maxc, wq_scale,
-                               rows + blk * maxc * k, s, e, k, lane, acc,
-                               accq);
+    scatter_diag_row<T>(c + blk * maxc, w + blk * maxc, wq_scale,
+                        rows + blk * maxc * k, s, e, k, lane, acc, accq);
     store_row(payload_q, row, k, lane, accq);
   } else {
     scatter_row(c + blk * maxc, rows + blk * maxc * k, s, e, k, lane, acc);
@@ -183,76 +203,221 @@ grad_self_tbl_rows_kernel(const T* __restrict__ q1,
   if constexpr (kDiag) store_row(payload_q, row, k, lane, vq);
 }
 
-// Stage 2a, shared by the four passes: one warp per chunk (grid-stride),
-// lanes over k.  The lanes load 32 entries' (row, val) at a time and
-// broadcast them by shuffles:
-//   partial[ch] = sum_{e in chunk ch} val_e * payload[row_e]   (f32)
-template <typename T>
-__global__ void __launch_bounds__(kWarps * 32)
-xt_chunk_kernel(const T* __restrict__ payload, const int* __restrict__ xf_row,
-                const T* __restrict__ xf_val,
-                const int* __restrict__ chunk_ptr, int n_chunks,
-                float* __restrict__ partial, int k) {
-  const int lane = threadIdx.x & 31;
-  const int n_warps = gridDim.x * kWarps;
-  for (int ch = blockIdx.x * kWarps + (threadIdx.x >> 5); ch < n_chunks;
-       ch += n_warps) {
-    const int s = chunk_ptr[ch], e = chunk_ptr[ch + 1];
-    float acc[kMaxKPerLane];
+// VE f32 values from device memory through L2 (cache-global: rows another
+// SM wrote during this launch are never read from a stale L1 line)
+template <int VE>
+__device__ __forceinline__ void load_f32_cg(const float* p, float (&f)[VE]) {
+  if constexpr (VE == 1) {
+    f[0] = __ldcg(p);
+  } else {
 #pragma unroll
-    for (int j = 0; j < kMaxKPerLane; ++j) acc[j] = 0.f;
-    for (int base = s; base < e; base += 32) {
-      const int mine = base + lane;
-      const int my_row = mine < e ? xf_row[mine] : 0;
-      const float my_val = mine < e ? to_f(xf_val[mine]) : 0.f;
-      const int n = min(32, e - base);
-      for (int q = 0; q < n; ++q) {
-        const int64_t rq = __shfl_sync(kFull, my_row, q);
-        const float vq = __shfl_sync(kFull, my_val, q);
-        const T* pr = payload + rq * k;
-#pragma unroll
-        for (int j = 0; j < kMaxKPerLane; ++j) {
-          const int c = j * 32 + lane;
-          if (c < k) acc[j] = __fadd_rn(acc[j], __fmul_rn(vq, to_f(pr[c])));
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kMaxKPerLane; ++j) {
-      const int c = j * 32 + lane;
-      if (c < k) partial[(int64_t)ch * k + c] = acc[j];
+    for (int i = 0; i < VE; i += 4) {
+      const float4 x = __ldcg(reinterpret_cast<const float4*>(p + i));
+      f[i] = x.x;
+      f[i + 1] = x.y;
+      f[i + 2] = x.z;
+      f[i + 3] = x.w;
     }
   }
 }
 
-// Stage 2b: one warp per feature f (grid-stride), lanes over k:
-//   out[f] = sum_{ch in f's chunks} partial[ch], in chunk order (f32)
-__global__ void __launch_bounds__(kWarps * 32)
-xt_feature_kernel(const float* __restrict__ partial,
-                  const int* __restrict__ feat_ptr, int d,
-                  float* __restrict__ out, int k) {
-  const int lane = threadIdx.x & 31;
-  const int n_warps = gridDim.x * kWarps;
-  for (int f = blockIdx.x * kWarps + (threadIdx.x >> 5); f < d;
-       f += n_warps) {
-    const int s = feat_ptr[f], e = feat_ptr[f + 1];
-    float acc[kMaxKPerLane];
+// Stage 2, shared by the four passes and the general scatter: one launch,
+// one group of G lanes per chunk (grid-stride), the chunk's entries
+// gathered in batches of D payload rows whose loads are all in flight
+// before their ordered adds, the next batch's (row, val) loaded while they
+// are:
+//   sum = 0 + val_s * payload[row_s] + ... in list order           (f32)
+// A chunk of a single-chunk feature f writes `sum` straight to out[f] (the
+// two-stage order adds it to 0.f, which gives the same bits: the sum starts
+// at +0 and so is never -0).  A chunk of a feature with several writes its
+// partial row, and the group that finishes the feature's last chunk (in
+// time: a ticket per feature, counted after a memory fence, as in CUDA's
+// threadFenceReduction sample) adds the feature's partial rows in chunk
+// order and resets the ticket for the next launch:
+//   out[f] = 0 + partial[p0] + partial[p0 + 1] + ...                 (f32)
+// The items after the chunks give the features with no entries a zero row.
+// D is half of B2's batch (4 rows at k = 32), the finishing adds take 4
+// partial rows per batch, and the kernel is held to 3 CTAs per SM (at most
+// 85 registers): on the H100 at k = 32 f32 that ran FM's and FFM's lists
+// fastest of the batch depths (4, 8, 16) and CTA counts per SM (1 to 4)
+// tried; holding the (row, val) pairs across the group's lanes and
+// shuffling them out per entry was slower than any of them.
+template <typename T, int G, int NV, int VE>
+__global__ void __launch_bounds__(kWarps * 32, 3)
+xt_kernel(const T* __restrict__ payload, const int* __restrict__ xf_row,
+          const T* __restrict__ xf_val, const int* __restrict__ chunk_ptr,
+          const int* __restrict__ chunk_dst, int n_chunks,
+          const int* __restrict__ feat_ptr, const int* __restrict__ combine,
+          int n_combine, const int* __restrict__ slot_feat,
+          int* __restrict__ ticket, float* __restrict__ partial,
+          float* __restrict__ out, int k) {
+  constexpr int kGroups = kWarps * 32 / G;
+  constexpr int D = batch_depth<T, NV, VE>() > 4 ? batch_depth<T, NV, VE>() / 2
+                                                 : 2;
+  constexpr int DC = 4;  // partial rows per batch of the finishing adds
+  const int lane = threadIdx.x % G;
+  // the group's lanes (a warp's groups may run chunks of other lengths)
+  const unsigned gmask =
+      G == 32 ? kFull
+              : ((1u << (G & 31)) - 1u) << ((threadIdx.x & 31) & ~(G - 1));
+  const int n_groups = gridDim.x * kGroups;
+  for (int it = blockIdx.x * kGroups + threadIdx.x / G;
+       it < n_chunks + n_combine; it += n_groups) {
+    float acc[NV][VE];
 #pragma unroll
-    for (int j = 0; j < kMaxKPerLane; ++j) acc[j] = 0.f;
-    for (int ch = s; ch < e; ++ch) {
+    for (int v = 0; v < NV; ++v)
 #pragma unroll
-      for (int j = 0; j < kMaxKPerLane; ++j) {
-        const int c = j * 32 + lane;
-        if (c < k) acc[j] = __fadd_rn(acc[j], partial[(int64_t)ch * k + c]);
+      for (int i = 0; i < VE; ++i) acc[v][i] = 0.f;
+    if (it >= n_chunks) {  // a featureless feature's zero row
+      const int f = combine[it - n_chunks];
+      if (feat_ptr[f + 1] == feat_ptr[f]) {
+#pragma unroll
+        for (int v = 0; v < NV; ++v) {
+          const int c0 = (v * G + lane) * VE;
+          if (c0 < k) store_f32<VE>(out + (int64_t)f * k + c0, acc[v]);
+        }
+      }
+      continue;
+    }
+    const int ch = it;
+    const int s = chunk_ptr[ch], e = chunk_ptr[ch + 1], dst = chunk_dst[ch];
+    int row_c[D];
+    float val_c[D];
+#pragma unroll
+    for (int j = 0; j < D; ++j)
+      if (s + j < e) {
+        row_c[j] = xf_row[s + j];
+        val_c[j] = to_f(xf_val[s + j]);
+      }
+    for (int b0 = s; b0 < e; b0 += D) {
+      RawVec<T, VE> raw[D][NV];
+#pragma unroll
+      for (int j = 0; j < D; ++j)
+        if (b0 + j < e) {
+          const T* pr = payload + (int64_t)row_c[j] * k;
+#pragma unroll
+          for (int v = 0; v < NV; ++v) {
+            const int c0 = (v * G + lane) * VE;
+            if (c0 < k) raw[j][v] = load_raw<T, VE>(pr + c0);
+          }
+        }
+      int row_n[D];
+      float val_n[D];
+#pragma unroll
+      for (int j = 0; j < D; ++j)
+        if (b0 + D + j < e) {
+          row_n[j] = xf_row[b0 + D + j];
+          val_n[j] = to_f(xf_val[b0 + D + j]);
+        }
+#pragma unroll
+      for (int j = 0; j < D; ++j)
+        if (b0 + j < e) {
+#pragma unroll
+          for (int v = 0; v < NV; ++v) {
+            if ((v * G + lane) * VE >= k) continue;
+            float f[VE];
+            unpack(raw[j][v], f);
+#pragma unroll
+            for (int i = 0; i < VE; ++i)
+              acc[v][i] = __fadd_rn(acc[v][i], __fmul_rn(val_c[j], f[i]));
+          }
+        }
+#pragma unroll
+      for (int j = 0; j < D; ++j) {
+        row_c[j] = row_n[j];
+        val_c[j] = val_n[j];
       }
     }
+    float* o = dst < 0 ? out + (int64_t)(-1 - dst) * k
+                       : partial + (int64_t)dst * k;
 #pragma unroll
-    for (int j = 0; j < kMaxKPerLane; ++j) {
-      const int c = j * 32 + lane;
-      if (c < k) out[(int64_t)f * k + c] = acc[j];
+    for (int v = 0; v < NV; ++v) {
+      const int c0 = (v * G + lane) * VE;
+      if (c0 < k) store_f32<VE>(o + c0, acc[v]);
     }
+    if (dst < 0) continue;
+    // a chunk of a feature with several: its partial row is written; the
+    // group that draws the feature's last ticket adds them all
+    __threadfence();
+    __syncwarp(gmask);
+    int f = 0, last = 0;
+    if (lane == 0) {
+      f = slot_feat[dst];
+      last = atomicAdd(ticket + f, 1) == feat_ptr[f + 1] - feat_ptr[f] - 1;
+    }
+    last = __shfl_sync(gmask, last, 0, G);
+    if (!last) continue;
+    f = __shfl_sync(gmask, f, 0, G);
+    __threadfence();
+    const int c_first = feat_ptr[f], n = feat_ptr[f + 1] - c_first;
+    const float* p0 = partial + (int64_t)(dst - (ch - c_first)) * k;
+#pragma unroll
+    for (int v = 0; v < NV; ++v)
+#pragma unroll
+      for (int i = 0; i < VE; ++i) acc[v][i] = 0.f;
+    for (int b0 = 0; b0 < n; b0 += DC) {
+      float p[DC][NV][VE];
+#pragma unroll
+      for (int j = 0; j < DC; ++j)
+        if (b0 + j < n) {
+#pragma unroll
+          for (int v = 0; v < NV; ++v) {
+            const int c0 = (v * G + lane) * VE;
+            if (c0 < k) load_f32_cg<VE>(p0 + (int64_t)(b0 + j) * k + c0,
+                                        p[j][v]);
+          }
+        }
+#pragma unroll
+      for (int j = 0; j < DC; ++j)
+        if (b0 + j < n) {
+#pragma unroll
+          for (int v = 0; v < NV; ++v) {
+            if ((v * G + lane) * VE >= k) continue;
+#pragma unroll
+            for (int i = 0; i < VE; ++i)
+              acc[v][i] = __fadd_rn(acc[v][i], p[j][v][i]);
+          }
+        }
+    }
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const int c0 = (v * G + lane) * VE;
+      if (c0 < k) store_f32<VE>(out + (int64_t)f * k + c0, acc[v]);
+    }
+    if (lane == 0) ticket[f] = 0;  // ready for the next launch
   }
 }
+
+// grid of a group-per-item grid-stride loop over n items
+inline unsigned group_grid(long long n, int G) {
+  const long long per_cta = kWarps * 32 / G;
+  const long long want = (n + per_cta - 1) / per_cta;
+  return (unsigned)(want < (1 << 20) ? (want > 0 ? want : 1) : (1 << 20));
+}
+
+template <typename T>
+struct XtLaunch {
+  const T* payload;
+  const int* xf_row;
+  const T* xf_val;
+  const int *chunk_ptr, *chunk_dst;
+  int n_chunks;
+  const int *feat_ptr, *combine;
+  int n_combine;
+  const int* slot_feat;
+  int* ticket;
+  float *partial, *out;
+  int k;
+  cudaStream_t st;
+  template <int G, int NV, int VE>
+  int run() const {
+    xt_kernel<T, G, NV, VE><<<group_grid((long long)n_chunks + n_combine, G),
+                              kWarps * 32, 0, st>>>(
+        payload, xf_row, xf_val, chunk_ptr, chunk_dst, n_chunks, feat_ptr,
+        combine, n_combine, slot_feat, ticket, partial, out, k);
+    return (int)cudaGetLastError();
+  }
+};
 
 }  // namespace
 
@@ -327,24 +492,26 @@ int ocffm_grad_self_tbl_rows(int dtype, const void* q1, const void* zdense,
   return (int)cudaGetLastError();
 }
 
-// out (d, k) f32 = X^T payload through the feature-major list; `partial`
-// holds n_chunks x k floats of scratch.
+// out (d, k) f32 = X^T payload through the feature-major list and its plan
+// (combine, chunk_dst, slot_feat); `partial` holds a row of k floats for
+// each chunk whose chunk_dst is >= 0; `ticket` holds one int per feature,
+// zero before and after each launch.
 int ocffm_xt_scatter(int dtype, const void* payload, const void* xf_row,
-                     const void* xf_val, const void* chunk_ptr, int n_chunks,
-                     const void* feat_ptr, int d, int k, void* partial,
-                     void* out, void* stream) {
+                     const void* xf_val, const void* chunk_ptr,
+                     const void* chunk_dst, int n_chunks, const void* feat_ptr,
+                     const void* combine, int n_combine,
+                     const void* slot_feat, void* ticket, int k,
+                     void* partial, void* out, void* stream) {
+  if (n_chunks + n_combine == 0) return 0;
+  const void* ptrs[] = {payload, out, partial};
+  const bool vec = vec_ok(k, dtype == kF32 ? 4 : 2, ptrs, 3);
   cudaStream_t st = (cudaStream_t)stream;
-  if (n_chunks > 0) {
-    OCFFM_BY_DTYPE(dtype, xt_chunk_kernel<T><<<warp_grid(n_chunks),
-                                                kWarps * 32, 0, st>>>(
-        (const T*)payload, (const int*)xf_row, (const T*)xf_val,
-        (const int*)chunk_ptr, n_chunks, (float*)partial, k));
-    const int err = (int)cudaGetLastError();
-    if (err != 0) return err;
-  }
-  xt_feature_kernel<<<warp_grid(d), kWarps * 32, 0, st>>>(
-      (const float*)partial, (const int*)feat_ptr, d, (float*)out, k);
-  return (int)cudaGetLastError();
+  OCFFM_BY_DTYPE(dtype, return by_width<T>(k, vec, XtLaunch<T>{
+      (const T*)payload, (const int*)xf_row, (const T*)xf_val,
+      (const int*)chunk_ptr, (const int*)chunk_dst, n_chunks,
+      (const int*)feat_ptr, (const int*)combine, n_combine,
+      (const int*)slot_feat, (int*)ticket, (float*)partial, (float*)out, k,
+      st}));
 }
 
 }  // extern "C"

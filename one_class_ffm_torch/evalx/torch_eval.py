@@ -21,6 +21,7 @@ import torch
 from ..data.dataset import PaddedFields
 from ..models.blocks import BlockLayout
 from ..ops.sparse_ops import project
+from ..utils.device import resolve_device
 from .numpy_metrics import TOP_K_LADDER
 
 Tensor = torch.Tensor
@@ -43,9 +44,11 @@ def make_eval_data(uva: PaddedFields, va_labels: List[np.ndarray],
                    popular: np.ndarray, n_items: int, n_items_true: int,
                    layout: BlockLayout, dtype: torch.dtype = torch.float32,
                    top_ks: Sequence[int] = TOP_K_LADDER,
-                   device: torch.device | str = "cpu",
+                   device: torch.device | str = "cuda",
                    ) -> Tuple[EvalMeta, Dict[str, Any]]:
-    """Device tensors for evaluation (jax_eval.make_eval_data)."""
+    """Device tensors for evaluation (jax_eval.make_eval_data), on the card
+    unless the caller asks for the CPU."""
+    device = resolve_device(device)
     mt_true = len(va_labels)
     mt = uva.m
     catalog = int(min(len(popular), n_items_true))

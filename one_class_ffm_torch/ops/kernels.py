@@ -9,9 +9,10 @@ and the compiler flags, so an edited source rebuilds and an unchanged one
 loads at once.  A missing ``nvcc`` or a failed build raises: nothing falls
 back to the plain versions.
 
-Each launch wrapper checks device, dtype, shape and contiguity, allocates
-its output with ``torch.empty``, launches on the current CUDA stream, raises
-if ``cudaGetLastError()`` reports a refused launch, and adds one to its entry
+Each launch wrapper checks device, dtype, shape and contiguity (a static
+feature-major list once per list), allocates its output with
+``torch.empty``, launches on the current CUDA stream, raises if
+``cudaGetLastError()`` reports a refused launch, and adds one to its entry
 in the launch counts.  Nothing here touches CUDA or ``nvcc`` at import time.
 """
 
@@ -29,7 +30,7 @@ from typing import Dict, Optional
 
 import torch
 
-from .layout import FeatureMajor
+from .layout import FeatureMajor, xt_plan
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / name for name in (
@@ -57,6 +58,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # its main path went through the kernels.
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
 _lib: Optional[ctypes.CDLL] = None
+_max_k: int = 0  # the largest k the kernels take (the library's ocffm_max_k)
 build_seconds: float = 0.0  # time the last build or load took
 
 
@@ -125,7 +127,7 @@ def _raise_if_failed(cmd, returncode: int, stdout: str, stderr: str) -> None:
 
 def load() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library once per process."""
-    global _lib, build_seconds
+    global _lib, _max_k, build_seconds
     if _lib is not None:
         return _lib
     t0 = time.perf_counter()
@@ -153,7 +155,7 @@ def load() -> ctypes.CDLL:
     lib.ocffm_grad_self_tbl_rows.argtypes = [
         i32, vp, vp, vp, vp, vp, vp, vp, i64, i32, i32, i32, vp]
     lib.ocffm_xt_scatter.argtypes = [
-        i32, vp, vp, vp, vp, i32, vp, i32, i32, vp, vp, vp]
+        i32, vp, vp, vp, vp, vp, i32, vp, vp, i32, vp, vp, i32, vp, vp, vp]
     lib.ocffm_project.argtypes = [i32, vp, vp, vp, vp, i64, i32, i32, i32, vp]
     lib.ocffm_pos_hv_packed.argtypes = [
         i32, vp, vp, vp, vp, vp, vp, i64, i32, i32, f32, vp]
@@ -165,6 +167,7 @@ def load() -> ctypes.CDLL:
                lib.ocffm_pos_hv_packed, lib.ocffm_pos_hv_blocked_g):
         fn.restype = i32
     _lib = lib
+    _max_k = lib.ocffm_max_k()
     build_seconds = time.perf_counter() - t0
     return lib
 
@@ -197,9 +200,8 @@ def _stream_rows(rows: torch.Tensor, own: torch.Tensor, block_rows: int):
                          f"{tuple(rows.shape)}")
     nb, maxc, k = rows.shape
     lib = load()
-    if not 0 < k <= lib.ocffm_max_k():
-        raise ValueError(f"k={k} outside the kernels' range "
-                         f"(1..{lib.ocffm_max_k()})")
+    if not 0 < k <= _max_k:
+        raise ValueError(f"k={k} outside the kernels' range (1..{_max_k})")
     if nb == 0 or maxc == 0:
         raise ValueError("empty blocked stream")
     if not 0 < block_rows < (1 << 31):
@@ -215,6 +217,11 @@ def _raise_on(err: int, name: str) -> None:
 
 
 def _stream(device: torch.device) -> int:
+    """The current CUDA stream's handle (the raw lookup where this torch
+    build has it: a launch's host time is part of a short kernel's cost)."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(device.index)
     return torch.cuda.current_stream(device).cuda_stream
 
 
@@ -249,23 +256,38 @@ def pos_hv_blocked(phi, rows, own, w_blk, dense_mat, num_out: int,
     return out
 
 
+def _runs(own: torch.Tensor, block_rows: int) -> torch.Tensor:
+    """Each row's run of slots (``layout.row_runs``) computed on the device
+    from ``own``, for a caller that has no static copy."""
+    nb = own.shape[0]
+    keys = torch.arange(block_rows + 1, device=own.device,
+                        dtype=own.dtype).expand(nb, -1).contiguous()
+    return torch.searchsorted(own, keys).to(torch.int32)
+
+
 def _scatter_blocked(name: str, c_blk, rows, own, num_out: int,
-                     block_rows: int, w_blk=None, wq_scale: float = 1.0):
-    """B2; with ``w_blk`` also the Jacobi payload, from one launch.
-    Returns (zpos, posq), posq None without w_blk."""
+                     block_rows: int, w_blk=None, wq_scale: float = 1.0,
+                     runs=None):
+    """B2; with ``w_blk`` also the Jacobi payload, from one launch.  The
+    kernel reads each row's run from ``runs`` (n_blocks, block_rows + 1),
+    the static ``layout.row_runs`` of ``own``; without it they are found on
+    the device first.  Returns (zpos, posq), posq None without w_blk."""
     lib, nb, maxc, k = _stream_rows(rows, own, block_rows)
     if num_out != nb * block_rows:
         raise ValueError(f"num_out={num_out} != n_blocks*block_rows="
                          f"{nb * block_rows}")
     dev, dt = rows.device, rows.dtype
     _check("c_blk", c_blk, dt, (nb, maxc), dev)
+    if runs is None:
+        runs = _runs(own, block_rows)
+    _check("runs", runs, torch.int32, (nb, block_rows + 1), dev)
     out = torch.empty((num_out, k), dtype=dt, device=dev)
     outq = None
     if w_blk is not None:
         _check("w_blk", w_blk, dt, (nb, maxc), dev)
         outq = torch.empty((num_out, k), dtype=dt, device=dev)
     err = lib.ocffm_pos_scatter_blocked(
-        _DTYPE_CODE[dt], c_blk.data_ptr(), rows.data_ptr(), own.data_ptr(),
+        _DTYPE_CODE[dt], c_blk.data_ptr(), rows.data_ptr(), runs.data_ptr(),
         _ptr(w_blk), float(wq_scale), out.data_ptr(), _ptr(outq), nb, maxc,
         k, block_rows, _stream(dev))
     _raise_on(err, name)
@@ -273,18 +295,18 @@ def _scatter_blocked(name: str, c_blk, rows, own, num_out: int,
     return out, outq
 
 
-def pos_scatter_blocked(c_blk, rows, own, num_out: int,
-                        block_rows: int) -> torch.Tensor:
+def pos_scatter_blocked(c_blk, rows, own, num_out: int, block_rows: int,
+                        runs=None) -> torch.Tensor:
     return _scatter_blocked("pos_scatter_blocked", c_blk, rows, own, num_out,
-                            block_rows)[0]
+                            block_rows, runs=runs)[0]
 
 
 def pos_scatter_blocked_diag(c_blk, rows, own, num_out: int, block_rows: int,
-                             w_blk, wq_scale: float = 1.0):
+                             w_blk, wq_scale: float = 1.0, runs=None):
     """(zpos, posq) from one read of the stream (B2 with the Jacobi w_blk
     payload)."""
     return _scatter_blocked("pos_scatter_blocked_diag", c_blk, rows, own,
-                            num_out, block_rows, w_blk, wq_scale)
+                            num_out, block_rows, w_blk, wq_scale, runs)
 
 
 def pos_gap_blocked(dP, rows, own, block_rows: int) -> torch.Tensor:
@@ -328,35 +350,96 @@ def _table(V, xt: FeatureMajor, dt, k: int, dev, name: str) -> int:
     return d
 
 
-def _xt_scatter(lib, payload: torch.Tensor, xt: FeatureMajor,
-                name: str, squared: bool = False) -> torch.Tensor:
-    """(d, k) float32 = X^T payload (X^2 with ``squared``: the list's
-    squared values) through the feature-major list."""
-    dev, dt = payload.device, payload.dtype
+class _XtPlan:
+    """A feature-major list as one launch of the X^T kernel reads it: the
+    device pointers of its arrays and plan, its sizes, and the launch's
+    scratch: tickets (one int per feature, zero between launches) and
+    partial rows per width k.  The scratch is shared by the list's launches,
+    which run in order on the one stream of a solve."""
+
+    def __init__(self, xt: FeatureMajor, vals, plan, dev):
+        combine, chunk_dst, slot_feat = plan
+        self.xt, self.plan, self.dev = xt, plan, dev
+        self.n_chunks = xt.chunk_ptr.numel() - 1
+        self.d = xt.feat_ptr.numel() - 1
+        self.n_combine = combine.numel()
+        # a partial row for each chunk outside the single-chunk features,
+        # each of which has exactly one chunk
+        self.n_partial = self.n_chunks - (self.d - self.n_combine)
+        self.tickets = torch.zeros(self.d, dtype=torch.int32, device=dev)
+        self.ptrs = tuple(t.data_ptr() for t in (
+            xt.row, vals, xt.chunk_ptr, chunk_dst, xt.feat_ptr, combine,
+            slot_feat, self.tickets))
+        self._partial: Dict[int, torch.Tensor] = {}
+
+    def partial(self, k: int) -> torch.Tensor:
+        p = self._partial.get(k)
+        if p is None:
+            p = self._partial[k] = torch.empty(
+                (max(self.n_partial, 1), k), dtype=torch.float32,
+                device=self.dev)
+        return p
+
+
+# Feature-major lists already checked, by (id, dtype, device, squared); the
+# plan holds the list, so that its id stays its own.  The lists are static,
+# so a solver's checks run once, not on every call.
+_xt_checked: Dict[tuple, _XtPlan] = {}
+
+
+def _xt_inputs(xt: FeatureMajor, dt, dev, squared: bool,
+               name: str) -> _XtPlan:
+    """The launch inputs of a feature-major list, checked once per list;
+    the plan is derived from ``feat_ptr`` (``layout.xt_plan``) for a list
+    built without it."""
+    key = (id(xt), dt, dev, squared)
+    hit = _xt_checked.get(key)
+    if hit is not None and hit.xt is xt:
+        return hit
     vals = xt.val
     if squared:
         if xt.val_sq is None:
             raise ValueError(f"{name}: the feature-major list carries no "
                              "squared values (val_sq)")
         vals = xt.val_sq
-    rows, k = payload.shape
-    if xt.n_rows != rows:
-        raise ValueError(f"{name}: the feature-major list scatters from "
-                         f"{xt.n_rows} rows, the payload has {rows}")
+    plan = (xt.combine, xt.chunk_dst, xt.slot_feat)
+    if any(a is None for a in plan):
+        plan = tuple(torch.from_numpy(a).to(dev) for a in
+                     xt_plan(xt.feat_ptr.cpu().numpy()))
     nnz, n_chunks, d = xt.row.numel(), xt.chunk_ptr.numel() - 1, \
         xt.feat_ptr.numel() - 1
+    combine, chunk_dst, slot_feat = plan
     _check("xt.row", xt.row, torch.int32, (nnz,), dev)
     _check("xt.val_sq" if squared else "xt.val", vals, dt, (nnz,), dev)
     _check("xt.chunk_ptr", xt.chunk_ptr, torch.int32, (n_chunks + 1,), dev)
     _check("xt.feat_ptr", xt.feat_ptr, torch.int32, (d + 1,), dev)
-    partial = torch.empty((max(n_chunks, 1), k), dtype=torch.float32,
-                          device=dev)
-    out = torch.empty((d, k), dtype=torch.float32, device=dev)
+    _check("xt.chunk_dst", chunk_dst, torch.int32, (n_chunks,), dev)
+    _check("xt.combine", combine, torch.int32, (combine.numel(),), dev)
+    out = _XtPlan(xt, vals, plan, dev)
+    _check("xt.slot_feat", slot_feat, torch.int32, (out.n_partial,), dev)
+    if len(_xt_checked) >= 64:
+        _xt_checked.clear()
+    _xt_checked[key] = out
+    return out
+
+
+def _xt_scatter(lib, payload: torch.Tensor, xt: FeatureMajor,
+                name: str, squared: bool = False) -> torch.Tensor:
+    """(d, k) float32 = X^T payload (X^2 with ``squared``: the list's
+    squared values) through the feature-major list and its plan."""
+    dev, dt = payload.device, payload.dtype
+    rows, k = payload.shape
+    if xt.n_rows != rows:
+        raise ValueError(f"{name}: the feature-major list scatters from "
+                         f"{xt.n_rows} rows, the payload has {rows}")
+    p = _xt_inputs(xt, dt, dev, squared, name)
+    row, vals, chunk_ptr, chunk_dst, feat_ptr, combine, slot_feat, \
+        tickets = p.ptrs
+    out = torch.empty((p.d, k), dtype=torch.float32, device=dev)
     err = lib.ocffm_xt_scatter(
-        _DTYPE_CODE[dt], payload.data_ptr(), xt.row.data_ptr(),
-        vals.data_ptr(), xt.chunk_ptr.data_ptr(), n_chunks,
-        xt.feat_ptr.data_ptr(), d, k, partial.data_ptr(), out.data_ptr(),
-        _stream(dev))
+        _DTYPE_CODE[dt], payload.data_ptr(), row, vals, chunk_ptr, chunk_dst,
+        p.n_chunks, feat_ptr, combine, p.n_combine, slot_feat, tickets, k,
+        p.partial(k).data_ptr(), out.data_ptr(), _stream(dev))
     _raise_on(err, name)
     return out
 
@@ -434,9 +517,8 @@ def _rows_table(Q1: torch.Tensor):
         raise ValueError(f"Q1 must be (rows, k), got {tuple(Q1.shape)}")
     rows, k = Q1.shape
     lib = load()
-    if not 0 < k <= lib.ocffm_max_k():
-        raise ValueError(f"k={k} outside the kernels' range "
-                         f"(1..{lib.ocffm_max_k()})")
+    if not 0 < k <= _max_k:
+        raise ValueError(f"k={k} outside the kernels' range (1..{_max_k})")
     _check("Q1", Q1, Q1.dtype, (rows, k), Q1.device)
     return lib, rows, k
 
@@ -518,10 +600,10 @@ def _table_dtype(name: str, t: torch.Tensor):
         raise ValueError(f"{name} must be 2-d, got {tuple(t.shape)}")
     k = t.shape[1]
     lib = load()
-    if not 0 < k <= lib.ocffm_max_k():
-        raise ValueError(f"k={k} outside the kernels' range "
-                         f"(1..{lib.ocffm_max_k()})")
-    _check(name, t, t.dtype, tuple(t.shape), t.device)
+    if not 0 < k <= _max_k:
+        raise ValueError(f"k={k} outside the kernels' range (1..{_max_k})")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
     return lib, k
 
 
@@ -549,7 +631,7 @@ def scatter(xt: FeatureMajor, Z, squared: bool = False) -> torch.Tensor:
     lib, _ = _table_dtype("Z", Z)
     out = _xt_scatter(lib, Z, xt, "scatter", squared)
     _launches["scatter"] += 1
-    return out.to(Z.dtype)
+    return out if Z.dtype == torch.float32 else out.to(Z.dtype)
 
 
 # ---------------------------------------------------------------------------

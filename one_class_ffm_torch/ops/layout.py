@@ -12,7 +12,10 @@ fill below guarantee it; ``check_own_runs`` checks it.
 
 ``feature_major`` builds the other static input of the fused table
 kernels: a field's X^T as a chunked feature-major list (with X^2 beside it
-once the solver has squared the values at storage dtype).
+once the solver has squared the values at storage dtype) and the X^T
+kernel's plan of where each chunk's sum goes (``xt_plan``).  ``row_runs``
+gives the gradient scatter kernel (B2) each row's run of slots without a
+search.
 """
 
 from __future__ import annotations
@@ -256,7 +259,9 @@ class FeatureMajor(NamedTuple):
     chunks ``[feat_ptr[f], feat_ptr[f + 1])``.  ``n_rows``: the row count of
     the payload the list scatters from.  ``val_sq`` (nnz,) or None: each
     entry's squared value at storage dtype, the list of X^2 that the Jacobi
-    diagonal scatters through (the solver's device data fills it)."""
+    diagonal scatters through (the solver's device data fills it).
+    ``combine``/``chunk_dst``/``slot_feat`` or None: the X^T kernel's plan
+    (``xt_plan``), derived from ``feat_ptr``."""
 
     row: Any
     val: Any
@@ -264,6 +269,29 @@ class FeatureMajor(NamedTuple):
     feat_ptr: Any
     n_rows: int
     val_sq: Any = None
+    combine: Any = None
+    chunk_dst: Any = None
+    slot_feat: Any = None
+
+
+def xt_plan(feat_ptr: np.ndarray):
+    """(combine, chunk_dst, slot_feat): where the X^T kernel writes each
+    chunk's sum.  A feature with exactly one chunk has its output row
+    written by that chunk (``chunk_dst = -1 - feature``).  The chunks of a
+    feature with several write rows of a compact partial array
+    (``chunk_dst`` = the row; a feature's rows are consecutive, in chunk
+    order), and ``slot_feat`` names each partial row's feature: the group
+    that finishes such a feature's last chunk adds its partial rows.
+    ``combine`` (ascending int32) lists the features whose output row no
+    single chunk writes: those with several chunks and those with none
+    (which get a zero row)."""
+    nch = np.diff(np.asarray(feat_ptr, np.int64))
+    owner = np.repeat(np.arange(nch.size), nch)
+    single = nch[owner] == 1
+    slot = np.cumsum(~single) - 1
+    chunk_dst = np.where(single, -1 - owner, slot)
+    return (np.nonzero(nch != 1)[0].astype(np.int32),
+            chunk_dst.astype(np.int32), owner[~single].astype(np.int32))
 
 
 def feature_major(idx: np.ndarray, val: np.ndarray, d: int,
@@ -294,9 +322,28 @@ def feature_major(idx: np.ndarray, val: np.ndarray, d: int,
     owner = np.repeat(np.arange(d), n_ch)
     j = np.arange(owner.size) - feat_ptr[owner]
     chunk_ptr = np.append(feat_start[owner] + j * chunk, feat.size)
+    combine, chunk_dst, slot_feat = xt_plan(feat_ptr)
     return FeatureMajor(row=row.astype(np.int32), val=v,
                         chunk_ptr=chunk_ptr.astype(np.int32),
-                        feat_ptr=feat_ptr.astype(np.int32), n_rows=rows)
+                        feat_ptr=feat_ptr.astype(np.int32), n_rows=rows,
+                        combine=combine, chunk_dst=chunk_dst,
+                        slot_feat=slot_feat)
+
+
+def row_runs(own: np.ndarray, block_rows: int) -> np.ndarray:
+    """(n_blocks, block_rows + 1) int32: row r of block b owns the slots
+    ``[runs[b, r], runs[b, r + 1])`` of its block, and ``runs[b,
+    block_rows]`` counts the block's valid slots (the pads follow).  This is
+    what a binary search over a block's ``own`` finds, built once: ``own``
+    must have the contiguous-run property (``check_own_runs``)."""
+    own = np.asarray(own, np.int64)
+    nb = own.shape[0]
+    width = block_rows + 1
+    cnt = np.bincount((np.arange(nb)[:, None] * width + own).ravel(),
+                      minlength=nb * width).reshape(nb, width)
+    runs = np.zeros((nb, width), np.int64)
+    runs[:, 1:] = np.cumsum(cnt[:, :block_rows], axis=1)
+    return runs.astype(np.int32)
 
 
 def check_own_runs(own: np.ndarray, block_rows: int) -> None:

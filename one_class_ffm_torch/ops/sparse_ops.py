@@ -268,17 +268,21 @@ def pos_hv_blocked(phi, rows, own, w_blk, dense_mat, num_out: int,
 
 
 def pos_scatter_blocked(c_blk, rows, own, num_out: int, block_rows: int,
-                        w_blk=None, wq_scale: float = 1.0):
+                        w_blk=None, wq_scale: float = 1.0, runs=None):
     """The gradient's positive scatter; with ``w_blk`` (Jacobi) also the
-    diagonal's positive term from the same read of the stream."""
+    diagonal's positive term from the same read of the stream.  ``runs``:
+    the rows' runs of slots (``layout.row_runs`` of ``own``), which the
+    kernel reads in place of a search; the plain version needs ``own``
+    only."""
     if _plain_device(rows):
         return pos_scatter_blocked_plain(c_blk, rows, own, num_out,
                                          block_rows, w_blk, wq_scale)
     if w_blk is None:
         return kernels.pos_scatter_blocked(c_blk, rows, own, num_out,
-                                           block_rows)
+                                           block_rows, runs=runs)
     return kernels.pos_scatter_blocked_diag(c_blk, rows, own, num_out,
-                                            block_rows, w_blk, wq_scale)
+                                            block_rows, w_blk, wq_scale,
+                                            runs=runs)
 
 
 def pos_gap_blocked(dP, rows, own, block_rows: int):

@@ -12,11 +12,16 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ..utils.device import resolve_device
+
 
 def params_from_numpy(params_np: Dict[int, Dict[str, np.ndarray]],
-                      device: torch.device | str = "cpu",
+                      device: torch.device | str = "cuda",
                       dtype: torch.dtype = torch.float32,
                       ) -> Dict[int, Dict[str, torch.Tensor]]:
+    """The tables on ``device`` (the card unless the caller asks for the
+    CPU) at ``dtype``."""
+    device = resolve_device(device)
     return {
         int(f12): {name: torch.as_tensor(np.asarray(t, np.float64))
                    .to(device=device, dtype=dtype)

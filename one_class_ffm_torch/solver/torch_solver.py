@@ -42,6 +42,7 @@ from ..ops.layout import (
     check_own_runs,
     feature_major,
     make_blocked_layout,
+    row_runs,
 )
 from ..ops.sparse_ops import (
     acc_dtype,
@@ -59,6 +60,7 @@ from ..ops.sparse_ops import (
     scatter,
     seg_sum_blocked,
 )
+from ..utils.device import resolve_device
 from .params import HyperParams
 
 Tensor = torch.Tensor
@@ -113,7 +115,7 @@ def make_device_data(u: PaddedFields, v: PaddedFields, y: PaddedLabels,
                      layout: BlockLayout, hp: HyperParams,
                      dtype: torch.dtype = torch.float32,
                      blocked_bm: int = 256,
-                     device: torch.device | str = "cpu",
+                     device: torch.device | str = "cuda",
                      ) -> Tuple[ProblemMeta, Dict[str, Any]]:
     """Assemble the device tensor dict + static meta from host padded views
     (jax_solver.make_device_data, restricted to the keys the port uses).
@@ -123,10 +125,14 @@ def make_device_data(u: PaddedFields, v: PaddedFields, y: PaddedLabels,
     None for an identity field) with X^2's values beside X's: the static
     X^T side of the fused table kernels (in place of the JAX package's
     transposed (p, rows) copies), of the general scatter and of the Jacobi
-    diagonal.  Building it rejects ids outside the field (ghost ids).  A
-    fused field also gets its per-feature sums of squared values
-    (``colsq_u``/``colsq_v``)."""
-    device = torch.device(device)
+    diagonal, and the X^T kernel's plan beside them.  Building it rejects
+    ids outside the field (ghost ids).  A fused field also gets its
+    per-feature sums of squared values (``colsq_u``/``colsq_v``).  Each
+    side's blocked layout also gets each row's run of slots
+    (``blk_*_runs``, ``row_runs``), which the gradient scatter kernel reads
+    in place of a search.  The tensors go to the card unless ``device``
+    asks for the CPU."""
+    device = resolve_device(device)
     if not blocked_bm:
         raise NotImplementedError(
             "blocked_bm=0 (plain COO positive passes): ROADMAP A3")
@@ -186,7 +192,9 @@ def make_device_data(u: PaddedFields, v: PaddedFields, y: PaddedLabels,
             # the square to storage
             out.append(FeatureMajor(
                 row=t(fm.row), val=val, chunk_ptr=t(fm.chunk_ptr),
-                feat_ptr=t(fm.feat_ptr), n_rows=fm.n_rows, val_sq=val * val))
+                feat_ptr=t(fm.feat_ptr), n_rows=fm.n_rows, val_sq=val * val,
+                combine=t(fm.combine), chunk_dst=t(fm.chunk_dst),
+                slot_feat=t(fm.slot_feat)))
         return tuple(out)
 
     def colsq(pf: PaddedFields, flags):
@@ -220,6 +228,7 @@ def make_device_data(u: PaddedFields, v: PaddedFields, y: PaddedLabels,
         data[pre + "take"] = t(b["take"])
         data[pre + "src"] = t(b["src"])
         data[pre + "own"] = t(b["own"])
+        data[pre + "runs"] = t(row_runs(b["own"], blocked_bm))
         # pre-permuted pad-mask weights, exactly 0 at structural pad slots:
         # also the slot-order pad mask of the residual carry
         data[pre + "w"] = t(y.w[b["src"]] * (b["own"] < b["block_rows"]),
@@ -484,7 +493,7 @@ class FFMSolver:
                                  * qtq_d.to(acc)[None, :]) + Qt.to(acc))
             return self._tbl_grad(b, first, T, Gt), ("tbl", tbl_d)
         res = pos_scatter_blocked(c_blk, rows_pre, d[pre + "own"], num, bm,
-                                  **diag_w)
+                                  runs=d[pre + "runs"], **diag_w)
         zpos = res[0] if with_diag_pos else res
         G = hp.lam * reg[:, None] * T + self._scat(
             b, first, dense + zpos, T.shape[0])

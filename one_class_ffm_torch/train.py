@@ -39,6 +39,7 @@ from .models.blocks import BlockLayout
 from .solver.convert import params_from_numpy, params_to_numpy
 from .solver.params import HyperParams
 from .solver.torch_solver import FFMSolver, make_device_data
+from .utils.device import resolve_device
 from .utils.profiling import PhaseTimer
 
 TOP_KS = (5, 10, 20, 40, 80)
@@ -238,22 +239,6 @@ def resolve_dtype(name: str) -> torch.dtype:
     """Storage dtype by name; "auto" is float32 (bfloat16 has not been
     measured on the GPU yet)."""
     return torch.float32 if name == "auto" else _DTYPES[name]
-
-
-def resolve_device(device: torch.device | str) -> torch.device:
-    """The run's device; a CUDA device that is not there is an error, never
-    a quiet switch to the CPU."""
-    device = torch.device(device)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("a CUDA device was requested but "
-                               "torch.cuda.is_available() is False")
-        # f32 matmuls must be true f32 (the reference requests HIGHEST)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-    elif device.type != "cpu":
-        raise ValueError(f"unsupported device {device}")
-    return device
 
 
 class Trainer:

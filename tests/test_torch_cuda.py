@@ -374,3 +374,150 @@ def test_hv_variants_match_b1(device, dtype, groups):
     assert counts["pos_hv_packed"] == 1 and counts["pos_hv_blocked_g"] == 1
     with pytest.raises(ValueError, match="divide"):
         kernels.pos_hv_blocked_g(phi, rows, own_t, w_t, dmat, nb * BM, BM, 3)
+
+
+# ---------------------------------------------------------------------------
+# the redesigned X^T stage (single-chunk features written directly, groups
+# of lanes per chunk, widths fixed at compile time) and B2 (row runs, bulk
+# copies into shared-memory stages, the plain-load path for other k)
+# ---------------------------------------------------------------------------
+
+
+def _xt_field(rng, num=700, d=300):
+    """A field (num, 2) whose list holds a feature with exactly XT_CHUNK
+    entries (0), one with many chunks (1), one-entry features (2..184),
+    features of a few entries (185..249), featureless ones (250..299) and
+    pad slots."""
+    from one_class_ffm_torch.ops.layout import XT_CHUNK
+
+    idx = np.zeros((num, 2), np.int32)
+    idx[:XT_CHUNK, 0] = 0
+    heavy = 3 * XT_CHUNK + 5
+    idx[XT_CHUNK:XT_CHUNK + heavy, 0] = 1
+    rest = num - XT_CHUNK - heavy
+    idx[XT_CHUNK + heavy:, 0] = 2 + np.arange(rest)
+    idx[:, 1] = rng.integers(2 + rest, 250, size=num)
+    val = rng.uniform(0.5, 1.5, size=(num, 2))
+    val[rng.random(num) < 0.3, 1] = 0.0  # pad slots
+    idx[val == 0] = 0
+    return idx, val, d
+
+
+def _device_list(fm, T, I):
+    return FeatureMajor(row=I(fm.row), val=T(fm.val),
+                        chunk_ptr=I(fm.chunk_ptr), feat_ptr=I(fm.feat_ptr),
+                        n_rows=fm.n_rows, combine=I(fm.combine),
+                        chunk_dst=I(fm.chunk_dst), slot_feat=I(fm.slot_feat))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [8, 12, 32, 40, 256])
+@pytest.mark.parametrize("field", ["mixed", "all_single"])
+def test_xt_stage_matches_plain(device, dtype, k, field):
+    """The X^T stage (the general scatter, through X and X^2) bit-equal to
+    its plain version at widths on both paths (k = 12 at bfloat16 is 24
+    bytes a row: the plain-load path), on a list with every kind of
+    feature, and on one whose features all have a single chunk; the plan
+    derived in the wrapper gives the same bits as the list's own."""
+    rng = np.random.default_rng(13)
+    if field == "mixed":
+        idx, val, d = _xt_field(rng)
+    else:
+        num = d = 500
+        idx = rng.permutation(num).astype(np.int32)[:, None]
+        val = rng.uniform(0.5, 1.5, size=(num, 1))
+    fm = feature_major(idx, val, d)
+    nch = np.diff(fm.feat_ptr)
+    if field == "mixed":
+        assert nch[0] == 1 and nch[1] == 4 and (nch == 0).sum() >= 50
+    else:
+        assert fm.combine.size == 0
+
+    def T(a):
+        return torch.as_tensor(a).to(device=device, dtype=dtype).contiguous()
+
+    def I(a):
+        return torch.as_tensor(a, dtype=torch.int32, device=device)
+
+    xt = _squared(_device_list(fm, T, I))
+    Z = T(rng.normal(size=(idx.shape[0], k)))
+    kernels.reset_launch_counts()
+    for squared in (False, True):
+        got = ops.scatter(xt, Z, squared)
+        again = kernels.scatter(xt, Z, squared)
+        derived = kernels.scatter(xt._replace(combine=None), Z, squared)
+        ref = ops.scatter_plain(xt, Z, squared)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == (d, k)
+        assert torch.equal(got, again) and torch.equal(got, derived)
+        assert torch.equal(got, ref), (k, squared)
+        assert torch.all(got[torch.as_tensor(nch == 0, device=device)] == 0)
+    assert kernels.launch_counts()["scatter"] == 6
+
+
+def _b2_stream(rng, k, maxc_pad):
+    """Four blocks of 64 rows: short runs with empty rows between them, a
+    block of pads only, a block with one run far longer than a shared-memory
+    stage, and random runs; MAXC rounded up to 8 plus ``maxc_pad`` (a MAXC
+    that is not a multiple of 8 takes the plain-load path)."""
+    BM = 64
+    counts = np.zeros((4, BM), np.int64)
+    counts[0] = rng.choice([0, 0, 1, 3], size=BM)
+    counts[2] = rng.integers(0, 3, size=BM)
+    counts[2, 5] = 700
+    counts[3] = rng.integers(0, 12, size=BM)
+    maxc = -(-int(counts.sum(axis=1).max()) // 8) * 8 + maxc_pad
+    own = np.full((4, maxc), BM, np.int32)
+    for b in range(4):
+        run = np.repeat(np.arange(BM), counts[b])
+        own[b, :run.size] = run
+    return own, BM, rng.normal(size=(4, maxc, k))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [12, 32, 40])
+@pytest.mark.parametrize("maxc_pad", [0, 3])
+def test_b2_runs_and_stages_match_plain(device, dtype, k, maxc_pad):
+    """B2 and its Jacobi variant bit-equal to their plain versions on empty
+    rows, a block of pads only, a run longer than one stage and the
+    plain-load path (k = 12 at bfloat16, or MAXC % 8 != 0), with the static
+    runs and with runs found in the wrapper."""
+    from one_class_ffm_torch.ops.layout import row_runs
+
+    rng = np.random.default_rng(14)
+    own_np, BM, rows_np = _b2_stream(rng, k, maxc_pad)
+
+    def T(a):
+        return torch.as_tensor(a).to(device=device, dtype=dtype).contiguous()
+
+    own = torch.as_tensor(own_np, device=device)
+    runs = torch.as_tensor(row_runs(own_np, BM), device=device)
+    rows = T(rows_np)
+    c = T(rng.normal(size=own_np.shape) * (own_np < BM))
+    w = T(rng.random(own_np.shape) * (own_np < BM))
+    num = 4 * BM
+    kernels.reset_launch_counts()
+    got = ops.pos_scatter_blocked(c, rows, own, num, BM, runs=runs)
+    derived = kernels.pos_scatter_blocked(c, rows, own, num, BM)
+    ref = ops.pos_scatter_blocked_plain(c, rows, own, num, BM)
+    gd = ops.pos_scatter_blocked(c, rows, own, num, BM, w_blk=w,
+                                 wq_scale=0.9, runs=runs)
+    gd2 = kernels.pos_scatter_blocked_diag(c, rows, own, num, BM, w, 0.9)
+    rd = ops.pos_scatter_blocked_plain(c, rows, own, num, BM, w_blk=w,
+                                       wq_scale=0.9)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (num, k)
+    assert torch.equal(got, derived) and torch.equal(got, ref)
+    for g, g2, r in zip(gd, gd2, rd):
+        assert torch.equal(g, g2) and torch.equal(g, r)
+    assert torch.equal(gd[0], got)
+    assert torch.all(got[BM:2 * BM] == 0)  # the block of pads only
+    empty = torch.as_tensor(np.diff(row_runs(own_np, BM), axis=1).ravel()
+                            == 0, device=device)
+    assert torch.all(got[empty] == 0) and torch.all(gd[1][empty] == 0)
+    counts = kernels.launch_counts()
+    assert counts["pos_scatter_blocked"] == 2
+    assert counts["pos_scatter_blocked_diag"] == 2
+    with pytest.raises(ValueError, match="runs"):
+        kernels.pos_scatter_blocked(c, rows, own, num, BM,
+                                    runs=runs[:, :-1].contiguous())

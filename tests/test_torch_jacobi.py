@@ -348,7 +348,8 @@ def test_device_data_carries_colsq_and_squared_lists():
     _, jd = jax_solver.make_device_data(u, v, y, prob.layout, prob.hp,
                                         dtype=jnp.float64, blocked_bm=4)
     meta, td = torch_solver.make_device_data(
-        u, v, y, prob.layout, prob.hp, dtype=torch.float64, blocked_bm=4)
+        u, v, y, prob.layout, prob.hp, dtype=torch.float64, blocked_bm=4,
+        device="cpu")
     for s in ("u", "v"):
         for got, ref, xf in zip(td[f"colsq_{s}"], jd[f"colsq_{s}"],
                                 td[f"xf_{s}"]):
@@ -467,7 +468,8 @@ def test_chip_smoke_jacobi_rehearsal_on_cpu():
 
 def test_chip_smoke_reads_register_counts(monkeypatch):
     """The build phase's registers per thread, parsed from cuobjdump's
-    resource report (mangled names: kernel, storage type, Jacobi flag)."""
+    resource report (mangled names: kernel, storage type, Jacobi flag and
+    the integer template arguments of a width plan, (G, NV, VE))."""
     chip_smoke = _chip_smoke()
     report = "\n".join([
         "Function _ZN47_GLOBAL__N__c7f4_14_blocked_ops_cu_e3a6494d18pos_"
@@ -478,7 +480,18 @@ def test_chip_smoke_reads_register_counts(monkeypatch):
         "REG:30 STACK:0",
         "Function _ZN47_GLOBAL__N__d215_14_hv_variants_cu_8938cdc220pos_hv_"
         "packed_kernelIfEEvPKT_S3_PKiS3_S3_PS1_iif:",
-        "REG:32 STACK:0"])
+        "REG:32 STACK:0",
+        # a width plan's integer arguments, with and without a storage type
+        "Function _ZN47_GLOBAL__N__c7f4_14_blocked_ops_cu_e3a6494d18pos_"
+        "scatter_kernelI13__nv_bfloat16Li4ELi1ELi8ELb1EEvPKT_S4_PKiS4_fPS2_"
+        "S7_iiii:",
+        "REG:56 STACK:0 SHARED:32",
+        "Function _ZN45_GLOBAL__N__6a7b_12_table_ops_cu_257c678215xt_chunk_"
+        "kernelIfLi8ELi1ELi4EEvPKT_PKiS3_S5_S5_iPfS6_i:",
+        "REG:48 STACK:0",
+        "Function _ZN45_GLOBAL__N__6a7b_12_table_ops_cu_257c678217xt_combine"
+        "_kernelILi32ELi8ELi1EEvPKfPKiS3_S3_iPfi:",
+        "REG:38 STACK:0"])
 
     class Done:
         stdout = report
@@ -486,5 +499,8 @@ def test_chip_smoke_reads_register_counts(monkeypatch):
     monkeypatch.setattr(chip_smoke.subprocess, "run", lambda *a, **k: Done)
     monkeypatch.setattr(chip_smoke.os.path, "exists", lambda p: True)
     assert chip_smoke.kernel_registers("lib.so") == {
-        ("pos_scatter_kernel", "bf16", True): 40,
-        ("pos_hv_packed_kernel", "f32", False): 32}
+        ("pos_scatter_kernel", "bf16", True, ()): 40,
+        ("pos_hv_packed_kernel", "f32", False, ()): 32,
+        ("pos_scatter_kernel", "bf16", True, (4, 1, 8)): 56,
+        ("xt_chunk_kernel", "f32", False, (8, 1, 4)): 48,
+        ("xt_combine_kernel", "f32", False, (32, 8, 1)): 38}

@@ -76,7 +76,8 @@ def padded(prob, multiple=4):
 def build_port(prob, params, dtype=torch.float64):
     u, v, y = padded(prob)
     meta, data = torch_solver.make_device_data(
-        u, v, y, prob.layout, prob.hp, dtype=dtype, blocked_bm=BM)
+        u, v, y, prob.layout, prob.hp, dtype=dtype, blocked_bm=BM,
+        device="cpu")
     solver = torch_solver.FFMSolver(meta, data)
     p_np = {f12: {"W": params["W"][f12], "H": params["H"][f12]}
             for f12 in params["W"]}
@@ -105,12 +106,22 @@ def test_device_data_matches_jax():
     _, jd = jax_solver.make_device_data(u, v, y, prob.layout, prob.hp,
                                         dtype=jnp.float64, blocked_bm=BM)
     meta, td = torch_solver.make_device_data(
-        u, v, y, prob.layout, prob.hp, dtype=torch.float64, blocked_bm=BM)
+        u, v, y, prob.layout, prob.hp, dtype=torch.float64, blocked_bm=BM,
+        device="cpu")
     assert meta.ident_u == (True,) and meta.ident_v == (True,)
     assert td["xf_u"] == (None,) and td["xf_v"] == (None,)
-    assert set(td) - {"xf_u", "xf_v"} <= set(jd)
+    # the port's own keys: the feature-major lists and each row's run of
+    # slots, which a binary search over the JAX package's owners finds
+    port_only = {"xf_u", "xf_v", "blk_u_runs", "blk_v_runs"}
+    assert set(td) - port_only <= set(jd)
+    for side in ("u", "v"):
+        own = np.asarray(jd[f"blk_{side}_own"])
+        runs = td[f"blk_{side}_runs"].numpy()
+        for b in range(own.shape[0]):
+            np.testing.assert_array_equal(
+                runs[b], np.searchsorted(own[b], np.arange(BM + 1)))
     for key, val in td.items():
-        if key in ("xf_u", "xf_v"):
+        if key in port_only:
             continue
         vals = val if isinstance(val, tuple) else (val,)
         refs = jd[key] if isinstance(jd[key], tuple) else (jd[key],)
@@ -280,7 +291,7 @@ def test_out_of_slice_configs_raise(case):
                        match=f"ROADMAP {ROADMAP_ITEM[case]}"):
         meta, data = torch_solver.make_device_data(
             u, v, y, prob.layout, prob.hp, dtype=torch.float64,
-            blocked_bm=kw.get("blocked_bm", BM))
+            blocked_bm=kw.get("blocked_bm", BM), device="cpu")
         torch_solver.FFMSolver(meta, data, mesh=kw.get("mesh"))
 
 
@@ -338,7 +349,8 @@ def test_ffm_device_data_matches_jax():
     _, jd = jax_solver.make_device_data(u, v, y, prob.layout, prob.hp,
                                         dtype=jnp.float64, blocked_bm=BM)
     meta, td = torch_solver.make_device_data(
-        u, v, y, prob.layout, prob.hp, dtype=torch.float64, blocked_bm=BM)
+        u, v, y, prob.layout, prob.hp, dtype=torch.float64, blocked_bm=BM,
+        device="cpu")
     assert meta.ident_u == (True, False) and meta.fused_u == (False, True)
     assert meta.ident_v == (True, False) and meta.fused_v == (False, True)
     for s, pf in (("u", u), ("v", v)):
