@@ -14,9 +14,10 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
    the arguments its first call receives in a real half-solve, at float32
    and bfloat16: bit-identical on repeat, max-rel within the bound (1e-5 /
    5e-3; the plain versions add in the kernels' order, so they agree bit
-   for bit), with kernel, plain and library times (CUDA events, float32)
-   and the bound of the work (bytes over 3.35 TB/s or operations over 67
-   TFLOP/s f32, whichever is larger, counted from the inputs): the three
+   for bit), with kernel, plain and library times (CUDA events, float32;
+   for B4 also its X^T stage alone) and the bound of the work (bytes over
+   3.35 TB/s or operations over 67 TFLOP/s f32, whichever is larger,
+   counted from the inputs): the three
    blocked kernels in MF solves (200k users x 20k items, k=32, both solve
    sides); the four fused table kernels and the projection B8 in FFM solves
    (the same rows, u-side field D=1000 and v-side field D=500); the blocked
@@ -287,8 +288,8 @@ def train_and_validate(trainer, epochs: int):
 
 def print_static_plan(tag: str, data) -> None:
     """The static structures the redesigned kernels read, per solver: each
-    stream side's row runs (B2's span per CTA and its longest dependent
-    chain, the longest run) and each feature-major list's split into
+    stream side's row runs (the span per CTA of B1, B2 and B4 and their
+    longest dependent chain, the longest run) and each feature-major list's split into
     single-chunk features (written by the X^T stage's first pass), features
     with several chunks and features with none (both by its second)."""
     for side in ("u", "v"):
@@ -345,22 +346,28 @@ def _nbytes(a, squared: bool = False) -> int:
     return 0
 
 
+# the position of ``own`` among the arguments of each kernel that reads its
+# rows' runs in place of the owners when it is given them
+OWN_ARG = {"pos_hv_blocked": 2, "pos_scatter_blocked": 2,
+           "pos_scatter_blocked_diag": 2, "pos_hv_tbl": 5}
+
+
 def work(name: str, args, out, kw=None):
     """(bytes, operations) that the function needs on these inputs: each
     input read once and the output written once (for ``project`` only the
     table rows its ids name; for B9 one lane of each 32-lane group of the
-    packed owners and weights; for B2 given its rows' runs, the runs in
-    place of the owners), and the products and sums of the entries these
-    inputs hold (valid slots, nonzero X entries), not of padding.  A Jacobi
-    variant adds its second payload (rows^2 scaled and summed per slot, or
-    dd Q1 Q1 per row) and its X^2 pass."""
+    packed owners and weights; for B1, B2 and B4 given their rows' runs,
+    the runs in place of the owners), and the products and sums of the
+    entries these inputs hold (valid slots, nonzero X entries), not of
+    padding.  A Jacobi variant adds its second payload (rows^2 scaled and
+    summed per slot, or dd Q1 Q1 per row) and its X^2 pass."""
     import torch
 
     diag = name.endswith("_diag")
     nbytes = (sum(_nbytes(a, squared=diag) for a in args) + _nbytes(out))
     runs = (kw or {}).get("runs")
-    if runs is not None:  # B2 reads the runs, not the owners
-        nbytes += _nbytes(runs) - _nbytes(args[2])
+    if runs is not None:  # the kernel reads the runs, not the owners
+        nbytes += _nbytes(runs) - _nbytes(args[OWN_ARG[name]])
     if name == "pos_hv_packed":
         phi, rows_p, own_p, w_p, dense, num_out, bm = args[:7]
         nbytes -= (_nbytes(own_p) + _nbytes(w_p)) * 31 // 32
@@ -574,8 +581,8 @@ def compare(name: str, side: str, dt_name: str, args, kw, report, gpu: str,
 
     kern = getattr(kernels, name)
     plain = getattr(ops, name.removesuffix("_diag") + "_plain")
-    # B2's rows' runs are the kernel's encoding of ``own``: the plain
-    # version reads ``own``
+    # B1's, B2's and B4's rows' runs are the kernels' encoding of ``own``:
+    # the plain versions read ``own``
     pkw = {key: a for key, a in kw.items() if key != "runs"}
     got, got2 = kern(*args, **kw), kern(*args, **kw)
     ref = plain(*args, **pkw)
@@ -620,10 +627,29 @@ def compare(name: str, side: str, dt_name: str, args, kw, report, gpu: str,
             r["library_ms"] = (r["library_ms"] or 0.0) + lms
         line += (f"  kernel {ms:.4f} ms  plain {pms:.4f} ms  library "
                  f"{'none' if lms is None else f'{lms:.4f} ms'}  bound "
-                 f"{bms:.4f} ms by {by} ({nbytes} B, {nops} ops)  [{gpu}]")
+                 f"{bms:.4f} ms by {by} ({nbytes} B, {nops} ops)")
+        if name == "pos_hv_tbl":  # B4's time: its row stage, then X^T
+            line += f"  X^T stage alone {xt_stage_ms(args):.4f} ms"
+        line += f"  [{gpu}]"
     print(line)
     check(rel <= BOUND[dt_name],
           f"{name} {side} {dt_name}: max-rel {rel:.3e} > {BOUND[dt_name]:g}")
+
+
+def xt_stage_ms(args) -> float:
+    """The time of B4's second stage on its own: the X^T stage over B4's
+    feature-major list, on a payload of B4's shape and dtype (the row
+    stage's time is the rest of B4's)."""
+    import torch
+
+    from one_class_ffm_torch.ops import kernels
+
+    V, x_idx, xt = args[0], args[1], args[3]
+    payload = torch.randn((x_idx.shape[0], V.shape[1]), device=V.device
+                          ).to(V.dtype)
+    lib = kernels.load()
+    return time_ms(lambda: kernels._xt_scatter(lib, payload, xt,
+                                               "pos_hv_tbl"))
 
 
 @contextlib.contextmanager

@@ -11,11 +11,11 @@
 // stream `rows` is row-major (n_blocks, MAXC, k); `own` (n_blocks, MAXC)
 // names each slot's row inside its block of `block_rows` rows, with the pad
 // marker own == block_rows.  Within a block `own` is non-decreasing and pads
-// come last, so the slots of one row form one contiguous run.  B1 finds
-// each row's run by binary search over its block's `own`; B2 reads it from
-// the static run pointer `runs` (layout.row_runs, built once with the
-// layout).  Either way the per-row sums need no atomics and run in a fixed
-// order: two launches on the same input give the same bits.
+// come last, so the slots of one row form one contiguous run.  B1 and B2
+// read each row's run from the static run pointer `runs` (layout.row_runs,
+// built once with the layout); B3 reads each slot's owner.  The per-row sums
+// need no atomics and run in a fixed order: two launches on the same input
+// give the same bits.
 //
 // Every kernel reads storage-dtype values (f32 or bf16), accumulates in f32
 // and writes storage dtype, with the rounding points of the TPU kernels
@@ -26,9 +26,9 @@
 //
 // All three kernels stream `rows` once per call and do O(k) flops per
 // loaded element: they are bound by device-memory bandwidth, not by the
-// tensor cores.  B1 and B3 keep every load of `rows` coalesced (lanes over
-// k, 128 bytes per warp-row at k=32 f32); B2 brings its rows' span into
-// shared memory with bulk copies (below).  Each reads the stream exactly
+// tensor cores.  B3 keeps every load of `rows` coalesced (lanes over k, 128
+// bytes per warp-row at k=32 f32); B1 and B2 bring their rows' span into
+// shared memory with bulk copies (common.cuh, below).  Each reads the stream exactly
 // once; phi/dP/out rows are touched once per output row or slot.  Offsets
 // are 64-bit: n_blocks * MAXC * k passes 2^31 at web-scale configurations.
 
@@ -38,27 +38,49 @@ using namespace ocffm;
 
 namespace {
 
-// Replaces pos_hv_kt_pallas / _hv_kt_kernel (and its row-major twin
+// B1.  Replaces pos_hv_kt_pallas / _hv_kt_kernel (and its row-major twin
 // pos_hv_blocked_pallas / _hv_blk_kernel), one_class_ffm_tpu/ops/
-// sparse_ops.py.  One warp per output row r of block b, lanes over k:
+// sparse_ops.py:
 //   out[r] = sum_{t: own_t = r} (w_scale * w_t) * pq_t * rows_t
 //            + phi[r] @ dense,        pq_t = storage(<phi[r], rows_t>)
 // The dense (omega Q1^T Q1) term is added inside the kernel, as the TPU
-// kernel does; phi[r] stays in registers and is broadcast by shuffles.
-template <typename T>
-__global__ void __launch_bounds__(kWarps * 32)
+// kernel does.  The CTA body is common.cuh hv_rows (its notes say what
+// bounds it and what the design does about it); each group reads its row
+// of phi once, with vector loads, and writes its row of out once.
+template <typename T, int G, int NV, int VE>
+__global__ void __launch_bounds__(kHvThreads)
 pos_hv_kernel(const T* __restrict__ phi, const T* __restrict__ rows,
-              const int* __restrict__ own, const T* __restrict__ w,
+              const int* __restrict__ runs, const T* __restrict__ w,
               const T* __restrict__ dense, T* __restrict__ out, int maxc,
-              int k, int block_rows, float w_scale) {
-  const int lane = threadIdx.x & 31;
-  const int r = blockIdx.y * kWarps + (threadIdx.x >> 5);
-  if (r >= block_rows) return;  // uniform across the warp
-  const int64_t blk = blockIdx.x;
-  hv_out_row(phi, rows + blk * maxc * k, own + blk * maxc, w + blk * maxc,
-             dense, out, blk * block_rows + r, r, maxc, k, w_scale, lane,
-             RowMajor{k});
+              int k, int block_rows, float w_scale, int stage_slots) {
+  hv_rows<T, G, NV, VE>(RowPhi<T>{phi, k}, rows, runs, w, dense, out, maxc,
+                        k, block_rows, w_scale, stage_slots);
 }
+
+template <typename T>
+struct PosHvLaunch {
+  const T* phi;
+  const T* rows;
+  const int* runs;
+  const T *w, *dense;
+  T* out;
+  long long n_blocks;
+  int maxc, k, block_rows;
+  float w_scale;
+  cudaStream_t st;
+  template <int G, int NV, int VE>
+  int run() const {
+    if constexpr (VE > 1 && G * NV * VE > 32) {
+      return (int)cudaErrorInvalidValue;  // hv_staged admits k <= 32 only
+    } else {
+      const HvGrid g = hv_grid<T, G, VE>(n_blocks, k, block_rows);
+      pos_hv_kernel<T, G, NV, VE><<<g.grid, kHvThreads, g.smem, st>>>(
+          phi, rows, runs, w, dense, out, maxc, k, block_rows, w_scale,
+          g.stage_slots);
+      return (int)cudaGetLastError();
+    }
+  }
+};
 
 // ---------------------------------------------------------------------------
 // B2, the blocked gradient scatter.  Replaces pos_scatter_kt_pallas /
@@ -94,51 +116,6 @@ pos_hv_kernel(const T* __restrict__ phi, const T* __restrict__ rows,
 // ---------------------------------------------------------------------------
 
 constexpr int kScatterThreads = 64;  // threads per CTA
-constexpr int kStages = 2;           // shared-memory stages in the ring
-constexpr int kStageBytes = 8192;    // stream bytes per stage (about)
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// wait until the phase of the given parity has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// bytes (a multiple of 16) from device memory into shared memory, both
-// 16-byte aligned; completion is counted on `bar`
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
 
 // Adds the slots [lo, hi) to one row's sums, slot t's row at rows_p +
 // (t - base) * k and its coefficient (weight) at c_p[t - base] (w_p[...]):
@@ -229,7 +206,7 @@ pos_scatter_kernel(const T* __restrict__ c, const T* __restrict__ rows,
     T* sm = reinterpret_cast<T*>(stage_smem);
     if (threadIdx.x == 0) {
       for (int i = 0; i < kStages; ++i) mbar_init(&full[i]);
-      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+      mbar_init_fence();
     }
     __syncthreads();
     auto issue = [&](int j) {  // thread 0: stage j into its buffer
@@ -267,13 +244,6 @@ pos_scatter_kernel(const T* __restrict__ c, const T* __restrict__ rows,
     store_vals<T, VE>(out + row * k + c0, acc[v]);
     if constexpr (kDiag) store_vals<T, VE>(outq + row * k + c0, accq[v]);
   }
-}
-
-// slots per shared-memory stage for rows of `row_bytes`: about kStageBytes
-// of the stream, a multiple of 8 slots
-inline int stage_slots_for(int row_bytes) {
-  const int n = (kStageBytes / row_bytes) & ~7;
-  return n > 8 ? n : 8;
 }
 
 template <typename T, bool kDiag>
@@ -343,16 +313,17 @@ extern "C" {
 
 int ocffm_max_k() { return kMaxKPerLane * 32; }
 
+// runs: (n_blocks, block_rows + 1) row runs of slots
 int ocffm_pos_hv_blocked(int dtype, const void* phi, const void* rows,
-                         const void* own, const void* w, const void* dense,
+                         const void* runs, const void* w, const void* dense,
                          void* out, long long n_blocks, int maxc, int k,
                          int block_rows, float w_scale, void* stream) {
-  const dim3 grid((unsigned)n_blocks, (block_rows + kWarps - 1) / kWarps);
   cudaStream_t st = (cudaStream_t)stream;
-  OCFFM_BY_DTYPE(dtype, pos_hv_kernel<T><<<grid, kWarps * 32, 0, st>>>(
-      (const T*)phi, (const T*)rows, (const int*)own, (const T*)w,
-      (const T*)dense, (T*)out, maxc, k, block_rows, w_scale));
-  return (int)cudaGetLastError();
+  const void* ptrs[] = {phi, rows, w, dense, out};
+  const bool staged = hv_staged(k, maxc, dtype == kF32 ? 4 : 2, ptrs, 5);
+  OCFFM_BY_DTYPE(dtype, return by_width<T>(k, staged, PosHvLaunch<T>{
+      (const T*)phi, (const T*)rows, (const int*)runs, (const T*)w,
+      (const T*)dense, (T*)out, n_blocks, maxc, k, block_rows, w_scale, st}));
 }
 
 // w == nullptr: the gradient scatter alone; otherwise also the Jacobi

@@ -4,11 +4,14 @@
 // math of the blocked Hv and gradient passes (the latter with the Jacobi
 // diagonal's second payload), the projection of one row (B8 and the table
 // passes' phi = X V), the grid of a warp-per-item loop, the dtype dispatch
-// of a launch, and the rows of a width fixed at compile time (vector loads
-// and stores, and the dispatch over width plans) that the X^T stage and B2
-// use.  Every product and sum is rounded on its own (__fmul_rn /
-// __fadd_rn: no fused multiply-add) in a fixed order, which the plain
-// PyTorch versions in ops/sparse_ops.py follow bit for bit.
+// of a launch, the rows of a width fixed at compile time (vector loads
+// and stores, and the dispatch over width plans) that the X^T stage, B2
+// and the blocked Hv use, the shared-memory stages that bulk asynchronous
+// copies fill (B2 and the blocked Hv), and the blocked Hv of a CTA's rows
+// on a width plan (B1 and B4's row stage).  Every product and sum is
+// rounded on its own (__fmul_rn / __fadd_rn: no fused multiply-add) in a
+// fixed order, which the plain PyTorch versions in ops/sparse_ops.py
+// follow bit for bit.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -92,7 +95,8 @@ __device__ __forceinline__ void row_run(const int* own_b, int maxc, int r, int& 
   row_run(own_b, maxc, r, s, e, RowMajor{0});
 }
 
-// The blocked Hv of one row, lanes over k (B1; pos_hv_kt_pallas):
+// The blocked Hv of one row, lanes over k, the row's run found by search
+// (B9 and B10; B1 and B4 run hv_rows below, with the same bits):
 //   acc += sum_{t in [s, e)} (w_scale * w_t) * pq_t * rows_t + ph @ dense,
 //   pq_t = storage(<ph, rows_t>)
 // ph holds the row's phi (zero past k); it stays in registers and is
@@ -237,10 +241,11 @@ __device__ __forceinline__ void store_row(T* __restrict__ out, int64_t row,
   }
 }
 
-// One output row of B1 (and of its variants B9, B10, which differ only in
-// the slot layout or in which CTA runs the row): row r of block blk, lanes
-// over k, its run found by binary search over the block's owners, phi[row]
-// held in registers, the result written once at storage dtype.
+// One output row of B1's function for its variants B9 and B10, which
+// differ only in the slot layout or in which CTA runs the row: row r of
+// block blk, lanes over k, its run found by binary search over the block's
+// owners, phi[row] held in registers, the result written once at storage
+// dtype.
 template <typename T, typename Slots>
 __device__ __forceinline__ void hv_out_row(const T* __restrict__ phi,
                                            const T* __restrict__ rows_b,
@@ -383,6 +388,604 @@ inline bool vec_ok(int k, int elem_bytes, const void* const* ptrs, int n) {
   for (int i = 0; i < n; ++i)
     if (ptrs[i] != nullptr && ((uintptr_t)ptrs[i]) % 16) return false;
   return true;
+}
+
+// ---------------------------------------------------------------------------
+// Shared-memory stages filled by bulk asynchronous copies (cp.async.bulk,
+// completed on an mbarrier per stage: the copy engine moves the bytes, no
+// thread waits on a load).  B2 and the blocked Hv stream a CTA's span of
+// the blocked stream through a ring of kStages stages.  A bulk copy needs
+// 16-byte-aligned addresses and sizes.
+// ---------------------------------------------------------------------------
+
+constexpr int kStages = 2;         // shared-memory stages in the ring
+constexpr int kStageBytes = 8192;  // stream bytes per stage (about)
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// makes the initialised barriers visible to the copy engine
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// wait until the phase of the given parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// bytes (a multiple of 16) from device memory into shared memory, both
+// 16-byte aligned; completion is counted on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// slots per shared-memory stage for rows of `row_bytes`: about kStageBytes
+// of the stream, a multiple of 8 slots
+inline int stage_slots_for(int row_bytes) {
+  const int n = (kStageBytes / row_bytes) & ~7;
+  return n > 8 ? n : 8;
+}
+
+// ---------------------------------------------------------------------------
+// The blocked Hv of a CTA's rows on a width plan (B1, and B4's row stage):
+// for row r of block b,
+//   out[r] = sum_{t: own_t = r} (w_scale * w_t) * pq_t * rows_t
+//            + phi[r] @ dense,        pq_t = storage(<phi[r], rows_t>)
+// in the order and with the roundings of pos_hv_blocked_plain: each dot is
+// _lane_dot's tree (lane l of 32 sums columns l, l + 32, ... in turn, then
+// an xor butterfly at 16, 8, 4, 2, 1), the slots are added in slot order,
+// then the dense term, i ascending.
+//
+// What held the warp-per-row routine (hv_row) back on the H100, and what
+// this one does about it:
+// - a binary search per row over the block's owners: each row's run is read
+//   from the static run pointer `runs` (layout.row_runs);
+// - the stream by the warp's own loads, one slot per dependent chain (load,
+//   dot, five shuffles, scale, add): a CTA owns kRows consecutive rows of
+//   one block, whose runs are one contiguous span of slots, and one thread
+//   streams that span's rows and weights into a ring of shared-memory
+//   stages (as B2 does);
+// - one row's slots at a time per warp, so a stage that holds one or two
+//   rows' long runs (the v side: 44 slots per row) left most warps idle:
+//   each stage runs in two phases, (1) every group computes the dots of
+//   batches of D slots, whichever rows own them, into per-slot
+//   coefficients, and (2) each row's group adds its slots' scaled rows in
+//   slot order;
+// - eight generic values per lane for any k <= 256 (47 registers, 5 CTAs
+//   per SM): the width is a template argument (by_width) and a group of G
+//   lanes serves a row, so at k = 32 a warp serves 4 rows (f32: 8 lanes x
+//   one float4) or 8 (bf16: 4 lanes x 8 values);
+// - the dense term by 32 shuffles per output row: phi sits in shared
+//   memory, dense is read as vectors through L1, which the SM's CTAs share.
+// The butterfly keeps _lane_dot's bits with fewer shuffles: lane g of a
+// group holds columns g * VE + i (i < VE), so the partner of column c at
+// offset o >= VE is the same i in lane g ^ (o / VE) (a shuffle inside the
+// group), at o < VE column c ^ o of the same lane (an add in registers).
+// A partner at or past k holds +0, and a partner lane past the group (G *
+// VE < 32) is +0 too: the level adds that +0 rather than skipping it (-0 +
+// +0 is +0, as in _lane_dot's zero padding).  Every lane ends with the same
+// bits.
+//
+// Two paths, one kernel per plan: the staged path (VE > 1, k <= 32, MAXC %
+// 8 == 0, 16-byte-aligned rows: bulk copies need it) and the plain-load
+// path (G = 32, VE = 1, NV = kMaxKPerLane: one lane per column of 32, any k
+// up to 256), which reads the stream and dense from device memory.  Both
+// give the same bits.
+// ---------------------------------------------------------------------------
+
+constexpr int kHvThreads = 64;  // threads per CTA of hv_rows
+
+// slots per batch of the Hv's dots and adds.  On the H100 at k = 32, two
+// ran B1 and B4 faster than three, four or eight (more registers per
+// thread, fewer CTAs per SM) and no slower than one; 64-thread CTAs with
+// B2's ~8 KB stages ran within a few percent of the best of 32- to
+// 256-thread CTAs and 2 to 16 KB stages on both sides.
+constexpr int kHvBatch = 2;
+
+// the lanes of this thread's group of G (groups are aligned in the warp)
+template <int G>
+__device__ __forceinline__ unsigned group_mask() {
+  if constexpr (G == 32) {
+    return kFull;
+  } else {
+    return ((1u << G) - 1u) << ((threadIdx.x & 31) & ~(G - 1));
+  }
+}
+
+// _lane_dot's butterfly over the 32 lane sums of D dots at once, lane g
+// holding the sums of columns g * VE + i in x[j][i]; on return every value
+// of x[j] holds dot j.
+template <int G, int VE, int D>
+__device__ __forceinline__ void lane_tree(float (&x)[D][VE], unsigned gmask) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    if (off >= VE) {
+      const int lo = off / VE;
+      if (lo >= G) {  // the partner column lies past the group: +0
+#pragma unroll
+        for (int j = 0; j < D; ++j)
+#pragma unroll
+          for (int i = 0; i < VE; ++i) x[j][i] = __fadd_rn(x[j][i], 0.f);
+      } else {
+        float y[D][VE];
+#pragma unroll
+        for (int j = 0; j < D; ++j)
+#pragma unroll
+          for (int i = 0; i < VE; ++i)
+            y[j][i] = __shfl_xor_sync(gmask, x[j][i], lo, G);
+#pragma unroll
+        for (int j = 0; j < D; ++j)
+#pragma unroll
+          for (int i = 0; i < VE; ++i) x[j][i] = __fadd_rn(x[j][i], y[j][i]);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < D; ++j)
+#pragma unroll
+        for (int i = 0; i < VE; ++i)
+          if (!(i & off)) {
+            const float s = __fadd_rn(x[j][i], x[j][i ^ off]);
+            x[j][i] = s;
+            x[j][i ^ off] = s;
+          }
+    }
+  }
+}
+
+// The plain-load path: adds the slots [lo, hi) of one row to acc, slot t's
+// row at rows_p + t * k and its weight at w_p[t] in device memory.  Batches
+// of D slots: their loads first, then their dots and trees interleaved,
+// then their scaled rows in slot order.
+template <typename T, int G, int NV, int VE>
+__device__ __forceinline__ void hv_slots(const T* rows_p, const T* w_p,
+                                         int lo, int hi, int k,
+                                         int lane, unsigned gmask,
+                                         float w_scale,
+                                         const float (&ph)[NV][VE],
+                                         float (&acc)[NV][VE]) {
+  static_assert(NV == 1 || G * VE == 32, "lane l sums columns l + 32 j");
+  constexpr int D = kHvBatch;
+  for (int t0 = lo; t0 < hi; t0 += D) {
+    RawVec<T, VE> raw[D][NV];
+    float ws[D];
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+      ws[j] = 0.f;
+      if (t0 + j < hi) {
+        const int64_t o = t0 + j;
+        ws[j] = __fmul_rn(w_scale, to_f(w_p[o]));
+#pragma unroll
+        for (int v = 0; v < NV; ++v) {
+          const int c0 = (v * G + lane) * VE;
+          if (c0 < k) raw[j][v] = load_raw<T, VE>(rows_p + o * k + c0);
+        }
+      }
+    }
+    float r[D][NV][VE], x[D][VE];
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        if (t0 + j < hi && (v * G + lane) * VE < k) {
+          unpack(raw[j][v], r[j][v]);
+        } else {
+#pragma unroll
+          for (int i = 0; i < VE; ++i) r[j][v][i] = 0.f;
+        }
+      }
+      // lane sums: columns l, l + 32, ... in turn (products past k are +0)
+#pragma unroll
+      for (int i = 0; i < VE; ++i) {
+        x[j][i] = __fmul_rn(ph[0][i], r[j][0][i]);
+#pragma unroll
+        for (int v = 1; v < NV; ++v)
+          if (v * G * VE < k)
+            x[j][i] = __fadd_rn(x[j][i], __fmul_rn(ph[v][i], r[j][v][i]));
+      }
+    }
+    lane_tree<G, VE, D>(x, gmask);
+#pragma unroll
+    for (int j = 0; j < D; ++j)
+      if (t0 + j < hi) {
+        const float coef = __fmul_rn(rnd<T>(x[j][0]), ws[j]);
+#pragma unroll
+        for (int v = 0; v < NV; ++v)
+#pragma unroll
+          for (int i = 0; i < VE; ++i)
+            acc[v][i] = __fadd_rn(acc[v][i], __fmul_rn(coef, r[j][v][i]));
+      }
+  }
+}
+
+// phi[row] from device memory (B1); zero past k and for a row past the
+// block
+template <typename T>
+struct RowPhi {
+  const T* phi;
+  int k;
+  template <int G, int NV, int VE>
+  __device__ __forceinline__ void load(bool live, int64_t row, int lane,
+                                       float (&ph)[NV][VE]) const {
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const int c0 = (v * G + lane) * VE;
+      if (live && c0 < k) {
+        unpack(load_raw<T, VE>(phi + row * k + c0), ph[v]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < VE; ++i) ph[v][i] = 0.f;
+      }
+    }
+  }
+};
+
+// phi[row] = storage(X_row V) by the row's group (B4's stage 1), with
+// project_row's bits: the row's p (id, value) slots added in slot order at
+// f32, one rounding per product and per sum, one rounding to storage at the
+// end; ids outside [0, d) add nothing.  V (d <= 4096 rows) is read through
+// L2, a batch of table rows in flight before their ordered adds.
+template <typename T>
+struct ProjectedPhi {
+  const T* V;
+  const int* xi;
+  const T* xv;
+  int p, d, k;
+  template <int G, int NV, int VE>
+  __device__ __forceinline__ void load(bool live, int64_t row, int lane,
+                                       float (&ph)[NV][VE]) const {
+    constexpr int P = NV > 1 ? 2 : 4;  // table rows per batch
+    float acc[NV][VE];
+#pragma unroll
+    for (int v = 0; v < NV; ++v)
+#pragma unroll
+      for (int i = 0; i < VE; ++i) acc[v][i] = 0.f;
+    const int* xi_r = xi + row * p;
+    const T* xv_r = xv + row * p;
+    for (int s0 = 0; live && s0 < p; s0 += P) {
+      int f[P];
+      float val[P];
+      RawVec<T, VE> raw[P][NV];
+#pragma unroll
+      for (int q = 0; q < P; ++q) {
+        f[q] = s0 + q < p ? xi_r[s0 + q] : -1;
+        val[q] = s0 + q < p ? to_f(xv_r[s0 + q]) : 0.f;
+      }
+#pragma unroll
+      for (int q = 0; q < P; ++q)
+        if ((unsigned)f[q] < (unsigned)d) {
+#pragma unroll
+          for (int v = 0; v < NV; ++v) {
+            const int c0 = (v * G + lane) * VE;
+            if (c0 < k)
+              raw[q][v] = load_raw<T, VE>(V + (int64_t)f[q] * k + c0);
+          }
+        }
+#pragma unroll
+      for (int q = 0; q < P; ++q)
+        if ((unsigned)f[q] < (unsigned)d) {  // uniform across the group
+#pragma unroll
+          for (int v = 0; v < NV; ++v) {
+            if ((v * G + lane) * VE >= k) continue;
+            float x[VE];
+            unpack(raw[q][v], x);
+#pragma unroll
+            for (int i = 0; i < VE; ++i)
+              acc[v][i] = __fadd_rn(acc[v][i], __fmul_rn(val[q], x[i]));
+          }
+        }
+    }
+#pragma unroll
+    for (int v = 0; v < NV; ++v)
+#pragma unroll
+      for (int i = 0; i < VE; ++i)
+        ph[v][i] = (v * G + lane) * VE < k ? rnd<T>(acc[v][i]) : 0.f;
+  }
+};
+
+// Phase 1 of a stage on the staged path: the coefficients coef_t =
+// storage(<phi[own_t], rows_t>) * (w_scale * w_t) of the CTA's slots [lo,
+// hi) in the stage (slot t at offset t - ws), written to coef_s.  Every
+// group takes batches of D consecutive slots in turn, whichever rows own
+// them, so a stage that holds one or two rows' long runs keeps all groups
+// busy.  Slot t's row within the CTA is the last g with runs_s[g] <= t.
+template <typename T, int G, int VE, int kRows>
+__device__ __forceinline__ void hv_stage_dots(
+    const T* buf, const T* buf_w, int ws, int lo, int hi, int k, int lane,
+    int grp, unsigned gmask, float w_scale, const int* runs_s,
+    const float* phi_s, int kp, float* coef_s) {
+  constexpr int D = kHvBatch;
+  const int c0 = lane * VE;
+  for (int t0 = lo + grp * D; t0 < hi; t0 += kRows * D) {
+    RawVec<T, VE> raw[D];
+    float wt[D];
+    int og[D];
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+      const int t = t0 + j;
+      wt[j] = 0.f;
+      og[j] = 0;
+      if (t < hi) {
+        const int o = t - ws;
+        if (c0 < k) raw[j] = load_raw<T, VE>(buf + (int64_t)o * k + c0);
+        wt[j] = __fmul_rn(w_scale, to_f(buf_w[o]));
+        int g = 0;
+#pragma unroll
+        for (int step = kRows / 2; step > 0; step >>= 1)
+          if (runs_s[g + step] <= t) g += step;
+        og[j] = g;
+      }
+    }
+    float x[D][VE];
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+      float r[VE], p[VE];
+      if (t0 + j < hi && c0 < k) {
+        unpack(raw[j], r);
+        const float* pr = phi_s + og[j] * kp + c0;
+#pragma unroll
+        for (int i = 0; i < VE; i += 4) {
+          const float4 p4 = *reinterpret_cast<const float4*>(pr + i);
+          p[i] = p4.x;
+          p[i + 1] = p4.y;
+          p[i + 2] = p4.z;
+          p[i + 3] = p4.w;
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < VE; ++i) r[i] = p[i] = 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < VE; ++i) x[j][i] = __fmul_rn(p[i], r[i]);
+    }
+    lane_tree<G, VE, D>(x, gmask);
+    if (lane == 0) {
+#pragma unroll
+      for (int j = 0; j < D; ++j)
+        if (t0 + j < hi)
+          coef_s[t0 + j - ws] = __fmul_rn(rnd<T>(x[j][0]), wt[j]);
+    }
+  }
+}
+
+// Phase 2 of a stage: one row's slots [lo, hi) of the stage added to acc in
+// slot order, acc += coef_t * rows_t, batches of D loads ahead of the adds.
+template <typename T, int VE>
+__device__ __forceinline__ void hv_stage_adds(const T* buf,
+                                              const float* coef_s, int ws,
+                                              int lo, int hi, int k, int c0,
+                                              float (&acc)[VE]) {
+  constexpr int D = kHvBatch;
+  for (int t0 = lo; t0 < hi; t0 += D) {
+    RawVec<T, VE> raw[D];
+    float ct[D];
+#pragma unroll
+    for (int j = 0; j < D; ++j)
+      if (t0 + j < hi) {
+        const int o = t0 + j - ws;
+        raw[j] = load_raw<T, VE>(buf + (int64_t)o * k + c0);
+        ct[j] = coef_s[o];
+      }
+#pragma unroll
+    for (int j = 0; j < D; ++j)
+      if (t0 + j < hi) {
+        float r[VE];
+        unpack(raw[j], r);
+#pragma unroll
+        for (int i = 0; i < VE; ++i)
+          acc[i] = __fadd_rn(acc[i], __fmul_rn(ct[j], r[i]));
+      }
+  }
+}
+
+// The CTA body: CTA (b, y) owns rows [y * kRows, (y + 1) * kRows) of block
+// b, a group of G lanes per row, and writes each row's result once at
+// storage dtype.  Dynamic shared memory (hv_grid): the stage ring (each
+// stage `stage_slots` rows of the stream, then their weights), the CTA's
+// phi rows (f32, stride k + 4, so that the groups of a warp read different
+// banks), then on the staged path the stage's coefficients (f32) and the
+// CTA's row runs.  dense (k x k, 4 KB at k = 32 f32) is read through L1,
+// which the SM's CTAs share.
+template <typename T, int G, int NV, int VE, typename Phi>
+__device__ __forceinline__ void hv_rows(const Phi& phi_of,
+                                        const T* __restrict__ rows,
+                                        const int* __restrict__ runs,
+                                        const T* __restrict__ w,
+                                        const T* __restrict__ dense,
+                                        T* __restrict__ out, int maxc, int k,
+                                        int block_rows, float w_scale,
+                                        int stage_slots) {
+  constexpr int kRows = kHvThreads / G;
+  constexpr bool kStaged = VE > 1;
+  const int lane = threadIdx.x % G;
+  const int grp = threadIdx.x / G;
+  const unsigned gmask = group_mask<G>();
+  const int64_t blk = blockIdx.x;
+  const int r0 = blockIdx.y * kRows;
+  const int r = r0 + grp;
+  const bool live = r < block_rows;
+  const int64_t row = blk * block_rows + r;
+  const int* runs_b = runs + blk * (block_rows + 1);
+  const T* w_b = w + blk * maxc;
+  const T* rows_b = rows + blk * maxc * k;
+  int rs = 0, re = 0;
+  if (live) {
+    rs = runs_b[r];
+    re = runs_b[r + 1];
+  }
+
+  extern __shared__ __align__(128) unsigned char hv_smem[];
+  __shared__ uint64_t full[kStages];
+  T* sm = reinterpret_cast<T*>(hv_smem);
+  const int stage_elems = stage_slots * (k + 1);
+  const int kp = k + 4;
+  float* phi_s = reinterpret_cast<float*>(sm + kStages * stage_elems);
+  float* coef_s = phi_s + kRows * kp;
+  int* runs_s = reinterpret_cast<int*>(coef_s + stage_slots);
+
+  // the span of the CTA's rows, widened to whole 8-slot groups
+  const int s = kStaged ? runs_b[r0] : 0;
+  const int e = kStaged ? runs_b[min(r0 + kRows, block_rows)] : 0;
+  const int w0 = s & ~7, w1 = (e + 7) & ~7;
+  const int n_st = s < e ? (w1 - w0 + stage_slots - 1) / stage_slots : 0;
+  auto issue = [&](int j) {  // thread 0: stage j into its buffer
+    const int ws = w0 + j * stage_slots;
+    const int n = min(stage_slots, w1 - ws);  // a multiple of 8 slots
+    T* buf = sm + (j % kStages) * stage_elems;
+    uint64_t* bar = &full[j % kStages];
+    const uint32_t row_bytes = (uint32_t)n * k * sizeof(T);
+    const uint32_t col_bytes = (uint32_t)n * sizeof(T);
+    mbar_expect_tx(bar, row_bytes + col_bytes);
+    bulk_load(buf, rows_b + (int64_t)ws * k, row_bytes, bar);
+    bulk_load(buf + stage_slots * k, w_b + ws, col_bytes, bar);
+  };
+  if constexpr (kStaged) {
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < kStages; ++i) mbar_init(&full[i]);
+      mbar_init_fence();
+      for (int j = 0; j < min(kStages, n_st); ++j) issue(j);
+    }
+    for (int i = threadIdx.x; i <= kRows; i += kHvThreads)
+      runs_s[i] = runs_b[min(r0 + i, block_rows)];
+  }
+
+  // while the first stages are in flight: the row's phi, into registers
+  // and shared memory
+  float ph[NV][VE];
+  phi_of.template load<G, NV, VE>(live, row, lane, ph);
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    const int c0 = (v * G + lane) * VE;
+    if (c0 < k)
+#pragma unroll
+      for (int i = 0; i < VE; ++i) phi_s[grp * kp + c0 + i] = ph[v][i];
+  }
+  __syncthreads();  // phi, the runs and the initialised barriers are visible
+
+  float acc[NV][VE];
+#pragma unroll
+  for (int v = 0; v < NV; ++v)
+#pragma unroll
+    for (int i = 0; i < VE; ++i) acc[v][i] = 0.f;
+  if constexpr (!kStaged) {
+    hv_slots<T, G, NV, VE>(rows_b, w_b, rs, re, k, lane, gmask, w_scale, ph,
+                           acc);
+  } else {
+    for (int j = 0; j < n_st; ++j) {
+      mbar_wait(&full[j % kStages], (uint32_t)(j / kStages) & 1u);
+      const int ws = w0 + j * stage_slots;
+      const T* buf = sm + (j % kStages) * stage_elems;
+      hv_stage_dots<T, G, VE, kRows>(buf, buf + stage_slots * k, ws,
+                                     max(s, ws), min(e, ws + stage_slots), k,
+                                     lane, grp, gmask, w_scale, runs_s, phi_s,
+                                     kp, coef_s);
+      __syncthreads();  // the stage's coefficients are written
+      if (lane * VE < k)
+        hv_stage_adds<T, VE>(buf, coef_s, ws, max(rs, ws),
+                             min(re, ws + stage_slots), k, lane * VE, acc[0]);
+      __syncthreads();  // every group is done with buffer j % kStages
+      if (threadIdx.x == 0 && j + kStages < n_st) issue(j + kStages);
+    }
+  }
+  if (!live) return;
+
+  // dense term: acc[c] += phi[i] * dense[i, c], i ascending
+  const float* pr = phi_s + grp * kp;
+  if constexpr (kStaged) {
+    const int c0 = lane * VE;
+    if (c0 < k) {
+      for (int i0 = 0; i0 < k; i0 += 4) {  // k % 4 == 0 on this path
+        const float4 p4 = *reinterpret_cast<const float4*>(pr + i0);
+        const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
+        RawVec<T, VE> raw[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          raw[q] = load_raw<T, VE>(dense + (int64_t)(i0 + q) * k + c0);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          float dv[VE];
+          unpack(raw[q], dv);
+#pragma unroll
+          for (int i = 0; i < VE; ++i)
+            acc[0][i] = __fadd_rn(acc[0][i], __fmul_rn(pv[q], dv[i]));
+        }
+      }
+    }
+  } else {
+    for (int i = 0; i < k; ++i) {
+      const float pi = pr[i];
+      const T* drow = dense + (int64_t)i * k;
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        const int c0 = (v * G + lane) * VE;
+        if (c0 < k)
+          acc[v][0] = __fadd_rn(acc[v][0], __fmul_rn(pi, to_f(drow[c0])));
+      }
+    }
+  }
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    const int c0 = (v * G + lane) * VE;
+    if (c0 < k) store_vals<T, VE>(out + row * k + c0, acc[v]);
+  }
+}
+
+// The launch geometry of hv_rows on plan (G, VE): grid (n_blocks, slices
+// of kRows rows), slots per stage (staged path) and dynamic shared memory
+// (under 25 KB for every plan, so no opt-in above the default 48 KB).
+struct HvGrid {
+  dim3 grid;
+  int stage_slots;
+  size_t smem;
+};
+
+template <typename T, int G, int VE>
+inline HvGrid hv_grid(long long n_blocks, int k, int block_rows) {
+  constexpr int kRows = kHvThreads / G;
+  const int slots = VE > 1 ? stage_slots_for(k * (int)sizeof(T)) : 0;
+  const size_t smem = (size_t)kStages * slots * (k + 1) * sizeof(T) +
+                      ((size_t)kRows * (k + 4) + slots + kRows + 1) *
+                          sizeof(float);
+  return {dim3((unsigned)n_blocks, (block_rows + kRows - 1) / kRows), slots,
+          smem};
+}
+
+// the staged path of hv_rows applies: whole 16-byte vectors per row, k <=
+// 32 (one lane sum per column), aligned bases (the stream, the weights,
+// dense, phi or V, the output) and MAXC % 8 == 0 (the bulk copies start at
+// 8-slot boundaries of each block's MAXC slots)
+inline bool hv_staged(int k, int maxc, int elem_bytes, const void* const* ptrs,
+                      int n) {
+  return k <= 32 && maxc % 8 == 0 && vec_ok(k, elem_bytes, ptrs, n);
 }
 
 }  // namespace ocffm

@@ -13,11 +13,12 @@
 // blocks run in parallel and in no order, and a (4096, 32) f32 table does
 // not fit in one block's shared memory, so each pass runs in two stages:
 //
-//   1. rows: one warp per data row, lanes over k.  It computes the row's
+//   1. rows: one warp per data row, lanes over k (B4: a group of lanes per
+//      row on a width plan, common.cuh hv_rows).  It computes the row's
 //      payload from the row's X entries, the table V (read through L2),
 //      the blocked positive stream and the dense terms, and writes it once
 //      at storage dtype: the same single rounding the TPU kernels apply to
-//      their zpb / zb block.  phi = X V never leaves registers.
+//      their zpb / zb block.  phi = X V never leaves the CTA.
 //   2. X^T payload: over the field's static feature-major list
 //      (ops/layout.py FeatureMajor) and its plan (layout.xt_plan), in one
 //      launch.  A group of lanes per chunk of at most XT_CHUNK entries of
@@ -66,31 +67,51 @@ namespace {
 
 // Stage 1 of pos_hv_tbl, replacing pos_hv_tbl_pallas / _hv_tbl_kernel and
 // its k-major twin pos_hv_tbl_kt_pallas / _hv_tbl_kt_kernel
-// (one_class_ffm_tpu/ops/sparse_ops.py).  One warp per row r of block b:
+// (one_class_ffm_tpu/ops/sparse_ops.py).  For row r of block b:
 //   payload[r] = storage(B1 math on phib),   phib = storage(X_r V)
-template <typename T>
-__global__ void __launch_bounds__(kWarps * 32)
+// on B1's CTA body (common.cuh hv_rows), the row's group projecting its own
+// phib first (ProjectedPhi: project_row's bits); it was the largest device
+// op of the FFM epoch as a warp per row.
+template <typename T, int G, int NV, int VE>
+__global__ void __launch_bounds__(kHvThreads)
 hv_tbl_rows_kernel(const T* __restrict__ V, const int* __restrict__ xi,
                    const T* __restrict__ xv, int p, int d,
-                   const T* __restrict__ rows, const int* __restrict__ own,
+                   const T* __restrict__ rows, const int* __restrict__ runs,
                    const T* __restrict__ w, const T* __restrict__ dense,
                    T* __restrict__ payload, int maxc, int k, int block_rows,
-                   float w_scale) {
-  const int lane = threadIdx.x & 31;
-  const int r = blockIdx.y * kWarps + (threadIdx.x >> 5);
-  if (r >= block_rows) return;  // uniform across the warp
-  const int64_t blk = blockIdx.x;
-  const int64_t row = blk * block_rows + r;
-  float ph[kMaxKPerLane], acc[kMaxKPerLane];
-  project_row(V, xi, xv, row, p, d, k, lane, ph);
-  int s, e;
-  row_run(own + blk * maxc, maxc, r, s, e);
-#pragma unroll
-  for (int j = 0; j < kMaxKPerLane; ++j) acc[j] = 0.f;
-  hv_row(ph, rows + blk * maxc * k, w + blk * maxc, s, e, dense, k, w_scale,
-         lane, acc, RowMajor{k});
-  store_row(payload, row, k, lane, acc);
+                   float w_scale, int stage_slots) {
+  hv_rows<T, G, NV, VE>(ProjectedPhi<T>{V, xi, xv, p, d, k}, rows, runs, w,
+                        dense, payload, maxc, k, block_rows, w_scale,
+                        stage_slots);
 }
+
+template <typename T>
+struct HvTblLaunch {
+  const T* V;
+  const int* xi;
+  const T* xv;
+  int p, d;
+  const T* rows;
+  const int* runs;
+  const T *w, *dense;
+  T* payload;
+  long long n_blocks;
+  int maxc, k, block_rows;
+  float w_scale;
+  cudaStream_t st;
+  template <int G, int NV, int VE>
+  int run() const {
+    if constexpr (VE > 1 && G * NV * VE > 32) {
+      return (int)cudaErrorInvalidValue;  // hv_staged admits k <= 32 only
+    } else {
+      const HvGrid g = hv_grid<T, G, VE>(n_blocks, k, block_rows);
+      hv_tbl_rows_kernel<T, G, NV, VE><<<g.grid, kHvThreads, g.smem, st>>>(
+          V, xi, xv, p, d, rows, runs, w, dense, payload, maxc, k,
+          block_rows, w_scale, g.stage_slots);
+      return (int)cudaGetLastError();
+    }
+  }
+};
 
 // Stage 1 of grad_cross_tbl, replacing grad_cross_tbl_pallas /
 // _grad_cross_tbl_kernel and grad_cross_tbl_kt_pallas.  One warp per row:
@@ -423,18 +444,19 @@ struct XtLaunch {
 
 extern "C" {
 
+// runs: (n_blocks, block_rows + 1) row runs of slots
 int ocffm_pos_hv_tbl_rows(int dtype, const void* V, const void* xi,
                           const void* xv, int p, int d, const void* rows,
-                          const void* own, const void* w, const void* dense,
+                          const void* runs, const void* w, const void* dense,
                           void* payload, long long n_blocks, int maxc, int k,
                           int block_rows, float w_scale, void* stream) {
-  const dim3 grid((unsigned)n_blocks, (block_rows + kWarps - 1) / kWarps);
   cudaStream_t st = (cudaStream_t)stream;
-  OCFFM_BY_DTYPE(dtype, hv_tbl_rows_kernel<T><<<grid, kWarps * 32, 0, st>>>(
+  const void* ptrs[] = {V, rows, w, dense, payload};
+  const bool staged = hv_staged(k, maxc, dtype == kF32 ? 4 : 2, ptrs, 5);
+  OCFFM_BY_DTYPE(dtype, return by_width<T>(k, staged, HvTblLaunch<T>{
       (const T*)V, (const int*)xi, (const T*)xv, p, d, (const T*)rows,
-      (const int*)own, (const T*)w, (const T*)dense, (T*)payload, maxc, k,
-      block_rows, w_scale));
-  return (int)cudaGetLastError();
+      (const int*)runs, (const T*)w, (const T*)dense, (T*)payload, n_blocks,
+      maxc, k, block_rows, w_scale, st}));
 }
 
 // w == nullptr: the gradient payload alone; otherwise also the Jacobi

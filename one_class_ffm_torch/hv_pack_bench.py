@@ -36,6 +36,7 @@ import torch
 
 from .ops import kernels
 from .ops import sparse_ops as ops
+from .ops.layout import row_runs
 
 BM, K, W_SCALE = 256, 32, 0.9
 CARD_SHAPE = dict(n_blocks=782, maxc=1376, b_rows=20224)
@@ -95,13 +96,14 @@ def run(device: torch.device, dtype: torch.dtype, shape: dict,
         return torch.as_tensor(a).to(device=device, dtype=dt).contiguous()
 
     own, take = T(s["own"], torch.int32), T(s["take"], torch.int32)
+    runs = T(row_runs(s["own"], BM), torch.int32)  # static, as the solver's
     w, B, phi, dmat = T(s["w"]), T(s["B"]), T(s["phi"]), T(s["dmat"])
     rows = ops.gather_blocked_rows(B, take)
     rows_p, own_p, w_p = ops.pack_stream(B, take, own, w)
     groups = [g for g in GROUPS if nb % g == 0]
     variants = {
         "b1": lambda: ops.pos_hv_blocked(phi, rows, own, w, dmat, num, BM,
-                                         W_SCALE),
+                                         W_SCALE, runs=runs),
         "packed": lambda: ops.pos_hv_packed(phi, rows_p, own_p, w_p, dmat,
                                             num, BM, W_SCALE),
     }

@@ -241,21 +241,6 @@ def _hv_out(phi, dense_mat, num_out: int, nb: int, k: int, block_rows: int,
     return torch.empty((num_out, k), dtype=dt, device=dev)
 
 
-def pos_hv_blocked(phi, rows, own, w_blk, dense_mat, num_out: int,
-                   block_rows: int, w_scale: float = 1.0) -> torch.Tensor:
-    lib, nb, maxc, k = _stream_rows(rows, own, block_rows)
-    dev, dt = rows.device, rows.dtype
-    _check("w_blk", w_blk, dt, (nb, maxc), dev)
-    out = _hv_out(phi, dense_mat, num_out, nb, k, block_rows, dev, dt)
-    err = lib.ocffm_pos_hv_blocked(
-        _DTYPE_CODE[dt], phi.data_ptr(), rows.data_ptr(), own.data_ptr(),
-        w_blk.data_ptr(), dense_mat.data_ptr(), out.data_ptr(), nb, maxc, k,
-        block_rows, float(w_scale), _stream(dev))
-    _raise_on(err, "pos_hv_blocked")
-    _launches["pos_hv_blocked"] += 1
-    return out
-
-
 def _runs(own: torch.Tensor, block_rows: int) -> torch.Tensor:
     """Each row's run of slots (``layout.row_runs``) computed on the device
     from ``own``, for a caller that has no static copy."""
@@ -265,22 +250,49 @@ def _runs(own: torch.Tensor, block_rows: int) -> torch.Tensor:
     return torch.searchsorted(own, keys).to(torch.int32)
 
 
+def _row_runs(runs, own: torch.Tensor, block_rows: int) -> torch.Tensor:
+    """The (n_blocks, block_rows + 1) row runs a kernel reads in place of
+    ``own``: the static ``layout.row_runs`` the caller passes, checked, or
+    found on the device."""
+    if runs is None:
+        runs = _runs(own, block_rows)
+    _check("runs", runs, torch.int32, (own.shape[0], block_rows + 1),
+           own.device)
+    return runs
+
+
+def pos_hv_blocked(phi, rows, own, w_blk, dense_mat, num_out: int,
+                   block_rows: int, w_scale: float = 1.0,
+                   runs=None) -> torch.Tensor:
+    """B1; the kernel reads each row's run from ``runs`` (see
+    ``_row_runs``), not ``own``."""
+    lib, nb, maxc, k = _stream_rows(rows, own, block_rows)
+    dev, dt = rows.device, rows.dtype
+    _check("w_blk", w_blk, dt, (nb, maxc), dev)
+    out = _hv_out(phi, dense_mat, num_out, nb, k, block_rows, dev, dt)
+    runs = _row_runs(runs, own, block_rows)
+    err = lib.ocffm_pos_hv_blocked(
+        _DTYPE_CODE[dt], phi.data_ptr(), rows.data_ptr(), runs.data_ptr(),
+        w_blk.data_ptr(), dense_mat.data_ptr(), out.data_ptr(), nb, maxc, k,
+        block_rows, float(w_scale), _stream(dev))
+    _raise_on(err, "pos_hv_blocked")
+    _launches["pos_hv_blocked"] += 1
+    return out
+
+
 def _scatter_blocked(name: str, c_blk, rows, own, num_out: int,
                      block_rows: int, w_blk=None, wq_scale: float = 1.0,
                      runs=None):
     """B2; with ``w_blk`` also the Jacobi payload, from one launch.  The
-    kernel reads each row's run from ``runs`` (n_blocks, block_rows + 1),
-    the static ``layout.row_runs`` of ``own``; without it they are found on
-    the device first.  Returns (zpos, posq), posq None without w_blk."""
+    kernel reads each row's run from ``runs`` (see ``_row_runs``).  Returns
+    (zpos, posq), posq None without w_blk."""
     lib, nb, maxc, k = _stream_rows(rows, own, block_rows)
     if num_out != nb * block_rows:
         raise ValueError(f"num_out={num_out} != n_blocks*block_rows="
                          f"{nb * block_rows}")
     dev, dt = rows.device, rows.dtype
     _check("c_blk", c_blk, dt, (nb, maxc), dev)
-    if runs is None:
-        runs = _runs(own, block_rows)
-    _check("runs", runs, torch.int32, (nb, block_rows + 1), dev)
+    runs = _row_runs(runs, own, block_rows)
     out = torch.empty((num_out, k), dtype=dt, device=dev)
     outq = None
     if w_blk is not None:
@@ -445,7 +457,10 @@ def _xt_scatter(lib, payload: torch.Tensor, xt: FeatureMajor,
 
 
 def pos_hv_tbl(V, x_idx, x_val, xt, rows, own, w_blk, dense_mat,
-               block_rows: int, w_scale: float = 1.0) -> torch.Tensor:
+               block_rows: int, w_scale: float = 1.0,
+               runs=None) -> torch.Tensor:
+    """B4: its row stage reads each row's run from ``runs`` (see
+    ``_row_runs``), then the X^T stage."""
     lib, nb, maxc, k = _stream_rows(rows, own, block_rows)
     dev, dt = rows.device, rows.dtype
     num = nb * block_rows
@@ -453,10 +468,11 @@ def pos_hv_tbl(V, x_idx, x_val, xt, rows, own, w_blk, dense_mat,
     p = _x_rows(x_idx, x_val, num, dt, dev)
     _check("w_blk", w_blk, dt, (nb, maxc), dev)
     _check("dense_mat", dense_mat, dt, (k, k), dev)
+    runs = _row_runs(runs, own, block_rows)
     payload = torch.empty((num, k), dtype=dt, device=dev)
     err = lib.ocffm_pos_hv_tbl_rows(
         _DTYPE_CODE[dt], V.data_ptr(), x_idx.data_ptr(), x_val.data_ptr(), p,
-        d, rows.data_ptr(), own.data_ptr(), w_blk.data_ptr(),
+        d, rows.data_ptr(), runs.data_ptr(), w_blk.data_ptr(),
         dense_mat.data_ptr(), payload.data_ptr(), nb, maxc, k, block_rows,
         float(w_scale), _stream(dev))
     _raise_on(err, "pos_hv_tbl")

@@ -258,13 +258,16 @@ def pos_gap_blocked_plain(dP, rows, own, block_rows: int):
 
 
 def pos_hv_blocked(phi, rows, own, w_blk, dense_mat, num_out: int,
-                   block_rows: int, w_scale: float = 1.0):
-    """The per-CG-iteration positive pass with the fused omega term."""
+                   block_rows: int, w_scale: float = 1.0, runs=None):
+    """The per-CG-iteration positive pass with the fused omega term.
+    ``runs``: the rows' runs of slots (``layout.row_runs`` of ``own``),
+    which the kernel reads in place of ``own``; the plain version needs
+    ``own`` only."""
     if _plain_device(rows):
         return pos_hv_blocked_plain(phi, rows, own, w_blk, dense_mat,
                                     num_out, block_rows, w_scale)
     return kernels.pos_hv_blocked(phi, rows, own, w_blk, dense_mat, num_out,
-                                  block_rows, w_scale)
+                                  block_rows, w_scale, runs=runs)
 
 
 def pos_scatter_blocked(c_blk, rows, own, num_out: int, block_rows: int,
@@ -460,13 +463,14 @@ def scatter(xt: FeatureMajor, Z: torch.Tensor,
 
 
 def pos_hv_tbl(V, x_idx, x_val, xt, rows, own, w_blk, dense_mat,
-               block_rows: int, w_scale: float = 1.0):
-    """The per-CG-iteration cross-block pass of a small-D field."""
+               block_rows: int, w_scale: float = 1.0, runs=None):
+    """The per-CG-iteration cross-block pass of a small-D field (``runs``
+    as in ``pos_hv_blocked``)."""
     if _plain_device(rows):
         return pos_hv_tbl_plain(V, x_idx, x_val, xt, rows, own, w_blk,
                                 dense_mat, block_rows, w_scale)
     return kernels.pos_hv_tbl(V, x_idx, x_val, xt, rows, own, w_blk,
-                              dense_mat, block_rows, w_scale)
+                              dense_mat, block_rows, w_scale, runs=runs)
 
 
 def grad_cross_tbl(xt, rows, own, c_blk, dense, block_rows: int,

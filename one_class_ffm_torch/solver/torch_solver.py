@@ -129,8 +129,8 @@ def make_device_data(u: PaddedFields, v: PaddedFields, y: PaddedLabels,
     ids outside the field (ghost ids).  A fused field also gets its
     per-feature sums of squared values (``colsq_u``/``colsq_v``).  Each
     side's blocked layout also gets each row's run of slots
-    (``blk_*_runs``, ``row_runs``), which the gradient scatter kernel reads
-    in place of a search.  The tensors go to the card unless ``device``
+    (``blk_*_runs``, ``row_runs``), which the gradient scatter and the
+    cross Hv kernels (B2, B1, B4) read in place of a search.  The tensors go to the card unless ``device``
     asks for the CPU."""
     device = resolve_device(device)
     if not blocked_bm:
@@ -562,7 +562,7 @@ class FFMSolver:
         dim = state["params"][b.f12]["W" if first else "H"].shape[0]
         pre, num, bm = self._blk(first)
         dmat = (hp.omega * (B1.T @ B1)).to(meta.dtype)
-        own, w_blk = d[pre + "own"], d[pre + "w"]
+        own, w_blk, runs = d[pre + "own"], d[pre + "w"], d[pre + "runs"]
         w_scale = 1.0 - hp.omega
         idx, val, xf = self._x(b, first)
         fused = self._fused(b, first)
@@ -570,10 +570,10 @@ class FFMSolver:
         def hv(V: Tensor) -> Tensor:
             if fused:
                 G = pos_hv_tbl(V, idx, val, xf, rows_pre, own, w_blk, dmat,
-                               bm, w_scale)
+                               bm, w_scale, runs=runs)
                 return hp.lam * reg[:, None] * V + G.to(V.dtype)
             zp = pos_hv_blocked(self._proj(b, first, V), rows_pre, own,
-                                w_blk, dmat, num, bm, w_scale)
+                                w_blk, dmat, num, bm, w_scale, runs=runs)
             return hp.lam * reg[:, None] * V + self._scat(b, first, zp, dim)
 
         return hv

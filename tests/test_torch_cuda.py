@@ -45,15 +45,29 @@ def _stream(seed, k, sorted_seg):
     return rng, num, BM, blk, B[blk["take"]]
 
 
+def _bits(t):
+    """A tensor's bit patterns (torch.equal holds -0.0 equal to +0.0)."""
+    return t.contiguous().view(torch.int16 if t.element_size() == 2
+                               else torch.int32)
+
+
 def _max_rel(a, b):
     a, b = a.double(), b.double()
     return ((a - b).abs().max() / b.abs().max()).item()
 
 
+HV_KS = [8, 12, 32, 40, 64, 256]  # both plans of B1 and B4 (common.cuh)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("k", [8, 32, 40])
+@pytest.mark.parametrize("k", HV_KS)
 @pytest.mark.parametrize("sorted_seg", [True, False])
-def test_kernels_match_plain(device, dtype, k, sorted_seg):
+@pytest.mark.parametrize("with_runs", [False, True])
+def test_kernels_match_plain(device, dtype, k, sorted_seg, with_runs):
+    """The three blocked kernels bit-equal to their plain versions; B1 and
+    B2 with the static row runs, or with runs found in the wrapper."""
+    from one_class_ffm_torch.ops.layout import row_runs
+
     rng, num, BM, blk, rows = _stream(1, k, sorted_seg)
 
     def T(a):
@@ -65,15 +79,17 @@ def test_kernels_match_plain(device, dtype, k, sorted_seg):
     w = T(rng.random(blk["own"].shape) * (blk["own"] < BM))
     c = T(rng.normal(size=blk["own"].shape))
     dense = T(rng.normal(size=(k, k)))
+    kw = dict(runs=torch.as_tensor(row_runs(blk["own"], BM), device=device)
+              ) if with_runs else {}
     cases = {
-        "pos_hv_blocked": (phi, x_rows, own, w, dense, num, BM, 0.9),
-        "pos_scatter_blocked": (c, x_rows, own, num, BM),
-        "pos_gap_blocked": (dP, x_rows, own, BM),
+        "pos_hv_blocked": ((phi, x_rows, own, w, dense, num, BM, 0.9), kw),
+        "pos_scatter_blocked": ((c, x_rows, own, num, BM), kw),
+        "pos_gap_blocked": ((dP, x_rows, own, BM), {}),
     }
     kernels.reset_launch_counts()
-    for name, args in cases.items():
-        got = getattr(ops, name)(*args)  # the dispatcher launches on CUDA
-        again = getattr(kernels, name)(*args)
+    for name, (args, kw) in cases.items():
+        got = getattr(ops, name)(*args, **kw)  # launches on CUDA
+        again = getattr(kernels, name)(*args, **kw)
         ref = getattr(ops, name + "_plain")(*args)
         torch.cuda.synchronize()
         assert got.dtype == dtype and got.shape == ref.shape
@@ -101,9 +117,14 @@ def _field(rng, num, d, p=3, n_pad_rows=5):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("k", [8, 32, 40])
+@pytest.mark.parametrize("k", HV_KS)
 @pytest.mark.parametrize("sorted_seg", [True, False])
-def test_table_kernels_match_plain(device, dtype, k, sorted_seg):
+@pytest.mark.parametrize("with_runs", [False, True])
+def test_table_kernels_match_plain(device, dtype, k, sorted_seg, with_runs):
+    """The four table kernels bit-equal to their plain versions; B4 with
+    the static row runs, or with runs found in the wrapper."""
+    from one_class_ffm_torch.ops.layout import row_runs
+
     rng, num, BM, blk, rows = _stream(4, k, sorted_seg)
     d = 37
     idx, val = _field(rng, num, d)
@@ -127,17 +148,19 @@ def test_table_kernels_match_plain(device, dtype, k, sorted_seg):
     c = T(rng.normal(size=blk["own"].shape))
     dense_mat, dense = T(rng.normal(size=(k, k))), T(rng.normal(size=(num, k)))
     dd, zdense = T(rng.random(num) * 5), T(rng.normal(size=num))
+    kw = dict(runs=torch.as_tensor(row_runs(blk["own"], BM), device=device)
+              ) if with_runs else {}
     cases = {
-        "pos_hv_tbl": (V, x_idx, x_val, xt, x_rows, own, w, dense_mat, BM,
-                       0.9),
-        "grad_cross_tbl": (xt, x_rows, own, c, dense, BM),
-        "hv_self_tbl": (V, x_idx, x_val, xt, Q1, dd),
-        "grad_self_tbl": (xt, Q1, zdense, own, c, BM),
+        "pos_hv_tbl": ((V, x_idx, x_val, xt, x_rows, own, w, dense_mat, BM,
+                        0.9), kw),
+        "grad_cross_tbl": ((xt, x_rows, own, c, dense, BM), {}),
+        "hv_self_tbl": ((V, x_idx, x_val, xt, Q1, dd), {}),
+        "grad_self_tbl": ((xt, Q1, zdense, own, c, BM), {}),
     }
     kernels.reset_launch_counts()
-    for name, args in cases.items():
-        got = getattr(ops, name)(*args)  # the dispatcher launches on CUDA
-        again = getattr(kernels, name)(*args)
+    for name, (args, kw) in cases.items():
+        got = getattr(ops, name)(*args, **kw)  # launches on CUDA
+        again = getattr(kernels, name)(*args, **kw)
         ref = getattr(ops, name + "_plain")(*args)
         torch.cuda.synchronize()
         assert got.dtype == torch.float32 and got.shape == (d, k)
@@ -521,3 +544,55 @@ def test_b2_runs_and_stages_match_plain(device, dtype, k, maxc_pad):
     with pytest.raises(ValueError, match="runs"):
         kernels.pos_scatter_blocked(c, rows, own, num, BM,
                                     runs=runs[:, :-1].contiguous())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [12, 32, 40])
+@pytest.mark.parametrize("maxc_pad", [0, 3])
+def test_hv_runs_and_stages_match_plain(device, dtype, k, maxc_pad):
+    """B1 and B4 bit-equal to their plain versions on B2's edge cases (empty
+    rows, a block of pads only, a run of 700 slots over many shared-memory
+    stages, MAXC % 8 != 0 on the plain-load path), with phi and the table
+    holding -0.0 and the stream exact zeros (the signed-zero rule of the
+    dot's tree), with the static runs and with runs found in the wrapper:
+    the bit patterns equal, signs of zero included."""
+    from one_class_ffm_torch.ops.layout import row_runs
+
+    rng = np.random.default_rng(15)
+    own_np, BM, rows_np = _b2_stream(rng, k, maxc_pad)
+    num, d = 4 * BM, 23
+    rows_np[rng.random(rows_np.shape) < 0.2] = 0.0
+    phi_np = rng.normal(size=(num, k))
+    phi_np[rng.random(phi_np.shape) < 0.2] = -0.0
+    phi_np[:8] = -0.0
+    idx, val = _field(rng, num, d)
+    V_np = rng.normal(size=(d, k))
+    V_np[::3] = -0.0
+
+    def T(a):
+        return torch.as_tensor(a).to(device=device, dtype=dtype).contiguous()
+
+    def I(a):
+        return torch.as_tensor(a, dtype=torch.int32, device=device)
+
+    fm = feature_major(idx, val, d)
+    xt = FeatureMajor(row=I(fm.row), val=T(fm.val), chunk_ptr=I(fm.chunk_ptr),
+                      feat_ptr=I(fm.feat_ptr), n_rows=fm.n_rows)
+    own, runs = I(own_np), I(row_runs(own_np, BM))
+    rows, phi, V = T(rows_np), T(phi_np), T(V_np)
+    w = T(rng.random(own_np.shape) * (own_np < BM))
+    dense = T(rng.normal(size=(k, k)))
+    b1 = (phi, rows, own, w, dense, num, BM, 0.9)
+    b4 = (V, I(idx), T(val), xt, rows, own, w, dense, BM, 0.9)
+    kernels.reset_launch_counts()
+    for name, args in (("pos_hv_blocked", b1), ("pos_hv_tbl", b4)):
+        got = getattr(ops, name)(*args, runs=runs)
+        derived = getattr(kernels, name)(*args)
+        ref = getattr(ops, name + "_plain")(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, derived) and torch.equal(got, ref), name
+        assert torch.equal(_bits(got), _bits(ref)), name  # signs of zero too
+    counts = kernels.launch_counts()
+    assert counts["pos_hv_blocked"] == 2 and counts["pos_hv_tbl"] == 2
+    with pytest.raises(ValueError, match="runs"):
+        kernels.pos_hv_blocked(*b1, runs=runs[:, :-1].contiguous())

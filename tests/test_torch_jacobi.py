@@ -491,7 +491,18 @@ def test_chip_smoke_reads_register_counts(monkeypatch):
         "REG:48 STACK:0",
         "Function _ZN45_GLOBAL__N__6a7b_12_table_ops_cu_257c678217xt_combine"
         "_kernelILi32ELi8ELi1EEvPKfPKiS3_S3_iPfi:",
-        "REG:38 STACK:0"])
+        "REG:38 STACK:0",
+        # the blocked Hv on its width plans (B1, B4's row stage)
+        "Function _ZN47_GLOBAL__N__c7f4_14_blocked_ops_cu_e3a6494d13pos_hv_"
+        "kernelIfLi8ELi1ELi4EEEvPKT_S4_PKiS4_S4_PS2_iiifi:",
+        "REG:64 STACK:0 SHARED:16",
+        "Function _ZN45_GLOBAL__N__6a7b_12_table_ops_cu_257c678218hv_tbl_rows"
+        "_kernelI13__nv_bfloat16Li4ELi1ELi8EEEvPKT_PKiS4_iiS4_S6_S4_S4_PS2_"
+        "iiifi:",
+        "REG:72 STACK:0 SHARED:16",
+        "Function _ZN47_GLOBAL__N__c7f4_14_blocked_ops_cu_e3a6494d13pos_hv_"
+        "kernelIfLi32ELi8ELi1EEEvPKT_S4_PKiS4_S4_PS2_iiifi:",
+        "REG:56 STACK:0 SHARED:16"])
 
     class Done:
         stdout = report
@@ -503,4 +514,43 @@ def test_chip_smoke_reads_register_counts(monkeypatch):
         ("pos_hv_packed_kernel", "f32", False, ()): 32,
         ("pos_scatter_kernel", "bf16", True, (4, 1, 8)): 56,
         ("xt_chunk_kernel", "f32", False, (8, 1, 4)): 48,
-        ("xt_combine_kernel", "f32", False, (32, 8, 1)): 38}
+        ("xt_combine_kernel", "f32", False, (32, 8, 1)): 38,
+        ("pos_hv_kernel", "f32", False, (8, 1, 4)): 64,
+        ("hv_tbl_rows_kernel", "bf16", False, (4, 1, 8)): 72,
+        ("pos_hv_kernel", "f32", False, (32, 8, 1)): 56}
+
+
+def test_chip_smoke_work_counts_the_runs_in_place_of_the_owners():
+    """B1's and B4's bounds, given the static row runs, count the runs'
+    bytes in place of the owners' (own is B4's sixth argument, not its
+    third), and the operations do not change."""
+    from one_class_ffm_torch.ops.layout import (
+        FeatureMajor,
+        feature_major,
+        row_runs,
+    )
+
+    chip_smoke = _chip_smoke()
+    rng = np.random.default_rng(12)
+    nb, maxc, bm, k, d, p = 3, 40, 8, 4, 11, 3
+    own = np.sort(rng.integers(0, bm + 1, size=(nb, maxc)), axis=1)
+    own_t = torch.as_tensor(own, dtype=torch.int32)
+    runs = torch.as_tensor(row_runs(own, bm))
+    rows = torch.rand(nb, maxc, k)
+    w = torch.rand(nb, maxc) * (own_t < bm)
+    dense = torch.rand(k, k)
+    idx = rng.integers(0, d, size=(nb * bm, p)).astype(np.int32)
+    val = rng.random((nb * bm, p)).astype(np.float32)
+    fm = feature_major(idx, val, d)
+    xt = FeatureMajor(*(torch.as_tensor(a) for a in (
+        fm.row, fm.val, fm.chunk_ptr, fm.feat_ptr)), n_rows=fm.n_rows)
+    tbl = (torch.rand(d, k), torch.as_tensor(idx), torch.as_tensor(val), xt,
+           rows, own_t, w, dense, bm, 0.9)
+    blk = (torch.rand(nb * bm, k), rows, own_t, w, dense, nb * bm, bm, 0.9)
+    for name, args, out in (("pos_hv_tbl", tbl, torch.empty(d, k)),
+                            ("pos_hv_blocked", blk,
+                             torch.empty(nb * bm, k))):
+        nbytes, ops = chip_smoke.work(name, args, out)
+        nbytes_r, ops_r = chip_smoke.work(name, args, out, {"runs": runs})
+        assert ops_r == ops and ops > 0, name
+        assert nbytes_r - nbytes == 4 * nb * (bm + 1 - maxc), name

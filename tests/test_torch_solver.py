@@ -450,3 +450,39 @@ def test_ffm_two_epochs_match_jax_fused(case, monkeypatch):
                                    rtol=1e-9, atol=1e-12, err_msg=key)
     np.testing.assert_allclose(float(tsolver.objective(tst)),
                                float(jsolver.objective(jst)), rtol=1e-10)
+
+
+def test_hv_cross_hands_the_static_runs_to_b1_and_b4(monkeypatch):
+    """Every cross block side's Hv passes the layout's static row runs
+    (``blk_*_runs``) to its kernel: B1 on the identity halves, B4 on the
+    small-D ones; the CPU dispatch ignores them and the Hv is unchanged."""
+    prob, params = ffm_problem("ffm_ns")
+    solver, state = build_port(prob, params)
+    seen = []
+
+    def recording(name, fn):
+        def call(*args, runs=None, **kw):
+            seen.append((name, runs))
+            return fn(*args, runs=runs, **kw)
+        return call
+
+    for name in ("pos_hv_blocked", "pos_hv_tbl"):
+        monkeypatch.setattr(torch_solver, name,
+                            recording(name, getattr(torch_solver, name)))
+    rng = np.random.default_rng(6)
+    names = set()
+    for b in prob.layout.cross_blocks():
+        for first in (True, False):
+            _, hv, _ = solver.grad_and_hv(state, b, first, None, None)
+            _, hv_ref = oracle.grad_and_hv(prob, params, b, first)
+            seen.clear()
+            V = rng.normal(size=(b.d1 if first else b.d2, prob.hp.k))
+            np.testing.assert_allclose(hv(torch.from_numpy(V)).numpy(),
+                                       hv_ref(V), rtol=1e-8, atol=1e-10)
+            want = ("pos_hv_tbl" if solver._fused(b, first)
+                    else "pos_hv_blocked")
+            runs = solver.data["blk_u_runs" if first else "blk_v_runs"]
+            assert len(seen) == 1 and seen[0][0] == want, (b.f12, first)
+            assert seen[0][1] is runs, (b.f12, first)
+            names.add(want)
+    assert names == {"pos_hv_blocked", "pos_hv_tbl"}
