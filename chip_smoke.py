@@ -9,15 +9,16 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
 1. device: the card's name and power limit, torch and CUDA versions;
 2. build: compile the port's CUDA kernels from csrc/ (nvcc, sm_90a, one
    compiler per source, in parallel) and print each kernel's registers per
-   thread (cuobjdump), which set how many CTAs an SM holds;
+   thread and static shared memory (cuobjdump), which set how many CTAs an
+   SM holds;
 3. kernels: each kernel against its plain PyTorch version on the card, on
    the arguments its first call receives in a real half-solve, at float32
    and bfloat16: bit-identical on repeat, max-rel within the bound (1e-5 /
    5e-3; the plain versions add in the kernels' order, so they agree bit
    for bit), with kernel, plain and library times (CUDA events, float32;
-   for B4 also its X^T stage alone) and the bound of the work (bytes over
-   3.35 TB/s or operations over 67 TFLOP/s f32, whichever is larger,
-   counted from the inputs): the three
+   for B4 and B6 also their X^T stage alone) and the bound of the work
+   (bytes over 3.35 TB/s or operations over 67 TFLOP/s f32, whichever is
+   larger, counted from the inputs): the three
    blocked kernels in MF solves (200k users x 20k items, k=32, both solve
    sides); the four fused table kernels and the projection B8 in FFM solves
    (the same rows, u-side field D=1000 and v-side field D=500); the blocked
@@ -498,12 +499,13 @@ def gpu_line() -> str:
 
 def kernel_registers(lib_path: str):
     """{(kernel, dtype, Jacobi variant?, integer template arguments):
-    registers per thread} of the built library, from ``cuobjdump
-    -res-usage`` of the CUDA toolkit, or None where it is missing: with 256
-    threads per CTA the register count sets how many CTAs an SM holds,
-    which the latency-bound stream kernels need.  The integer arguments are
-    a width plan's (G, NV, VE) (common.cuh by_width); a kernel without a
-    storage type (the X^T stage's combine pass) sums f32 partials."""
+    (registers per thread, bytes of static shared memory)} of the built
+    library, from ``cuobjdump -res-usage`` of the CUDA toolkit, or None
+    where it is missing: with 256 threads per CTA the register count sets
+    how many CTAs an SM holds, which the latency-bound stream kernels need.
+    The integer arguments are a width plan's (G, NV, VE) (common.cuh
+    by_width); a kernel without a storage type (the X^T stage's combine
+    pass) sums f32 partials."""
     import re
     import shutil
 
@@ -523,7 +525,9 @@ def kernel_registers(lib_path: str):
                     tuple(int(x) for x in re.findall(r"Li(\d+)E", targs)))
         m = re.search(r"REG:(\d+)", line)
         if m and name:
-            regs[name] = int(m.group(1))
+            shared = re.search(r"SHARED:(\d+)", line)
+            regs[name] = (int(m.group(1)),
+                          int(shared.group(1)) if shared else 0)
             name = None
     return regs
 
@@ -628,28 +632,33 @@ def compare(name: str, side: str, dt_name: str, args, kw, report, gpu: str,
         line += (f"  kernel {ms:.4f} ms  plain {pms:.4f} ms  library "
                  f"{'none' if lms is None else f'{lms:.4f} ms'}  bound "
                  f"{bms:.4f} ms by {by} ({nbytes} B, {nops} ops)")
-        if name == "pos_hv_tbl":  # B4's time: its row stage, then X^T
-            line += f"  X^T stage alone {xt_stage_ms(args):.4f} ms"
+        if name in ("pos_hv_tbl", "hv_self_tbl"):  # a row stage, then X^T
+            line += f"  X^T stage alone {xt_stage_ms(name, args):.4f} ms"
         line += f"  [{gpu}]"
     print(line)
     check(rel <= BOUND[dt_name],
           f"{name} {side} {dt_name}: max-rel {rel:.3e} > {BOUND[dt_name]:g}")
 
 
-def xt_stage_ms(args) -> float:
-    """The time of B4's second stage on its own: the X^T stage over B4's
-    feature-major list, on a payload of B4's shape and dtype (the row
-    stage's time is the rest of B4's)."""
+def xt_stage_ms(name: str, args) -> float:
+    """The time of B4's or B6's second stage on its own: the X^T stage over
+    the kernel's feature-major list, on a payload of B4's shape and dtype,
+    or on B6's Q1 with a scale per row (the row stage's time is the rest of
+    the kernel's)."""
     import torch
 
     from one_class_ffm_torch.ops import kernels
 
     V, x_idx, xt = args[0], args[1], args[3]
-    payload = torch.randn((x_idx.shape[0], V.shape[1]), device=V.device
-                          ).to(V.dtype)
+    rows, dev, dt = x_idx.shape[0], V.device, V.dtype
+    if name == "hv_self_tbl":
+        payload, scale = args[4], torch.randn(rows, device=dev).to(dt)
+    else:
+        payload = torch.randn((rows, V.shape[1]), device=dev).to(dt)
+        scale = None
     lib = kernels.load()
-    return time_ms(lambda: kernels._xt_scatter(lib, payload, xt,
-                                               "pos_hv_tbl"))
+    return time_ms(lambda: kernels._xt_scatter(lib, payload, xt, name,
+                                               scale=scale))
 
 
 @contextlib.contextmanager
@@ -967,7 +976,8 @@ def reference_phase(device, tag: str, cg_precond: str = "auto") -> None:
 def profile_epoch(tag: str, trainer, gpu: str) -> None:
     """One more epoch under torch.profiler: the device's idle share (1 -
     the union of the kernels' intervals over the window) and the kernels
-    that take the device time."""
+    that take the device time (the top eight, then every other kernel of
+    the port's own)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1000,11 +1010,14 @@ def profile_epoch(tag: str, trainer, gpu: str) -> None:
           f"{1.0 - busy / (hi - lo):.4f} [{gpu}]")
     rows = sorted(prof.key_averages(),
                   key=lambda a: a.self_device_time_total, reverse=True)
-    for a in rows[:8]:
+    # the top eight, then the rest of the kernels in anonymous namespaces:
+    # all of the port's own (csrc/*.cu) and a few of torch's
+    for i, a in enumerate(rows):
         if a.self_device_time_total <= 0:
             break
-        print(f"[main {tag}]   {a.self_device_time_total / 1e3:9.3f} ms "
-              f"{a.count:6d} calls  {a.key[:90]}")
+        if i < 8 or a.key.startswith("void (anonymous namespace)::"):
+            print(f"[main {tag}]   {a.self_device_time_total / 1e3:9.3f} ms "
+                  f"{a.count:6d} calls  {a.key[:90]}")
 
 
 def main_path(tag: str, trainer, names, gpu: str, epochs: int = 3):
@@ -1131,10 +1144,12 @@ def main() -> int:
         print(f"[build] {kernels.library_path().name} in "
               f"{kernels.build_seconds:.2f} s")
         regs = kernel_registers(str(kernels.library_path()))
-        for (kname, dt_name, diag, targs), n in sorted((regs or {}).items()):
+        for (kname, dt_name, diag, targs), (n, shared) in sorted(
+                (regs or {}).items()):
             plan = f"<{','.join(map(str, targs))}>" if targs else ""
             print(f"[build] {kname}{plan}{' (Jacobi)' if diag else ''} "
-                  f"{dt_name}: {n} registers per thread")
+                  f"{dt_name}: {n} registers per thread, {shared} bytes of "
+                  "static shared memory")
         if regs is None:
             print("[build] registers per thread: not measured (no "
                   "cuobjdump)")

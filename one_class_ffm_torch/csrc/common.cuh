@@ -2,13 +2,14 @@
 // project_ops.cu and hv_variants.cu): storage-dtype conversion, the warp
 // sum, the slot layouts and row runs of the blocked stream, the per-row
 // math of the blocked Hv and gradient passes (the latter with the Jacobi
-// diagonal's second payload), the projection of one row (B8 and the table
-// passes' phi = X V), the grid of a warp-per-item loop, the dtype dispatch
-// of a launch, the rows of a width fixed at compile time (vector loads
-// and stores, and the dispatch over width plans) that the X^T stage, B2
-// and the blocked Hv use, the shared-memory stages that bulk asynchronous
-// copies fill (B2 and the blocked Hv), and the blocked Hv of a CTA's rows
-// on a width plan (B1 and B4's row stage).  Every product and sum is
+// diagonal's second payload), the grid of a warp-per-item loop, the dtype
+// dispatch of a launch, the rows of a width fixed at compile time (vector
+// loads and stores, and the dispatch over width plans) that the X^T stage,
+// B2 and the blocked Hv use, the shared-memory stages that bulk
+// asynchronous copies fill (B2 and the blocked Hv), the blocked Hv of a
+// CTA's rows on a width plan (B1 and B4's row stage), and the projection
+// phi = X V of a row by a group of lanes with the loop that walks a
+// group's rows (B8, B6's row stage; B4's stage 1).  Every product and sum is
 // rounded on its own (__fmul_rn / __fadd_rn: no fused multiply-add) in a
 // fixed order, which the plain PyTorch versions in ops/sparse_ops.py
 // follow bit for bit.
@@ -188,46 +189,6 @@ __device__ __forceinline__ void scatter_diag_row(
       }
     }
   }
-}
-
-// The projection of one row, lanes over k (B8; project_pallas):
-//   ph = storage(sum_s val[row, s] * V[idx[row, s]])
-// Lanes load the row's p (id, value) slots once, 32 at a time, and
-// broadcast them by shuffles; the slots are added in slot order at f32, one
-// rounding per product and per sum, and rounded to storage once at the end
-// (zero past k).  Ids outside [0, d) add nothing, as the one-hot X of the
-// TPU kernels drops them.  Offsets into the table are 64-bit.
-template <typename T>
-__device__ __forceinline__ void project_row(const T* __restrict__ V,
-                                            const int* __restrict__ xi,
-                                            const T* __restrict__ xv,
-                                            int64_t row, int p, int d, int k,
-                                            int lane,
-                                            float (&ph)[kMaxKPerLane]) {
-  float acc[kMaxKPerLane];
-#pragma unroll
-  for (int j = 0; j < kMaxKPerLane; ++j) acc[j] = 0.f;
-  const int* xi_r = xi + row * p;
-  const T* xv_r = xv + row * p;
-  for (int base = 0; base < p; base += 32) {
-    const int mine = base + lane;
-    const int my_f = mine < p ? xi_r[mine] : -1;
-    const float my_v = mine < p ? to_f(xv_r[mine]) : 0.f;
-    const int n = min(32, p - base);
-    for (int q = 0; q < n; ++q) {
-      const int f = __shfl_sync(kFull, my_f, q);
-      const float v = __shfl_sync(kFull, my_v, q);
-      if ((unsigned)f >= (unsigned)d) continue;  // uniform across the warp
-      const T* vr = V + (int64_t)f * k;
-#pragma unroll
-      for (int j = 0; j < kMaxKPerLane; ++j) {
-        const int c = j * 32 + lane;
-        if (c < k) acc[j] = __fadd_rn(acc[j], __fmul_rn(v, to_f(vr[c])));
-      }
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < kMaxKPerLane; ++j) ph[j] = rnd<T>(acc[j]);
 }
 
 template <typename T>
@@ -649,66 +610,112 @@ struct RowPhi {
   }
 };
 
-// phi[row] = storage(X_row V) by the row's group (B4's stage 1), with
-// project_row's bits: the row's p (id, value) slots added in slot order at
-// f32, one rounding per product and per sum, one rounding to storage at the
-// end; ids outside [0, d) add nothing.  V (d <= 4096 rows) is read through
-// L2, a batch of table rows in flight before their ordered adds.
+// A batch of P (id, value) slots of one row; id -1 past the row's p slots
+// or for a row that is not live.
+template <int P>
+struct SlotBatch {
+  int f[P];
+  float val[P];
+};
+
+// phi[row] = storage(X_row V) by the row's group of G lanes (B8, B6's row
+// stage, B4's stage 1; project_pallas's rounding): the row's p (id, value)
+// slots added in slot order at f32, one rounding per product and per sum,
+// one rounding to storage at the end; ids outside [0, d) add nothing, as
+// the one-hot X of the TPU kernels drops them; offsets are 64-bit.  A
+// batch of P table rows is in flight before their ordered adds.  V is read
+// through L1 and L2: a feature field's table of D <= 4096 rows (B4, B6; 512
+// KB at k = 32 f32) stays in L2, and so does the widest table B8 reads, FM's
+// user field (D = 201,000: 25.7 MB at k = 32 f32, in the 50 MB L2).
 template <typename T>
 struct ProjectedPhi {
   const T* V;
   const int* xi;
   const T* xv;
   int p, d, k;
-  template <int G, int NV, int VE>
-  __device__ __forceinline__ void load(bool live, int64_t row, int lane,
-                                       float (&ph)[NV][VE]) const {
-    constexpr int P = NV > 1 ? 2 : 4;  // table rows per batch
-    float acc[NV][VE];
+
+  // table rows per batch
+  template <int NV>
+  __host__ __device__ static constexpr int batch() {
+    return NV > 1 ? 2 : 4;
+  }
+
+  // slots [s0, s0 + P) of the row
+  template <int P>
+  __device__ __forceinline__ void slots(bool live, int64_t row, int s0,
+                                        SlotBatch<P>& s) const {
 #pragma unroll
-    for (int v = 0; v < NV; ++v)
-#pragma unroll
-      for (int i = 0; i < VE; ++i) acc[v][i] = 0.f;
-    const int* xi_r = xi + row * p;
-    const T* xv_r = xv + row * p;
-    for (int s0 = 0; live && s0 < p; s0 += P) {
-      int f[P];
-      float val[P];
-      RawVec<T, VE> raw[P][NV];
-#pragma unroll
-      for (int q = 0; q < P; ++q) {
-        f[q] = s0 + q < p ? xi_r[s0 + q] : -1;
-        val[q] = s0 + q < p ? to_f(xv_r[s0 + q]) : 0.f;
-      }
-#pragma unroll
-      for (int q = 0; q < P; ++q)
-        if ((unsigned)f[q] < (unsigned)d) {
-#pragma unroll
-          for (int v = 0; v < NV; ++v) {
-            const int c0 = (v * G + lane) * VE;
-            if (c0 < k)
-              raw[q][v] = load_raw<T, VE>(V + (int64_t)f[q] * k + c0);
-          }
-        }
-#pragma unroll
-      for (int q = 0; q < P; ++q)
-        if ((unsigned)f[q] < (unsigned)d) {  // uniform across the group
-#pragma unroll
-          for (int v = 0; v < NV; ++v) {
-            if ((v * G + lane) * VE >= k) continue;
-            float x[VE];
-            unpack(raw[q][v], x);
-#pragma unroll
-            for (int i = 0; i < VE; ++i)
-              acc[v][i] = __fadd_rn(acc[v][i], __fmul_rn(val[q], x[i]));
-          }
-        }
+    for (int q = 0; q < P; ++q) {
+      const bool in = live && s0 + q < p;
+      s.f[q] = in ? xi[row * p + s0 + q] : -1;
+      s.val[q] = in ? to_f(xv[row * p + s0 + q]) : 0.f;
     }
+  }
+
+  // the batch's table rows, every load issued before any is used
+  template <int G, int NV, int VE, int P>
+  __device__ __forceinline__ void gather(const SlotBatch<P>& s, int lane,
+                                         RawVec<T, VE> (&raw)[P][NV]) const {
+#pragma unroll
+    for (int q = 0; q < P; ++q)
+      if ((unsigned)s.f[q] < (unsigned)d) {
+#pragma unroll
+        for (int v = 0; v < NV; ++v) {
+          const int c0 = (v * G + lane) * VE;
+          if (c0 < k) raw[q][v] = load_raw<T, VE>(V + (int64_t)s.f[q] * k + c0);
+        }
+      }
+  }
+
+  // the batch's products added in slot order
+  template <int G, int NV, int VE, int P>
+  __device__ __forceinline__ void add(const SlotBatch<P>& s,
+                                      const RawVec<T, VE> (&raw)[P][NV],
+                                      int lane, float (&acc)[NV][VE]) const {
+#pragma unroll
+    for (int q = 0; q < P; ++q)
+      if ((unsigned)s.f[q] < (unsigned)d) {  // uniform across the group
+#pragma unroll
+        for (int v = 0; v < NV; ++v) {
+          if ((v * G + lane) * VE >= k) continue;
+          float x[VE];
+          unpack(raw[q][v], x);
+#pragma unroll
+          for (int i = 0; i < VE; ++i)
+            acc[v][i] = __fadd_rn(acc[v][i], __fmul_rn(s.val[q], x[i]));
+        }
+      }
+  }
+
+  // the sums rounded to storage, zero past k
+  template <int G, int NV, int VE>
+  __device__ __forceinline__ void rounded(const float (&acc)[NV][VE],
+                                          int lane, float (&ph)[NV][VE]) const {
 #pragma unroll
     for (int v = 0; v < NV; ++v)
 #pragma unroll
       for (int i = 0; i < VE; ++i)
         ph[v][i] = (v * G + lane) * VE < k ? rnd<T>(acc[v][i]) : 0.f;
+  }
+
+  // one row, batch after batch (B4's stage 1, in hv_rows)
+  template <int G, int NV, int VE>
+  __device__ __forceinline__ void load(bool live, int64_t row, int lane,
+                                       float (&ph)[NV][VE]) const {
+    constexpr int P = batch<NV>();
+    float acc[NV][VE];
+#pragma unroll
+    for (int v = 0; v < NV; ++v)
+#pragma unroll
+      for (int i = 0; i < VE; ++i) acc[v][i] = 0.f;
+    for (int s0 = 0; live && s0 < p; s0 += P) {
+      SlotBatch<P> s;
+      slots(true, row, s0, s);
+      RawVec<T, VE> raw[P][NV];
+      gather<G, NV, VE>(s, lane, raw);
+      add<G, NV, VE>(s, raw, lane, acc);
+    }
+    rounded<G, NV, VE>(acc, lane, ph);
   }
 };
 
@@ -986,6 +993,96 @@ inline HvGrid hv_grid(long long n_blocks, int k, int block_rows) {
 inline bool hv_staged(int k, int maxc, int elem_bytes, const void* const* ptrs,
                       int n) {
   return k <= 32 && maxc % 8 == 0 && vec_ok(k, elem_bytes, ptrs, n);
+}
+
+// ---------------------------------------------------------------------------
+// Rows projected by groups of lanes (B8, and B6's row stage): each group of
+// G lanes walks the rows g, g + n_groups, ... of a grid of as many CTAs as
+// the SMs hold at once, and projects each row with ProjectedPhi on the
+// kernel's width plan.  While a batch's table rows are in flight the group
+// loads the (id, value) slots of its next batch (the same row's, or the
+// first of its next row), so a row's dependent chain is its table rows'
+// latency, not the slot loads' before it.  `Row` is the kernel's own part:
+// begin() issues its loads of the row (B6: Q1[row] and dd[row]) with the
+// first table rows, end() finishes the row from phi (B8: a vector store of
+// the row; B6: the dot with Q1[row], the scale s and its store).
+//
+// What held the warp per row back (one warp per row, one row per warp: on
+// FFM's 200,000 u rows ~24 waves of 8-warp CTAs), and what this does:
+// - 32 lanes for a row, each with eight generic values (k <= 256), seven of
+//   them zero at k = 32: a group of G lanes per row on a width plan fixed
+//   at compile time (by_width), so at k = 32 a warp serves 4 rows (f32: 8
+//   lanes x one float4) or 8 (bf16: 4 lanes x 8 values);
+// - per row a chain of latencies (the slot loads, a shuffle per slot, one
+//   table row after the other, the store): the next batch's slots load
+//   under the current table rows, whose loads all issue before their adds;
+// - 4 bytes stored per lane: one 16-byte store per lane.
+// ---------------------------------------------------------------------------
+
+// The launch of project_rows: 256-thread CTAs held to 4 per SM (at most 64
+// registers per thread), each group walking its rows one at a time.  On
+// the H100 at k = 32, FFM's and FM's shapes, f32 and bf16, this ran B8 and
+// B6 as fast as any of 128- to 512-thread CTAs, and a little faster than
+// the same CTAs without the hold (B6's kernel then takes 66 registers: 3
+// CTAs per SM); holding 6 or 8 CTAs per SM (40 or 32 registers) spilled
+// and ran 2-3x slower, and a grid of a row per group, with no walk, ran
+// the v sides and FM's u side slower than the grid of resident CTAs.
+constexpr int kProjThreads = 256;  // threads per CTA
+constexpr int kProjCtas = 4;       // CTAs per SM (__launch_bounds__)
+
+template <typename T, int G, int NV, int VE, typename Row>
+__device__ __forceinline__ void project_rows(const ProjectedPhi<T>& pj,
+                                             const Row& rw, int64_t n_rows) {
+  constexpr int P = ProjectedPhi<T>::template batch<NV>();
+  constexpr int kGroups = kProjThreads / G;
+  const int lane = threadIdx.x % G;
+  const int64_t step = (int64_t)gridDim.x * kGroups;
+  int64_t row = (int64_t)blockIdx.x * kGroups + threadIdx.x / G;
+  SlotBatch<P> cur;
+  pj.slots(row < n_rows, row, 0, cur);
+  for (; row < n_rows; row += step) {
+    typename Row::template Held<NV, VE> held;
+    rw.template begin<G, NV, VE>(row, lane, held);
+    float acc[NV][VE];
+#pragma unroll
+    for (int v = 0; v < NV; ++v)
+#pragma unroll
+      for (int i = 0; i < VE; ++i) acc[v][i] = 0.f;
+    for (int s0 = 0; s0 < pj.p; s0 += P) {
+      RawVec<T, VE> raw[P][NV];
+      pj.template gather<G, NV, VE>(cur, lane, raw);
+      SlotBatch<P> nxt;
+      if (s0 + P < pj.p) {
+        pj.slots(true, row, s0 + P, nxt);
+      } else {
+        pj.slots(row + step < n_rows, row + step, 0, nxt);
+      }
+      pj.template add<G, NV, VE>(cur, raw, lane, acc);
+      cur = nxt;
+    }
+    float ph[NV][VE];
+    pj.template rounded<G, NV, VE>(acc, lane, ph);
+    rw.template end<G, NV, VE>(row, lane, ph, held);
+  }
+}
+
+// CTAs of a project_rows kernel that the SMs hold at once
+template <typename K>
+inline long long resident_ctas(K kernel) {
+  int dev = 0, n_sm = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kProjThreads,
+                                                0);
+  return (long long)n_sm * (per_sm > 0 ? per_sm : 1);
+}
+
+// The grid of a project_rows kernel over n_rows: a row per group, capped at
+// the resident CTAs (the groups then walk rows in turn).
+inline unsigned proj_grid(long long n_rows, int G, long long resident) {
+  const long long per_cta = kProjThreads / G;
+  const long long want = (n_rows + per_cta - 1) / per_cta;
+  return (unsigned)(want < resident ? (want > 0 ? want : 1) : resident);
 }
 
 }  // namespace ocffm

@@ -6,19 +6,25 @@
 // squared values).  Built with the other sources into one
 // shared library (ops/kernels.py), bound with ctypes.  Stage 2 below, the
 // X^T stage, is also the general scatter G = X^T Z of a wide field
-// (ops/sparse_ops.py scatter); stage 1's phi = X V is B8's project_row.
+// (ops/sparse_ops.py scatter); stage 1's phi = X V is B8's projection
+// (common.cuh ProjectedPhi).
 //
 // The TPU kernels keep the (D, k) table-space output in VMEM across a
 // sequential grid over row blocks (out_ref[...] += X_b^T payload_b).  Here
 // blocks run in parallel and in no order, and a (4096, 32) f32 table does
 // not fit in one block's shared memory, so each pass runs in two stages:
 //
-//   1. rows: one warp per data row, lanes over k (B4: a group of lanes per
-//      row on a width plan, common.cuh hv_rows).  It computes the row's
-//      payload from the row's X entries, the table V (read through L2),
-//      the blocked positive stream and the dense terms, and writes it once
-//      at storage dtype: the same single rounding the TPU kernels apply to
-//      their zpb / zb block.  phi = X V never leaves the CTA.
+//   1. rows: a group of lanes per data row on a width plan (B4: common.cuh
+//      hv_rows; B6: common.cuh project_rows), one warp per data row (B5,
+//      B7).  It computes the row's payload from the row's X entries, the
+//      table V (read through L2), the blocked positive stream and the
+//      dense terms, and writes it once at storage dtype: the same single
+//      rounding the TPU kernels apply to their zpb / zb block.  phi = X V
+//      never leaves the CTA.  B6's payload is storage(s_i * Q1[i]) with
+//      one scalar s_i per row: its row stage writes s alone, and its X^T
+//      stage forms each gathered payload row from Q1[row] and s[row] (the
+//      same product, rounded once: the same bits), as the TPU kernel never
+//      writes its zpb out either.
 //   2. X^T payload: over the field's static feature-major list
 //      (ops/layout.py FeatureMajor) and its plan (layout.xt_plan), in one
 //      launch.  A group of lanes per chunk of at most XT_CHUNK entries of
@@ -39,10 +45,11 @@
 // Bounds on the H100: stage 1 streams the blocked stream `rows` once (as
 // B1/B2 do) and reads each data row's p table rows from L2 (D x k is at
 // most 512 KB); it is bound by device-memory bandwidth.  Stage 2 gathers
-// one payload row (k values, 128 bytes at k=32 f32) per X entry and writes
-// one output row per feature: on FM's u field 600k random 128-byte reads
-// and a 26 MB output, bound by device-memory bandwidth once enough reads
-// are in flight, by latency otherwise.  What the design does about it:
+// one payload row (k values, 128 bytes at k=32 f32; for B6 a Q1 row and
+// its scale) per X entry and writes one output row per feature: on FM's u
+// field 600k random 128-byte reads and a 26 MB output, bound by
+// device-memory bandwidth once enough reads are in flight, by latency
+// otherwise.  What the design does about it:
 //   - most of FM's features (ids) have one entry and so one chunk; their
 //     sums go straight to the output, with no partial row written and read
 //     back and no pass over every feature;
@@ -70,7 +77,7 @@ namespace {
 // (one_class_ffm_tpu/ops/sparse_ops.py).  For row r of block b:
 //   payload[r] = storage(B1 math on phib),   phib = storage(X_r V)
 // on B1's CTA body (common.cuh hv_rows), the row's group projecting its own
-// phib first (ProjectedPhi: project_row's bits); it was the largest device
+// phib first (ProjectedPhi: B8's bits); it was the largest device
 // op of the FFM epoch as a warp per row.
 template <typename T, int G, int NV, int VE>
 __global__ void __launch_bounds__(kHvThreads)
@@ -155,34 +162,98 @@ grad_cross_tbl_rows_kernel(const T* __restrict__ c,
 }
 
 // Stage 1 of hv_self_tbl, replacing hv_self_tbl_pallas / _hv_self_tbl_kernel
-// and hv_self_tbl_kt_pallas.  One warp per row (grid-stride):
-//   payload[i] = storage(s_i * Q1[i]),
+// and hv_self_tbl_kt_pallas.  For row i:
 //   s_i = storage(dd_i * storage(<Q1[i], phib_i>)),  phib = storage(X_i V)
+// Bound on the H100: bytes, Q1 and X's rows read once and s written (~31
+// MB on FFM's u field at k = 32 f32).  The warp per row it replaces spent
+// a chain of latencies per row and warp (~24 waves of 8-warp CTAs there)
+// and wrote a 128-byte payload row per row; this runs on B8's group-per-row
+// body (common.cuh project_rows): the group projects phib, loads Q1[i] and
+// dd_i with the first table rows, folds the dot in _lane_dot's order with
+// lane_tree and writes s_i alone (the X^T stage forms the payload rows from
+// Q1 and s, which ran faster on the card than writing them here and
+// gathering them back).  Its width plan is hv_rows' rule: 16-byte vectors only where G *
+// VE <= 32 (k <= 32), so that a lane's values are _lane_dot's lane sums,
+// else the plain-load plan (G = 32, VE = 1: lane l sums columns l, l + 32,
+// ... in turn).
 template <typename T>
-__global__ void __launch_bounds__(kWarps * 32)
-hv_self_tbl_rows_kernel(const T* __restrict__ V, const int* __restrict__ xi,
-                        const T* __restrict__ xv, int p, int d,
-                        const T* __restrict__ q1, const T* __restrict__ dd,
-                        T* __restrict__ payload, int64_t n_rows, int k) {
-  const int lane = threadIdx.x & 31;
-  const int64_t n_warps = (int64_t)gridDim.x * kWarps;
-  for (int64_t row = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
-       row < n_rows; row += n_warps) {
-    float ph[kMaxKPerLane], q[kMaxKPerLane];
-    project_row(V, xi, xv, row, p, d, k, lane, ph);
-    float dot = 0.f;
+struct SelfScale {
+  const T* q1;
+  const T* dd;
+  T* s;
+  int k;
+  template <int NV, int VE>
+  struct Held {
+    RawVec<T, VE> q[NV];
+    float dd;
+  };
+  template <int G, int NV, int VE>
+  __device__ __forceinline__ void begin(int64_t row, int lane,
+                                        Held<NV, VE>& h) const {
 #pragma unroll
-    for (int j = 0; j < kMaxKPerLane; ++j) {
-      const int c = j * 32 + lane;
-      q[j] = c < k ? to_f(q1[row * k + c]) : 0.f;
-      dot = __fadd_rn(dot, __fmul_rn(q[j], ph[j]));
+    for (int v = 0; v < NV; ++v) {
+      const int c0 = (v * G + lane) * VE;
+      if (c0 < k) h.q[v] = load_raw<T, VE>(q1 + row * k + c0);
     }
-    const float s = rnd<T>(__fmul_rn(to_f(dd[row]), rnd<T>(warp_sum(dot))));
-#pragma unroll
-    for (int j = 0; j < kMaxKPerLane; ++j) q[j] = __fmul_rn(s, q[j]);
-    store_row(payload, row, k, lane, q);
+    h.dd = to_f(dd[row]);
   }
+  template <int G, int NV, int VE>
+  __device__ __forceinline__ void end(int64_t row, int lane,
+                                      const float (&ph)[NV][VE],
+                                      const Held<NV, VE>& h) const {
+    static_assert(NV == 1 || G * VE == 32, "lane l sums columns l + 32 j");
+    // the tree's leaves: lane l's products of columns l, l + 32, ... in
+    // turn (_lane_dot's lane sums, no +0 start); products past k are +0
+    float q[NV][VE], x[1][VE];
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      if ((v * G + lane) * VE < k) {
+        unpack(h.q[v], q[v]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < VE; ++i) q[v][i] = 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < VE; ++i) {
+        const float pr = __fmul_rn(q[v][i], ph[v][i]);
+        if (v == 0) {
+          x[0][i] = pr;
+        } else if (v * G * VE < k) {
+          x[0][i] = __fadd_rn(x[0][i], pr);
+        }
+      }
+    }
+    lane_tree<G, VE, 1>(x, group_mask<G>());
+    if (lane == 0) s[row] = from_f<T>(__fmul_rn(h.dd, rnd<T>(x[0][0])));
+  }
+};
+
+template <typename T, int G, int NV, int VE>
+__global__ void __launch_bounds__(kProjThreads, kProjCtas)
+hv_self_scale_kernel(ProjectedPhi<T> pj, SelfScale<T> rw, int64_t n_rows) {
+  project_rows<T, G, NV, VE>(pj, rw, n_rows);
 }
+
+template <typename T>
+struct HvSelfLaunch {
+  ProjectedPhi<T> pj;
+  SelfScale<T> rw;
+  long long n_rows;
+  cudaStream_t st;
+  template <int G, int NV, int VE>
+  int run() const {
+    if constexpr (VE > 1 && G * NV * VE > 32) {
+      return (int)cudaErrorInvalidValue;  // the vector plan: k <= 32 only
+    } else {
+      static const long long resident =
+          resident_ctas(hv_self_scale_kernel<T, G, NV, VE>);
+      const unsigned grid = proj_grid(n_rows, G, resident);
+      hv_self_scale_kernel<T, G, NV, VE><<<grid, kProjThreads, 0, st>>>(
+          pj, rw, n_rows);
+      return (int)cudaGetLastError();
+    }
+  }
+};
 
 // Stage 1 of grad_self_tbl, replacing grad_self_tbl_pallas /
 // _grad_self_tbl_kernel and grad_self_tbl_kt_pallas.  One warp per row r of
@@ -248,6 +319,11 @@ __device__ __forceinline__ void load_f32_cg(const float* p, float (&f)[VE]) {
 // before their ordered adds, the next batch's (row, val) loaded while they
 // are:
 //   sum = 0 + val_s * payload[row_s] + ... in list order           (f32)
+// The payload row comes from a source fixed at compile time: payload[row]
+// (xt_kernel: B4, B5, B7, the general scatter), or for B6 (kScaled,
+// xt_scaled_kernel) storage(scale[row] * payload[row]) with payload = Q1
+// and scale = s, formed per gathered entry: the product B6's row stage
+// would have stored, rounded once, so the same bits.
 // A chunk of a single-chunk feature f writes `sum` straight to out[f] (the
 // two-stage order adds it to 0.f, which gives the same bits: the sum starts
 // at +0 and so is never -0).  A chunk of a feature with several writes its
@@ -263,15 +339,15 @@ __device__ __forceinline__ void load_f32_cg(const float* p, float (&f)[VE]) {
 // fastest of the batch depths (4, 8, 16) and CTA counts per SM (1 to 4)
 // tried; holding the (row, val) pairs across the group's lanes and
 // shuffling them out per entry was slower than any of them.
-template <typename T, int G, int NV, int VE>
-__global__ void __launch_bounds__(kWarps * 32, 3)
-xt_kernel(const T* __restrict__ payload, const int* __restrict__ xf_row,
-          const T* __restrict__ xf_val, const int* __restrict__ chunk_ptr,
-          const int* __restrict__ chunk_dst, int n_chunks,
-          const int* __restrict__ feat_ptr, const int* __restrict__ combine,
-          int n_combine, const int* __restrict__ slot_feat,
-          int* __restrict__ ticket, float* __restrict__ partial,
-          float* __restrict__ out, int k) {
+template <typename T, int G, int NV, int VE, bool kScaled>
+__device__ __forceinline__ void xt_body(
+    const T* __restrict__ payload, const T* __restrict__ scale,
+    const int* __restrict__ xf_row, const T* __restrict__ xf_val,
+    const int* __restrict__ chunk_ptr, const int* __restrict__ chunk_dst,
+    int n_chunks, const int* __restrict__ feat_ptr,
+    const int* __restrict__ combine, int n_combine,
+    const int* __restrict__ slot_feat, int* __restrict__ ticket,
+    float* __restrict__ partial, float* __restrict__ out, int k) {
   constexpr int kGroups = kWarps * 32 / G;
   constexpr int D = batch_depth<T, NV, VE>() > 4 ? batch_depth<T, NV, VE>() / 2
                                                  : 2;
@@ -312,10 +388,12 @@ xt_kernel(const T* __restrict__ payload, const int* __restrict__ xf_row,
       }
     for (int b0 = s; b0 < e; b0 += D) {
       RawVec<T, VE> raw[D][NV];
+      float sc[D];
 #pragma unroll
       for (int j = 0; j < D; ++j)
         if (b0 + j < e) {
           const T* pr = payload + (int64_t)row_c[j] * k;
+          if constexpr (kScaled) sc[j] = to_f(scale[row_c[j]]);
 #pragma unroll
           for (int v = 0; v < NV; ++v) {
             const int c0 = (v * G + lane) * VE;
@@ -338,6 +416,11 @@ xt_kernel(const T* __restrict__ payload, const int* __restrict__ xf_row,
             if ((v * G + lane) * VE >= k) continue;
             float f[VE];
             unpack(raw[j][v], f);
+            if constexpr (kScaled) {
+#pragma unroll
+              for (int i = 0; i < VE; ++i)
+                f[i] = rnd<T>(__fmul_rn(sc[j], f[i]));
+            }
 #pragma unroll
             for (int i = 0; i < VE; ++i)
               acc[v][i] = __fadd_rn(acc[v][i], __fmul_rn(val_c[j], f[i]));
@@ -409,6 +492,29 @@ xt_kernel(const T* __restrict__ payload, const int* __restrict__ xf_row,
   }
 }
 
+#define OCFFM_XT_PARAMS                                                    \
+  const T *__restrict__ payload, const T *__restrict__ scale,              \
+      const int *__restrict__ xf_row, const T *__restrict__ xf_val,        \
+      const int *__restrict__ chunk_ptr, const int *__restrict__ chunk_dst, \
+      int n_chunks, const int *__restrict__ feat_ptr,                      \
+      const int *__restrict__ combine, int n_combine,                      \
+      const int *__restrict__ slot_feat, int *__restrict__ ticket,         \
+      float *__restrict__ partial, float *__restrict__ out, int k
+#define OCFFM_XT_ARGS                                                       \
+  payload, scale, xf_row, xf_val, chunk_ptr, chunk_dst, n_chunks, feat_ptr, \
+      combine, n_combine, slot_feat, ticket, partial, out, k
+
+template <typename T, int G, int NV, int VE>
+__global__ void __launch_bounds__(kWarps * 32, 3) xt_kernel(OCFFM_XT_PARAMS) {
+  xt_body<T, G, NV, VE, false>(OCFFM_XT_ARGS);
+}
+
+template <typename T, int G, int NV, int VE>
+__global__ void __launch_bounds__(kWarps * 32, 3)
+xt_scaled_kernel(OCFFM_XT_PARAMS) {
+  xt_body<T, G, NV, VE, true>(OCFFM_XT_ARGS);
+}
+
 // grid of a group-per-item grid-stride loop over n items
 inline unsigned group_grid(long long n, int G) {
   const long long per_cta = kWarps * 32 / G;
@@ -418,7 +524,7 @@ inline unsigned group_grid(long long n, int G) {
 
 template <typename T>
 struct XtLaunch {
-  const T* payload;
+  const T *payload, *scale;
   const int* xf_row;
   const T* xf_val;
   const int *chunk_ptr, *chunk_dst;
@@ -432,10 +538,13 @@ struct XtLaunch {
   cudaStream_t st;
   template <int G, int NV, int VE>
   int run() const {
-    xt_kernel<T, G, NV, VE><<<group_grid((long long)n_chunks + n_combine, G),
-                              kWarps * 32, 0, st>>>(
-        payload, xf_row, xf_val, chunk_ptr, chunk_dst, n_chunks, feat_ptr,
-        combine, n_combine, slot_feat, ticket, partial, out, k);
+    const unsigned grid = group_grid((long long)n_chunks + n_combine, G);
+    if (scale == nullptr) {
+      xt_kernel<T, G, NV, VE><<<grid, kWarps * 32, 0, st>>>(OCFFM_XT_ARGS);
+    } else {
+      xt_scaled_kernel<T, G, NV, VE><<<grid, kWarps * 32, 0, st>>>(
+          OCFFM_XT_ARGS);
+    }
     return (int)cudaGetLastError();
   }
 };
@@ -481,16 +590,17 @@ int ocffm_grad_cross_tbl_rows(int dtype, const void* c, const void* w,
   return (int)cudaGetLastError();
 }
 
+// s (rows,) at storage dtype: each row's scale of Q1[row]
 int ocffm_hv_self_tbl_rows(int dtype, const void* V, const void* xi,
                            const void* xv, int p, int d, const void* q1,
-                           const void* dd, void* payload, long long n_rows,
-                           int k, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  OCFFM_BY_DTYPE(dtype, hv_self_tbl_rows_kernel<T><<<warp_grid(n_rows),
-                                                      kWarps * 32, 0, st>>>(
-      (const T*)V, (const int*)xi, (const T*)xv, p, d, (const T*)q1,
-      (const T*)dd, (T*)payload, n_rows, k));
-  return (int)cudaGetLastError();
+                           const void* dd, void* s, long long n_rows, int k,
+                           void* stream) {
+  const void* ptrs[] = {V, q1};
+  const bool vec = k <= 32 && vec_ok(k, dtype == kF32 ? 4 : 2, ptrs, 2);
+  OCFFM_BY_DTYPE(dtype, return by_width<T>(k, vec, HvSelfLaunch<T>{
+      {(const T*)V, (const int*)xi, (const T*)xv, p, d, k},
+      {(const T*)q1, (const T*)dd, (T*)s, k}, n_rows,
+      (cudaStream_t)stream}));
 }
 
 // dd == nullptr: the gradient payload alone; otherwise also the Jacobi
@@ -515,11 +625,13 @@ int ocffm_grad_self_tbl_rows(int dtype, const void* q1, const void* zdense,
 }
 
 // out (d, k) f32 = X^T payload through the feature-major list and its plan
-// (combine, chunk_dst, slot_feat); `partial` holds a row of k floats for
-// each chunk whose chunk_dst is >= 0; `ticket` holds one int per feature,
-// zero before and after each launch.
-int ocffm_xt_scatter(int dtype, const void* payload, const void* xf_row,
-                     const void* xf_val, const void* chunk_ptr,
+// (combine, chunk_dst, slot_feat); with `scale` (B6) the payload row of an
+// entry is storage(scale[row] * payload[row]).  `partial` holds a row of k
+// floats for each chunk whose chunk_dst is >= 0; `ticket` holds one int per
+// feature, zero before and after each launch.
+int ocffm_xt_scatter(int dtype, const void* payload, const void* scale,
+                     const void* xf_row, const void* xf_val,
+                     const void* chunk_ptr,
                      const void* chunk_dst, int n_chunks, const void* feat_ptr,
                      const void* combine, int n_combine,
                      const void* slot_feat, void* ticket, int k,
@@ -529,8 +641,8 @@ int ocffm_xt_scatter(int dtype, const void* payload, const void* xf_row,
   const bool vec = vec_ok(k, dtype == kF32 ? 4 : 2, ptrs, 3);
   cudaStream_t st = (cudaStream_t)stream;
   OCFFM_BY_DTYPE(dtype, return by_width<T>(k, vec, XtLaunch<T>{
-      (const T*)payload, (const int*)xf_row, (const T*)xf_val,
-      (const int*)chunk_ptr, (const int*)chunk_dst, n_chunks,
+      (const T*)payload, (const T*)scale, (const int*)xf_row,
+      (const T*)xf_val, (const int*)chunk_ptr, (const int*)chunk_dst, n_chunks,
       (const int*)feat_ptr, (const int*)combine, n_combine,
       (const int*)slot_feat, (int*)ticket, (float*)partial, (float*)out, k,
       st}));

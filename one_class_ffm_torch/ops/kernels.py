@@ -155,7 +155,8 @@ def load() -> ctypes.CDLL:
     lib.ocffm_grad_self_tbl_rows.argtypes = [
         i32, vp, vp, vp, vp, vp, vp, vp, i64, i32, i32, i32, vp]
     lib.ocffm_xt_scatter.argtypes = [
-        i32, vp, vp, vp, vp, vp, i32, vp, vp, i32, vp, vp, i32, vp, vp, vp]
+        i32, vp, vp, vp, vp, vp, vp, i32, vp, vp, i32, vp, vp, i32, vp, vp,
+        vp]
     lib.ocffm_project.argtypes = [i32, vp, vp, vp, vp, i64, i32, i32, i32, vp]
     lib.ocffm_pos_hv_packed.argtypes = [
         i32, vp, vp, vp, vp, vp, vp, i64, i32, i32, f32, vp]
@@ -436,20 +437,26 @@ def _xt_inputs(xt: FeatureMajor, dt, dev, squared: bool,
 
 
 def _xt_scatter(lib, payload: torch.Tensor, xt: FeatureMajor,
-                name: str, squared: bool = False) -> torch.Tensor:
+                name: str, squared: bool = False,
+                scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(d, k) float32 = X^T payload (X^2 with ``squared``: the list's
-    squared values) through the feature-major list and its plan."""
+    squared values) through the feature-major list and its plan; with
+    ``scale`` (rows,) the payload row of an entry is storage(scale[row] *
+    payload[row]), formed in the kernel (B6)."""
     dev, dt = payload.device, payload.dtype
     rows, k = payload.shape
     if xt.n_rows != rows:
         raise ValueError(f"{name}: the feature-major list scatters from "
                          f"{xt.n_rows} rows, the payload has {rows}")
+    if scale is not None:
+        _check("scale", scale, dt, (rows,), dev)
     p = _xt_inputs(xt, dt, dev, squared, name)
     row, vals, chunk_ptr, chunk_dst, feat_ptr, combine, slot_feat, \
         tickets = p.ptrs
     out = torch.empty((p.d, k), dtype=torch.float32, device=dev)
     err = lib.ocffm_xt_scatter(
-        _DTYPE_CODE[dt], payload.data_ptr(), row, vals, chunk_ptr, chunk_dst,
+        _DTYPE_CODE[dt], payload.data_ptr(), _ptr(scale), row, vals,
+        chunk_ptr, chunk_dst,
         p.n_chunks, feat_ptr, combine, p.n_combine, slot_feat, tickets, k,
         p.partial(k).data_ptr(), out.data_ptr(), _stream(dev))
     _raise_on(err, name)
@@ -540,18 +547,19 @@ def _rows_table(Q1: torch.Tensor):
 
 
 def hv_self_tbl(V, x_idx, x_val, xt, Q1, dd) -> torch.Tensor:
+    """B6: its row stage writes each row's scale s (rows,) of Q1[row], its
+    X^T stage gathers storage(s[row] * Q1[row]) per entry."""
     lib, num, k = _rows_table(Q1)
     dev, dt = Q1.device, Q1.dtype
     d = _table(V, xt, dt, k, dev, "hv_self_tbl")
     p = _x_rows(x_idx, x_val, num, dt, dev)
     _check("dd", dd, dt, (num,), dev)
-    payload = torch.empty((num, k), dtype=dt, device=dev)
+    s = torch.empty((num,), dtype=dt, device=dev)
     err = lib.ocffm_hv_self_tbl_rows(
         _DTYPE_CODE[dt], V.data_ptr(), x_idx.data_ptr(), x_val.data_ptr(), p,
-        d, Q1.data_ptr(), dd.data_ptr(), payload.data_ptr(), num, k,
-        _stream(dev))
+        d, Q1.data_ptr(), dd.data_ptr(), s.data_ptr(), num, k, _stream(dev))
     _raise_on(err, "hv_self_tbl")
-    out = _xt_scatter(lib, payload, xt, "hv_self_tbl")
+    out = _xt_scatter(lib, Q1, xt, "hv_self_tbl", scale=s)
     _launches["hv_self_tbl"] += 1
     return out
 

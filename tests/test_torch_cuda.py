@@ -222,14 +222,17 @@ def test_wrappers_reject_bad_inputs(device):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("k", [8, 32, 40])
+@pytest.mark.parametrize("k", [8, 32, 40, 64, 128, 256])
 @pytest.mark.parametrize("p", [3, 4, 37])
-def test_project_matches_plain(device, dtype, k, p):
-    """B8 on a wide table (D = 5000) with duplicate ids, pad slots, pad
-    rows and ghost ids (>= D or negative, which add nothing); p = 37 takes
-    two 32-slot loads of a row's ids."""
+@pytest.mark.parametrize("d", [5000, 201_000])
+def test_project_matches_plain(device, dtype, k, p, d):
+    """B8 on wide tables (D = 5000, and FM's user-field width 201,000) with
+    duplicate ids, pad slots, pad rows and ghost ids (>= D or negative,
+    which add nothing), on every width plan (k = 64 to 256: the wide vector
+    plans; k = 40 at bfloat16 is 80 bytes a row, 16-byte vectors too); p =
+    37 takes ten batches of a row's slots."""
     rng = np.random.default_rng(7)
-    num, d = 700, 5000
+    num = 700
     idx, val = _field(rng, num, d, p=p)
     idx[::11, 1] = d + 3
     idx[::13, p - 1] = -2
@@ -247,7 +250,54 @@ def test_project_matches_plain(device, dtype, k, p):
     assert got.dtype == dtype and got.shape == (num, k)
     assert torch.equal(got, again)
     assert torch.equal(got, ref)  # same order, same roundings
+    assert torch.equal(_bits(got), _bits(ref))  # signs of zero too
     assert kernels.launch_counts()["project"] == 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [8, 32, 40, 64])
+def test_hv_self_tbl_matches_plain_bits(device, dtype, k):
+    """B6 (its group-per-row scale stage, then the X^T stage forming
+    storage(s * Q1[row]) per entry) bit-equal to hv_self_tbl_plain, signs
+    of zero included, on both width plans (k <= 32: 16-byte vectors; 40
+    and 64: the plain-load plan), with -0.0 in V and Q1 (the dot's tree
+    adds +0 where a partner is past k or past the group), ghost ids in X's
+    rows (the projection drops them), all-pad rows, dd = 0 rows, and equal
+    on repeat."""
+    rng = np.random.default_rng(16)
+    num, d = 900, 37
+    idx, val = _field(rng, num, d, p=4)
+    fm = feature_major(idx, val, d)
+    idx[::11, 1] = d + 3  # ghosts: in X's rows, not in the list
+    idx[::13, 3] = -2
+    V_np = rng.normal(size=(d, k))
+    V_np[::3] = -0.0
+    Q1_np = rng.normal(size=(num, k))
+    Q1_np[rng.random(Q1_np.shape) < 0.2] = -0.0
+    Q1_np[:8] = -0.0
+    dd_np = rng.random(num) * 5
+    dd_np[::9] = 0.0
+
+    def T(a):
+        return torch.as_tensor(a).to(device=device, dtype=dtype).contiguous()
+
+    def I(a):
+        return torch.as_tensor(a, dtype=torch.int32, device=device)
+
+    xt = _device_list(fm, T, I)
+    args = (T(V_np), I(idx), T(val), xt, T(Q1_np), T(dd_np))
+    kernels.reset_launch_counts()
+    got = ops.hv_self_tbl(*args)  # the dispatcher launches on CUDA
+    again = kernels.hv_self_tbl(*args)
+    ref = ops.hv_self_tbl_plain(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (d, k)
+    assert torch.equal(_bits(got), _bits(again))
+    assert torch.equal(_bits(got), _bits(ref)), (k, dtype)
+    assert kernels.launch_counts()["hv_self_tbl"] == 2
+    with pytest.raises(ValueError, match="scale"):
+        kernels._xt_scatter(kernels.load(), args[4], xt, "hv_self_tbl",
+                            scale=args[5][:-1].contiguous())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -1,10 +1,11 @@
-"""The blocked Hv kernels' dot (csrc/common.cuh hv_slots and lane_tree)
-against ``_lane_dot``, the order the plain versions fix.
+"""The kernels' group dot (csrc/common.cuh hv_slots and lane_tree; B6's
+row stage, csrc/table_ops.cu SelfScale) against ``_lane_dot``, the order
+the plain versions fix.
 
-B1 and B4's row stage take a width plan (G lanes per row, NV vectors of VE
-values per lane) and fold each slot's dot with a butterfly whose upper
-levels are shuffles inside the group and whose lower levels are adds in a
-lane's registers.  Here a torch model of that reduction, written from the
+B1, B4's row stage and B6's row stage take a width plan (G lanes per row,
+NV vectors of VE values per lane) and fold each dot with a butterfly whose
+upper levels are shuffles inside the group and whose lower levels are adds
+in a lane's registers.  Here a torch model of that reduction, written from the
 kernel's rules, runs at float32 on the CPU and must give ``_lane_dot``'s
 bits, the sign of zero included: lane g holds columns (v * G + g) * VE + i;
 lane sums of columns l, l + 32, ... come first (plain-load plan); a level's
@@ -22,9 +23,10 @@ K_MAX_PER_LANE = 8  # common.cuh kMaxKPerLane
 
 
 def plan(k: int, elem_bytes: int):
-    """(G, NV, VE) as common.cuh by_width picks it for hv_rows: the staged
-    plan (16-byte vectors, the smallest power-of-two group covering k) for
-    k <= 32 on aligned rows, else the plain-load plan."""
+    """(G, NV, VE) as common.cuh by_width picks it for hv_rows and B6's row
+    stage: the vector plan (16-byte vectors, the smallest power-of-two
+    group covering k) for k <= 32 on aligned rows, else the plain-load
+    plan."""
     ve = 16 // elem_bytes
     if k > 32 or (k * elem_bytes) % 16:
         return 32, K_MAX_PER_LANE, 1
@@ -103,3 +105,61 @@ def test_group_tree_gives_lane_dot_bits(k, elem_bytes, want):
     # the all -0 rows: -0 where k fills the 32 lanes, +0 where padding does
     zero_sign = torch.signbit(ref[:8])
     assert bool(torch.all(zero_sign)) == (k % 32 == 0 and k >= 32)
+
+
+def _storage(x: torch.Tensor, dt) -> torch.Tensor:
+    """float32 values rounded to storage dtype and widened back (a kernel's
+    rounding points)."""
+    return x.to(dt).to(torch.float32)
+
+
+def self_scale(q, ph, dd, dt, G, NV, VE):
+    """B6's row stage on plan (G, NV, VE), from the kernel's rules: the
+    group dot of Q1[i] and phib_i (q, ph: float32 holding storage values),
+    rounded to storage, times dd_i, rounded to storage:
+    s_i = storage(dd_i * storage(<Q1[i], phib_i>))."""
+    dot = tree_dot(q, ph, G, NV, VE)[:, 0, 0]
+    return _storage(dd * _storage(dot, dt), dt)
+
+
+@pytest.mark.parametrize("k", [8, 32, 40, 64])
+@pytest.mark.parametrize("elem_bytes, dt", [(4, torch.float32),
+                                            (2, torch.bfloat16)])
+def test_self_scale_gives_lane_dot_bits(k, elem_bytes, dt):
+    """B6's dot on its plans (k <= 32: 16-byte vectors, two or eight lanes
+    short of a warp at k = 8; k = 40 and 64: the plain-load plan, two lane
+    sums) with zeros of both signs in Q1 and phib gives ``_lane_dot``'s
+    bits, and its s has hv_self_tbl_plain's roundings: the dot and the
+    product with dd each rounded to storage."""
+    G, NV, VE = plan(k, elem_bytes)
+    assert G * NV * VE >= k and (NV == 1 or G * VE == 32)
+    rng = np.random.default_rng(k * 10 + elem_bytes + 1)
+    n = 96
+    q = rng.normal(size=(n, k)).astype(np.float32)
+    ph = rng.normal(size=(n, k)).astype(np.float32)
+    q[rng.random((n, k)) < 0.2] = -0.0
+    ph[rng.random((n, k)) < 0.2] = 0.0
+    q[:8], ph[:8] = -0.0, np.abs(ph[:8])  # every product -0
+    q[8:16], ph[8:16] = 0.0, -np.abs(ph[8:16])  # every product -0 too
+    ph[16:24] = -0.0  # zeros of both signs meet
+    q[24:32] = 0.0
+    dd = rng.random(n).astype(np.float32) * 5
+    dd[::7] = 0.0
+    q, ph = _storage(torch.from_numpy(q), dt), _storage(torch.from_numpy(ph),
+                                                        dt)
+    dd = _storage(torch.from_numpy(dd), dt)
+    got = tree_dot(q, ph, G, NV, VE)
+    ref = _lane_dot(q, ph)
+    flat = got.reshape(n, -1)
+    assert np.array_equal(_bits(flat), np.repeat(_bits(flat[:, :1]),
+                                                 flat.shape[1], axis=1))
+    assert np.array_equal(_bits(flat[:, 0]), _bits(ref)), (k, dt)
+    # hv_self_tbl_plain's s: (dd * dot.to(dt).to(f32)).to(dt)
+    s = self_scale(q, ph, dd, dt, G, NV, VE)
+    want = (dd * ref.to(dt).to(torch.float32)).to(dt).to(torch.float32)
+    assert np.array_equal(_bits(s), _bits(want)), (k, dt)
+    assert torch.all(s[::7] == 0)
+    if dt == torch.bfloat16:  # both roundings change some rows' bits
+        no_inner = _storage(dd * ref, dt)
+        assert not np.array_equal(_bits(s), _bits(no_inner))
+        assert not np.array_equal(_bits(s), _bits(dd * ref))

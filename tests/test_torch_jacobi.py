@@ -467,9 +467,10 @@ def test_chip_smoke_jacobi_rehearsal_on_cpu():
 
 
 def test_chip_smoke_reads_register_counts(monkeypatch):
-    """The build phase's registers per thread, parsed from cuobjdump's
-    resource report (mangled names: kernel, storage type, Jacobi flag and
-    the integer template arguments of a width plan, (G, NV, VE))."""
+    """The build phase's registers per thread and static shared memory,
+    parsed from cuobjdump's resource report (mangled names: kernel, storage
+    type, Jacobi flag and the integer template arguments of a width plan,
+    (G, NV, VE)); a report without SHARED counts 0 bytes."""
     chip_smoke = _chip_smoke()
     report = "\n".join([
         "Function _ZN47_GLOBAL__N__c7f4_14_blocked_ops_cu_e3a6494d18pos_"
@@ -502,7 +503,20 @@ def test_chip_smoke_reads_register_counts(monkeypatch):
         "REG:72 STACK:0 SHARED:16",
         "Function _ZN47_GLOBAL__N__c7f4_14_blocked_ops_cu_e3a6494d13pos_hv_"
         "kernelIfLi32ELi8ELi1EEEvPKT_S4_PKiS4_S4_PS2_iiifi:",
-        "REG:56 STACK:0 SHARED:16"])
+        "REG:56 STACK:0 SHARED:16",
+        # the group-per-row projection (B8, B6's row stage) and B6's X^T
+        # stage over Q1 and s
+        "Function _ZN49_GLOBAL__N__1f2e_14_project_ops_cu_a1b2c3d419project_"
+        "rows_kernelIfLi8ELi1ELi4EEEvN5ocffm12ProjectedPhiIT_EENS_8StoreRow"
+        "IS3_EEl:",
+        "REG:40 STACK:0 SHARED:0",
+        "Function _ZN45_GLOBAL__N__6a7b_12_table_ops_cu_257c678220hv_self_"
+        "scale_kernelI13__nv_bfloat16Li32ELi8ELi1EEEvN5ocffm12ProjectedPhi"
+        "IT_EENS_9SelfScaleIS4_EEl:",
+        "REG:64 STACK:0",
+        "Function _ZN45_GLOBAL__N__6a7b_12_table_ops_cu_257c678216xt_scaled_"
+        "kernelIfLi8ELi1ELi4EEEvPKT_S4_PKiS4_S6_S6_iS6_S6_iS6_PiPfS8_i:",
+        "REG:80 STACK:0 SHARED:0"])
 
     class Done:
         stdout = report
@@ -510,14 +524,17 @@ def test_chip_smoke_reads_register_counts(monkeypatch):
     monkeypatch.setattr(chip_smoke.subprocess, "run", lambda *a, **k: Done)
     monkeypatch.setattr(chip_smoke.os.path, "exists", lambda p: True)
     assert chip_smoke.kernel_registers("lib.so") == {
-        ("pos_scatter_kernel", "bf16", True, ()): 40,
-        ("pos_hv_packed_kernel", "f32", False, ()): 32,
-        ("pos_scatter_kernel", "bf16", True, (4, 1, 8)): 56,
-        ("xt_chunk_kernel", "f32", False, (8, 1, 4)): 48,
-        ("xt_combine_kernel", "f32", False, (32, 8, 1)): 38,
-        ("pos_hv_kernel", "f32", False, (8, 1, 4)): 64,
-        ("hv_tbl_rows_kernel", "bf16", False, (4, 1, 8)): 72,
-        ("pos_hv_kernel", "f32", False, (32, 8, 1)): 56}
+        ("pos_scatter_kernel", "bf16", True, ()): (40, 0),
+        ("pos_hv_packed_kernel", "f32", False, ()): (32, 0),
+        ("pos_scatter_kernel", "bf16", True, (4, 1, 8)): (56, 32),
+        ("xt_chunk_kernel", "f32", False, (8, 1, 4)): (48, 0),
+        ("xt_combine_kernel", "f32", False, (32, 8, 1)): (38, 0),
+        ("pos_hv_kernel", "f32", False, (8, 1, 4)): (64, 16),
+        ("hv_tbl_rows_kernel", "bf16", False, (4, 1, 8)): (72, 16),
+        ("pos_hv_kernel", "f32", False, (32, 8, 1)): (56, 16),
+        ("project_rows_kernel", "f32", False, (8, 1, 4)): (40, 0),
+        ("hv_self_scale_kernel", "bf16", False, (32, 8, 1)): (64, 0),
+        ("xt_scaled_kernel", "f32", False, (8, 1, 4)): (80, 0)}
 
 
 def test_chip_smoke_work_counts_the_runs_in_place_of_the_owners():
