@@ -350,14 +350,15 @@ def _nbytes(a, squared: bool = False) -> int:
 # the position of ``own`` among the arguments of each kernel that reads its
 # rows' runs in place of the owners when it is given them
 OWN_ARG = {"pos_hv_blocked": 2, "pos_scatter_blocked": 2,
-           "pos_scatter_blocked_diag": 2, "pos_hv_tbl": 5}
+           "pos_scatter_blocked_diag": 2, "pos_hv_tbl": 5,
+           "pos_gap_blocked": 2, "grad_self_tbl": 3, "grad_self_tbl_diag": 3}
 
 
 def work(name: str, args, out, kw=None):
     """(bytes, operations) that the function needs on these inputs: each
     input read once and the output written once (for ``project`` only the
     table rows its ids name; for B9 one lane of each 32-lane group of the
-    packed owners and weights; for B1, B2 and B4 given their rows' runs,
+    packed owners and weights; for B1-B4 and B7 given their rows' runs,
     the runs in place of the owners), and the products and sums of the
     entries these inputs hold (valid slots, nonzero X entries), not of
     padding.  A Jacobi variant adds its second payload (rows^2 scaled and
@@ -499,10 +500,11 @@ def gpu_line() -> str:
 
 def kernel_registers(lib_path: str):
     """{(kernel, dtype, Jacobi variant?, integer template arguments):
-    (registers per thread, bytes of static shared memory)} of the built
-    library, from ``cuobjdump -res-usage`` of the CUDA toolkit, or None
-    where it is missing: with 256 threads per CTA the register count sets
-    how many CTAs an SM holds, which the latency-bound stream kernels need.
+    (registers per thread, bytes of static shared memory, bytes of stack
+    per thread)} of the built library, from ``cuobjdump -res-usage`` of the
+    CUDA toolkit, or None where it is missing: with 256 threads per CTA the
+    register count sets how many CTAs an SM holds, which the latency-bound
+    stream kernels need, and a stack frame holds what spilled past them.
     The integer arguments are a width plan's (G, NV, VE) (common.cuh
     by_width); a kernel without a storage type (the X^T stage's combine
     pass) sums f32 partials."""
@@ -526,8 +528,10 @@ def kernel_registers(lib_path: str):
         m = re.search(r"REG:(\d+)", line)
         if m and name:
             shared = re.search(r"SHARED:(\d+)", line)
+            stack = re.search(r"STACK:(\d+)", line)
             regs[name] = (int(m.group(1)),
-                          int(shared.group(1)) if shared else 0)
+                          int(shared.group(1)) if shared else 0,
+                          int(stack.group(1)) if stack else 0)
             name = None
     return regs
 
@@ -632,7 +636,7 @@ def compare(name: str, side: str, dt_name: str, args, kw, report, gpu: str,
         line += (f"  kernel {ms:.4f} ms  plain {pms:.4f} ms  library "
                  f"{'none' if lms is None else f'{lms:.4f} ms'}  bound "
                  f"{bms:.4f} ms by {by} ({nbytes} B, {nops} ops)")
-        if name in ("pos_hv_tbl", "hv_self_tbl"):  # a row stage, then X^T
+        if name in XT_STAGED:  # a row stage, then X^T
             line += f"  X^T stage alone {xt_stage_ms(name, args):.4f} ms"
         line += f"  [{gpu}]"
     print(line)
@@ -640,23 +644,38 @@ def compare(name: str, side: str, dt_name: str, args, kw, report, gpu: str,
           f"{name} {side} {dt_name}: max-rel {rel:.3e} > {BOUND[dt_name]:g}")
 
 
+# the table passes whose [kernels] line gives their X^T stage's time alone
+XT_STAGED = ("pos_hv_tbl", "hv_self_tbl", "grad_self_tbl",
+             "grad_self_tbl_diag")
+
+
 def xt_stage_ms(name: str, args) -> float:
-    """The time of B4's or B6's second stage on its own: the X^T stage over
-    the kernel's feature-major list, on a payload of B4's shape and dtype,
-    or on B6's Q1 with a scale per row (the row stage's time is the rest of
-    the kernel's)."""
+    """The time of a table pass's X^T stage on its own over the kernel's
+    feature-major list (the row stage's time is the rest of the kernel's):
+    B4's on a payload of its shape and dtype; B6's and B7's on their Q1
+    with a scale per row; for B7's Jacobi variant also its second launch,
+    through X^2 on Q1 with dd's scale, squared."""
     import torch
 
     from one_class_ffm_torch.ops import kernels
 
-    V, x_idx, xt = args[0], args[1], args[3]
-    rows, dev, dt = x_idx.shape[0], V.device, V.dtype
-    if name == "hv_self_tbl":
-        payload, scale = args[4], torch.randn(rows, device=dev).to(dt)
-    else:
-        payload = torch.randn((rows, V.shape[1]), device=dev).to(dt)
-        scale = None
     lib = kernels.load()
+    if name.startswith("grad_self_tbl"):
+        xt, payload = args[0], args[1]
+    else:
+        xt = args[3]
+        payload = args[4] if name == "hv_self_tbl" else torch.randn(
+            (args[1].shape[0], args[0].shape[1]),
+            device=args[0].device).to(args[0].dtype)
+    rows, dev, dt = payload.shape[0], payload.device, payload.dtype
+    scale = (None if name == "pos_hv_tbl"
+             else torch.randn(rows, device=dev).to(dt))
+    if name == "grad_self_tbl_diag":
+        dd = args[6]
+        return time_ms(lambda: (
+            kernels._xt_scatter(lib, payload, xt, name, scale=scale),
+            kernels._xt_scatter(lib, payload, xt, name, True, scale=dd,
+                                payload_sq=True)))
     return time_ms(lambda: kernels._xt_scatter(lib, payload, xt, name,
                                                scale=scale))
 
@@ -1144,12 +1163,12 @@ def main() -> int:
         print(f"[build] {kernels.library_path().name} in "
               f"{kernels.build_seconds:.2f} s")
         regs = kernel_registers(str(kernels.library_path()))
-        for (kname, dt_name, diag, targs), (n, shared) in sorted(
+        for (kname, dt_name, diag, targs), (n, shared, stack) in sorted(
                 (regs or {}).items()):
             plan = f"<{','.join(map(str, targs))}>" if targs else ""
             print(f"[build] {kname}{plan}{' (Jacobi)' if diag else ''} "
                   f"{dt_name}: {n} registers per thread, {shared} bytes of "
-                  "static shared memory")
+                  f"static shared memory, {stack} bytes of stack")
         if regs is None:
             print("[build] registers per thread: not measured (no "
                   "cuobjdump)")

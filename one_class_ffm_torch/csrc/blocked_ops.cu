@@ -11,11 +11,11 @@
 // stream `rows` is row-major (n_blocks, MAXC, k); `own` (n_blocks, MAXC)
 // names each slot's row inside its block of `block_rows` rows, with the pad
 // marker own == block_rows.  Within a block `own` is non-decreasing and pads
-// come last, so the slots of one row form one contiguous run.  B1 and B2
-// read each row's run from the static run pointer `runs` (layout.row_runs,
-// built once with the layout); B3 reads each slot's owner.  The per-row sums
-// need no atomics and run in a fixed order: two launches on the same input
-// give the same bits.
+// come last, so the slots of one row form one contiguous run.  B1-B3 read
+// each row's run from the static run pointer `runs` (layout.row_runs, built
+// once with the layout); B3's plain-load path reads each slot's owner.  The
+// per-row sums need no atomics and run in a fixed order: two launches on
+// the same input give the same bits.
 //
 // Every kernel reads storage-dtype values (f32 or bf16), accumulates in f32
 // and writes storage dtype, with the rounding points of the TPU kernels
@@ -26,11 +26,10 @@
 //
 // All three kernels stream `rows` once per call and do O(k) flops per
 // loaded element: they are bound by device-memory bandwidth, not by the
-// tensor cores.  B3 keeps every load of `rows` coalesced (lanes over k, 128
-// bytes per warp-row at k=32 f32); B1 and B2 bring their rows' span into
-// shared memory with bulk copies (common.cuh, below).  Each reads the stream exactly
-// once; phi/dP/out rows are touched once per output row or slot.  Offsets
-// are 64-bit: n_blocks * MAXC * k passes 2^31 at web-scale configurations.
+// tensor cores.  Each brings its CTA's span of the stream into shared
+// memory with bulk copies (common.cuh) and reads it exactly once; phi/dP
+// rows are read once per row, out once per row or slot.  Offsets are
+// 64-bit: n_blocks * MAXC * k passes 2^31 at web-scale configurations.
 
 #include "common.cuh"
 
@@ -73,7 +72,8 @@ struct PosHvLaunch {
     if constexpr (VE > 1 && G * NV * VE > 32) {
       return (int)cudaErrorInvalidValue;  // hv_staged admits k <= 32 only
     } else {
-      const HvGrid g = hv_grid<T, G, VE>(n_blocks, k, block_rows);
+      const HvGrid g = hv_grid<T, G, VE, true>(
+          n_blocks, k, block_rows);
       pos_hv_kernel<T, G, NV, VE><<<g.grid, kHvThreads, g.smem, st>>>(
           phi, rows, runs, w, dense, out, maxc, k, block_rows, w_scale,
           g.stage_slots);
@@ -278,34 +278,131 @@ struct ScatterLaunch {
   }
 };
 
-// Replaces pos_gap_kt_pallas / _gap_kt_kernel.  One warp per slot t (grid-
-// stride), lanes over k:  gap_t = <dP[own_t], rows_t>, written flat in slot
-// order; pad slots get exactly 0.
+// ---------------------------------------------------------------------------
+// B3, the residual gap after a step.  Replaces pos_gap_kt_pallas /
+// _gap_kt_kernel:
+//   gap_t = storage(<dP[own_t], rows_t>)  for every slot, pads +0,
+// flat in slot order, the dot in _lane_dot's order.  It is B1's slot
+// coefficient with phi = dP and no weight, so on the staged path it runs
+// B1's stage loop (common.cuh HvSpan, without the weight column): each row's
+// group loads its row of dP once, every group takes batches of a stage's
+// slots whichever rows own them, and the stage's gaps leave shared memory
+// in slot order with coalesced stores.  A CTA writes only the slots of its
+// own span (the bulk copies' 8-slot widening reaches into its neighbours');
+// the last CTA of each block writes the block's pads (+0), a block without
+// rows included.
+//
+// What bounds it on the H100: bytes, the stream once (124 MB on the u side
+// at the headline shapes) plus dP and the gaps.  The warp per slot it
+// replaces on these shapes ran one dependent chain per slot (the owner and
+// a 64-bit division, then the dP row and the slot's row, five shuffles, one
+// store) and read dP[own] again for every slot of a run (4.4 slots per row
+// on the u side, 44 on the v side).
+//
+// Geometry: B1's CTAs of kHvThreads threads, a group of lanes per row, with
+// stages of about kGapStageBytes of the stream.  On the H100 at k = 32 f32
+// (the u and v streams), 4 KB stages ran the u side fastest of CTAs of 64,
+// 128 and 256 threads with 2, 4, 8 or 16 KB stages: B3 copies no weight
+// column and holds no accumulator rows, and smaller stages let more CTAs
+// share an SM (8 rows of 4.4 slots on average span ~35 slots, ~4.5 KB).
+//
+// The plain-load path (k > 32, MAXC % 8 != 0 or unaligned rows) keeps the
+// warp per slot, gap_slots_kernel: lanes over k, each lane summing columns
+// l, l + 32, ... in turn, then the butterfly (warp_sum), _lane_dot's order;
+// the lane sum starts at -0, the identity of the sum, so that a lane whose
+// every product is -0 holds -0 as _lane_dot's does.
+// ---------------------------------------------------------------------------
+
+constexpr int kGapStageBytes = 4096;
+
+template <typename T, int G, int NV, int VE>
+__global__ void __launch_bounds__(kHvThreads)
+gap_rows_kernel(const T* __restrict__ dP, const T* __restrict__ rows,
+                const int* __restrict__ runs, T* __restrict__ out, int maxc,
+                int k, int block_rows, int stage_slots) {
+  constexpr int kRows = kHvThreads / G;
+  const int lane = threadIdx.x % G;
+  const int grp = threadIdx.x / G;
+  const int64_t blk = blockIdx.x;
+  const int r0 = blockIdx.y * kRows;
+  const int r = r0 + grp;
+  const int* runs_b = runs + blk * (block_rows + 1);
+  extern __shared__ __align__(128) unsigned char gap_smem[];
+  __shared__ uint64_t full[kStages];
+  HvSpan<T, kRows, false> sp(gap_smem, full, rows + blk * maxc * k, nullptr,
+                             k, stage_slots);
+  sp.begin(runs_b, r0, block_rows);
+  float ph[NV][VE];
+  RowPhi<T>{dP, k}.template load<G, NV, VE>(r < block_rows,
+                                            blk * block_rows + r, lane, ph);
+  sp.template keep_phi<G, NV, VE>(grp, lane, ph);
+  __syncthreads();  // dP, the runs and the initialised barriers are visible
+  T* out_b = out + blk * maxc;
+  sp.template run<G, VE>(lane, grp, group_mask<G>(), 1.f,
+                         [&](const T*, int ws, int lo, int hi) {
+                           for (int t = lo + (int)threadIdx.x; t < hi;
+                                t += kHvThreads)
+                             out_b[t] = from_f<T>(sp.coef_s[t - ws]);
+                         });
+  if (blockIdx.y == gridDim.y - 1)  // the block's pads, from its last run on
+    for (int t = sp.e + (int)threadIdx.x; t < maxc; t += kHvThreads)
+      out_b[t] = from_f<T>(0.f);
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)
-pos_gap_kernel(const T* __restrict__ dP, const T* __restrict__ rows,
-               const int* __restrict__ own, T* __restrict__ out,
-               int64_t n_slots, int maxc, int k, int block_rows) {
+gap_slots_kernel(const T* __restrict__ dP, const T* __restrict__ rows,
+                 const int* __restrict__ own, T* __restrict__ out,
+                 int64_t n_slots, int maxc, int k, int block_rows) {
   const int lane = threadIdx.x & 31;
   const int64_t n_warps = (int64_t)gridDim.x * kWarps;
   for (int64_t t = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
        t < n_slots; t += n_warps) {
     const int o = own[t];
-    float dot = 0.f;
+    float dot = 0.f;  // a pad's gap
     if (o < block_rows) {  // uniform across the warp
       const int64_t row = (t / maxc) * block_rows + o;
       const T* rt = rows + t * k;
       const T* dr = dP + row * k;
+      float x = -0.f;
 #pragma unroll
       for (int j = 0; j < kMaxKPerLane; ++j) {
         const int c = j * 32 + lane;
-        if (c < k) dot = __fadd_rn(dot, __fmul_rn(to_f(dr[c]), to_f(rt[c])));
+        if (j * 32 < k)  // a column past k adds +0, as _lane_dot's padding
+          x = __fadd_rn(x, c < k ? __fmul_rn(to_f(dr[c]), to_f(rt[c])) : 0.f);
       }
-      dot = warp_sum(dot);
+      dot = warp_sum(x);
     }
     if (lane == 0) out[t] = from_f<T>(dot);
   }
 }
+
+template <typename T>
+struct GapLaunch {
+  const T* dP;
+  const T* rows;
+  const int *own, *runs;
+  T* out;
+  long long n_blocks;
+  int maxc, k, block_rows;
+  cudaStream_t st;
+  template <int G, int NV, int VE>
+  int run() const {
+    if constexpr (VE == 1) {
+      const long long n_slots = n_blocks * (long long)maxc;
+      gap_slots_kernel<T><<<warp_grid(n_slots), kWarps * 32, 0, st>>>(
+          dP, rows, own, out, n_slots, maxc, k, block_rows);
+    } else if constexpr (G * NV * VE > 32) {
+      return (int)cudaErrorInvalidValue;  // hv_staged admits k <= 32 only
+    } else {
+      const HvGrid g = hv_grid<T, G, VE, false>(n_blocks, k, block_rows,
+                                                kGapStageBytes);
+      gap_rows_kernel<T, G, NV, VE><<<g.grid, kHvThreads, g.smem, st>>>(
+          dP, rows, runs, out, maxc, k, block_rows, g.stage_slots);
+    }
+    return (int)cudaGetLastError();
+  }
+};
 
 }  // namespace
 
@@ -347,15 +444,17 @@ int ocffm_pos_scatter_blocked(int dtype, const void* c, const void* rows,
       (T*)out, (T*)outq, n_blocks, maxc, k, block_rows, st}));
 }
 
+// runs: (n_blocks, block_rows + 1) row runs of slots (the staged path);
+// own: the slots' owners (the plain-load path)
 int ocffm_pos_gap_blocked(int dtype, const void* dP, const void* rows,
-                          const void* own, void* out, long long n_blocks,
-                          int maxc, int k, int block_rows, void* stream) {
-  const long long n_slots = n_blocks * (long long)maxc;
-  cudaStream_t st = (cudaStream_t)stream;
-  OCFFM_BY_DTYPE(dtype, pos_gap_kernel<T><<<warp_grid(n_slots), kWarps * 32, 0, st>>>(
-      (const T*)dP, (const T*)rows, (const int*)own, (T*)out, n_slots, maxc,
-      k, block_rows));
-  return (int)cudaGetLastError();
+                          const void* own, const void* runs, void* out,
+                          long long n_blocks, int maxc, int k, int block_rows,
+                          void* stream) {
+  const void* ptrs[] = {dP, rows};
+  const bool staged = hv_staged(k, maxc, dtype == kF32 ? 4 : 2, ptrs, 2);
+  OCFFM_BY_DTYPE(dtype, return by_width<T>(k, staged, GapLaunch<T>{
+      (const T*)dP, (const T*)rows, (const int*)own, (const int*)runs,
+      (T*)out, n_blocks, maxc, k, block_rows, (cudaStream_t)stream}));
 }
 
 }  // extern "C"

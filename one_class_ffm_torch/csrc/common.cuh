@@ -6,7 +6,8 @@
 // dispatch of a launch, the rows of a width fixed at compile time (vector
 // loads and stores, and the dispatch over width plans) that the X^T stage,
 // B2 and the blocked Hv use, the shared-memory stages that bulk
-// asynchronous copies fill (B2 and the blocked Hv), the blocked Hv of a
+// asynchronous copies fill (B2, and the stage loop over a CTA's span of the
+// stream, HvSpan, that B1, B3 and B4's row stage run), the blocked Hv of a
 // CTA's rows on a width plan (B1 and B4's row stage), and the projection
 // phi = X V of a row by a group of lanes with the loop that walks a
 // group's rows (B8, B6's row stage; B4's stage 1).  Every product and sum is
@@ -410,15 +411,16 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       : "memory");
 }
 
-// slots per shared-memory stage for rows of `row_bytes`: about kStageBytes
-// of the stream, a multiple of 8 slots
-inline int stage_slots_for(int row_bytes) {
-  const int n = (kStageBytes / row_bytes) & ~7;
+// slots per shared-memory stage for rows of `row_bytes`: about
+// `stage_bytes` of the stream, a multiple of 8 slots
+inline int stage_slots_for(int row_bytes, int stage_bytes = kStageBytes) {
+  const int n = (stage_bytes / row_bytes) & ~7;
   return n > 8 ? n : 8;
 }
 
 // ---------------------------------------------------------------------------
-// The blocked Hv of a CTA's rows on a width plan (B1, and B4's row stage):
+// The blocked Hv of a CTA's rows on a width plan (B1, and B4's row stage;
+// B3 runs its stage loop, HvSpan, for the slot dots alone):
 // for row r of block b,
 //   out[r] = sum_{t: own_t = r} (w_scale * w_t) * pq_t * rows_t
 //            + phi[r] @ dense,        pq_t = storage(<phi[r], rows_t>)
@@ -719,13 +721,15 @@ struct ProjectedPhi {
   }
 };
 
-// Phase 1 of a stage on the staged path: the coefficients coef_t =
-// storage(<phi[own_t], rows_t>) * (w_scale * w_t) of the CTA's slots [lo,
-// hi) in the stage (slot t at offset t - ws), written to coef_s.  Every
-// group takes batches of D consecutive slots in turn, whichever rows own
-// them, so a stage that holds one or two rows' long runs keeps all groups
-// busy.  Slot t's row within the CTA is the last g with runs_s[g] <= t.
-template <typename T, int G, int VE, int kRows>
+// Phase 1 of a stage on the staged path: the slot values of the CTA's slots
+// [lo, hi) in the stage (slot t at offset t - ws), written to coef_s:
+// storage(<phi[own_t], rows_t>), times (w_scale * w_t) where kWeighted (B1,
+// B4: the coefficient of the slot's row), as it is otherwise (B3: the gap).
+// Every group takes batches of D consecutive slots in turn, whichever rows
+// own them, so a stage that holds one or two rows' long runs keeps all
+// groups busy.  Slot t's row within the CTA is the last g with runs_s[g] <=
+// t.
+template <typename T, int G, int VE, int kRows, bool kWeighted>
 __device__ __forceinline__ void hv_stage_dots(
     const T* buf, const T* buf_w, int ws, int lo, int hi, int k, int lane,
     int grp, unsigned gmask, float w_scale, const int* runs_s,
@@ -744,7 +748,7 @@ __device__ __forceinline__ void hv_stage_dots(
       if (t < hi) {
         const int o = t - ws;
         if (c0 < k) raw[j] = load_raw<T, VE>(buf + (int64_t)o * k + c0);
-        wt[j] = __fmul_rn(w_scale, to_f(buf_w[o]));
+        if constexpr (kWeighted) wt[j] = __fmul_rn(w_scale, to_f(buf_w[o]));
         int g = 0;
 #pragma unroll
         for (int step = kRows / 2; step > 0; step >>= 1)
@@ -778,8 +782,10 @@ __device__ __forceinline__ void hv_stage_dots(
     if (lane == 0) {
 #pragma unroll
       for (int j = 0; j < D; ++j)
-        if (t0 + j < hi)
-          coef_s[t0 + j - ws] = __fmul_rn(rnd<T>(x[j][0]), wt[j]);
+        if (t0 + j < hi) {
+          const float dot = rnd<T>(x[j][0]);
+          coef_s[t0 + j - ws] = kWeighted ? __fmul_rn(dot, wt[j]) : dot;
+        }
     }
   }
 }
@@ -814,14 +820,119 @@ __device__ __forceinline__ void hv_stage_adds(const T* buf,
   }
 }
 
-// The CTA body: CTA (b, y) owns rows [y * kRows, (y + 1) * kRows) of block
-// b, a group of G lanes per row, and writes each row's result once at
-// storage dtype.  Dynamic shared memory (hv_grid): the stage ring (each
-// stage `stage_slots` rows of the stream, then their weights), the CTA's
-// phi rows (f32, stride k + 4, so that the groups of a warp read different
-// banks), then on the staged path the stage's coefficients (f32) and the
-// CTA's row runs.  dense (k x k, 4 KB at k = 32 f32) is read through L1,
-// which the SM's CTAs share.
+// A CTA's share of the blocked stream on the staged path, and the stage
+// loop over it (hv_rows: B1 and B4's row stage; B3's gap_rows_kernel).  CTA
+// (b, y) owns the kRows rows [y * kRows, (y + 1) * kRows) of block b, a
+// group of lanes per row; their runs are one contiguous span of slots [s,
+// e), read from the static run pointer (no search).  Thread 0 streams the
+// span, widened to whole 8-slot groups, through a ring of kStages stages of
+// `slots` slots with bulk copies: each stage the slots' rows of the stream,
+// then, kWeighted, their weights.  Each stage runs in two phases: (1) every
+// group computes slot values of the stage (hv_stage_dots), (2) the caller's
+// phase2(buf, ws, lo, hi) uses them, the values of slots [lo, hi) in
+// coef_s[t - ws]; then the buffer is refilled.  Dynamic shared memory, in
+// order (bytes()): the ring, the rows' phi (f32, stride k + 4, so that the
+// groups of a warp read different banks), a stage's slot values (f32) and
+// the CTA's row runs.
+template <typename T, int kRows, bool kWeighted>
+struct HvSpan {
+  T* ring;
+  uint64_t* full;
+  float* phi_s;
+  float* coef_s;
+  int* runs_s;
+  const T* rows_b;
+  const T* w_b;
+  int k, kp, slots, elems;
+  int s = 0, e = 0, w0 = 0, n_st = 0;
+
+  static size_t bytes(int k, int slots) {
+    return (size_t)kStages * slots * (k + (kWeighted ? 1 : 0)) * sizeof(T) +
+           ((size_t)kRows * (k + 4) + slots + kRows + 1) * sizeof(float);
+  }
+
+  __device__ __forceinline__ HvSpan(unsigned char* smem, uint64_t* full_,
+                                    const T* rows_b_, const T* w_b_, int k_,
+                                    int slots_)
+      : full(full_), rows_b(rows_b_), w_b(w_b_), k(k_), kp(k_ + 4),
+        slots(slots_), elems(slots_ * (k_ + (kWeighted ? 1 : 0))) {
+    ring = reinterpret_cast<T*>(smem);
+    phi_s = reinterpret_cast<float*>(ring + kStages * elems);
+    coef_s = phi_s + kRows * kp;
+    runs_s = reinterpret_cast<int*>(coef_s + slots);
+  }
+
+  // stage j of the span into its buffer (thread 0)
+  __device__ __forceinline__ void issue(int j) const {
+    const int ws = w0 + j * slots;
+    const int w1 = (e + 7) & ~7;
+    const int n = min(slots, w1 - ws);  // a multiple of 8 slots
+    T* buf = ring + (j % kStages) * elems;
+    uint64_t* bar = &full[j % kStages];
+    const uint32_t row_bytes = (uint32_t)n * k * sizeof(T);
+    const uint32_t col_bytes = kWeighted ? (uint32_t)n * sizeof(T) : 0u;
+    mbar_expect_tx(bar, row_bytes + col_bytes);
+    bulk_load(buf, rows_b + (int64_t)ws * k, row_bytes, bar);
+    if constexpr (kWeighted)
+      bulk_load(buf + slots * k, w_b + ws, col_bytes, bar);
+  }
+
+  // the span of rows [r0, r0 + kRows) of the block whose runs are runs_b:
+  // thread 0 initialises the barriers and issues the first stages, every
+  // thread copies the CTA's runs (visible after the next __syncthreads)
+  __device__ __forceinline__ void begin(const int* runs_b, int r0,
+                                        int block_rows) {
+    s = runs_b[r0];
+    e = runs_b[min(r0 + kRows, block_rows)];
+    w0 = s & ~7;
+    n_st = s < e ? (((e + 7) & ~7) - w0 + slots - 1) / slots : 0;
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < kStages; ++i) mbar_init(&full[i]);
+      mbar_init_fence();
+      for (int j = 0; j < min(kStages, n_st); ++j) issue(j);
+    }
+    for (int i = threadIdx.x; i <= kRows; i += blockDim.x)
+      runs_s[i] = runs_b[min(r0 + i, block_rows)];
+  }
+
+  // the row's phi (ph: the group's lanes' values, zero past k) into phi_s
+  template <int G, int NV, int VE>
+  __device__ __forceinline__ void keep_phi(int grp, int lane,
+                                           const float (&ph)[NV][VE]) const {
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const int c0 = (v * G + lane) * VE;
+      if (c0 < k)
+#pragma unroll
+        for (int i = 0; i < VE; ++i) phi_s[grp * kp + c0 + i] = ph[v][i];
+    }
+  }
+
+  template <int G, int VE, typename Phase2>
+  __device__ __forceinline__ void run(int lane, int grp, unsigned gmask,
+                                      float w_scale, Phase2&& phase2) const {
+    for (int j = 0; j < n_st; ++j) {
+      mbar_wait(&full[j % kStages], (uint32_t)(j / kStages) & 1u);
+      const int ws = w0 + j * slots;
+      const int lo = max(s, ws), hi = min(e, ws + slots);
+      const T* buf = ring + (j % kStages) * elems;
+      hv_stage_dots<T, G, VE, kRows, kWeighted>(
+          buf, buf + slots * k, ws, lo, hi, k, lane, grp, gmask, w_scale,
+          runs_s, phi_s, kp, coef_s);
+      __syncthreads();  // the stage's slot values are written
+      phase2(buf, ws, lo, hi);
+      __syncthreads();  // every thread is done with buffer j % kStages
+      if (threadIdx.x == 0 && j + kStages < n_st) issue(j + kStages);
+    }
+  }
+};
+
+// The CTA body of B1 and B4's row stage: a group of G lanes per row (HvSpan
+// above), each row's result written once at storage dtype.  On the staged
+// path phase 2 of each stage has each row's group add its slots in order;
+// the plain-load path (hv_slots) reads each row's run from device memory.
+// dense (k x k, 4 KB at k = 32 f32) is read through L1, which the SM's CTAs
+// share.
 template <typename T, int G, int NV, int VE, typename Phi>
 __device__ __forceinline__ void hv_rows(const Phi& phi_of,
                                         const T* __restrict__ rows,
@@ -852,50 +963,14 @@ __device__ __forceinline__ void hv_rows(const Phi& phi_of,
 
   extern __shared__ __align__(128) unsigned char hv_smem[];
   __shared__ uint64_t full[kStages];
-  T* sm = reinterpret_cast<T*>(hv_smem);
-  const int stage_elems = stage_slots * (k + 1);
-  const int kp = k + 4;
-  float* phi_s = reinterpret_cast<float*>(sm + kStages * stage_elems);
-  float* coef_s = phi_s + kRows * kp;
-  int* runs_s = reinterpret_cast<int*>(coef_s + stage_slots);
-
-  // the span of the CTA's rows, widened to whole 8-slot groups
-  const int s = kStaged ? runs_b[r0] : 0;
-  const int e = kStaged ? runs_b[min(r0 + kRows, block_rows)] : 0;
-  const int w0 = s & ~7, w1 = (e + 7) & ~7;
-  const int n_st = s < e ? (w1 - w0 + stage_slots - 1) / stage_slots : 0;
-  auto issue = [&](int j) {  // thread 0: stage j into its buffer
-    const int ws = w0 + j * stage_slots;
-    const int n = min(stage_slots, w1 - ws);  // a multiple of 8 slots
-    T* buf = sm + (j % kStages) * stage_elems;
-    uint64_t* bar = &full[j % kStages];
-    const uint32_t row_bytes = (uint32_t)n * k * sizeof(T);
-    const uint32_t col_bytes = (uint32_t)n * sizeof(T);
-    mbar_expect_tx(bar, row_bytes + col_bytes);
-    bulk_load(buf, rows_b + (int64_t)ws * k, row_bytes, bar);
-    bulk_load(buf + stage_slots * k, w_b + ws, col_bytes, bar);
-  };
-  if constexpr (kStaged) {
-    if (threadIdx.x == 0) {
-      for (int i = 0; i < kStages; ++i) mbar_init(&full[i]);
-      mbar_init_fence();
-      for (int j = 0; j < min(kStages, n_st); ++j) issue(j);
-    }
-    for (int i = threadIdx.x; i <= kRows; i += kHvThreads)
-      runs_s[i] = runs_b[min(r0 + i, block_rows)];
-  }
+  HvSpan<T, kRows, true> sp(hv_smem, full, rows_b, w_b, k, stage_slots);
+  if constexpr (kStaged) sp.begin(runs_b, r0, block_rows);
 
   // while the first stages are in flight: the row's phi, into registers
   // and shared memory
   float ph[NV][VE];
   phi_of.template load<G, NV, VE>(live, row, lane, ph);
-#pragma unroll
-  for (int v = 0; v < NV; ++v) {
-    const int c0 = (v * G + lane) * VE;
-    if (c0 < k)
-#pragma unroll
-      for (int i = 0; i < VE; ++i) phi_s[grp * kp + c0 + i] = ph[v][i];
-  }
+  sp.template keep_phi<G, NV, VE>(grp, lane, ph);
   __syncthreads();  // phi, the runs and the initialised barriers are visible
 
   float acc[NV][VE];
@@ -907,26 +982,18 @@ __device__ __forceinline__ void hv_rows(const Phi& phi_of,
     hv_slots<T, G, NV, VE>(rows_b, w_b, rs, re, k, lane, gmask, w_scale, ph,
                            acc);
   } else {
-    for (int j = 0; j < n_st; ++j) {
-      mbar_wait(&full[j % kStages], (uint32_t)(j / kStages) & 1u);
-      const int ws = w0 + j * stage_slots;
-      const T* buf = sm + (j % kStages) * stage_elems;
-      hv_stage_dots<T, G, VE, kRows>(buf, buf + stage_slots * k, ws,
-                                     max(s, ws), min(e, ws + stage_slots), k,
-                                     lane, grp, gmask, w_scale, runs_s, phi_s,
-                                     kp, coef_s);
-      __syncthreads();  // the stage's coefficients are written
-      if (lane * VE < k)
-        hv_stage_adds<T, VE>(buf, coef_s, ws, max(rs, ws),
-                             min(re, ws + stage_slots), k, lane * VE, acc[0]);
-      __syncthreads();  // every group is done with buffer j % kStages
-      if (threadIdx.x == 0 && j + kStages < n_st) issue(j + kStages);
-    }
+    sp.template run<G, VE>(
+        lane, grp, gmask, w_scale, [&](const T* buf, int ws, int, int) {
+          if (lane * VE < k)
+            hv_stage_adds<T, VE>(buf, sp.coef_s, ws, max(rs, ws),
+                                 min(re, ws + stage_slots), k, lane * VE,
+                                 acc[0]);
+        });
   }
   if (!live) return;
 
   // dense term: acc[c] += phi[i] * dense[i, c], i ascending
-  const float* pr = phi_s + grp * kp;
+  const float* pr = sp.phi_s + grp * sp.kp;
   if constexpr (kStaged) {
     const int c0 = lane * VE;
     if (c0 < k) {
@@ -966,30 +1033,30 @@ __device__ __forceinline__ void hv_rows(const Phi& phi_of,
   }
 }
 
-// The launch geometry of hv_rows on plan (G, VE): grid (n_blocks, slices
-// of kRows rows), slots per stage (staged path) and dynamic shared memory
-// (under 25 KB for every plan, so no opt-in above the default 48 KB).
+// The launch geometry of an HvSpan kernel (kHvThreads threads) on plan
+// (G, VE): grid (n_blocks, slices of kRows rows), slots per stage (staged
+// path) and dynamic shared memory (under 25 KB for every plan of hv_rows
+// and B3, so no opt-in above the default 48 KB).
 struct HvGrid {
   dim3 grid;
   int stage_slots;
   size_t smem;
 };
 
-template <typename T, int G, int VE>
-inline HvGrid hv_grid(long long n_blocks, int k, int block_rows) {
+template <typename T, int G, int VE, bool kWeighted>
+inline HvGrid hv_grid(long long n_blocks, int k, int block_rows,
+                      int stage_bytes = kStageBytes) {
   constexpr int kRows = kHvThreads / G;
-  const int slots = VE > 1 ? stage_slots_for(k * (int)sizeof(T)) : 0;
-  const size_t smem = (size_t)kStages * slots * (k + 1) * sizeof(T) +
-                      ((size_t)kRows * (k + 4) + slots + kRows + 1) *
-                          sizeof(float);
+  const int slots =
+      VE > 1 ? stage_slots_for(k * (int)sizeof(T), stage_bytes) : 0;
   return {dim3((unsigned)n_blocks, (block_rows + kRows - 1) / kRows), slots,
-          smem};
+          HvSpan<T, kRows, kWeighted>::bytes(k, slots)};
 }
 
-// the staged path of hv_rows applies: whole 16-byte vectors per row, k <=
-// 32 (one lane sum per column), aligned bases (the stream, the weights,
-// dense, phi or V, the output) and MAXC % 8 == 0 (the bulk copies start at
-// 8-slot boundaries of each block's MAXC slots)
+// the staged path of an HvSpan kernel applies: whole 16-byte vectors per
+// row, k <= 32 (one lane sum per column), aligned bases (the stream, the
+// weights, dense, phi or V, the output) and MAXC % 8 == 0 (the bulk copies
+// start at 8-slot boundaries of each block's MAXC slots)
 inline bool hv_staged(int k, int maxc, int elem_bytes, const void* const* ptrs,
                       int n) {
   return k <= 32 && maxc % 8 == 0 && vec_ok(k, elem_bytes, ptrs, n);

@@ -15,16 +15,18 @@
 // not fit in one block's shared memory, so each pass runs in two stages:
 //
 //   1. rows: a group of lanes per data row on a width plan (B4: common.cuh
-//      hv_rows; B6: common.cuh project_rows), one warp per data row (B5,
-//      B7).  It computes the row's payload from the row's X entries, the
-//      table V (read through L2), the blocked positive stream and the
-//      dense terms, and writes it once at storage dtype: the same single
-//      rounding the TPU kernels apply to their zpb / zb block.  phi = X V
-//      never leaves the CTA.  B6's payload is storage(s_i * Q1[i]) with
-//      one scalar s_i per row: its row stage writes s alone, and its X^T
-//      stage forms each gathered payload row from Q1[row] and s[row] (the
-//      same product, rounded once: the same bits), as the TPU kernel never
-//      writes its zpb out either.
+//      hv_rows; B6: common.cuh project_rows), one warp per data row (B5),
+//      a thread per data row (B7).  It computes the row's payload from the
+//      row's X entries, the table V (read through L2), the blocked
+//      positive stream and the dense terms, and writes it once at storage
+//      dtype: the same single rounding the TPU kernels apply to their zpb /
+//      zb block.  phi = X V never leaves the CTA.  B6's and B7's payloads
+//      are storage(s_i * Q1[i]) with one scalar s_i per row (B7: zb_i): their
+//      row stages write the scalar alone, and the X^T stage forms each
+//      gathered payload row from Q1[row] and the scalar (the same product,
+//      rounded once: the same bits), as the TPU kernels never write their
+//      zpb / zb out either; B7's Jacobi payload depends on Q1 and dd alone
+//      and is formed there too.
 //   2. X^T payload: over the field's static feature-major list
 //      (ops/layout.py FeatureMajor) and its plan (layout.xt_plan), in one
 //      launch.  A group of lanes per chunk of at most XT_CHUNK entries of
@@ -45,9 +47,9 @@
 // Bounds on the H100: stage 1 streams the blocked stream `rows` once (as
 // B1/B2 do) and reads each data row's p table rows from L2 (D x k is at
 // most 512 KB); it is bound by device-memory bandwidth.  Stage 2 gathers
-// one payload row (k values, 128 bytes at k=32 f32; for B6 a Q1 row and
-// its scale) per X entry and writes one output row per feature: on FM's u
-// field 600k random 128-byte reads and a 26 MB output, bound by
+// one payload row (k values, 128 bytes at k=32 f32; for B6 and B7 a Q1
+// row and its scale) per X entry and writes one output row per feature: on
+// FM's u field 600k random 128-byte reads and a 26 MB output, bound by
 // device-memory bandwidth once enough reads are in flight, by latency
 // otherwise.  What the design does about it:
 //   - most of FM's features (ids) have one entry and so one chunk; their
@@ -111,7 +113,8 @@ struct HvTblLaunch {
     if constexpr (VE > 1 && G * NV * VE > 32) {
       return (int)cudaErrorInvalidValue;  // hv_staged admits k <= 32 only
     } else {
-      const HvGrid g = hv_grid<T, G, VE>(n_blocks, k, block_rows);
+      const HvGrid g = hv_grid<T, G, VE, true>(
+          n_blocks, k, block_rows);
       hv_tbl_rows_kernel<T, G, NV, VE><<<g.grid, kHvThreads, g.smem, st>>>(
           V, xi, xv, p, d, rows, runs, w, dense, payload, maxc, k,
           block_rows, w_scale, g.stage_slots);
@@ -256,43 +259,50 @@ struct HvSelfLaunch {
 };
 
 // Stage 1 of grad_self_tbl, replacing grad_self_tbl_pallas /
-// _grad_self_tbl_kernel and grad_self_tbl_kt_pallas.  One warp per row r of
-// block b; every lane adds the row's run of slot coefficients in slot
-// order:
-//   payload[r] = storage(zb_r * Q1[r]),
-//   zb_r = storage(zdense[r] + sum_{t: own_t = r} c_t)
-// kDiag (the Jacobi dd output): payload_q[r] = storage(storage(dd_r Q1[r])
-// Q1[r]), which stage 2 scatters through the field's X^2.
-template <typename T, bool kDiag>
-__global__ void __launch_bounds__(kWarps * 32)
-grad_self_tbl_rows_kernel(const T* __restrict__ q1,
-                          const T* __restrict__ zdense,
-                          const T* __restrict__ dd,
-                          const int* __restrict__ own,
-                          const T* __restrict__ c, T* __restrict__ payload,
-                          T* __restrict__ payload_q, int maxc, int k,
-                          int block_rows) {
-  const int lane = threadIdx.x & 31;
-  const int r = blockIdx.y * kWarps + (threadIdx.x >> 5);
-  if (r >= block_rows) return;
-  const int64_t blk = blockIdx.x;
-  const int64_t row = blk * block_rows + r;
-  int s, e;
-  row_run(own + blk * maxc, maxc, r, s, e);
+// _grad_self_tbl_kernel and grad_self_tbl_kt_pallas.  Its payload row
+// storage(zb_r * Q1[r]) has B6's form, one scale per row times Q1, so the
+// row stage writes the scale alone, at storage dtype, one thread per row:
+//   zb_r = storage(zdense[r] + z_r),  z_r = 0 + c_s + ... + c_{e-1}
+// the row's run [s, e) of slot coefficients added in slot order at f32
+// (_run_sums' order), the run read from the static run pointer `runs`.
+// The X^T stage forms storage(zb[row] * Q1[row]) per gathered entry
+// (xt_scaled_kernel), and for the Jacobi dd output storage(storage(dd[row]
+// * Q1[row]) * Q1[row]) through the field's X^2 (xt_scaled_sq_kernel): no
+// payload row is written.  Bound on the H100: bytes, the coefficients, the
+// runs, zdense and zb (~6 MB on FFM's u side at f32).  The warp per row it
+// replaces found each run by two binary searches over the owners, had its
+// 32 lanes add the same run, and wrote a 128-byte payload row per row
+// (25.6 MB, and as much again for the Jacobi payload) that the X^T stage
+// gathered back.  Each thread loads a batch of kZbBatch slots before their
+// ordered adds (runs of 4.4 slots on the u side, 44 on the v side); the
+// warp's runs are one contiguous span of slots, so its loads share lines.
+constexpr int kZbThreads = 256;
+constexpr int kZbBatch = 8;
+
+template <typename T>
+__global__ void __launch_bounds__(kZbThreads)
+grad_self_scale_kernel(const T* __restrict__ zdense,
+                       const int* __restrict__ runs, const T* __restrict__ c,
+                       T* __restrict__ zb, int64_t n_rows, int maxc,
+                       int block_rows) {
+  const int64_t row = (int64_t)blockIdx.x * kZbThreads + threadIdx.x;
+  if (row >= n_rows) return;
+  const int64_t blk = row / block_rows;
+  const int r = (int)(row - blk * block_rows);
+  const int* runs_b = runs + blk * (block_rows + 1);
+  const int s = runs_b[r], e = runs_b[r + 1];
   const T* c_b = c + blk * maxc;
   float z = 0.f;
-  for (int t = s; t < e; ++t) z = __fadd_rn(z, to_f(c_b[t]));
-  const float zb = rnd<T>(__fadd_rn(to_f(zdense[row]), z));
-  float v[kMaxKPerLane], vq[kMaxKPerLane];
+  for (int t0 = s; t0 < e; t0 += kZbBatch) {
+    float ct[kZbBatch];
 #pragma unroll
-  for (int j = 0; j < kMaxKPerLane; ++j) {
-    const int cc = j * 32 + lane;
-    const float q = cc < k ? to_f(q1[row * k + cc]) : 0.f;
-    v[j] = __fmul_rn(zb, q);
-    if constexpr (kDiag) vq[j] = __fmul_rn(rnd<T>(__fmul_rn(to_f(dd[row]), q)), q);
+    for (int j = 0; j < kZbBatch; ++j)
+      if (t0 + j < e) ct[j] = to_f(c_b[t0 + j]);
+#pragma unroll
+    for (int j = 0; j < kZbBatch; ++j)
+      if (t0 + j < e) z = __fadd_rn(z, ct[j]);
   }
-  store_row(payload, row, k, lane, v);
-  if constexpr (kDiag) store_row(payload_q, row, k, lane, vq);
+  zb[row] = from_f<T>(__fadd_rn(to_f(zdense[row]), z));
 }
 
 // VE f32 values from device memory through L2 (cache-global: rows another
@@ -319,11 +329,14 @@ __device__ __forceinline__ void load_f32_cg(const float* p, float (&f)[VE]) {
 // before their ordered adds, the next batch's (row, val) loaded while they
 // are:
 //   sum = 0 + val_s * payload[row_s] + ... in list order           (f32)
-// The payload row comes from a source fixed at compile time: payload[row]
-// (xt_kernel: B4, B5, B7, the general scatter), or for B6 (kScaled,
-// xt_scaled_kernel) storage(scale[row] * payload[row]) with payload = Q1
-// and scale = s, formed per gathered entry: the product B6's row stage
-// would have stored, rounded once, so the same bits.
+// The payload row comes from a source fixed at compile time (XtSource):
+// payload[row] (kPayload, xt_kernel: B4, B5, the general scatter);
+// storage(scale[row] * payload[row]) (kScaled, xt_scaled_kernel: B6 with
+// scale = s, B7 with scale = zb, payload = Q1); storage(storage(scale[row]
+// * payload[row]) * payload[row]) (kScaledSq, xt_scaled_sq_kernel: B7's
+// Jacobi payload with scale = dd, payload = Q1, through X^2).  Each is
+// formed per gathered entry with the roundings of the payload row a row
+// stage would have stored, so the same bits.
 // A chunk of a single-chunk feature f writes `sum` straight to out[f] (the
 // two-stage order adds it to 0.f, which gives the same bits: the sum starts
 // at +0 and so is never -0).  A chunk of a feature with several writes its
@@ -333,13 +346,15 @@ __device__ __forceinline__ void load_f32_cg(const float* p, float (&f)[VE]) {
 // order and resets the ticket for the next launch:
 //   out[f] = 0 + partial[p0] + partial[p0 + 1] + ...                 (f32)
 // The items after the chunks give the features with no entries a zero row.
-// D is half of B2's batch (4 rows at k = 32), the finishing adds take 4
+// D is half of B2's batch (4 rows at k = 32 f32), the finishing adds take 4
 // partial rows per batch, and the kernel is held to 3 CTAs per SM (at most
 // 85 registers): on the H100 at k = 32 f32 that ran FM's and FFM's lists
 // fastest of the batch depths (4, 8, 16) and CTA counts per SM (1 to 4)
 // tried; holding the (row, val) pairs across the group's lanes and
 // shuffling them out per entry was slower than any of them.
-template <typename T, int G, int NV, int VE, bool kScaled>
+enum XtSource { kPayload, kScaled, kScaledSq };
+
+template <typename T, int G, int NV, int VE, XtSource kSrc>
 __device__ __forceinline__ void xt_body(
     const T* __restrict__ payload, const T* __restrict__ scale,
     const int* __restrict__ xf_row, const T* __restrict__ xf_val,
@@ -349,8 +364,13 @@ __device__ __forceinline__ void xt_body(
     const int* __restrict__ slot_feat, int* __restrict__ ticket,
     float* __restrict__ partial, float* __restrict__ out, int k) {
   constexpr int kGroups = kWarps * 32 / G;
-  constexpr int D = batch_depth<T, NV, VE>() > 4 ? batch_depth<T, NV, VE>() / 2
-                                                 : 2;
+  constexpr int D0 = batch_depth<T, NV, VE>() > 4
+                         ? batch_depth<T, NV, VE>() / 2
+                         : 2;
+  // kScaledSq keeps each loaded value beside its scaled product: half the
+  // batch where a lane's values outnumber four (bf16, or NV > 1), so that
+  // it fits the 85 registers without a stack
+  constexpr int D = kSrc == kScaledSq && VE * NV > 4 ? D0 / 2 : D0;
   constexpr int DC = 4;  // partial rows per batch of the finishing adds
   const int lane = threadIdx.x % G;
   // the group's lanes (a warp's groups may run chunks of other lengths)
@@ -393,7 +413,7 @@ __device__ __forceinline__ void xt_body(
       for (int j = 0; j < D; ++j)
         if (b0 + j < e) {
           const T* pr = payload + (int64_t)row_c[j] * k;
-          if constexpr (kScaled) sc[j] = to_f(scale[row_c[j]]);
+          if constexpr (kSrc != kPayload) sc[j] = to_f(scale[row_c[j]]);
 #pragma unroll
           for (int v = 0; v < NV; ++v) {
             const int c0 = (v * G + lane) * VE;
@@ -416,10 +436,14 @@ __device__ __forceinline__ void xt_body(
             if ((v * G + lane) * VE >= k) continue;
             float f[VE];
             unpack(raw[j][v], f);
-            if constexpr (kScaled) {
+            if constexpr (kSrc == kScaled) {
 #pragma unroll
               for (int i = 0; i < VE; ++i)
                 f[i] = rnd<T>(__fmul_rn(sc[j], f[i]));
+            } else if constexpr (kSrc == kScaledSq) {
+#pragma unroll
+              for (int i = 0; i < VE; ++i)
+                f[i] = rnd<T>(__fmul_rn(rnd<T>(__fmul_rn(sc[j], f[i])), f[i]));
             }
 #pragma unroll
             for (int i = 0; i < VE; ++i)
@@ -506,13 +530,19 @@ __device__ __forceinline__ void xt_body(
 
 template <typename T, int G, int NV, int VE>
 __global__ void __launch_bounds__(kWarps * 32, 3) xt_kernel(OCFFM_XT_PARAMS) {
-  xt_body<T, G, NV, VE, false>(OCFFM_XT_ARGS);
+  xt_body<T, G, NV, VE, kPayload>(OCFFM_XT_ARGS);
 }
 
 template <typename T, int G, int NV, int VE>
 __global__ void __launch_bounds__(kWarps * 32, 3)
 xt_scaled_kernel(OCFFM_XT_PARAMS) {
-  xt_body<T, G, NV, VE, true>(OCFFM_XT_ARGS);
+  xt_body<T, G, NV, VE, kScaled>(OCFFM_XT_ARGS);
+}
+
+template <typename T, int G, int NV, int VE>
+__global__ void __launch_bounds__(kWarps * 32, 3)
+xt_scaled_sq_kernel(OCFFM_XT_PARAMS) {
+  xt_body<T, G, NV, VE, kScaledSq>(OCFFM_XT_ARGS);
 }
 
 // grid of a group-per-item grid-stride loop over n items
@@ -535,14 +565,18 @@ struct XtLaunch {
   int* ticket;
   float *partial, *out;
   int k;
+  XtSource src;
   cudaStream_t st;
   template <int G, int NV, int VE>
   int run() const {
     const unsigned grid = group_grid((long long)n_chunks + n_combine, G);
-    if (scale == nullptr) {
+    if (src == kPayload) {
       xt_kernel<T, G, NV, VE><<<grid, kWarps * 32, 0, st>>>(OCFFM_XT_ARGS);
-    } else {
+    } else if (src == kScaled) {
       xt_scaled_kernel<T, G, NV, VE><<<grid, kWarps * 32, 0, st>>>(
+          OCFFM_XT_ARGS);
+    } else {
+      xt_scaled_sq_kernel<T, G, NV, VE><<<grid, kWarps * 32, 0, st>>>(
           OCFFM_XT_ARGS);
     }
     return (int)cudaGetLastError();
@@ -603,40 +637,36 @@ int ocffm_hv_self_tbl_rows(int dtype, const void* V, const void* xi,
       (cudaStream_t)stream}));
 }
 
-// dd == nullptr: the gradient payload alone; otherwise also the Jacobi
-// payload into payload_q.
-int ocffm_grad_self_tbl_rows(int dtype, const void* q1, const void* zdense,
-                             const void* dd, const void* own, const void* c,
-                             void* payload, void* payload_q,
-                             long long n_blocks, int maxc, int k,
-                             int block_rows, void* stream) {
-  const dim3 grid((unsigned)n_blocks, (block_rows + kWarps - 1) / kWarps);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dd == nullptr) {
-    OCFFM_BY_DTYPE(dtype, grad_self_tbl_rows_kernel<T, false><<<grid, kWarps * 32, 0, st>>>(
-        (const T*)q1, (const T*)zdense, nullptr, (const int*)own, (const T*)c,
-        (T*)payload, nullptr, maxc, k, block_rows));
-  } else {
-    OCFFM_BY_DTYPE(dtype, grad_self_tbl_rows_kernel<T, true><<<grid, kWarps * 32, 0, st>>>(
-        (const T*)q1, (const T*)zdense, (const T*)dd, (const int*)own,
-        (const T*)c, (T*)payload, (T*)payload_q, maxc, k, block_rows));
-  }
+// zb (n_rows,) at storage dtype: each row's scale of Q1[row];
+// runs: (n_blocks, block_rows + 1) row runs of slots
+int ocffm_grad_self_tbl_rows(int dtype, const void* zdense, const void* runs,
+                             const void* c, void* zb, long long n_rows,
+                             int maxc, int block_rows, void* stream) {
+  const unsigned grid = (unsigned)((n_rows + kZbThreads - 1) / kZbThreads);
+  OCFFM_BY_DTYPE(dtype, grad_self_scale_kernel<T><<<grid, kZbThreads, 0,
+                                                    (cudaStream_t)stream>>>(
+      (const T*)zdense, (const int*)runs, (const T*)c, (T*)zb, n_rows, maxc,
+      block_rows));
   return (int)cudaGetLastError();
 }
 
 // out (d, k) f32 = X^T payload through the feature-major list and its plan
-// (combine, chunk_dst, slot_feat); with `scale` (B6) the payload row of an
-// entry is storage(scale[row] * payload[row]).  `partial` holds a row of k
-// floats for each chunk whose chunk_dst is >= 0; `ticket` holds one int per
-// feature, zero before and after each launch.
+// (combine, chunk_dst, slot_feat); source 0: the payload rows; 1 (B6, B7)
+// storage(scale[row] * payload[row]) per entry; 2 (B7's Jacobi payload)
+// storage(storage(scale[row] * payload[row]) * payload[row]).  `partial`
+// holds a row of k floats for each chunk whose chunk_dst is >= 0; `ticket`
+// holds one int per feature, zero before and after each launch.
 int ocffm_xt_scatter(int dtype, const void* payload, const void* scale,
-                     const void* xf_row, const void* xf_val,
+                     int source, const void* xf_row, const void* xf_val,
                      const void* chunk_ptr,
                      const void* chunk_dst, int n_chunks, const void* feat_ptr,
                      const void* combine, int n_combine,
                      const void* slot_feat, void* ticket, int k,
                      void* partial, void* out, void* stream) {
   if (n_chunks + n_combine == 0) return 0;
+  if (source < kPayload || source > kScaledSq ||
+      (source != kPayload && scale == nullptr))
+    return (int)cudaErrorInvalidValue;
   const void* ptrs[] = {payload, out, partial};
   const bool vec = vec_ok(k, dtype == kF32 ? 4 : 2, ptrs, 3);
   cudaStream_t st = (cudaStream_t)stream;
@@ -645,7 +675,7 @@ int ocffm_xt_scatter(int dtype, const void* payload, const void* scale,
       (const T*)xf_val, (const int*)chunk_ptr, (const int*)chunk_dst, n_chunks,
       (const int*)feat_ptr, (const int*)combine, n_combine,
       (const int*)slot_feat, (int*)ticket, (float*)partial, (float*)out, k,
-      st}));
+      (XtSource)source, st}));
 }
 
 }  // extern "C"

@@ -143,7 +143,7 @@ def load() -> ctypes.CDLL:
         i32, vp, vp, vp, vp, f32, vp, vp, i64, i32, i32, i32, vp]
     lib.ocffm_pos_scatter_blocked.restype = i32
     lib.ocffm_pos_gap_blocked.argtypes = [
-        i32, vp, vp, vp, vp, i64, i32, i32, i32, vp]
+        i32, vp, vp, vp, vp, vp, i64, i32, i32, i32, vp]
     lib.ocffm_pos_gap_blocked.restype = i32
     lib.ocffm_pos_hv_tbl_rows.argtypes = [
         i32, vp, vp, vp, i32, i32, vp, vp, vp, vp, vp, i64, i32, i32, i32,
@@ -153,10 +153,10 @@ def load() -> ctypes.CDLL:
     lib.ocffm_hv_self_tbl_rows.argtypes = [
         i32, vp, vp, vp, i32, i32, vp, vp, vp, i64, i32, vp]
     lib.ocffm_grad_self_tbl_rows.argtypes = [
-        i32, vp, vp, vp, vp, vp, vp, vp, i64, i32, i32, i32, vp]
+        i32, vp, vp, vp, vp, i64, i32, i32, vp]
     lib.ocffm_xt_scatter.argtypes = [
-        i32, vp, vp, vp, vp, vp, vp, i32, vp, vp, i32, vp, vp, i32, vp, vp,
-        vp]
+        i32, vp, vp, i32, vp, vp, vp, vp, i32, vp, vp, i32, vp, vp, i32, vp,
+        vp, vp]
     lib.ocffm_project.argtypes = [i32, vp, vp, vp, vp, i64, i32, i32, i32, vp]
     lib.ocffm_pos_hv_packed.argtypes = [
         i32, vp, vp, vp, vp, vp, vp, i64, i32, i32, f32, vp]
@@ -322,17 +322,30 @@ def pos_scatter_blocked_diag(c_blk, rows, own, num_out: int, block_rows: int,
                             num_out, block_rows, w_blk, wq_scale, runs)
 
 
-def pos_gap_blocked(dP, rows, own, block_rows: int) -> torch.Tensor:
+def pos_gap_blocked(dP, rows, own, block_rows: int,
+                    runs=None) -> torch.Tensor:
+    """B3: gap_t = storage(<dP[own_t], rows_t>) flat in slot order, every
+    slot written, pads +0 (see ``_gap_into``)."""
+    out = torch.empty((own.numel(),), dtype=rows.dtype, device=rows.device)
+    _gap_into(out, dP, rows, own, block_rows, runs)
+    _launches["pos_gap_blocked"] += 1
+    return out
+
+
+def _gap_into(out, dP, rows, own, block_rows: int, runs=None) -> None:
+    """B3 into ``out`` (n_blocks * MAXC,): the staged kernel reads each
+    row's run from ``runs`` (see ``_row_runs``), the plain-load path (k >
+    32, MAXC % 8 != 0, unaligned rows) reads ``own``."""
     lib, nb, maxc, k = _stream_rows(rows, own, block_rows)
     dev, dt = rows.device, rows.dtype
     _check("dP", dP, dt, (nb * block_rows, k), dev)
-    out = torch.empty((nb * maxc,), dtype=dt, device=dev)
+    _check("out", out, dt, (nb * maxc,), dev)
+    runs = _row_runs(runs, own, block_rows)
     err = lib.ocffm_pos_gap_blocked(
         _DTYPE_CODE[dt], dP.data_ptr(), rows.data_ptr(), own.data_ptr(),
-        out.data_ptr(), nb, maxc, k, block_rows, _stream(dev))
+        runs.data_ptr(), out.data_ptr(), nb, maxc, k, block_rows,
+        _stream(dev))
     _raise_on(err, "pos_gap_blocked")
-    _launches["pos_gap_blocked"] += 1
-    return out
 
 
 # ---------------------------------------------------------------------------
@@ -438,11 +451,14 @@ def _xt_inputs(xt: FeatureMajor, dt, dev, squared: bool,
 
 def _xt_scatter(lib, payload: torch.Tensor, xt: FeatureMajor,
                 name: str, squared: bool = False,
-                scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                scale: Optional[torch.Tensor] = None,
+                payload_sq: bool = False) -> torch.Tensor:
     """(d, k) float32 = X^T payload (X^2 with ``squared``: the list's
     squared values) through the feature-major list and its plan; with
     ``scale`` (rows,) the payload row of an entry is storage(scale[row] *
-    payload[row]), formed in the kernel (B6)."""
+    payload[row]) (B6, B7), with ``payload_sq`` as well
+    storage(storage(scale[row] * payload[row]) * payload[row]) (B7's Jacobi
+    payload), formed in the kernel."""
     dev, dt = payload.device, payload.dtype
     rows, k = payload.shape
     if xt.n_rows != rows:
@@ -450,12 +466,15 @@ def _xt_scatter(lib, payload: torch.Tensor, xt: FeatureMajor,
                          f"{xt.n_rows} rows, the payload has {rows}")
     if scale is not None:
         _check("scale", scale, dt, (rows,), dev)
+    elif payload_sq:
+        raise ValueError(f"{name}: a squared payload needs its scale")
     p = _xt_inputs(xt, dt, dev, squared, name)
     row, vals, chunk_ptr, chunk_dst, feat_ptr, combine, slot_feat, \
         tickets = p.ptrs
     out = torch.empty((p.d, k), dtype=torch.float32, device=dev)
+    source = 0 if scale is None else 2 if payload_sq else 1
     err = lib.ocffm_xt_scatter(
-        _DTYPE_CODE[dt], payload.data_ptr(), _ptr(scale), row, vals,
+        _DTYPE_CODE[dt], payload.data_ptr(), _ptr(scale), source, row, vals,
         chunk_ptr, chunk_dst,
         p.n_chunks, feat_ptr, combine, p.n_combine, slot_feat, tickets, k,
         p.partial(k).data_ptr(), out.data_ptr(), _stream(dev))
@@ -564,10 +583,14 @@ def hv_self_tbl(V, x_idx, x_val, xt, Q1, dd) -> torch.Tensor:
     return out
 
 
-def _grad_self_tbl(xt, Q1, zdense, own, c_blk, block_rows: int, dd=None):
-    """B7's row stage (one launch, both payloads with ``dd``), then the X^T
-    stage of each: through X, and through X^2 for the Jacobi payload."""
-    lib, num, k = _rows_table(Q1)
+def _grad_self_tbl(xt, Q1, zdense, own, c_blk, block_rows: int, dd=None,
+                   runs=None):
+    """B7's row stage writes each row's scale zb (rows,) of Q1[row] from its
+    run of ``c_blk`` (``runs``, see ``_row_runs``); the X^T stage forms
+    storage(zb[row] * Q1[row]) per entry, and with ``dd`` the Jacobi
+    payload storage(storage(dd[row] * Q1[row]) * Q1[row]) per entry through
+    X^2."""
+    lib, num, _ = _rows_table(Q1)
     dev, dt = Q1.device, Q1.dtype
     if own.dim() != 2 or not 0 < block_rows < (1 << 31):
         raise ValueError(f"own must be (n_blocks, MAXC) and block_rows "
@@ -579,32 +602,33 @@ def _grad_self_tbl(xt, Q1, zdense, own, c_blk, block_rows: int, dd=None):
     _check("own", own, torch.int32, (nb, maxc), dev)
     _check("c_blk", c_blk, dt, (nb, maxc), dev)
     _check("zdense", zdense, dt, (num,), dev)
-    payload = torch.empty((num, k), dtype=dt, device=dev)
-    payload_q = None
     if dd is not None:
         _check("dd", dd, dt, (num,), dev)
-        payload_q = torch.empty((num, k), dtype=dt, device=dev)
+    runs = _row_runs(runs, own, block_rows)
+    zb = torch.empty((num,), dtype=dt, device=dev)
     err = lib.ocffm_grad_self_tbl_rows(
-        _DTYPE_CODE[dt], Q1.data_ptr(), zdense.data_ptr(), _ptr(dd),
-        own.data_ptr(), c_blk.data_ptr(), payload.data_ptr(),
-        _ptr(payload_q), nb, maxc, k, block_rows, _stream(dev))
+        _DTYPE_CODE[dt], zdense.data_ptr(), runs.data_ptr(), c_blk.data_ptr(),
+        zb.data_ptr(), num, maxc, block_rows, _stream(dev))
     _raise_on(err, "grad_self_tbl")
-    gt = _xt_scatter(lib, payload, xt, "grad_self_tbl")
-    if payload_q is None:
+    gt = _xt_scatter(lib, Q1, xt, "grad_self_tbl", scale=zb)
+    if dd is None:
         return gt, None
-    return gt, _xt_scatter(lib, payload_q, xt, "grad_self_tbl", True)
+    return gt, _xt_scatter(lib, Q1, xt, "grad_self_tbl", True, scale=dd,
+                           payload_sq=True)
 
 
-def grad_self_tbl(xt, Q1, zdense, own, c_blk,
-                  block_rows: int) -> torch.Tensor:
-    gt, _ = _grad_self_tbl(xt, Q1, zdense, own, c_blk, block_rows)
+def grad_self_tbl(xt, Q1, zdense, own, c_blk, block_rows: int,
+                  runs=None) -> torch.Tensor:
+    gt, _ = _grad_self_tbl(xt, Q1, zdense, own, c_blk, block_rows,
+                           runs=runs)
     _launches["grad_self_tbl"] += 1
     return gt
 
 
-def grad_self_tbl_diag(xt, Q1, zdense, own, c_blk, block_rows: int, dd):
+def grad_self_tbl_diag(xt, Q1, zdense, own, c_blk, block_rows: int, dd,
+                       runs=None):
     """(Gt, Dq): B7 with the Jacobi dd output."""
-    out = _grad_self_tbl(xt, Q1, zdense, own, c_blk, block_rows, dd)
+    out = _grad_self_tbl(xt, Q1, zdense, own, c_blk, block_rows, dd, runs)
     _launches["grad_self_tbl_diag"] += 1
     return out
 

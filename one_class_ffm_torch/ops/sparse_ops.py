@@ -14,9 +14,9 @@ a feature field (``project``, B8) and the general scatter of a wide field
 (``scatter``, the table passes' X^T stage on its own) each have a plain
 version here (``*_plain``) and a hand-written CUDA kernel (csrc/*.cu via
 ops/kernels.py).  Three of them take the Jacobi diagonal's second output
-(``pos_scatter_blocked(w_blk=)``, ``grad_cross_tbl(w_blk=)``,
-``grad_self_tbl(dd=)``: a second payload from the same read of the stream,
-scattered through the field's X^2).  Two Hv variants off the solver's path,
+(``pos_scatter_blocked(w_blk=)``, ``grad_cross_tbl(w_blk=)``: a second
+payload from the same read of the stream; ``grad_self_tbl(dd=)``: one from
+Q1 and dd; scattered through the field's X^2).  Two Hv variants off the solver's path,
 the lane-packed ``pos_hv_packed`` (B9) and ``pos_hv_blocked_g`` with G
 blocks per CTA (B10), compute B1's function and serve ``hv_pack_bench``.
 The dispatching function takes the plain version only because its tensors
@@ -288,11 +288,13 @@ def pos_scatter_blocked(c_blk, rows, own, num_out: int, block_rows: int,
                                             runs=runs)
 
 
-def pos_gap_blocked(dP, rows, own, block_rows: int):
-    """The residual gap after a step, flat in slot order."""
+def pos_gap_blocked(dP, rows, own, block_rows: int, runs=None):
+    """The residual gap after a step, flat in slot order.  ``runs``: the
+    rows' runs of slots (``layout.row_runs`` of ``own``), which the kernel
+    reads in place of the owners; the plain version needs ``own`` only."""
     if _plain_device(rows):
         return pos_gap_blocked_plain(dP, rows, own, block_rows)
-    return kernels.pos_gap_blocked(dP, rows, own, block_rows)
+    return kernels.pos_gap_blocked(dP, rows, own, block_rows, runs=runs)
 
 
 # ---------------------------------------------------------------------------
@@ -495,16 +497,19 @@ def hv_self_tbl(V, x_idx, x_val, xt, Q1, dd):
     return kernels.hv_self_tbl(V, x_idx, x_val, xt, Q1, dd)
 
 
-def grad_self_tbl(xt, Q1, zdense, own, c_blk, block_rows: int, dd=None):
+def grad_self_tbl(xt, Q1, zdense, own, c_blk, block_rows: int, dd=None,
+                  runs=None):
     """The self-block gradient pass of a small-D field; with ``dd``
-    (Jacobi) it also returns the diagonal's table-space term."""
+    (Jacobi) it also returns the diagonal's table-space term.  ``runs`` as
+    in ``pos_gap_blocked``."""
     if _plain_device(Q1):
         return grad_self_tbl_plain(xt, Q1, zdense, own, c_blk, block_rows,
                                    dd)
     if dd is None:
-        return kernels.grad_self_tbl(xt, Q1, zdense, own, c_blk, block_rows)
+        return kernels.grad_self_tbl(xt, Q1, zdense, own, c_blk, block_rows,
+                                     runs=runs)
     return kernels.grad_self_tbl_diag(xt, Q1, zdense, own, c_blk,
-                                      block_rows, dd)
+                                      block_rows, dd, runs=runs)
 
 
 # ---------------------------------------------------------------------------

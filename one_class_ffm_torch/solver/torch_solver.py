@@ -531,9 +531,11 @@ class FFMSolver:
         if self._fused(b, first):
             if not want_diag:
                 return self._tbl_grad(b, first, T, grad_self_tbl(
-                    xf, Q1, zdense, d[pre + "own"], c_blk, bm))
+                    xf, Q1, zdense, d[pre + "own"], c_blk, bm,
+                    runs=d[pre + "runs"]))
             Gt, Dq = grad_self_tbl(xf, Q1, zdense, d[pre + "own"], c_blk,
-                                   bm, dd=self._self_dd(b))
+                                   bm, dd=self._self_dd(b),
+                                   runs=d[pre + "runs"])
             return (self._tbl_grad(b, first, T, Gt),
                     ("tbl", Dq.to(acc_dtype(meta.dtype))))
         z = zdense + seg_sum_blocked(c_blk, d[pre + "own"], num, bm)
@@ -706,7 +708,8 @@ class FFMSolver:
 
         if b.kind == "uv":
             pre, _, bm = self._blk(first)
-            gap = pos_gap_blocked(dP, rows_pre, d[pre + "own"], bm)
+            gap = pos_gap_blocked(dP, rows_pre, d[pre + "own"], bm,
+                                  runs=d[pre + "runs"])
             own_key, oth_key = ("yt_u", "yt_v") if first else ("yt_v", "yt_u")
             oth_pre = "blk_v_" if first else "blk_u_"
             state[own_key] = state[own_key] + gap.reshape(

@@ -646,3 +646,111 @@ def test_hv_runs_and_stages_match_plain(device, dtype, k, maxc_pad):
     assert counts["pos_hv_blocked"] == 2 and counts["pos_hv_tbl"] == 2
     with pytest.raises(ValueError, match="runs"):
         kernels.pos_hv_blocked(*b1, runs=runs[:, :-1].contiguous())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [8, 16, 32, 64])
+@pytest.mark.parametrize("maxc_pad", [0, 3])
+def test_gap_staged_and_plain_load_match_plain_bits(device, dtype, k,
+                                                    maxc_pad):
+    """B3 on the staged path (k <= 32, MAXC % 8 == 0) and the plain-load
+    path (k = 64, or MAXC % 8 != 0), with the static runs and with runs
+    found in the wrapper: bit patterns equal to pos_gap_blocked_plain's,
+    signs of zero included (dP holding -0.0, the stream exact zeros), on
+    B2's edge cases (empty rows, a block of pads only, a run of 700 slots
+    over many stages); every slot is written, the pads exactly +0, into a
+    buffer filled with NaN before the launch; equal on repeat."""
+    from one_class_ffm_torch.ops.layout import row_runs
+
+    rng = np.random.default_rng(18)
+    own_np, BM, rows_np = _b2_stream(rng, k, maxc_pad)
+    num = 4 * BM
+    rows_np[rng.random(rows_np.shape) < 0.2] = 0.0
+    dP_np = rng.normal(size=(num, k))
+    dP_np[rng.random(dP_np.shape) < 0.2] = -0.0
+    dP_np[:8] = -0.0
+
+    def T(a):
+        return torch.as_tensor(a).to(device=device, dtype=dtype).contiguous()
+
+    own = torch.as_tensor(own_np, device=device)
+    runs = torch.as_tensor(row_runs(own_np, BM), device=device)
+    rows, dP = T(rows_np), T(dP_np)
+    kernels.reset_launch_counts()
+    got = ops.pos_gap_blocked(dP, rows, own, BM, runs=runs)
+    derived = kernels.pos_gap_blocked(dP, rows, own, BM)
+    ref = ops.pos_gap_blocked_plain(dP, rows, own, BM)
+    nan = torch.full((own.numel(),), float("nan"), dtype=dtype,
+                     device=device)
+    kernels._gap_into(nan, dP, rows, own, BM, runs)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == ref.shape
+    for g in (got, derived, nan):
+        assert torch.equal(_bits(g), _bits(ref)), (k, maxc_pad, dtype)
+    pads = torch.as_tensor(own_np.ravel() == BM, device=device)
+    assert not torch.any(torch.signbit(nan[pads])) and torch.all(
+        nan[pads] == 0)
+    assert torch.all(nan.view(own.shape)[1] == 0)  # the block of pads only
+    assert kernels.launch_counts()["pos_gap_blocked"] == 2
+    with pytest.raises(ValueError, match="runs"):
+        kernels.pos_gap_blocked(dP, rows, own, BM,
+                                runs=runs[:, :-1].contiguous())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [8, 32, 64])
+def test_grad_self_tbl_matches_plain_bits(device, dtype, k):
+    """B7 and its Jacobi variant (the row stage's zb per row from its run
+    of coefficients, then the X^T stage forming storage(zb * Q1[row]) per
+    entry, and storage(storage(dd * Q1[row]) * Q1[row]) per entry through
+    X^2) bit-equal to grad_self_tbl_plain, signs of zero included, on B2's
+    edge cases (empty rows, a block of pads only, a run of 700 slots), with
+    -0.0 in Q1, zdense and the coefficients, dd = 0 rows, features of one
+    chunk, several and none, with the static runs and with runs found in
+    the wrapper, and equal on repeat."""
+    from one_class_ffm_torch.ops.layout import row_runs
+
+    rng = np.random.default_rng(19)
+    own_np, BM, _ = _b2_stream(rng, k, 0)
+    num, d = 4 * BM, 37
+    idx, val = _field(rng, num, d)
+    fm = feature_major(idx, val, d)
+    Q1_np = rng.normal(size=(num, k))
+    Q1_np[rng.random(Q1_np.shape) < 0.2] = -0.0
+    c_np = rng.normal(size=own_np.shape) * (own_np < BM)
+    c_np[rng.random(c_np.shape) < 0.1] = -0.0
+    zdense_np = rng.normal(size=num)
+    zdense_np[::6] = -0.0
+    dd_np = rng.random(num) * 5
+    dd_np[::9] = 0.0
+
+    def T(a):
+        return torch.as_tensor(a).to(device=device, dtype=dtype).contiguous()
+
+    def I(a):
+        return torch.as_tensor(a, dtype=torch.int32, device=device)
+
+    xt = _squared(_device_list(fm, T, I))
+    own, runs = I(own_np), I(row_runs(own_np, BM))
+    args = (xt, T(Q1_np), T(zdense_np), own, T(c_np), BM)
+    dd = T(dd_np)
+    kernels.reset_launch_counts()
+    got = ops.grad_self_tbl(*args, runs=runs)
+    derived = kernels.grad_self_tbl(*args)
+    ref = ops.grad_self_tbl_plain(*args)
+    gd = ops.grad_self_tbl(*args, dd=dd, runs=runs)
+    gd2 = kernels.grad_self_tbl_diag(*args, dd)
+    rd = ops.grad_self_tbl_plain(*args, dd=dd)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (d, k)
+    for g in (got, derived, gd[0], gd2[0]):
+        assert torch.equal(_bits(g), _bits(ref)), (k, dtype)
+    for g in (gd[1], gd2[1]):
+        assert torch.equal(_bits(g), _bits(rd[1])), (k, dtype)
+    counts = kernels.launch_counts()
+    assert counts["grad_self_tbl"] == 2 and counts["grad_self_tbl_diag"] == 2
+    with pytest.raises(ValueError, match="runs"):
+        kernels.grad_self_tbl(*args, runs=runs[:, :-1].contiguous())
+    with pytest.raises(ValueError, match="scale"):
+        kernels._xt_scatter(kernels.load(), args[1], xt, "grad_self_tbl",
+                            True, payload_sq=True)

@@ -467,10 +467,11 @@ def test_chip_smoke_jacobi_rehearsal_on_cpu():
 
 
 def test_chip_smoke_reads_register_counts(monkeypatch):
-    """The build phase's registers per thread and static shared memory,
-    parsed from cuobjdump's resource report (mangled names: kernel, storage
-    type, Jacobi flag and the integer template arguments of a width plan,
-    (G, NV, VE)); a report without SHARED counts 0 bytes."""
+    """The build phase's registers per thread, static shared memory and
+    stack per thread, parsed from cuobjdump's resource report (mangled
+    names: kernel, storage type, Jacobi flag and the integer template
+    arguments of a width plan, (G, NV, VE)); a report without SHARED counts
+    0 bytes."""
     chip_smoke = _chip_smoke()
     report = "\n".join([
         "Function _ZN47_GLOBAL__N__c7f4_14_blocked_ops_cu_e3a6494d18pos_"
@@ -524,17 +525,17 @@ def test_chip_smoke_reads_register_counts(monkeypatch):
     monkeypatch.setattr(chip_smoke.subprocess, "run", lambda *a, **k: Done)
     monkeypatch.setattr(chip_smoke.os.path, "exists", lambda p: True)
     assert chip_smoke.kernel_registers("lib.so") == {
-        ("pos_scatter_kernel", "bf16", True, ()): (40, 0),
-        ("pos_hv_packed_kernel", "f32", False, ()): (32, 0),
-        ("pos_scatter_kernel", "bf16", True, (4, 1, 8)): (56, 32),
-        ("xt_chunk_kernel", "f32", False, (8, 1, 4)): (48, 0),
-        ("xt_combine_kernel", "f32", False, (32, 8, 1)): (38, 0),
-        ("pos_hv_kernel", "f32", False, (8, 1, 4)): (64, 16),
-        ("hv_tbl_rows_kernel", "bf16", False, (4, 1, 8)): (72, 16),
-        ("pos_hv_kernel", "f32", False, (32, 8, 1)): (56, 16),
-        ("project_rows_kernel", "f32", False, (8, 1, 4)): (40, 0),
-        ("hv_self_scale_kernel", "bf16", False, (32, 8, 1)): (64, 0),
-        ("xt_scaled_kernel", "f32", False, (8, 1, 4)): (80, 0)}
+        ("pos_scatter_kernel", "bf16", True, ()): (40, 0, 0),
+        ("pos_hv_packed_kernel", "f32", False, ()): (32, 0, 0),
+        ("pos_scatter_kernel", "bf16", True, (4, 1, 8)): (56, 32, 0),
+        ("xt_chunk_kernel", "f32", False, (8, 1, 4)): (48, 0, 0),
+        ("xt_combine_kernel", "f32", False, (32, 8, 1)): (38, 0, 0),
+        ("pos_hv_kernel", "f32", False, (8, 1, 4)): (64, 16, 0),
+        ("hv_tbl_rows_kernel", "bf16", False, (4, 1, 8)): (72, 16, 0),
+        ("pos_hv_kernel", "f32", False, (32, 8, 1)): (56, 16, 0),
+        ("project_rows_kernel", "f32", False, (8, 1, 4)): (40, 0, 0),
+        ("hv_self_scale_kernel", "bf16", False, (32, 8, 1)): (64, 0, 0),
+        ("xt_scaled_kernel", "f32", False, (8, 1, 4)): (80, 0, 0)}
 
 
 def test_chip_smoke_work_counts_the_runs_in_place_of_the_owners():
@@ -571,3 +572,73 @@ def test_chip_smoke_work_counts_the_runs_in_place_of_the_owners():
         nbytes_r, ops_r = chip_smoke.work(name, args, out, {"runs": runs})
         assert ops_r == ops and ops > 0, name
         assert nbytes_r - nbytes == 4 * nb * (bm + 1 - maxc), name
+
+
+def test_chip_smoke_work_counts_the_runs_of_b3_and_b7():
+    """B3's and B7's bounds (B7 with and without its Jacobi output), given
+    the static row runs, count the runs' bytes in place of the owners' (own
+    is B3's third argument and B7's fourth), and the operations do not
+    change."""
+    from one_class_ffm_torch.ops.layout import (
+        FeatureMajor,
+        feature_major,
+        row_runs,
+    )
+
+    chip_smoke = _chip_smoke()
+    rng = np.random.default_rng(13)
+    nb, maxc, bm, k, d, p = 3, 40, 8, 4, 11, 3
+    own = np.sort(rng.integers(0, bm + 1, size=(nb, maxc)), axis=1)
+    own_t = torch.as_tensor(own, dtype=torch.int32)
+    runs = torch.as_tensor(row_runs(own, bm))
+    idx = rng.integers(0, d, size=(nb * bm, p)).astype(np.int32)
+    val = rng.random((nb * bm, p)).astype(np.float32)
+    fm = feature_major(idx, val, d)
+    xt = FeatureMajor(*(torch.as_tensor(a) for a in (
+        fm.row, fm.val, fm.chunk_ptr, fm.feat_ptr)), n_rows=fm.n_rows)
+    xt = xt._replace(val_sq=xt.val * xt.val)
+    c = torch.rand(nb, maxc) * (own_t < bm)
+    b7 = (xt, torch.rand(nb * bm, k), torch.rand(nb * bm), own_t, c, bm)
+    cases = (
+        ("pos_gap_blocked", (torch.rand(nb * bm, k), torch.rand(nb, maxc, k),
+                             own_t, bm), torch.empty(nb * maxc)),
+        ("grad_self_tbl", b7, torch.empty(d, k)),
+        ("grad_self_tbl_diag", b7 + (torch.rand(nb * bm),),
+         (torch.empty(d, k), torch.empty(d, k))))
+    for name, args, out in cases:
+        nbytes, ops = chip_smoke.work(name, args, out)
+        nbytes_r, ops_r = chip_smoke.work(name, args, out, {"runs": runs})
+        assert ops_r == ops and ops > 0, name
+        assert nbytes_r - nbytes == 4 * nb * (bm + 1 - maxc), name
+
+
+def test_chip_smoke_reads_the_stack_of_b3_and_b7s_kernels(monkeypatch):
+    """The build phase reads the staged gap (B3, on B1's plans), its
+    warp-per-slot path, B7's row stage and the X^T stage's third source,
+    with the bytes of stack a spill would take."""
+    chip_smoke = _chip_smoke()
+    report = "\n".join([
+        "Function _ZN47_GLOBAL__N__c7f4_14_blocked_ops_cu_e3a6494d15gap_rows"
+        "_kernelIfLi8ELi1ELi4EEEvPKT_S3_PKiPS1_iiii:",
+        "REG:40 STACK:0 SHARED:1152 LOCAL:0 CONSTANT[0]:576",
+        "Function _ZN47_GLOBAL__N__c7f4_14_blocked_ops_cu_e3a6494d16gap_"
+        "slots_kernelI13__nv_bfloat16EEvPKT_S4_PKiPS2_liii:",
+        "REG:32 STACK:0 SHARED:1024 LOCAL:0 CONSTANT[0]:580",
+        "Function _ZN45_GLOBAL__N__6a7b_12_table_ops_cu_257c678222grad_self"
+        "_scale_kernelIfEEvPKT_PKiS3_PS1_lii:",
+        "REG:32 STACK:0 SHARED:1024 LOCAL:0 CONSTANT[0]:576",
+        "Function _ZN45_GLOBAL__N__6a7b_12_table_ops_cu_257c678219xt_scaled"
+        "_sq_kernelI13__nv_bfloat16Li4ELi1ELi8EEEvPKT_S5_PKiS5_S7_S7_iS7_S7_"
+        "iS7_PiPfS9_i:",
+        "REG:80 STACK:24 SHARED:1024 LOCAL:0 CONSTANT[0]:644"])
+
+    class Done:
+        stdout = report
+
+    monkeypatch.setattr(chip_smoke.subprocess, "run", lambda *a, **k: Done)
+    monkeypatch.setattr(chip_smoke.os.path, "exists", lambda p: True)
+    assert chip_smoke.kernel_registers("lib.so") == {
+        ("gap_rows_kernel", "f32", False, (8, 1, 4)): (40, 1152, 0),
+        ("gap_slots_kernel", "bf16", False, ()): (32, 1024, 0),
+        ("grad_self_scale_kernel", "f32", False, ()): (32, 1024, 0),
+        ("xt_scaled_sq_kernel", "bf16", False, (4, 1, 8)): (80, 1024, 24)}

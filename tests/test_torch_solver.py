@@ -486,3 +486,38 @@ def test_hv_cross_hands_the_static_runs_to_b1_and_b4(monkeypatch):
             assert seen[0][1] is runs, (b.f12, first)
             names.add(want)
     assert names == {"pos_hv_blocked", "pos_hv_tbl"}
+
+
+def test_step_and_self_gradient_hand_the_static_runs_to_b3_and_b7(
+        monkeypatch):
+    """The step's residual gap (B3, on every cross block side) and the fused
+    self-block gradient (B7, with and without the Jacobi dd output) pass
+    the layout's static row runs (``blk_*_runs``) to their kernels; the
+    CPU dispatch ignores them and the epoch is unchanged."""
+    prob, params = ffm_problem("ffm_self")
+    solver, state = build_port(prob, params)
+    ref = solver.epoch(state)
+    seen = []
+
+    def recording(name, fn):
+        def call(*args, runs=None, **kw):
+            seen.append((name, runs, kw.get("dd") is not None))
+            return fn(*args, runs=runs, **kw)
+        return call
+
+    for name in ("pos_gap_blocked", "grad_self_tbl"):
+        monkeypatch.setattr(torch_solver, name,
+                            recording(name, getattr(torch_solver, name)))
+    got = solver.epoch(state)
+    for key in ("P", "Q"):
+        for f12 in ref[key]:
+            assert torch.equal(got[key][f12], ref[key][f12]), (key, f12)
+    sa, sb = solver.sasb(state)
+    for b in prob.layout.all_blocks():
+        if b.kind != "uv" and solver._fused(b, True):
+            solver._grad_self(state, b, True, sa, sb, want_diag=True)
+    names = {(name, diag) for name, _, diag in seen}
+    assert names == {("pos_gap_blocked", False), ("grad_self_tbl", False),
+                     ("grad_self_tbl", True)}, names
+    runs = (solver.data["blk_u_runs"], solver.data["blk_v_runs"])
+    assert all(any(r is x for x in runs) for _, r, _ in seen)
