@@ -16,9 +16,9 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
    and bfloat16: bit-identical on repeat, max-rel within the bound (1e-5 /
    5e-3; the plain versions add in the kernels' order, so they agree bit
    for bit), with kernel, plain and library times (CUDA events, float32;
-   for B4 and B6 also their X^T stage alone) and the bound of the work
-   (bytes over 3.35 TB/s or operations over 67 TFLOP/s f32, whichever is
-   larger, counted from the inputs): the three
+   for the table passes also their X^T stage alone) and the bound of the
+   work (bytes over 3.35 TB/s or operations over 67 TFLOP/s f32, whichever
+   is larger, counted from the inputs): the three
    blocked kernels in MF solves (200k users x 20k items, k=32, both solve
    sides); the four fused table kernels and the projection B8 in FFM solves
    (the same rows, u-side field D=1000 and v-side field D=500); the blocked
@@ -110,8 +110,12 @@ DIAG = ("pos_scatter_blocked_diag", "grad_cross_tbl_diag",
         "grad_self_tbl_diag")
 VARIANTS = ("pos_hv_packed", "pos_hv_blocked_g")
 _CSRC = "one_class_ffm_torch/csrc/"
+# (B5's row stage runs on B2's body in blocked_ops.cu, its X^T stage in
+# table_ops.cu)
 SOURCE = {name: _CSRC + (
-    "blocked_ops.cu" if name in BLOCKED + ("pos_scatter_blocked_diag",)
+    "blocked_ops.cu" if name in BLOCKED + ("pos_scatter_blocked_diag",
+                                           "grad_cross_tbl",
+                                           "grad_cross_tbl_diag")
     else "project_ops.cu" if name == "project"
     else "hv_variants.cu" if name in VARIANTS
     else "table_ops.cu") for name in REPLACES}
@@ -351,15 +355,17 @@ def _nbytes(a, squared: bool = False) -> int:
 # rows' runs in place of the owners when it is given them
 OWN_ARG = {"pos_hv_blocked": 2, "pos_scatter_blocked": 2,
            "pos_scatter_blocked_diag": 2, "pos_hv_tbl": 5,
-           "pos_gap_blocked": 2, "grad_self_tbl": 3, "grad_self_tbl_diag": 3}
+           "pos_gap_blocked": 2, "grad_self_tbl": 3, "grad_self_tbl_diag": 3,
+           "grad_cross_tbl": 2, "grad_cross_tbl_diag": 2,
+           "pos_hv_blocked_g": 2}
 
 
 def work(name: str, args, out, kw=None):
     """(bytes, operations) that the function needs on these inputs: each
     input read once and the output written once (for ``project`` only the
     table rows its ids name; for B9 one lane of each 32-lane group of the
-    packed owners and weights; for B1-B4 and B7 given their rows' runs,
-    the runs in place of the owners), and the products and sums of the
+    packed owners and weights; for B1-B5, B7 and B10 given their rows'
+    runs, the runs in place of the owners), and the products and sums of the
     entries these inputs hold (valid slots, nonzero X entries), not of
     padding.  A Jacobi variant adds its second payload (rows^2 scaled and
     summed per slot, or dd Q1 Q1 per row) and its X^2 pass."""
@@ -646,15 +652,17 @@ def compare(name: str, side: str, dt_name: str, args, kw, report, gpu: str,
 
 # the table passes whose [kernels] line gives their X^T stage's time alone
 XT_STAGED = ("pos_hv_tbl", "hv_self_tbl", "grad_self_tbl",
-             "grad_self_tbl_diag")
+             "grad_self_tbl_diag", "grad_cross_tbl", "grad_cross_tbl_diag")
 
 
 def xt_stage_ms(name: str, args) -> float:
     """The time of a table pass's X^T stage on its own over the kernel's
     feature-major list (the row stage's time is the rest of the kernel's):
-    B4's on a payload of its shape and dtype; B6's and B7's on their Q1
-    with a scale per row; for B7's Jacobi variant also its second launch,
-    through X^2 on Q1 with dd's scale, squared."""
+    B4's and B5's on a payload of their shape and dtype, and for B5's
+    Jacobi variant also its second launch, through X^2 on a second
+    payload; B6's and B7's on their Q1 with a scale per row, and for B7's
+    Jacobi variant also its second launch, through X^2 on Q1 with dd's
+    scale, squared."""
     import torch
 
     from one_class_ffm_torch.ops import kernels
@@ -662,13 +670,16 @@ def xt_stage_ms(name: str, args) -> float:
     lib = kernels.load()
     if name.startswith("grad_self_tbl"):
         xt, payload = args[0], args[1]
+    elif name.startswith("grad_cross_tbl"):
+        xt, payload = args[0], torch.randn_like(args[4])
     else:
         xt = args[3]
         payload = args[4] if name == "hv_self_tbl" else torch.randn(
             (args[1].shape[0], args[0].shape[1]),
             device=args[0].device).to(args[0].dtype)
     rows, dev, dt = payload.shape[0], payload.device, payload.dtype
-    scale = (None if name == "pos_hv_tbl"
+    scale = (None if name in ("pos_hv_tbl", "grad_cross_tbl",
+                              "grad_cross_tbl_diag")
              else torch.randn(rows, device=dev).to(dt))
     if name == "grad_self_tbl_diag":
         dd = args[6]
@@ -676,6 +687,11 @@ def xt_stage_ms(name: str, args) -> float:
             kernels._xt_scatter(lib, payload, xt, name, scale=scale),
             kernels._xt_scatter(lib, payload, xt, name, True, scale=dd,
                                 payload_sq=True)))
+    if name == "grad_cross_tbl_diag":
+        payload_q = torch.randn_like(payload)
+        return time_ms(lambda: (
+            kernels._xt_scatter(lib, payload, xt, name),
+            kernels._xt_scatter(lib, payload_q, xt, name, True)))
     return time_ms(lambda: kernels._xt_scatter(lib, payload, xt, name,
                                                scale=scale))
 
@@ -828,18 +844,18 @@ def variant_phase(trainer, gpu: str, report) -> None:
     for first, side in ((True, "u"), (False, "v")):
         with first_calls(("pos_hv_blocked",)) as seen:
             solver._solve_half(state, b, first, None, None)
-        args = seen["pos_hv_blocked"][0]
+        args, kw = seen["pos_hv_blocked"]
         groups = 2 if args[1].shape[0] % 2 == 0 else 1
         for dt_name, dt in (("float32", torch.float32),
                             ("bfloat16", torch.bfloat16)):
             a = [_cast(x, dt) for x in args]
             phi, rows, own, w, dense, num, bm, w_scale = a
-            b1 = kernels.pos_hv_blocked(*a)
+            b1 = kernels.pos_hv_blocked(*a, **kw)
             compare("pos_hv_packed", f"MF {side}", dt_name,
                     [phi, *ops.pack_rows(rows, own, w), dense, num, bm,
                      w_scale], {}, report, gpu, same_as=b1)
             compare("pos_hv_blocked_g", f"MF {side} G={groups}", dt_name,
-                    [phi, rows, own, w, dense, num, bm, groups, w_scale], {},
+                    [phi, rows, own, w, dense, num, bm, groups, w_scale], kw,
                     report, gpu, same_as=b1)
 
 

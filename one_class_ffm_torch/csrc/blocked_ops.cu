@@ -1,6 +1,8 @@
 // Hopper (sm_90a) kernels for the blocked positive-stream passes of a
 // cross-block solve on an identity or wide field (B1-B3; B2 also with the
-// Jacobi diagonal's payload).  Built by
+// Jacobi diagonal's payload), and B2's body with a dense term, the row
+// stage of the fused cross gradient B5 (whose X^T stage is table_ops.cu's).
+// Built by
 // one_class_ffm_torch/ops/kernels.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler
 //        -fPIC -c
@@ -121,7 +123,8 @@ constexpr int kScatterThreads = 64;  // threads per CTA
 // (t - base) * k and its coefficient (weight) at c_p[t - base] (w_p[...]):
 // device memory on the plain-load path, a shared-memory stage otherwise.
 // Batches of D slots: their loads first, then the adds in slot order.
-template <typename T, int G, int NV, int VE, bool kDiag>
+// kRoundQ: each Jacobi term rounded to storage before its add (B2).
+template <typename T, int G, int NV, int VE, bool kDiag, bool kRoundQ>
 __device__ __forceinline__ void scatter_slots(
     const T* rows_p, const T* c_p, const T* w_p, int base, int lo, int hi,
     int k, int lane, float wq, float (&acc)[NV][VE], float (&accq)[NV][VE]) {
@@ -154,7 +157,7 @@ __device__ __forceinline__ void scatter_slots(
             acc[v][i] = __fadd_rn(acc[v][i], __fmul_rn(ct[j], r[i]));
             if constexpr (kDiag) {
               const float q = __fmul_rn(rnd<T>(__fmul_rn(r[i], r[i])), wt[j]);
-              accq[v][i] = __fadd_rn(accq[v][i], rnd<T>(q));
+              accq[v][i] = __fadd_rn(accq[v][i], kRoundQ ? rnd<T>(q) : q);
             }
           }
         }
@@ -162,28 +165,62 @@ __device__ __forceinline__ void scatter_slots(
   }
 }
 
-// One CTA per (block, slice of kRows rows); dynamic shared memory: kStages
-// stages of `stage_slots` slots, each the slots' rows, then their
-// coefficients, then (kDiag) their weights.
-template <typename T, int G, int NV, int VE, bool kDiag>
-__global__ void __launch_bounds__(kScatterThreads)
-pos_scatter_kernel(const T* __restrict__ c, const T* __restrict__ rows,
-                   const int* __restrict__ runs, const T* __restrict__ w,
-                   float wq_scale, T* __restrict__ out, T* __restrict__ outq,
-                   int maxc, int k, int block_rows, int stage_slots) {
+// B5's row stage, replacing the stage 1 of grad_cross_tbl_pallas /
+// _grad_cross_tbl_kernel and grad_cross_tbl_kt_pallas (one_class_ffm_tpu/
+// ops/sparse_ops.py), is B2's function plus one dense row per row:
+//   payload[r] = storage(dense[r] + storage(sum_{t: own_t = r} c_t rows_t))
+// kDiag (the Jacobi w_blk payload, which has no dense term):
+//   payload_q[r] = storage(sum_{t: own_t = r} wq_t * storage(rows_t^2)),
+// the products summed at f32 unrounded, as the TPU kernel's one-hot matmul
+// sums them (B2 rounds each to storage first), for stage 2 to scatter
+// through the field's X^2.  It runs on B2's body below, so it reads the
+// stream once through the same stages; the row's dense row is loaded
+// before the stage loop (16-byte vectors on the staged plan, a value per
+// lane on the plain-load plan) and added after it: on the H100, on
+// hv_pack_bench's stream, that ran the row stage ~5% and its Jacobi
+// variant ~8% (f32) faster than loading it after the loop.  The warp per
+// row it replaces found each run by two binary searches over the owners
+// and then read the run's slots one dependent load at a time, in CTAs that
+// mostly waited on latency (4.4 slots per row on the u side, 44 on the v
+// side).
+//
+// The CTA body of both: one CTA per (block, slice of kRows rows); dynamic
+// shared memory: kStages stages of `stage_slots` slots, each the slots'
+// rows, then their coefficients, then (kDiag) their weights.  kDense: B5's
+// row stage.
+template <typename T, int G, int NV, int VE, bool kDiag, bool kDense>
+__device__ __forceinline__ void scatter_rows(
+    const T* __restrict__ c, const T* __restrict__ rows,
+    const int* __restrict__ runs, const T* __restrict__ w, float wq_scale,
+    const T* __restrict__ dense, T* __restrict__ out, T* __restrict__ outq,
+    int maxc, int k, int block_rows, int stage_slots) {
   constexpr int kRows = kScatterThreads / G;
   const int lane = threadIdx.x % G;
   const int64_t blk = blockIdx.x;
   const int r0 = blockIdx.y * kRows;
   const int r = r0 + (int)threadIdx.x / G;
+  const bool live = r < block_rows;
+  const int64_t row = blk * block_rows + r;
   const int* runs_b = runs + blk * (block_rows + 1);
   const T* c_b = c + blk * maxc;
   const T* w_b = kDiag ? w + blk * maxc : nullptr;
   const T* rows_b = rows + blk * maxc * k;
   int rs = 0, re = 0;
-  if (r < block_rows) {
+  if (live) {
     rs = runs_b[r];
     re = runs_b[r + 1];
+  }
+  // B5: the row's dense row, in flight while the stream is read (zeroed
+  // first: left unset on some paths, the f32 plans kept it in a 16-byte
+  // stack frame and ran ~4% slower on the H100)
+  RawVec<T, VE> dn[NV];
+  if constexpr (kDense) {
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const int c0 = (v * G + lane) * VE;
+      dn[v] = RawVec<T, VE>{};
+      if (live && c0 < k) dn[v] = load_raw<T, VE>(dense + row * k + c0);
+    }
   }
   const float wq = kDiag ? rnd<T>(wq_scale) : 0.f;
   float acc[NV][VE], accq[NV][VE];
@@ -193,8 +230,8 @@ pos_scatter_kernel(const T* __restrict__ c, const T* __restrict__ rows,
     for (int i = 0; i < VE; ++i) acc[v][i] = accq[v][i] = 0.f;
 
   if constexpr (VE == 1) {
-    scatter_slots<T, G, NV, VE, kDiag>(rows_b, c_b, w_b, 0, rs, re, k, lane,
-                                       wq, acc, accq);
+    scatter_slots<T, G, NV, VE, kDiag, !kDense>(rows_b, c_b, w_b, 0, rs, re,
+                                                k, lane, wq, acc, accq);
   } else {
     extern __shared__ __align__(128) unsigned char stage_smem[];
     __shared__ uint64_t full[kStages];
@@ -228,37 +265,74 @@ pos_scatter_kernel(const T* __restrict__ c, const T* __restrict__ rows,
       mbar_wait(&full[j % kStages], (uint32_t)(j / kStages) & 1u);
       const int ws = w0 + j * stage_slots;
       const T* buf = sm + (j % kStages) * stage_elems;
-      scatter_slots<T, G, NV, VE, kDiag>(
+      scatter_slots<T, G, NV, VE, kDiag, !kDense>(
           buf, buf + stage_slots * k, buf + stage_slots * (k + 1), ws,
           max(rs, ws), min(re, ws + stage_slots), k, lane, wq, acc, accq);
       __syncthreads();  // every group is done with buffer j % kStages
       if (threadIdx.x == 0 && j + kStages < n_st) issue(j + kStages);
     }
   }
-  if (r >= block_rows) return;
-  const int64_t row = blk * block_rows + r;
+  if (!live) return;
 #pragma unroll
   for (int v = 0; v < NV; ++v) {
     const int c0 = (v * G + lane) * VE;
     if (c0 >= k) continue;
+    if constexpr (kDense) {  // dense + storage(sum), the sum rounded first
+      float d[VE];
+      unpack(dn[v], d);
+#pragma unroll
+      for (int i = 0; i < VE; ++i)
+        acc[v][i] = __fadd_rn(d[i], rnd<T>(acc[v][i]));
+    }
     store_vals<T, VE>(out + row * k + c0, acc[v]);
     if constexpr (kDiag) store_vals<T, VE>(outq + row * k + c0, accq[v]);
   }
 }
 
-template <typename T, bool kDiag>
+#define OCFFM_SCATTER_PARAMS                                                \
+  const T *__restrict__ c, const T *__restrict__ rows,                      \
+      const int *__restrict__ runs, const T *__restrict__ w, float wq_scale, \
+      const T *__restrict__ dense, T *__restrict__ out, T *__restrict__ outq, \
+      int maxc, int k, int block_rows, int stage_slots
+#define OCFFM_SCATTER_ARGS \
+  c, rows, runs, w, wq_scale, dense, out, outq, maxc, k, block_rows, stage_slots
+
+// B2 (dense is unused)
+template <typename T, int G, int NV, int VE, bool kDiag>
+__global__ void __launch_bounds__(kScatterThreads)
+pos_scatter_kernel(OCFFM_SCATTER_PARAMS) {
+  scatter_rows<T, G, NV, VE, kDiag, false>(OCFFM_SCATTER_ARGS);
+}
+
+// B5's row stage
+template <typename T, int G, int NV, int VE, bool kDiag>
+__global__ void __launch_bounds__(kScatterThreads)
+grad_cross_rows_kernel(OCFFM_SCATTER_PARAMS) {
+  scatter_rows<T, G, NV, VE, kDiag, true>(OCFFM_SCATTER_ARGS);
+}
+
+template <typename T, bool kDiag, bool kDense>
 struct ScatterLaunch {
   const T* c;
   const T* rows;
   const int* runs;
   const T* w;
   float wq_scale;
+  const T* dense;
   T *out, *outq;
   long long n_blocks;
   int maxc, k, block_rows;
   cudaStream_t st;
   template <int G, int NV, int VE>
   int run() const {
+    if constexpr (kDense) {
+      return launch<G, VE>(grad_cross_rows_kernel<T, G, NV, VE, kDiag>);
+    } else {
+      return launch<G, VE>(pos_scatter_kernel<T, G, NV, VE, kDiag>);
+    }
+  }
+  template <int G, int VE, typename K>
+  int launch(K kernel) const {
     constexpr int kRows = kScatterThreads / G;
     const dim3 grid((unsigned)n_blocks, (block_rows + kRows - 1) / kRows);
     int slots = 0;
@@ -267,13 +341,12 @@ struct ScatterLaunch {
       slots = stage_slots_for(k * (int)sizeof(T));
       smem = (size_t)kStages * slots * (k + (kDiag ? 2 : 1)) * sizeof(T);
       const cudaError_t err = cudaFuncSetAttribute(
-          pos_scatter_kernel<T, G, NV, VE, kDiag>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (err != cudaSuccess) return (int)err;
     }
-    pos_scatter_kernel<T, G, NV, VE, kDiag><<<grid, kScatterThreads, smem,
-                                              st>>>(
-        c, rows, runs, w, wq_scale, out, outq, maxc, k, block_rows, slots);
+    kernel<<<grid, kScatterThreads, smem, st>>>(
+        c, rows, runs, w, wq_scale, dense, out, outq, maxc, k, block_rows,
+        slots);
     return (int)cudaGetLastError();
   }
 };
@@ -435,13 +508,39 @@ int ocffm_pos_scatter_blocked(int dtype, const void* c, const void* rows,
   // the bulk copies start at 8-slot boundaries of each block's MAXC slots
   const bool vec = maxc % 8 == 0 && vec_ok(k, dtype == kF32 ? 4 : 2, ptrs, 5);
   if (w == nullptr) {
-    OCFFM_BY_DTYPE(dtype, return by_width<T>(k, vec, ScatterLaunch<T, false>{
-        (const T*)c, (const T*)rows, (const int*)runs, nullptr, wq_scale,
-        (T*)out, nullptr, n_blocks, maxc, k, block_rows, st}));
+    OCFFM_BY_DTYPE(dtype, return by_width<T>(k, vec,
+        ScatterLaunch<T, false, false>{(const T*)c, (const T*)rows,
+            (const int*)runs, nullptr, wq_scale, nullptr, (T*)out, nullptr,
+            n_blocks, maxc, k, block_rows, st}));
   }
-  OCFFM_BY_DTYPE(dtype, return by_width<T>(k, vec, ScatterLaunch<T, true>{
-      (const T*)c, (const T*)rows, (const int*)runs, (const T*)w, wq_scale,
-      (T*)out, (T*)outq, n_blocks, maxc, k, block_rows, st}));
+  OCFFM_BY_DTYPE(dtype, return by_width<T>(k, vec,
+      ScatterLaunch<T, true, false>{(const T*)c, (const T*)rows,
+          (const int*)runs, (const T*)w, wq_scale, nullptr, (T*)out,
+          (T*)outq, n_blocks, maxc, k, block_rows, st}));
+}
+
+// B5's row stage: payload (and with w, the Jacobi payload_q) per data row,
+// for the X^T stage (table_ops.cu) to scatter; runs: (n_blocks, block_rows
+// + 1) row runs of slots.
+int ocffm_grad_cross_tbl_rows(int dtype, const void* c, const void* w,
+                              float wq_scale, const void* rows,
+                              const void* runs, const void* dense,
+                              void* payload, void* payload_q,
+                              long long n_blocks, int maxc, int k,
+                              int block_rows, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const void* ptrs[] = {c, rows, w, dense, payload, payload_q};
+  const bool vec = maxc % 8 == 0 && vec_ok(k, dtype == kF32 ? 4 : 2, ptrs, 6);
+  if (w == nullptr) {
+    OCFFM_BY_DTYPE(dtype, return by_width<T>(k, vec,
+        ScatterLaunch<T, false, true>{(const T*)c, (const T*)rows,
+            (const int*)runs, nullptr, wq_scale, (const T*)dense,
+            (T*)payload, nullptr, n_blocks, maxc, k, block_rows, st}));
+  }
+  OCFFM_BY_DTYPE(dtype, return by_width<T>(k, vec,
+      ScatterLaunch<T, true, true>{(const T*)c, (const T*)rows,
+          (const int*)runs, (const T*)w, wq_scale, (const T*)dense,
+          (T*)payload, (T*)payload_q, n_blocks, maxc, k, block_rows, st}));
 }
 
 // runs: (n_blocks, block_rows + 1) row runs of slots (the staged path);

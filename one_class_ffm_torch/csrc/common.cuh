@@ -1,19 +1,19 @@
 // Helpers shared by the port's kernels (blocked_ops.cu, table_ops.cu,
 // project_ops.cu and hv_variants.cu): storage-dtype conversion, the warp
-// sum, the slot layouts and row runs of the blocked stream, the per-row
-// math of the blocked Hv and gradient passes (the latter with the Jacobi
-// diagonal's second payload), the grid of a warp-per-item loop, the dtype
+// sum, the slot layouts and row runs of the blocked stream, the warp-per-row
+// math of the blocked Hv (B9), the grid of a warp-per-item loop, the dtype
 // dispatch of a launch, the rows of a width fixed at compile time (vector
 // loads and stores, and the dispatch over width plans) that the X^T stage,
-// B2 and the blocked Hv use, the shared-memory stages that bulk
-// asynchronous copies fill (B2, and the stage loop over a CTA's span of the
-// stream, HvSpan, that B1, B3 and B4's row stage run), the blocked Hv of a
-// CTA's rows on a width plan (B1 and B4's row stage), and the projection
-// phi = X V of a row by a group of lanes with the loop that walks a
-// group's rows (B8, B6's row stage; B4's stage 1).  Every product and sum is
-// rounded on its own (__fmul_rn / __fadd_rn: no fused multiply-add) in a
-// fixed order, which the plain PyTorch versions in ops/sparse_ops.py
-// follow bit for bit.
+// B2, B5's row stage and the blocked Hv use, the shared-memory stages that
+// bulk asynchronous copies fill (B2 and B5's row stage, and the stage loop
+// over a CTA's span of the stream, HvSpan, that B1, B3, B4's row stage and
+// B10 run, B10 one ring across its G blocks), the blocked Hv of a CTA's rows
+// on a width plan (B1 and B4's row stage, and its end, hv_finish, that B10
+// shares), and the projection phi = X V of a row by a group of lanes with
+// the loop that walks a group's rows (B8, B6's row stage; B4's stage 1).
+// Every product and sum is rounded on its own (__fmul_rn / __fadd_rn: no
+// fused multiply-add) in a fixed order, which the plain PyTorch versions in
+// ops/sparse_ops.py follow bit for bit.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -98,7 +98,7 @@ __device__ __forceinline__ void row_run(const int* own_b, int maxc, int r, int& 
 }
 
 // The blocked Hv of one row, lanes over k, the row's run found by search
-// (B9 and B10; B1 and B4 run hv_rows below, with the same bits):
+// (B9; B1, B4 and B10 run hv_rows' stage loop below, with the same bits):
 //   acc += sum_{t in [s, e)} (w_scale * w_t) * pq_t * rows_t + ph @ dense,
 //   pq_t = storage(<ph, rows_t>)
 // ph holds the row's phi (zero past k); it stays in registers and is
@@ -146,52 +146,6 @@ __device__ __forceinline__ void hv_row(const float (&ph)[kMaxKPerLane],
   }
 }
 
-// The blocked gradient scatter of one row, lanes over k (B5's row stage;
-// B2's function):  acc += sum_{t in [s, e)} c_t * rows_t
-template <typename T>
-__device__ __forceinline__ void scatter_row(const T* __restrict__ c_b,
-                                            const T* __restrict__ rows_b, int s,
-                                            int e, int k, int lane,
-                                            float (&acc)[kMaxKPerLane]) {
-  for (int t = s; t < e; ++t) {
-    const T* rt = rows_b + (int64_t)t * k;
-    const float ct = to_f(c_b[t]);
-#pragma unroll
-    for (int j = 0; j < kMaxKPerLane; ++j) {
-      const int cc = j * 32 + lane;
-      if (cc < k) acc[j] = __fadd_rn(acc[j], __fmul_rn(ct, to_f(rt[cc])));
-    }
-  }
-}
-
-// scatter_row plus the Jacobi diagonal's positive term from the same read
-// of each slot's row (B5's with_diag output; B2 rounds q_t to storage
-// before its sum, blocked_ops.cu scatter_slots):
-//   accq += sum_{t in [s, e)} q_t,   wq_t = storage(w_t * storage(wq_scale)),
-//   q_t = wq_t * storage(rows_t^2) at f32 (the one-hot matmul of
-//   _grad_cross_tbl_kernel)
-template <typename T>
-__device__ __forceinline__ void scatter_diag_row(
-    const T* __restrict__ c_b, const T* __restrict__ w_b, float wq_scale,
-    const T* __restrict__ rows_b, int s, int e, int k, int lane,
-    float (&acc)[kMaxKPerLane], float (&accq)[kMaxKPerLane]) {
-  const float wq = rnd<T>(wq_scale);
-  for (int t = s; t < e; ++t) {
-    const T* rt = rows_b + (int64_t)t * k;
-    const float ct = to_f(c_b[t]);
-    const float wt = rnd<T>(__fmul_rn(to_f(w_b[t]), wq));
-#pragma unroll
-    for (int j = 0; j < kMaxKPerLane; ++j) {
-      const int cc = j * 32 + lane;
-      if (cc < k) {
-        const float r = to_f(rt[cc]);
-        acc[j] = __fadd_rn(acc[j], __fmul_rn(ct, r));
-        accq[j] = __fadd_rn(accq[j], __fmul_rn(rnd<T>(__fmul_rn(r, r)), wt));
-      }
-    }
-  }
-}
-
 template <typename T>
 __device__ __forceinline__ void store_row(T* __restrict__ out, int64_t row,
                                           int k, int lane,
@@ -203,11 +157,10 @@ __device__ __forceinline__ void store_row(T* __restrict__ out, int64_t row,
   }
 }
 
-// One output row of B1's function for its variants B9 and B10, which
-// differ only in the slot layout or in which CTA runs the row: row r of
-// block blk, lanes over k, its run found by binary search over the block's
-// owners, phi[row] held in registers, the result written once at storage
-// dtype.
+// One output row of B1's function for its variant B9, which differs only
+// in the slot layout: row r of block blk, lanes over k, its run found by
+// binary search over the block's owners, phi[row] held in registers, the
+// result written once at storage dtype.
 template <typename T, typename Slots>
 __device__ __forceinline__ void hv_out_row(const T* __restrict__ phi,
                                            const T* __restrict__ rows_b,
@@ -821,7 +774,8 @@ __device__ __forceinline__ void hv_stage_adds(const T* buf,
 }
 
 // A CTA's share of the blocked stream on the staged path, and the stage
-// loop over it (hv_rows: B1 and B4's row stage; B3's gap_rows_kernel).  CTA
+// loop over it (hv_rows: B1 and B4's row stage; B3's gap_rows_kernel; B10,
+// whose CTA runs the spans of G blocks through one ring, run_from).  CTA
 // (b, y) owns the kRows rows [y * kRows, (y + 1) * kRows) of block b, a
 // group of lanes per row; their runs are one contiguous span of slots [s,
 // e), read from the static run pointer (no search).  Thread 0 streams the
@@ -862,19 +816,26 @@ struct HvSpan {
     runs_s = reinterpret_cast<int*>(coef_s + slots);
   }
 
-  // stage j of the span into its buffer (thread 0)
-  __device__ __forceinline__ void issue(int j) const {
-    const int ws = w0 + j * slots;
-    const int w1 = (e + 7) & ~7;
+  // stage J of the ring into buffer J % kStages (thread 0): the slots [ws,
+  // min(ws + slots, w1)) of the block whose stream and weights start at
+  // rows_p and w_p (w1: the end of its span, widened to 8 slots)
+  __device__ __forceinline__ void issue_at(int J, const T* rows_p,
+                                           const T* w_p, int ws,
+                                           int w1) const {
     const int n = min(slots, w1 - ws);  // a multiple of 8 slots
-    T* buf = ring + (j % kStages) * elems;
-    uint64_t* bar = &full[j % kStages];
+    T* buf = ring + (J % kStages) * elems;
+    uint64_t* bar = &full[J % kStages];
     const uint32_t row_bytes = (uint32_t)n * k * sizeof(T);
     const uint32_t col_bytes = kWeighted ? (uint32_t)n * sizeof(T) : 0u;
     mbar_expect_tx(bar, row_bytes + col_bytes);
-    bulk_load(buf, rows_b + (int64_t)ws * k, row_bytes, bar);
+    bulk_load(buf, rows_p + (int64_t)ws * k, row_bytes, bar);
     if constexpr (kWeighted)
-      bulk_load(buf + slots * k, w_b + ws, col_bytes, bar);
+      bulk_load(buf + slots * k, w_p + ws, col_bytes, bar);
+  }
+
+  // stage j of the span into its buffer (thread 0)
+  __device__ __forceinline__ void issue(int j) const {
+    issue_at(j, rows_b, w_b, w0 + j * slots, (e + 7) & ~7);
   }
 
   // the span of rows [r0, r0 + kRows) of the block whose runs are runs_b:
@@ -908,24 +869,89 @@ struct HvSpan {
     }
   }
 
-  template <int G, int VE, typename Phase2>
-  __device__ __forceinline__ void run(int lane, int grp, unsigned gmask,
-                                      float w_scale, Phase2&& phase2) const {
+  // The span's n_st stages, its first stage J0 of the ring: stage J in
+  // buffer J % kStages, its barrier in phase J / kStages.  After each
+  // stage thread 0 calls refill(J), which may issue stage J + kStages into
+  // the buffer the stage freed.
+  template <int G, int VE, typename Phase2, typename Refill>
+  __device__ __forceinline__ void run_from(int J0, int lane, int grp,
+                                           unsigned gmask, float w_scale,
+                                           Phase2&& phase2,
+                                           Refill&& refill) const {
     for (int j = 0; j < n_st; ++j) {
-      mbar_wait(&full[j % kStages], (uint32_t)(j / kStages) & 1u);
+      const int J = J0 + j;
+      mbar_wait(&full[J % kStages], (uint32_t)(J / kStages) & 1u);
       const int ws = w0 + j * slots;
       const int lo = max(s, ws), hi = min(e, ws + slots);
-      const T* buf = ring + (j % kStages) * elems;
+      const T* buf = ring + (J % kStages) * elems;
       hv_stage_dots<T, G, VE, kRows, kWeighted>(
           buf, buf + slots * k, ws, lo, hi, k, lane, grp, gmask, w_scale,
           runs_s, phi_s, kp, coef_s);
       __syncthreads();  // the stage's slot values are written
       phase2(buf, ws, lo, hi);
-      __syncthreads();  // every thread is done with buffer j % kStages
-      if (threadIdx.x == 0 && j + kStages < n_st) issue(j + kStages);
+      __syncthreads();  // every thread is done with buffer J % kStages
+      if (threadIdx.x == 0) refill(J);
     }
   }
+
+  // the span begun by begin(): a ring of its own
+  template <int G, int VE, typename Phase2>
+  __device__ __forceinline__ void run(int lane, int grp, unsigned gmask,
+                                      float w_scale, Phase2&& phase2) const {
+    run_from<G, VE>(0, lane, grp, gmask, w_scale, phase2, [&](int j) {
+      if (j + kStages < n_st) issue(j + kStages);
+    });
+  }
 };
+
+// The end of a row of the blocked Hv (hv_rows; B10): the dense term
+// acc[c] += phi[i] * dense[i, c], i ascending, phi from pr (the row's phi in
+// shared memory), then the row written once at storage dtype.
+template <typename T, int G, int NV, int VE>
+__device__ __forceinline__ void hv_finish(const float* pr,
+                                          const T* __restrict__ dense,
+                                          T* __restrict__ out, int64_t row,
+                                          int k, int lane,
+                                          float (&acc)[NV][VE]) {
+  constexpr bool kStaged = VE > 1;
+  if constexpr (kStaged) {
+    const int c0 = lane * VE;
+    if (c0 < k) {
+      for (int i0 = 0; i0 < k; i0 += 4) {  // k % 4 == 0 on this path
+        const float4 p4 = *reinterpret_cast<const float4*>(pr + i0);
+        const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
+        RawVec<T, VE> raw[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          raw[q] = load_raw<T, VE>(dense + (int64_t)(i0 + q) * k + c0);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          float dv[VE];
+          unpack(raw[q], dv);
+#pragma unroll
+          for (int i = 0; i < VE; ++i)
+            acc[0][i] = __fadd_rn(acc[0][i], __fmul_rn(pv[q], dv[i]));
+        }
+      }
+    }
+  } else {
+    for (int i = 0; i < k; ++i) {
+      const float pi = pr[i];
+      const T* drow = dense + (int64_t)i * k;
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        const int c0 = (v * G + lane) * VE;
+        if (c0 < k)
+          acc[v][0] = __fadd_rn(acc[v][0], __fmul_rn(pi, to_f(drow[c0])));
+      }
+    }
+  }
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    const int c0 = (v * G + lane) * VE;
+    if (c0 < k) store_vals<T, VE>(out + row * k + c0, acc[v]);
+  }
+}
 
 // The CTA body of B1 and B4's row stage: a group of G lanes per row (HvSpan
 // above), each row's result written once at storage dtype.  On the staged
@@ -991,46 +1017,8 @@ __device__ __forceinline__ void hv_rows(const Phi& phi_of,
         });
   }
   if (!live) return;
-
-  // dense term: acc[c] += phi[i] * dense[i, c], i ascending
-  const float* pr = sp.phi_s + grp * sp.kp;
-  if constexpr (kStaged) {
-    const int c0 = lane * VE;
-    if (c0 < k) {
-      for (int i0 = 0; i0 < k; i0 += 4) {  // k % 4 == 0 on this path
-        const float4 p4 = *reinterpret_cast<const float4*>(pr + i0);
-        const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
-        RawVec<T, VE> raw[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          raw[q] = load_raw<T, VE>(dense + (int64_t)(i0 + q) * k + c0);
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          float dv[VE];
-          unpack(raw[q], dv);
-#pragma unroll
-          for (int i = 0; i < VE; ++i)
-            acc[0][i] = __fadd_rn(acc[0][i], __fmul_rn(pv[q], dv[i]));
-        }
-      }
-    }
-  } else {
-    for (int i = 0; i < k; ++i) {
-      const float pi = pr[i];
-      const T* drow = dense + (int64_t)i * k;
-#pragma unroll
-      for (int v = 0; v < NV; ++v) {
-        const int c0 = (v * G + lane) * VE;
-        if (c0 < k)
-          acc[v][0] = __fadd_rn(acc[v][0], __fmul_rn(pi, to_f(drow[c0])));
-      }
-    }
-  }
-#pragma unroll
-  for (int v = 0; v < NV; ++v) {
-    const int c0 = (v * G + lane) * VE;
-    if (c0 < k) store_vals<T, VE>(out + row * k + c0, acc[v]);
-  }
+  hv_finish<T, G, NV, VE>(sp.phi_s + grp * sp.kp, dense, out, row, k, lane,
+                          acc);
 }
 
 // The launch geometry of an HvSpan kernel (kHvThreads threads) on plan

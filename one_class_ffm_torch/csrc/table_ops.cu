@@ -15,10 +15,11 @@
 // not fit in one block's shared memory, so each pass runs in two stages:
 //
 //   1. rows: a group of lanes per data row on a width plan (B4: common.cuh
-//      hv_rows; B6: common.cuh project_rows), one warp per data row (B5),
-//      a thread per data row (B7).  It computes the row's payload from the
-//      row's X entries, the table V (read through L2), the blocked
-//      positive stream and the dense terms, and writes it once at storage
+//      hv_rows; B6: common.cuh project_rows; B5: B2's runs-and-stages body,
+//      blocked_ops.cu grad_cross_rows_kernel), a thread per data row (B7).
+//      It computes the row's payload from the row's X entries, the table V
+//      (read through L2), the blocked positive stream and the dense terms,
+//      and writes it once at storage
 //      dtype: the same single rounding the TPU kernels apply to their zpb /
 //      zb block.  phi = X V never leaves the CTA.  B6's and B7's payloads
 //      are storage(s_i * Q1[i]) with one scalar s_i per row (B7: zb_i): their
@@ -122,47 +123,6 @@ struct HvTblLaunch {
     }
   }
 };
-
-// Stage 1 of grad_cross_tbl, replacing grad_cross_tbl_pallas /
-// _grad_cross_tbl_kernel and grad_cross_tbl_kt_pallas.  One warp per row:
-//   payload[r] = storage(dense[r] + storage(sum_{t: own_t = r} c_t rows_t))
-// kDiag (the Jacobi w_blk output, from the same read of each slot's row):
-//   payload_q[r] = storage(sum_{t: own_t = r} wq_t * storage(rows_t^2)),
-//   wq_t = storage(w_t * storage(wq_scale)), the product at f32
-// which stage 2 scatters through the field's X^2.
-template <typename T, bool kDiag>
-__global__ void __launch_bounds__(kWarps * 32)
-grad_cross_tbl_rows_kernel(const T* __restrict__ c,
-                           const T* __restrict__ w, float wq_scale,
-                           const T* __restrict__ rows,
-                           const int* __restrict__ own,
-                           const T* __restrict__ dense,
-                           T* __restrict__ payload, T* __restrict__ payload_q,
-                           int maxc, int k, int block_rows) {
-  const int lane = threadIdx.x & 31;
-  const int r = blockIdx.y * kWarps + (threadIdx.x >> 5);
-  if (r >= block_rows) return;
-  const int64_t blk = blockIdx.x;
-  const int64_t row = blk * block_rows + r;
-  int s, e;
-  row_run(own + blk * maxc, maxc, r, s, e);
-  float acc[kMaxKPerLane], accq[kMaxKPerLane];
-#pragma unroll
-  for (int j = 0; j < kMaxKPerLane; ++j) acc[j] = accq[j] = 0.f;
-  if constexpr (kDiag) {
-    scatter_diag_row<T>(c + blk * maxc, w + blk * maxc, wq_scale,
-                        rows + blk * maxc * k, s, e, k, lane, acc, accq);
-    store_row(payload_q, row, k, lane, accq);
-  } else {
-    scatter_row(c + blk * maxc, rows + blk * maxc * k, s, e, k, lane, acc);
-  }
-#pragma unroll
-  for (int j = 0; j < kMaxKPerLane; ++j) {
-    const int cc = j * 32 + lane;
-    if (cc < k) acc[j] = __fadd_rn(to_f(dense[row * k + cc]), rnd<T>(acc[j]));
-  }
-  store_row(payload, row, k, lane, acc);
-}
 
 // Stage 1 of hv_self_tbl, replacing hv_self_tbl_pallas / _hv_self_tbl_kernel
 // and hv_self_tbl_kt_pallas.  For row i:
@@ -600,28 +560,6 @@ int ocffm_pos_hv_tbl_rows(int dtype, const void* V, const void* xi,
       (const T*)V, (const int*)xi, (const T*)xv, p, d, (const T*)rows,
       (const int*)runs, (const T*)w, (const T*)dense, (T*)payload, n_blocks,
       maxc, k, block_rows, w_scale, st}));
-}
-
-// w == nullptr: the gradient payload alone; otherwise also the Jacobi
-// payload into payload_q.
-int ocffm_grad_cross_tbl_rows(int dtype, const void* c, const void* w,
-                              float wq_scale, const void* rows,
-                              const void* own, const void* dense,
-                              void* payload, void* payload_q,
-                              long long n_blocks, int maxc, int k,
-                              int block_rows, void* stream) {
-  const dim3 grid((unsigned)n_blocks, (block_rows + kWarps - 1) / kWarps);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (w == nullptr) {
-    OCFFM_BY_DTYPE(dtype, grad_cross_tbl_rows_kernel<T, false><<<grid, kWarps * 32, 0, st>>>(
-        (const T*)c, nullptr, wq_scale, (const T*)rows, (const int*)own,
-        (const T*)dense, (T*)payload, nullptr, maxc, k, block_rows));
-  } else {
-    OCFFM_BY_DTYPE(dtype, grad_cross_tbl_rows_kernel<T, true><<<grid, kWarps * 32, 0, st>>>(
-        (const T*)c, (const T*)w, wq_scale, (const T*)rows, (const int*)own,
-        (const T*)dense, (T*)payload, (T*)payload_q, maxc, k, block_rows));
-  }
-  return (int)cudaGetLastError();
 }
 
 // s (rows,) at storage dtype: each row's scale of Q1[row]

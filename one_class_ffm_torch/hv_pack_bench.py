@@ -109,7 +109,7 @@ def run(device: torch.device, dtype: torch.dtype, shape: dict,
     }
     for g in groups:
         variants[f"g{g}"] = (lambda g=g: ops.pos_hv_blocked_g(
-            phi, rows, own, w, dmat, num, BM, g, W_SCALE))
+            phi, rows, own, w, dmat, num, BM, g, W_SCALE, runs=runs))
     ref = ops.pos_hv_blocked_plain(phi, rows, own, w, dmat, num, BM, W_SCALE)
     res = {}
     for name, fn in variants.items():

@@ -508,15 +508,18 @@ def pos_hv_tbl(V, x_idx, x_val, xt, rows, own, w_blk, dense_mat,
 
 
 def _grad_cross_tbl(xt, rows, own, c_blk, dense, block_rows: int,
-                    w_blk=None, wq_scale: float = 1.0):
-    """B5's row stage (one launch, both payloads with ``w_blk``), then the
-    X^T stage of each payload: through X, and through X^2 for the Jacobi
-    payload.  Returns the (d, k) float32 results, Qt None without w_blk."""
+                    w_blk=None, wq_scale: float = 1.0, runs=None):
+    """B5's row stage (B2's kernel body with the dense term; one launch,
+    both payloads with ``w_blk``) reads each row's run from ``runs`` (see
+    ``_row_runs``), then the X^T stage of each payload: through X, and
+    through X^2 for the Jacobi payload.  Returns the (d, k) float32
+    results, Qt None without w_blk."""
     lib, nb, maxc, k = _stream_rows(rows, own, block_rows)
     dev, dt = rows.device, rows.dtype
     num = nb * block_rows
     _check("c_blk", c_blk, dt, (nb, maxc), dev)
     _check("dense", dense, dt, (num, k), dev)
+    runs = _row_runs(runs, own, block_rows)
     payload = torch.empty((num, k), dtype=dt, device=dev)
     payload_q = None
     if w_blk is not None:
@@ -524,8 +527,9 @@ def _grad_cross_tbl(xt, rows, own, c_blk, dense, block_rows: int,
         payload_q = torch.empty((num, k), dtype=dt, device=dev)
     err = lib.ocffm_grad_cross_tbl_rows(
         _DTYPE_CODE[dt], c_blk.data_ptr(), _ptr(w_blk), float(wq_scale),
-        rows.data_ptr(), own.data_ptr(), dense.data_ptr(), payload.data_ptr(),
-        _ptr(payload_q), nb, maxc, k, block_rows, _stream(dev))
+        rows.data_ptr(), runs.data_ptr(), dense.data_ptr(),
+        payload.data_ptr(), _ptr(payload_q), nb, maxc, k, block_rows,
+        _stream(dev))
     _raise_on(err, "grad_cross_tbl")
     gt = _xt_scatter(lib, payload, xt, "grad_cross_tbl")
     if payload_q is None:
@@ -533,18 +537,19 @@ def _grad_cross_tbl(xt, rows, own, c_blk, dense, block_rows: int,
     return gt, _xt_scatter(lib, payload_q, xt, "grad_cross_tbl", True)
 
 
-def grad_cross_tbl(xt, rows, own, c_blk, dense,
-                   block_rows: int) -> torch.Tensor:
-    gt, _ = _grad_cross_tbl(xt, rows, own, c_blk, dense, block_rows)
+def grad_cross_tbl(xt, rows, own, c_blk, dense, block_rows: int,
+                   runs=None) -> torch.Tensor:
+    gt, _ = _grad_cross_tbl(xt, rows, own, c_blk, dense, block_rows,
+                            runs=runs)
     _launches["grad_cross_tbl"] += 1
     return gt
 
 
 def grad_cross_tbl_diag(xt, rows, own, c_blk, dense, block_rows: int, w_blk,
-                        wq_scale: float = 1.0):
+                        wq_scale: float = 1.0, runs=None):
     """(Gt, Qt): B5 with the Jacobi w_blk output."""
     out = _grad_cross_tbl(xt, rows, own, c_blk, dense, block_rows, w_blk,
-                          wq_scale)
+                          wq_scale, runs)
     _launches["grad_cross_tbl_diag"] += 1
     return out
 
@@ -718,17 +723,20 @@ def pos_hv_packed(phi, rows_p, own_p, w_p, dense_mat, num_out: int,
 
 
 def pos_hv_blocked_g(phi, rows, own, w_blk, dense_mat, num_out: int,
-                     block_rows: int, groups: int,
-                     w_scale: float = 1.0) -> torch.Tensor:
-    """B10: B1 with ``groups`` row blocks per CTA (n_blocks % G == 0)."""
+                     block_rows: int, groups: int, w_scale: float = 1.0,
+                     runs=None) -> torch.Tensor:
+    """B10: B1 with ``groups`` row blocks per CTA (n_blocks % G == 0), their
+    spans one ring of stages; reads each row's run from ``runs`` (see
+    ``_row_runs``)."""
     lib, nb, maxc, k = _stream_rows(rows, own, block_rows)
     if groups < 1 or nb % groups:
         raise ValueError(f"G={groups} must divide n_blocks={nb}")
     dev, dt = rows.device, rows.dtype
     _check("w_blk", w_blk, dt, (nb, maxc), dev)
     out = _hv_out(phi, dense_mat, num_out, nb, k, block_rows, dev, dt)
+    runs = _row_runs(runs, own, block_rows)
     err = lib.ocffm_pos_hv_blocked_g(
-        _DTYPE_CODE[dt], phi.data_ptr(), rows.data_ptr(), own.data_ptr(),
+        _DTYPE_CODE[dt], phi.data_ptr(), rows.data_ptr(), runs.data_ptr(),
         w_blk.data_ptr(), dense_mat.data_ptr(), out.data_ptr(), nb, maxc, k,
         block_rows, groups, float(w_scale), _stream(dev))
     _raise_on(err, "pos_hv_blocked_g")

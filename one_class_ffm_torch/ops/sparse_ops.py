@@ -362,17 +362,30 @@ def grad_cross_tbl_plain(xt, rows, own, c_blk, dense, block_rows: int,
     with wq_t = storage(w_t * storage(wq_scale)) and rows_t^2 at storage
     dtype, their product at the float32 floor (the TPU kernel's one-hot
     matmul of (w * wq) against rows * rows); Qt stays unrounded."""
+    payload, posq = grad_cross_payload_plain(rows, own, c_blk, dense,
+                                             block_rows, w_blk, wq_scale)
+    gt = _xt_scatter_plain(payload, xt)
+    if w_blk is None:
+        return gt
+    return gt, _xt_scatter_plain(posq, xt, squared=True)
+
+
+def grad_cross_payload_plain(rows, own, c_blk, dense, block_rows: int,
+                             w_blk=None, wq_scale: float = 1.0):
+    """The per-row payloads of ``grad_cross_tbl_plain`` at storage dtype,
+    (payload, posq), posq None without ``w_blk``:
+    payload = storage(dense + storage(blocked scatter of c)), posq as
+    there."""
     dt, acc = rows.dtype, acc_dtype(rows.dtype)
     num = dense.shape[0]
     zpos = pos_scatter_blocked_plain(c_blk, rows, own, num, block_rows)
-    gt = _xt_scatter_plain((dense.to(acc) + zpos.to(acc)).to(dt), xt)
+    payload = (dense.to(acc) + zpos.to(acc)).to(dt)
     if w_blk is None:
-        return gt
+        return payload, None
     seg, valid = _slot_rows(own, block_rows)
     termq = (_storage_scale(w_blk, wq_scale).to(acc)[..., None]
              * (rows * rows).to(acc))
-    posq = _slot_sum(seg, valid, own, termq, num).to(dt)
-    return gt, _xt_scatter_plain(posq, xt, squared=True)
+    return payload, _slot_sum(seg, valid, own, termq, num).to(dt)
 
 
 def hv_self_tbl_plain(V, x_idx, x_val, xt, Q1, dd):
@@ -476,18 +489,20 @@ def pos_hv_tbl(V, x_idx, x_val, xt, rows, own, w_blk, dense_mat,
 
 
 def grad_cross_tbl(xt, rows, own, c_blk, dense, block_rows: int,
-                   w_blk=None, wq_scale: float = 1.0):
+                   w_blk=None, wq_scale: float = 1.0, runs=None):
     """The cross-block gradient pass of a small-D field.  Only its X^T side
     reads the field (through ``xt``): the payload is per data row.  With
-    ``w_blk`` (Jacobi) it also returns the diagonal's table-space term."""
+    ``w_blk`` (Jacobi) it also returns the diagonal's table-space term.
+    ``runs`` as in ``pos_scatter_blocked``."""
     if _plain_device(rows):
         return grad_cross_tbl_plain(xt, rows, own, c_blk, dense, block_rows,
                                     w_blk, wq_scale)
     if w_blk is None:
         return kernels.grad_cross_tbl(xt, rows, own, c_blk, dense,
-                                      block_rows)
+                                      block_rows, runs=runs)
     return kernels.grad_cross_tbl_diag(xt, rows, own, c_blk, dense,
-                                       block_rows, w_blk, wq_scale)
+                                       block_rows, w_blk, wq_scale,
+                                       runs=runs)
 
 
 def hv_self_tbl(V, x_idx, x_val, xt, Q1, dd):
@@ -596,10 +611,13 @@ def pos_hv_packed(phi, rows_p, own_p, w_p, dense_mat, num_out: int,
 
 
 def pos_hv_blocked_g(phi, rows, own, w_blk, dense_mat, num_out: int,
-                     block_rows: int, groups: int, w_scale: float = 1.0):
-    """B10 on a CUDA tensor, its plain version on a CPU one."""
+                     block_rows: int, groups: int, w_scale: float = 1.0,
+                     runs=None):
+    """B10 on a CUDA tensor, its plain version on a CPU one (``runs`` as in
+    ``pos_hv_blocked``)."""
     if _plain_device(rows):
         return pos_hv_blocked_g_plain(phi, rows, own, w_blk, dense_mat,
                                       num_out, block_rows, groups, w_scale)
     return kernels.pos_hv_blocked_g(phi, rows, own, w_blk, dense_mat,
-                                    num_out, block_rows, groups, w_scale)
+                                    num_out, block_rows, groups, w_scale,
+                                    runs=runs)

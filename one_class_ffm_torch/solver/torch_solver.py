@@ -483,7 +483,7 @@ class FFMSolver:
             if with_diag_pos else {}
         if self._fused(b, first):
             res = grad_cross_tbl(xf, rows_pre, d[pre + "own"], c_blk, dense,
-                                 bm, **diag_w)
+                                 bm, runs=d[pre + "runs"], **diag_w)
             if not with_diag_pos:
                 return self._tbl_grad(b, first, T, res)
             Gt, Qt = res

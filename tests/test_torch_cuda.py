@@ -754,3 +754,106 @@ def test_grad_self_tbl_matches_plain_bits(device, dtype, k):
     with pytest.raises(ValueError, match="scale"):
         kernels._xt_scatter(kernels.load(), args[1], xt, "grad_self_tbl",
                             True, payload_sq=True)
+
+
+# ---------------------------------------------------------------------------
+# B5's row stage on B2's runs-and-stages body, and B10 on B1's stage loop
+# with one ring across its G blocks
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [8, 32, 48])
+@pytest.mark.parametrize("maxc_pad", [0, 3])
+def test_b5_runs_and_stages_match_plain(device, dtype, k, maxc_pad):
+    """B5 and its Jacobi variant bit-equal to grad_cross_tbl_plain, signs of
+    zero included, on B2's edge cases (empty rows, a block of pads only, a
+    run of 700 slots over many stages, MAXC % 8 != 0 on the plain-load
+    plan), with -0.0 in the coefficients and the dense rows, with the
+    static runs and with runs found in the wrapper; the gradient output
+    equals the pass without the diagonal; equal on repeat."""
+    from one_class_ffm_torch.ops.layout import row_runs
+
+    rng = np.random.default_rng(20)
+    own_np, BM, rows_np = _b2_stream(rng, k, maxc_pad)
+    num, d = 4 * BM, 37
+    rows_np[rng.random(rows_np.shape) < 0.2] = 0.0
+    idx, val = _field(rng, num, d)
+    fm = feature_major(idx, val, d)
+    c_np = rng.normal(size=own_np.shape) * (own_np < BM)
+    c_np[rng.random(c_np.shape) < 0.1] = -0.0
+    dense_np = rng.normal(size=(num, k))
+    dense_np[rng.random(dense_np.shape) < 0.2] = -0.0
+
+    def T(a):
+        return torch.as_tensor(a).to(device=device, dtype=dtype).contiguous()
+
+    def I(a):
+        return torch.as_tensor(a, dtype=torch.int32, device=device)
+
+    xt = _squared(_device_list(fm, T, I))
+    own, runs = I(own_np), I(row_runs(own_np, BM))
+    w = T(rng.random(own_np.shape) * (own_np < BM))
+    args = (xt, T(rows_np), own, T(c_np), T(dense_np), BM)
+    kernels.reset_launch_counts()
+    got = ops.grad_cross_tbl(*args, runs=runs)
+    derived = kernels.grad_cross_tbl(*args)
+    ref = ops.grad_cross_tbl_plain(*args)
+    gd = ops.grad_cross_tbl(*args, w_blk=w, wq_scale=0.9, runs=runs)
+    gd2 = kernels.grad_cross_tbl_diag(*args, w, 0.9)
+    rd = ops.grad_cross_tbl_plain(*args, w_blk=w, wq_scale=0.9)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (d, k)
+    for g in (got, derived, gd[0], gd2[0]):
+        assert torch.equal(_bits(g), _bits(ref)), (k, maxc_pad, dtype)
+    for g in (gd[1], gd2[1]):
+        assert torch.equal(_bits(g), _bits(rd[1])), (k, maxc_pad, dtype)
+    counts = kernels.launch_counts()
+    assert counts["grad_cross_tbl"] == 2
+    assert counts["grad_cross_tbl_diag"] == 2
+    with pytest.raises(ValueError, match="runs"):
+        kernels.grad_cross_tbl(*args, runs=runs[:, :-1].contiguous())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [8, 32, 40])
+@pytest.mark.parametrize("groups", [1, 2, 4])
+def test_b10_ring_matches_b1_and_plain(device, dtype, k, groups):
+    """B10 at G blocks per CTA bit-equal to B1 and to its plain version,
+    signs of zero included, on B2's edge cases (a block of pads only, whose
+    CTAs add no stage to the ring, a run of 700 slots over many stages,
+    empty rows), on the staged plans (k = 8, 32) and the plain-load plan (k
+    = 40), with the static runs and with runs found in the wrapper; a G
+    that does not divide n_blocks is refused."""
+    from one_class_ffm_torch.ops.layout import row_runs
+
+    rng = np.random.default_rng(21)
+    own_np, BM, rows_np = _b2_stream(rng, k, 0)
+    num = 4 * BM
+    rows_np[rng.random(rows_np.shape) < 0.2] = 0.0
+    phi_np = rng.normal(size=(num, k))
+    phi_np[rng.random(phi_np.shape) < 0.2] = -0.0
+    phi_np[:8] = -0.0
+
+    def T(a):
+        return torch.as_tensor(a).to(device=device, dtype=dtype).contiguous()
+
+    own = torch.as_tensor(own_np, dtype=torch.int32, device=device)
+    runs = torch.as_tensor(row_runs(own_np, BM), device=device)
+    w = T(rng.random(own_np.shape) * (own_np < BM))
+    args = (T(phi_np), T(rows_np), own, w, T(rng.normal(size=(k, k))), num,
+            BM)
+    kernels.reset_launch_counts()
+    b1 = kernels.pos_hv_blocked(*args, 0.9, runs=runs)
+    got = ops.pos_hv_blocked_g(*args, groups, 0.9, runs=runs)
+    derived = kernels.pos_hv_blocked_g(*args, groups, 0.9)
+    ref = ops.pos_hv_blocked_g_plain(*args, groups, 0.9)
+    torch.cuda.synchronize()
+    for g in (got, derived, b1):
+        assert torch.equal(_bits(g), _bits(ref)), (k, groups, dtype)
+    assert kernels.launch_counts()["pos_hv_blocked_g"] == 2
+    with pytest.raises(ValueError, match="divide"):
+        kernels.pos_hv_blocked_g(*args, 3, 0.9, runs=runs)
+    with pytest.raises(ValueError, match="runs"):
+        kernels.pos_hv_blocked_g(*args, groups, 0.9,
+                                 runs=runs[:, :-1].contiguous())

@@ -27,6 +27,7 @@ from one_class_ffm_torch.ops.layout import (
     FeatureMajor,
     feature_major,
     make_blocked_layout,
+    row_runs,
 )
 from one_class_ffm_torch.solver import torch_solver
 from test_torch_e2e import _run, ffm_set, fm_set, mf_set  # noqa: F401
@@ -134,9 +135,11 @@ def test_grad_cross_diag_matches_grad_cross_tbl_pallas(stream, dtype):
     idx, val = _field(rng, num, d)
     dense = rng.normal(size=(num, k))
     xt = _xt(idx, val, d, dtype)
+    # with the static row runs the kernel reads (the CPU ignores them)
     Gt, Qt = tops.grad_cross_tbl(xt, T(f["rows"], dtype), T(f["own"]),
                                  T(f["c"], dtype), T(dense, dtype), BM,
-                                 w_blk=T(f["w"], dtype), wq_scale=scale)
+                                 w_blk=T(f["w"], dtype), wq_scale=scale,
+                                 runs=T(row_runs(f["own"], BM)))
     it, vt = jnp.asarray(idx.T), J(val.T, dtype)
     args = (J(f["rows"], dtype), jnp.asarray(f["own"]), J(f["c"], dtype),
             J(dense, dtype), BM)
@@ -642,3 +645,46 @@ def test_chip_smoke_reads_the_stack_of_b3_and_b7s_kernels(monkeypatch):
         ("gap_slots_kernel", "bf16", False, ()): (32, 1024, 0),
         ("grad_self_scale_kernel", "f32", False, ()): (32, 1024, 0),
         ("xt_scaled_sq_kernel", "bf16", False, (4, 1, 8)): (80, 1024, 24)}
+
+
+def test_chip_smoke_work_counts_the_runs_of_b5_and_b10():
+    """B5's bounds (with and without its Jacobi output) and B10's, given
+    the static row runs, count the runs' bytes in place of the owners' (own
+    is the third argument of both), and the operations do not change; B5's
+    and its Jacobi variant's [kernels] lines give their X^T stage alone."""
+    from one_class_ffm_torch.ops.layout import (
+        FeatureMajor,
+        feature_major,
+        row_runs,
+    )
+
+    chip_smoke = _chip_smoke()
+    rng = np.random.default_rng(14)
+    nb, maxc, bm, k, d, p = 4, 40, 8, 4, 11, 3
+    own = np.sort(rng.integers(0, bm + 1, size=(nb, maxc)), axis=1)
+    own_t = torch.as_tensor(own, dtype=torch.int32)
+    runs = torch.as_tensor(row_runs(own, bm))
+    idx = rng.integers(0, d, size=(nb * bm, p)).astype(np.int32)
+    val = rng.random((nb * bm, p)).astype(np.float32)
+    fm = feature_major(idx, val, d)
+    xt = FeatureMajor(*(torch.as_tensor(a) for a in (
+        fm.row, fm.val, fm.chunk_ptr, fm.feat_ptr)), n_rows=fm.n_rows)
+    xt = xt._replace(val_sq=xt.val * xt.val)
+    rows = torch.rand(nb, maxc, k)
+    valid = own_t < bm
+    b5 = (xt, rows, own_t, torch.rand(nb, maxc) * valid,
+          torch.rand(nb * bm, k), bm)
+    b10 = (torch.rand(nb * bm, k), rows, own_t, torch.rand(nb, maxc) * valid,
+           torch.rand(k, k), nb * bm, bm, 2, 0.9)
+    cases = (
+        ("grad_cross_tbl", b5, torch.empty(d, k)),
+        ("grad_cross_tbl_diag", b5 + (torch.rand(nb, maxc) * valid, 0.9),
+         (torch.empty(d, k), torch.empty(d, k))),
+        ("pos_hv_blocked_g", b10, torch.empty(nb * bm, k)))
+    for name, args, out in cases:
+        nbytes, ops = chip_smoke.work(name, args, out)
+        nbytes_r, ops_r = chip_smoke.work(name, args, out, {"runs": runs})
+        assert ops_r == ops and ops > 0, name
+        assert nbytes_r - nbytes == 4 * nb * (bm + 1 - maxc), name
+    assert {"grad_cross_tbl", "grad_cross_tbl_diag"} <= set(
+        chip_smoke.XT_STAGED)

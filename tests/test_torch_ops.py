@@ -17,6 +17,7 @@ from one_class_ffm_torch.ops.layout import (
     FeatureMajor,
     feature_major,
     make_blocked_layout,
+    row_runs,
 )
 
 torch.set_num_threads(1)
@@ -250,8 +251,9 @@ def test_table_ops_match_both_jax_twins(fx, op):
                                           J(w_blk), J(dmat), BM,
                                           w_scale=scale, interpret=True))
     elif op == "grad_cross_tbl":
+        # with the static row runs the kernel reads (the CPU ignores them)
         got = tops.grad_cross_tbl(xt, T(rows), T(own), T(c_blk), T(dense),
-                                  BM)
+                                  BM, runs=T(row_runs(own, BM)))
         refs = (jops.grad_cross_tbl_pallas(d, it, vt, J(rows), J(own),
                                            J(c_blk), J(dense), BM,
                                            interpret=True),

@@ -521,3 +521,43 @@ def test_step_and_self_gradient_hand_the_static_runs_to_b3_and_b7(
                      ("grad_self_tbl", True)}, names
     runs = (solver.data["blk_u_runs"], solver.data["blk_v_runs"])
     assert all(any(r is x for x in runs) for _, r, _ in seen)
+
+
+def test_cross_gradient_hands_the_static_runs_to_b5(monkeypatch):
+    """The fused cross-block gradient (B5, with and without the Jacobi
+    w_blk output) passes the layout's static row runs (``blk_*_runs``) to
+    its kernel on both sides; the CPU dispatch ignores them and the
+    gradient still matches the oracle's."""
+    prob, params = ffm_problem("ffm_ns")
+    solver, state = build_port(prob, params)
+    seen = []
+
+    def recording(fn):
+        def call(*args, runs=None, **kw):
+            seen.append((runs, kw.get("w_blk") is not None))
+            return fn(*args, runs=runs, **kw)
+        return call
+
+    monkeypatch.setattr(torch_solver, "grad_cross_tbl",
+                        recording(torch_solver.grad_cross_tbl))
+    sides = set()
+    for b in prob.layout.cross_blocks():
+        for first in (True, False):
+            if not solver._fused(b, first):
+                continue
+            B1 = state["Q"][b.f12] if first else state["P"][b.f12]
+            pre = "blk_u_" if first else "blk_v_"
+            rows = gather_blocked_rows(B1, solver.data[pre + "take"])
+            seen.clear()
+            G = solver._grad_cross(state, b, first, rows)
+            G_ref, _ = oracle.grad_and_hv(prob, params, b, first)
+            np.testing.assert_allclose(G.numpy(), G_ref, rtol=1e-8,
+                                       atol=1e-10)
+            G_d, _ = solver._grad_cross(state, b, first, rows,
+                                        with_diag_pos=True)
+            assert torch.equal(G_d, G)
+            runs = solver.data[pre + "runs"]
+            assert [d for _, d in seen] == [False, True], (b.f12, first)
+            assert all(r is runs for r, _ in seen), (b.f12, first)
+            sides.add(first)
+    assert sides == {True, False}
