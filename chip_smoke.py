@@ -357,15 +357,16 @@ OWN_ARG = {"pos_hv_blocked": 2, "pos_scatter_blocked": 2,
            "pos_scatter_blocked_diag": 2, "pos_hv_tbl": 5,
            "pos_gap_blocked": 2, "grad_self_tbl": 3, "grad_self_tbl_diag": 3,
            "grad_cross_tbl": 2, "grad_cross_tbl_diag": 2,
-           "pos_hv_blocked_g": 2}
+           "pos_hv_blocked_g": 2, "pos_hv_packed": 2}
 
 
 def work(name: str, args, out, kw=None):
     """(bytes, operations) that the function needs on these inputs: each
     input read once and the output written once (for ``project`` only the
     table rows its ids name; for B9 one lane of each 32-lane group of the
-    packed owners and weights; for B1-B5, B7 and B10 given their rows'
-    runs, the runs in place of the owners), and the products and sums of the
+    packed weights, and of the owners unless it is given its rows' runs;
+    for B1-B5, B7, B9 and B10 given their rows' runs, the runs in place of
+    the owners), and the products and sums of the
     entries these inputs hold (valid slots, nonzero X entries), not of
     padding.  A Jacobi variant adds its second payload (rows^2 scaled and
     summed per slot, or dd Q1 Q1 per row) and its X^2 pass."""
@@ -378,7 +379,9 @@ def work(name: str, args, out, kw=None):
         nbytes += _nbytes(runs) - _nbytes(args[OWN_ARG[name]])
     if name == "pos_hv_packed":
         phi, rows_p, own_p, w_p, dense, num_out, bm = args[:7]
-        nbytes -= (_nbytes(own_p) + _nbytes(w_p)) * 31 // 32
+        nbytes -= _nbytes(w_p) * 31 // 32
+        if runs is None:
+            nbytes -= _nbytes(own_p) * 31 // 32
         k = phi.shape[1]
         live = int((own_p[:, :, ::k] < bm).sum())
         return nbytes, live * (4 * k + 2) + num_out * 2 * k * k
@@ -440,6 +443,17 @@ def work(name: str, args, out, kw=None):
                         + Q1.shape[0] * (3 * k + 2) + xt_ops)
     _, Q1, _, own, _, bm = args  # grad_self_tbl
     return nbytes, (int((own < bm).sum()) + Q1.shape[0] * (k + 1) + xt_ops)
+
+
+def sector_floor_bytes(args, nbytes: int) -> int:
+    """B9's bytes (``work``) with each slot's weight counted as the 32-byte
+    sector that holds it, not as the weight alone: the packed weights of two
+    slots sit 32 lanes apart, never in one sector, so the card reads at
+    least that much.  The bound does not count it; its [kernels] line
+    prints both."""
+    w_p = args[3]
+    n_slots = w_p.shape[0] * w_p.shape[1] * 4
+    return nbytes + n_slots * (32 - w_p.element_size())
 
 
 def bound_of(nbytes: float, ops: float):
@@ -642,6 +656,9 @@ def compare(name: str, side: str, dt_name: str, args, kw, report, gpu: str,
         line += (f"  kernel {ms:.4f} ms  plain {pms:.4f} ms  library "
                  f"{'none' if lms is None else f'{lms:.4f} ms'}  bound "
                  f"{bms:.4f} ms by {by} ({nbytes} B, {nops} ops)")
+        if name == "pos_hv_packed":
+            fms, _ = bound_of(sector_floor_bytes(args, nbytes), nops)
+            line += f"  sector floor {fms:.4f} ms"
         if name in XT_STAGED:  # a row stage, then X^T
             line += f"  X^T stage alone {xt_stage_ms(name, args):.4f} ms"
         line += f"  [{gpu}]"
@@ -829,7 +846,8 @@ def jacobi_cases(trainer):
 
 def variant_phase(trainer, gpu: str, report) -> None:
     """B9 and B10 on the arguments B1 receives in a real MF half-solve, on
-    each side: B9 on the stream packed as the TPU experiment packed it, B10
+    each side, with B1's static row runs: B9 on the stream packed as the
+    TPU experiment packed it (the packing keeps slot order), B10
     at G = 2 where the block count allows it (u: 782 blocks) and G = 1
     otherwise (v: 79 blocks, a prime).  Each against its plain version and
     against B1's output on the same inputs, at float32 and bfloat16."""
@@ -853,7 +871,7 @@ def variant_phase(trainer, gpu: str, report) -> None:
             b1 = kernels.pos_hv_blocked(*a, **kw)
             compare("pos_hv_packed", f"MF {side}", dt_name,
                     [phi, *ops.pack_rows(rows, own, w), dense, num, bm,
-                     w_scale], {}, report, gpu, same_as=b1)
+                     w_scale], kw, report, gpu, same_as=b1)
             compare("pos_hv_blocked_g", f"MF {side} G={groups}", dt_name,
                     [phi, rows, own, w, dense, num, bm, groups, w_scale], kw,
                     report, gpu, same_as=b1)

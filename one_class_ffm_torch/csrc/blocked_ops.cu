@@ -54,8 +54,11 @@ pos_hv_kernel(const T* __restrict__ phi, const T* __restrict__ rows,
               const int* __restrict__ runs, const T* __restrict__ w,
               const T* __restrict__ dense, T* __restrict__ out, int maxc,
               int k, int block_rows, float w_scale, int stage_slots) {
-  hv_rows<T, G, NV, VE>(RowPhi<T>{phi, k}, rows, runs, w, dense, out, maxc,
-                        k, block_rows, w_scale, stage_slots);
+  const int64_t blk = blockIdx.x;
+  hv_rows<T, G, NV, VE>(RowPhi<T>{phi, k},
+                        RowStream<T>{rows + blk * maxc * k, w + blk * maxc},
+                        runs, dense, out, k, block_rows, w_scale,
+                        stage_slots);
 }
 
 template <typename T>
@@ -402,8 +405,9 @@ gap_rows_kernel(const T* __restrict__ dP, const T* __restrict__ rows,
   const int* runs_b = runs + blk * (block_rows + 1);
   extern __shared__ __align__(128) unsigned char gap_smem[];
   __shared__ uint64_t full[kStages];
-  HvSpan<T, kRows, false> sp(gap_smem, full, rows + blk * maxc * k, nullptr,
-                             k, stage_slots);
+  HvSpan<T, kRows, false> sp(gap_smem, full,
+                             RowStream<T>{rows + blk * maxc * k, nullptr}, k,
+                             stage_slots);
   sp.begin(runs_b, r0, block_rows);
   float ph[NV][VE];
   RowPhi<T>{dP, k}.template load<G, NV, VE>(r < block_rows,

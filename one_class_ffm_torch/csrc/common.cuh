@@ -1,16 +1,17 @@
 // Helpers shared by the port's kernels (blocked_ops.cu, table_ops.cu,
 // project_ops.cu and hv_variants.cu): storage-dtype conversion, the warp
-// sum, the slot layouts and row runs of the blocked stream, the warp-per-row
-// math of the blocked Hv (B9), the grid of a warp-per-item loop, the dtype
-// dispatch of a launch, the rows of a width fixed at compile time (vector
-// loads and stores, and the dispatch over width plans) that the X^T stage,
-// B2, B5's row stage and the blocked Hv use, the shared-memory stages that
-// bulk asynchronous copies fill (B2 and B5's row stage, and the stage loop
-// over a CTA's span of the stream, HvSpan, that B1, B3, B4's row stage and
-// B10 run, B10 one ring across its G blocks), the blocked Hv of a CTA's rows
-// on a width plan (B1 and B4's row stage, and its end, hv_finish, that B10
-// shares), and the projection phi = X V of a row by a group of lanes with
-// the loop that walks a group's rows (B8, B6's row stage; B4's stage 1).
+// sum, the grid of a warp-per-item loop, the dtype dispatch of a launch, the
+// rows of a width fixed at compile time (vector loads and stores, and the
+// dispatch over width plans) that the X^T stage, B2, B5's row stage and the
+// blocked Hv use, the shared-memory stages that bulk asynchronous copies
+// fill (B2 and B5's row stage, and the stage loop over a CTA's span of the
+// stream, HvSpan, that B1, B3, B4's row stage, B9 and B10 run: B10 one ring
+// across its G blocks, B9 from the lane-packed stream through its own
+// stream layout, hv_variants.cu PackedStream), the blocked Hv of a CTA's
+// rows on a width plan (B1, B4's row stage and B9, and its end, hv_finish,
+// that B10 shares), and the projection phi = X V of a row by a group of
+// lanes with the loop that walks a group's rows (B8, B6's row stage; B4's
+// stage 1).
 // Every product and sum is rounded on its own (__fmul_rn / __fadd_rn: no
 // fused multiply-add) in a fixed order, which the plain PyTorch versions in
 // ops/sparse_ops.py follow bit for bit.
@@ -52,135 +53,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   for (int off = 16; off > 0; off >>= 1)
     v = __fadd_rn(v, __shfl_xor_sync(kFull, v, off));
   return v;
-}
-
-// Where slot t of a block lives.  RowMajor: the port's stream
-// (MAXC, k), owner and weight at t.  Packed4: the lane-packed stream
-// (MAXC/4, 128) of pos_hv_packed_pallas, entry t = j * MAXC/4 + c at
-// [c, 32j:32j+32] with k = 32; its owner and weight are read from lane 0
-// of the group (the other 31 copies are a TPU layout artefact).
-struct RowMajor {
-  int k;
-  __device__ __forceinline__ int64_t row(int t) const { return (int64_t)t * k; }
-  __device__ __forceinline__ int64_t scalar(int t) const { return t; }
-};
-struct Packed4 {
-  int m4;  // MAXC / 4
-  __device__ __forceinline__ int64_t row(int t) const {
-    return (int64_t)(t % m4) * 128 + 32 * (t / m4);
-  }
-  __device__ __forceinline__ int64_t scalar(int t) const { return row(t); }
-};
-
-// First slot in [lo, n) whose owner is >= key (own is non-decreasing in
-// slot order).
-template <typename Slots>
-__device__ __forceinline__ int lower_bound(const int* own, int lo, int n, int key,
-                                           Slots sl) {
-  int hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (own[sl.scalar(mid)] < key) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
-
-// The slots [s, e) of row r in its block's `own` row.
-template <typename Slots>
-__device__ __forceinline__ void row_run(const int* own_b, int maxc, int r, int& s,
-                                        int& e, Slots sl) {
-  s = lower_bound(own_b, 0, maxc, r, sl);
-  e = lower_bound(own_b, s, maxc, r + 1, sl);
-}
-__device__ __forceinline__ void row_run(const int* own_b, int maxc, int r, int& s,
-                                        int& e) {
-  row_run(own_b, maxc, r, s, e, RowMajor{0});
-}
-
-// The blocked Hv of one row, lanes over k, the row's run found by search
-// (B9; B1, B4 and B10 run hv_rows' stage loop below, with the same bits):
-//   acc += sum_{t in [s, e)} (w_scale * w_t) * pq_t * rows_t + ph @ dense,
-//   pq_t = storage(<ph, rows_t>)
-// ph holds the row's phi (zero past k); it stays in registers and is
-// broadcast by shuffles for the dense term.  Slots are walked in slot
-// order whatever their layout, so every layout gives B1's bits.
-template <typename T, typename Slots>
-__device__ __forceinline__ void hv_row(const float (&ph)[kMaxKPerLane],
-                                       const T* __restrict__ rows_b,
-                                       const T* __restrict__ w_b, int s, int e,
-                                       const T* __restrict__ dense, int k,
-                                       float w_scale, int lane,
-                                       float (&acc)[kMaxKPerLane],
-                                       Slots sl) {
-  for (int t = s; t < e; ++t) {
-    const T* rt = rows_b + sl.row(t);
-    float rv[kMaxKPerLane];
-    float dot = 0.f;
-#pragma unroll
-    for (int j = 0; j < kMaxKPerLane; ++j) {
-      const int c = j * 32 + lane;
-      rv[j] = c < k ? to_f(rt[c]) : 0.f;
-      dot = __fadd_rn(dot, __fmul_rn(ph[j], rv[j]));
-    }
-    const float pq = rnd<T>(warp_sum(dot));
-    const float coef = __fmul_rn(pq, __fmul_rn(w_scale, to_f(w_b[sl.scalar(t)])));
-#pragma unroll
-    for (int j = 0; j < kMaxKPerLane; ++j)
-      acc[j] = __fadd_rn(acc[j], __fmul_rn(coef, rv[j]));
-  }
-  // dense term: acc[l] += sum_i ph[i] * dense[i, l]
-#pragma unroll
-  for (int jb = 0; jb < kMaxKPerLane; ++jb) {
-    if (jb * 32 >= k) break;
-    for (int q = 0; q < 32; ++q) {
-      const int i = jb * 32 + q;
-      if (i >= k) break;
-      const float pi = __shfl_sync(kFull, ph[jb], q);
-      const T* drow = dense + (int64_t)i * k;
-#pragma unroll
-      for (int j = 0; j < kMaxKPerLane; ++j) {
-        const int c = j * 32 + lane;
-        if (c < k) acc[j] = __fadd_rn(acc[j], __fmul_rn(pi, to_f(drow[c])));
-      }
-    }
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ void store_row(T* __restrict__ out, int64_t row,
-                                          int k, int lane,
-                                          const float (&v)[kMaxKPerLane]) {
-#pragma unroll
-  for (int j = 0; j < kMaxKPerLane; ++j) {
-    const int c = j * 32 + lane;
-    if (c < k) out[row * k + c] = from_f<T>(v[j]);
-  }
-}
-
-// One output row of B1's function for its variant B9, which differs only
-// in the slot layout: row r of block blk, lanes over k, its run found by
-// binary search over the block's owners, phi[row] held in registers, the
-// result written once at storage dtype.
-template <typename T, typename Slots>
-__device__ __forceinline__ void hv_out_row(const T* __restrict__ phi,
-                                           const T* __restrict__ rows_b,
-                                           const int* __restrict__ own_b,
-                                           const T* __restrict__ w_b,
-                                           const T* __restrict__ dense,
-                                           T* __restrict__ out, int64_t row,
-                                           int r, int maxc, int k,
-                                           float w_scale, int lane, Slots sl) {
-  int s, e;
-  row_run(own_b, maxc, r, s, e, sl);
-  float ph[kMaxKPerLane], acc[kMaxKPerLane];
-#pragma unroll
-  for (int j = 0; j < kMaxKPerLane; ++j) {
-    const int c = j * 32 + lane;
-    ph[j] = c < k ? to_f(phi[row * k + c]) : 0.f;
-    acc[j] = 0.f;
-  }
-  hv_row(ph, rows_b, w_b, s, e, dense, k, w_scale, lane, acc, sl);
-  store_row(out, row, k, lane, acc);
 }
 
 // grid for a warp-per-item grid-stride loop over n items
@@ -372,8 +244,9 @@ inline int stage_slots_for(int row_bytes, int stage_bytes = kStageBytes) {
 }
 
 // ---------------------------------------------------------------------------
-// The blocked Hv of a CTA's rows on a width plan (B1, and B4's row stage;
-// B3 runs its stage loop, HvSpan, for the slot dots alone):
+// The blocked Hv of a CTA's rows on a width plan (B1, B4's row stage and
+// B9, which reads the lane-packed stream; B3 runs its stage loop, HvSpan,
+// for the slot dots alone):
 // for row r of block b,
 //   out[r] = sum_{t: own_t = r} (w_scale * w_t) * pq_t * rows_t
 //            + phi[r] @ dense,        pq_t = storage(<phi[r], rows_t>)
@@ -382,8 +255,8 @@ inline int stage_slots_for(int row_bytes, int stage_bytes = kStageBytes) {
 // an xor butterfly at 16, 8, 4, 2, 1), the slots are added in slot order,
 // then the dense term, i ascending.
 //
-// What held the warp-per-row routine (hv_row) back on the H100, and what
-// this one does about it:
+// What held a warp per row (the first port of B1, B4 and B9) back on the
+// H100, and what this does about it:
 // - a binary search per row over the block's owners: each row's run is read
 //   from the static run pointer `runs` (layout.row_runs);
 // - the stream by the warp's own loads, one slot per dependent chain (load,
@@ -413,7 +286,8 @@ inline int stage_slots_for(int row_bytes, int stage_bytes = kStageBytes) {
 // bits.
 //
 // Two paths, one kernel per plan: the staged path (VE > 1, k <= 32, MAXC %
-// 8 == 0, 16-byte-aligned rows: bulk copies need it) and the plain-load
+// 8 == 0, 16-byte-aligned rows: bulk copies need it; B9 takes it alone,
+// k = 32 and any MAXC % 4 == 0) and the plain-load
 // path (G = 32, VE = 1, NV = kMaxKPerLane: one lane per column of 32, any k
 // up to 256), which reads the stream and dense from device memory.  Both
 // give the same bits.
@@ -681,8 +555,9 @@ struct ProjectedPhi {
 // Every group takes batches of D consecutive slots in turn, whichever rows
 // own them, so a stage that holds one or two rows' long runs keeps all
 // groups busy.  Slot t's row within the CTA is the last g with runs_s[g] <=
-// t.
-template <typename T, int G, int VE, int kRows, bool kWeighted>
+// t.  Slot t's weight is buf_w[(t - ws) * WS] (the stream layout's
+// kWStride).
+template <typename T, int G, int VE, int kRows, bool kWeighted, int WS>
 __device__ __forceinline__ void hv_stage_dots(
     const T* buf, const T* buf_w, int ws, int lo, int hi, int k, int lane,
     int grp, unsigned gmask, float w_scale, const int* runs_s,
@@ -701,7 +576,8 @@ __device__ __forceinline__ void hv_stage_dots(
       if (t < hi) {
         const int o = t - ws;
         if (c0 < k) raw[j] = load_raw<T, VE>(buf + (int64_t)o * k + c0);
-        if constexpr (kWeighted) wt[j] = __fmul_rn(w_scale, to_f(buf_w[o]));
+        if constexpr (kWeighted)
+          wt[j] = __fmul_rn(w_scale, to_f(buf_w[o * WS]));
         int g = 0;
 #pragma unroll
         for (int step = kRows / 2; step > 0; step >>= 1)
@@ -773,69 +649,114 @@ __device__ __forceinline__ void hv_stage_adds(const T* buf,
   }
 }
 
+// Where the stages of a CTA's span come from: a stream layout, HvSpan's
+// policy for where stage j of the span [s, e) starts (start; w0 is
+// first(s)), where a stage that starts at ws ends at the latest (stop: the
+// span's end aside), how many stages the span takes (stages), and how
+// thread 0 copies a stage in (copy).  Whatever the layout, a stage holds
+// its slot ws + i's row at row i of the buffer's (slots, k) rows and its
+// weight at element i * kWStride of the weights after them, so the two
+// phases of a stage are the same code for every layout.
+//
+// RowStream is the port's row-major stream (MAXC, k) per block, slot t's
+// row at rows_b + t * k and its weight at w_b[t] (B1, B3, B4's row stage,
+// B10): the span, widened to whole 8-slot groups, is cut into stages of
+// `slots` slots, each one 1-D bulk copy of its rows and one of its weights
+// (bulk copies need 16-byte-aligned addresses and sizes: MAXC % 8 == 0).
+// Its walk is static: member calls on HvSpan's copy of the layout made
+// nvcc give B1, B3 and B4 other registers (B4's row stage 64 at k = 32
+// f32, not 56) for the same arithmetic.  The lane-packed stream of B9 is
+// hv_variants.cu's PackedStream.
+template <typename T>
+struct RowStream {
+  const T* rows_b;
+  const T* w_b;
+  static constexpr int kWStride = 1;
+
+  __device__ __forceinline__ static int first(int s) { return s & ~7; }
+  __device__ __forceinline__ static int stages(int s, int e, int slots) {
+    return s < e ? (((e + 7) & ~7) - (s & ~7) + slots - 1) / slots : 0;
+  }
+  __device__ __forceinline__ static int start(int j, int w0, int, int,
+                                              int slots) {
+    return w0 + j * slots;
+  }
+  __device__ __forceinline__ static int stop(int ws, int slots) {
+    return ws + slots;
+  }
+
+  // the slots [ws, min(ws + slots, w1)) of the span [., e), w1 = e widened
+  // to 8 slots: their rows into buf and, kWeighted, their weights into
+  // buf_w, completed on bar
+  template <bool kWeighted>
+  __device__ __forceinline__ void copy(T* buf, T* buf_w, uint64_t* bar,
+                                       int ws, int e, int k,
+                                       int slots) const {
+    const int n = min(slots, ((e + 7) & ~7) - ws);  // a multiple of 8 slots
+    const uint32_t row_bytes = (uint32_t)n * k * sizeof(T);
+    const uint32_t col_bytes = kWeighted ? (uint32_t)n * sizeof(T) : 0u;
+    mbar_expect_tx(bar, row_bytes + col_bytes);
+    bulk_load(buf, rows_b + (int64_t)ws * k, row_bytes, bar);
+    if constexpr (kWeighted) bulk_load(buf_w, w_b + ws, col_bytes, bar);
+  }
+};
+
 // A CTA's share of the blocked stream on the staged path, and the stage
-// loop over it (hv_rows: B1 and B4's row stage; B3's gap_rows_kernel; B10,
-// whose CTA runs the spans of G blocks through one ring, run_from).  CTA
-// (b, y) owns the kRows rows [y * kRows, (y + 1) * kRows) of block b, a
-// group of lanes per row; their runs are one contiguous span of slots [s,
-// e), read from the static run pointer (no search).  Thread 0 streams the
-// span, widened to whole 8-slot groups, through a ring of kStages stages of
-// `slots` slots with bulk copies: each stage the slots' rows of the stream,
-// then, kWeighted, their weights.  Each stage runs in two phases: (1) every
-// group computes slot values of the stage (hv_stage_dots), (2) the caller's
-// phase2(buf, ws, lo, hi) uses them, the values of slots [lo, hi) in
-// coef_s[t - ws]; then the buffer is refilled.  Dynamic shared memory, in
-// order (bytes()): the ring, the rows' phi (f32, stride k + 4, so that the
-// groups of a warp read different banks), a stage's slot values (f32) and
-// the CTA's row runs.
-template <typename T, int kRows, bool kWeighted>
+// loop over it (hv_rows: B1, B4's row stage and B9; B3's gap_rows_kernel;
+// B10, whose CTA runs the spans of G blocks through one ring, run_from).
+// CTA (b, y) owns the kRows rows [y * kRows, (y + 1) * kRows) of block b,
+// a group of lanes per row; their runs are one contiguous span of slots
+// [s, e), read from the static run pointer (no search).  Thread 0 streams
+// the span through a ring of kStages stages of up to `slots` slots, cut
+// and copied as the stream layout `Stream` says: each stage the slots'
+// rows of the stream, then, kWeighted, their weights.  Each stage runs in
+// two phases: (1) every group computes slot values of the stage
+// (hv_stage_dots), (2) the caller's phase2(buf, ws, lo, hi) uses them, the
+// values of slots [lo, hi) in coef_s[t - ws]; then the buffer is refilled.
+// Dynamic shared memory, in order (bytes()): the ring, the rows' phi (f32,
+// stride k + 4, so that the groups of a warp read different banks), a
+// stage's slot values (f32) and the CTA's row runs.
+template <typename T, int kRows, bool kWeighted,
+          typename Stream = RowStream<T>>
 struct HvSpan {
+  // weight elements per slot of a stage
+  static constexpr int kWCol = kWeighted ? Stream::kWStride : 0;
   T* ring;
   uint64_t* full;
   float* phi_s;
   float* coef_s;
   int* runs_s;
-  const T* rows_b;
-  const T* w_b;
+  Stream src;
   int k, kp, slots, elems;
   int s = 0, e = 0, w0 = 0, n_st = 0;
 
   static size_t bytes(int k, int slots) {
-    return (size_t)kStages * slots * (k + (kWeighted ? 1 : 0)) * sizeof(T) +
+    return (size_t)kStages * slots * (k + kWCol) * sizeof(T) +
            ((size_t)kRows * (k + 4) + slots + kRows + 1) * sizeof(float);
   }
 
   __device__ __forceinline__ HvSpan(unsigned char* smem, uint64_t* full_,
-                                    const T* rows_b_, const T* w_b_, int k_,
-                                    int slots_)
-      : full(full_), rows_b(rows_b_), w_b(w_b_), k(k_), kp(k_ + 4),
-        slots(slots_), elems(slots_ * (k_ + (kWeighted ? 1 : 0))) {
+                                    const Stream& src_, int k_, int slots_)
+      : full(full_), src(src_), k(k_), kp(k_ + 4), slots(slots_),
+        elems(slots_ * (k_ + kWCol)) {
     ring = reinterpret_cast<T*>(smem);
     phi_s = reinterpret_cast<float*>(ring + kStages * elems);
     coef_s = phi_s + kRows * kp;
     runs_s = reinterpret_cast<int*>(coef_s + slots);
   }
 
-  // stage J of the ring into buffer J % kStages (thread 0): the slots [ws,
-  // min(ws + slots, w1)) of the block whose stream and weights start at
-  // rows_p and w_p (w1: the end of its span, widened to 8 slots)
-  __device__ __forceinline__ void issue_at(int J, const T* rows_p,
-                                           const T* w_p, int ws,
-                                           int w1) const {
-    const int n = min(slots, w1 - ws);  // a multiple of 8 slots
+  // stage J of the ring into buffer J % kStages (thread 0): the stage that
+  // starts at slot ws of the span [., e_) of the block that `from` reads
+  __device__ __forceinline__ void issue_at(int J, const Stream& from,
+                                           int ws, int e_) const {
     T* buf = ring + (J % kStages) * elems;
-    uint64_t* bar = &full[J % kStages];
-    const uint32_t row_bytes = (uint32_t)n * k * sizeof(T);
-    const uint32_t col_bytes = kWeighted ? (uint32_t)n * sizeof(T) : 0u;
-    mbar_expect_tx(bar, row_bytes + col_bytes);
-    bulk_load(buf, rows_p + (int64_t)ws * k, row_bytes, bar);
-    if constexpr (kWeighted)
-      bulk_load(buf + slots * k, w_p + ws, col_bytes, bar);
+    from.template copy<kWeighted>(buf, buf + slots * k, &full[J % kStages],
+                                  ws, e_, k, slots);
   }
 
   // stage j of the span into its buffer (thread 0)
   __device__ __forceinline__ void issue(int j) const {
-    issue_at(j, rows_b, w_b, w0 + j * slots, (e + 7) & ~7);
+    issue_at(j, src, src.start(j, w0, s, e, slots), e);
   }
 
   // the span of rows [r0, r0 + kRows) of the block whose runs are runs_b:
@@ -845,8 +766,8 @@ struct HvSpan {
                                         int block_rows) {
     s = runs_b[r0];
     e = runs_b[min(r0 + kRows, block_rows)];
-    w0 = s & ~7;
-    n_st = s < e ? (((e + 7) & ~7) - w0 + slots - 1) / slots : 0;
+    w0 = src.first(s);
+    n_st = src.stages(s, e, slots);
     if (threadIdx.x == 0) {
       for (int i = 0; i < kStages; ++i) mbar_init(&full[i]);
       mbar_init_fence();
@@ -881,10 +802,10 @@ struct HvSpan {
     for (int j = 0; j < n_st; ++j) {
       const int J = J0 + j;
       mbar_wait(&full[J % kStages], (uint32_t)(J / kStages) & 1u);
-      const int ws = w0 + j * slots;
-      const int lo = max(s, ws), hi = min(e, ws + slots);
+      const int ws = src.start(j, w0, s, e, slots);
+      const int lo = max(s, ws), hi = min(e, src.stop(ws, slots));
       const T* buf = ring + (J % kStages) * elems;
-      hv_stage_dots<T, G, VE, kRows, kWeighted>(
+      hv_stage_dots<T, G, VE, kRows, kWeighted, Stream::kWStride>(
           buf, buf + slots * k, ws, lo, hi, k, lane, grp, gmask, w_scale,
           runs_s, phi_s, kp, coef_s);
       __syncthreads();  // the stage's slot values are written
@@ -953,19 +874,18 @@ __device__ __forceinline__ void hv_finish(const float* pr,
   }
 }
 
-// The CTA body of B1 and B4's row stage: a group of G lanes per row (HvSpan
-// above), each row's result written once at storage dtype.  On the staged
-// path phase 2 of each stage has each row's group add its slots in order;
-// the plain-load path (hv_slots) reads each row's run from device memory.
-// dense (k x k, 4 KB at k = 32 f32) is read through L1, which the SM's CTAs
-// share.
-template <typename T, int G, int NV, int VE, typename Phi>
-__device__ __forceinline__ void hv_rows(const Phi& phi_of,
-                                        const T* __restrict__ rows,
+// The CTA body of B1, B4's row stage and B9: a group of G lanes per row
+// (HvSpan above) of block blockIdx.x, whose stream `src` reads, each row's
+// result written once at storage dtype.  On the staged path phase 2 of
+// each stage has each row's group add its slots in order; the plain-load
+// path (hv_slots, on the row-major stream) reads each row's run from
+// device memory.  dense (k x k, 4 KB at k = 32 f32) is read through L1,
+// which the SM's CTAs share.
+template <typename T, int G, int NV, int VE, typename Phi, typename Stream>
+__device__ __forceinline__ void hv_rows(const Phi& phi_of, const Stream& src,
                                         const int* __restrict__ runs,
-                                        const T* __restrict__ w,
                                         const T* __restrict__ dense,
-                                        T* __restrict__ out, int maxc, int k,
+                                        T* __restrict__ out, int k,
                                         int block_rows, float w_scale,
                                         int stage_slots) {
   constexpr int kRows = kHvThreads / G;
@@ -979,8 +899,6 @@ __device__ __forceinline__ void hv_rows(const Phi& phi_of,
   const bool live = r < block_rows;
   const int64_t row = blk * block_rows + r;
   const int* runs_b = runs + blk * (block_rows + 1);
-  const T* w_b = w + blk * maxc;
-  const T* rows_b = rows + blk * maxc * k;
   int rs = 0, re = 0;
   if (live) {
     rs = runs_b[r];
@@ -989,7 +907,7 @@ __device__ __forceinline__ void hv_rows(const Phi& phi_of,
 
   extern __shared__ __align__(128) unsigned char hv_smem[];
   __shared__ uint64_t full[kStages];
-  HvSpan<T, kRows, true> sp(hv_smem, full, rows_b, w_b, k, stage_slots);
+  HvSpan<T, kRows, true, Stream> sp(hv_smem, full, src, k, stage_slots);
   if constexpr (kStaged) sp.begin(runs_b, r0, block_rows);
 
   // while the first stages are in flight: the row's phi, into registers
@@ -1005,15 +923,15 @@ __device__ __forceinline__ void hv_rows(const Phi& phi_of,
 #pragma unroll
     for (int i = 0; i < VE; ++i) acc[v][i] = 0.f;
   if constexpr (!kStaged) {
-    hv_slots<T, G, NV, VE>(rows_b, w_b, rs, re, k, lane, gmask, w_scale, ph,
-                           acc);
+    hv_slots<T, G, NV, VE>(src.rows_b, src.w_b, rs, re, k, lane, gmask,
+                           w_scale, ph, acc);
   } else {
     sp.template run<G, VE>(
         lane, grp, gmask, w_scale, [&](const T* buf, int ws, int, int) {
           if (lane * VE < k)
             hv_stage_adds<T, VE>(buf, sp.coef_s, ws, max(rs, ws),
-                                 min(re, ws + stage_slots), k, lane * VE,
-                                 acc[0]);
+                                 min(re, src.stop(ws, stage_slots)), k,
+                                 lane * VE, acc[0]);
         });
   }
   if (!live) return;
@@ -1022,23 +940,25 @@ __device__ __forceinline__ void hv_rows(const Phi& phi_of,
 }
 
 // The launch geometry of an HvSpan kernel (kHvThreads threads) on plan
-// (G, VE): grid (n_blocks, slices of kRows rows), slots per stage (staged
-// path) and dynamic shared memory (under 25 KB for every plan of hv_rows
-// and B3, so no opt-in above the default 48 KB).
+// (G, VE) and stream layout `Stream`: grid (n_blocks, slices of kRows
+// rows), slots per stage (staged path) and dynamic shared memory (under 25
+// KB for every plan of hv_rows, B3 and B9, so no opt-in above the default
+// 48 KB).
 struct HvGrid {
   dim3 grid;
   int stage_slots;
   size_t smem;
 };
 
-template <typename T, int G, int VE, bool kWeighted>
+template <typename T, int G, int VE, bool kWeighted,
+          typename Stream = RowStream<T>>
 inline HvGrid hv_grid(long long n_blocks, int k, int block_rows,
                       int stage_bytes = kStageBytes) {
   constexpr int kRows = kHvThreads / G;
   const int slots =
       VE > 1 ? stage_slots_for(k * (int)sizeof(T), stage_bytes) : 0;
   return {dim3((unsigned)n_blocks, (block_rows + kRows - 1) / kRows), slots,
-          HvSpan<T, kRows, kWeighted>::bytes(k, slots)};
+          HvSpan<T, kRows, kWeighted, Stream>::bytes(k, slots)};
 }
 
 // the staged path of an HvSpan kernel applies: whole 16-byte vectors per

@@ -90,8 +90,10 @@ hv_tbl_rows_kernel(const T* __restrict__ V, const int* __restrict__ xi,
                    const T* __restrict__ w, const T* __restrict__ dense,
                    T* __restrict__ payload, int maxc, int k, int block_rows,
                    float w_scale, int stage_slots) {
-  hv_rows<T, G, NV, VE>(ProjectedPhi<T>{V, xi, xv, p, d, k}, rows, runs, w,
-                        dense, payload, maxc, k, block_rows, w_scale,
+  const int64_t blk = blockIdx.x;
+  hv_rows<T, G, NV, VE>(ProjectedPhi<T>{V, xi, xv, p, d, k},
+                        RowStream<T>{rows + blk * maxc * k, w + blk * maxc},
+                        runs, dense, payload, k, block_rows, w_scale,
                         stage_slots);
 }
 

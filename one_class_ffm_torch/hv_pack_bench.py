@@ -105,7 +105,7 @@ def run(device: torch.device, dtype: torch.dtype, shape: dict,
         "b1": lambda: ops.pos_hv_blocked(phi, rows, own, w, dmat, num, BM,
                                          W_SCALE, runs=runs),
         "packed": lambda: ops.pos_hv_packed(phi, rows_p, own_p, w_p, dmat,
-                                            num, BM, W_SCALE),
+                                            num, BM, W_SCALE, runs=runs),
     }
     for g in groups:
         variants[f"g{g}"] = (lambda g=g: ops.pos_hv_blocked_g(

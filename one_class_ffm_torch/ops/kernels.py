@@ -692,10 +692,25 @@ def scatter(xt: FeatureMajor, Z, squared: bool = False) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _packed_runs(own_p: torch.Tensor, block_rows: int) -> torch.Tensor:
+    """The row runs of a lane-packed stream (``sparse_ops.pack_rows``),
+    found on the device from the owners in lane 0 of each 32-lane group
+    taken in slot order: the packing keeps slot order, so these are the
+    runs of the unpacked stream (``layout.row_runs``)."""
+    nb, m4, lanes = own_p.shape
+    own = own_p[:, :, ::lanes // 4].transpose(1, 2).reshape(nb, 4 * m4)
+    return _runs(own, block_rows)
+
+
 def pos_hv_packed(phi, rows_p, own_p, w_p, dense_mat, num_out: int,
-                  block_rows: int, w_scale: float = 1.0) -> torch.Tensor:
+                  block_rows: int, w_scale: float = 1.0,
+                  runs=None) -> torch.Tensor:
     """B9: B1's function from the lane-packed stream (n_blocks, MAXC/4,
-    128) of ``sparse_ops.pack_rows``, k = 32."""
+    128) of ``sparse_ops.pack_rows``, k = 32.  The kernel reads each row's
+    run from ``runs`` (the unpacked stream's ``layout.row_runs``; found on
+    the device from ``own_p`` without it), not ``own_p``, and copies the
+    rows and weights with tensor maps, which need 16-byte-aligned bases:
+    ``rows_p``, ``w_p``, ``phi`` and ``dense_mat`` must be."""
     if rows_p.device.type != "cuda":
         raise ValueError(f"rows_p must be a CUDA tensor, got {rows_p.device}")
     if rows_p.dtype not in _DTYPE_CODE:
@@ -713,9 +728,17 @@ def pos_hv_packed(phi, rows_p, own_p, w_p, dense_mat, num_out: int,
                           ("own_p", own_p, torch.int32)):
         _check(name, t, t_dt, (nb, m4, 128), dev)
     out = _hv_out(phi, dense_mat, num_out, nb, 32, block_rows, dev, dt)
+    for name, t in (("rows_p", rows_p), ("w_p", w_p), ("phi", phi),
+                    ("dense_mat", dense_mat)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (tensor-map "
+                             "copies and vector loads)")
+    if runs is None:
+        runs = _packed_runs(own_p, block_rows)
+    _check("runs", runs, torch.int32, (nb, block_rows + 1), dev)
     err = lib.ocffm_pos_hv_packed(
-        _DTYPE_CODE[dt], phi.data_ptr(), rows_p.data_ptr(), own_p.data_ptr(),
-        w_p.data_ptr(), dense_mat.data_ptr(), out.data_ptr(), nb, 4 * m4,
+        _DTYPE_CODE[dt], phi.data_ptr(), rows_p.data_ptr(), runs.data_ptr(),
+        w_p.data_ptr(), dense_mat.data_ptr(), out.data_ptr(), nb, m4,
         block_rows, float(w_scale), _stream(dev))
     _raise_on(err, "pos_hv_packed")
     _launches["pos_hv_packed"] += 1

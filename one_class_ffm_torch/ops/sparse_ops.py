@@ -601,13 +601,14 @@ def pos_hv_blocked_g_plain(phi, rows, own, w_blk, dense_mat, num_out: int,
 
 
 def pos_hv_packed(phi, rows_p, own_p, w_p, dense_mat, num_out: int,
-                  block_rows: int, w_scale: float = 1.0):
-    """B9 on a CUDA tensor, its plain version on a CPU one."""
+                  block_rows: int, w_scale: float = 1.0, runs=None):
+    """B9 on a CUDA tensor, its plain version on a CPU one (``runs`` as in
+    ``pos_hv_blocked``: the unpacked stream's row runs)."""
     if _plain_device(rows_p):
         return pos_hv_packed_plain(phi, rows_p, own_p, w_p, dense_mat,
                                    num_out, block_rows, w_scale)
     return kernels.pos_hv_packed(phi, rows_p, own_p, w_p, dense_mat,
-                                 num_out, block_rows, w_scale)
+                                 num_out, block_rows, w_scale, runs=runs)
 
 
 def pos_hv_blocked_g(phi, rows, own, w_blk, dense_mat, num_out: int,

@@ -418,8 +418,10 @@ def test_squared_scatter_matches_plain(device, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("groups", [1, 2, 4])
 def test_hv_variants_match_b1(device, dtype, groups):
-    """B9 on the packed stream and B10 at G blocks per CTA give B1's bits
-    and their plain versions' bits."""
+    """B9 on the packed stream and B10 at G blocks per CTA, both given the
+    static row runs, give B1's bits and their plain versions' bits."""
+    from one_class_ffm_torch.ops.layout import row_runs
+
     rng = np.random.default_rng(11)
     nb, maxc, BM, k = 8, 64, 32, 32
     own = np.sort(rng.integers(0, BM + 1, size=(nb, maxc)), axis=1)
@@ -432,9 +434,11 @@ def test_hv_variants_match_b1(device, dtype, groups):
     rows, w_t = T(rng.normal(size=(nb, maxc, k))), T(w)
     phi, dmat = T(rng.normal(size=(nb * BM, k))), T(rng.normal(size=(k, k)))
     rows_p, own_p, w_p = ops.pack_rows(rows, own_t, w_t)
+    runs = torch.as_tensor(row_runs(own, BM), device=device)
     kernels.reset_launch_counts()
     b1 = kernels.pos_hv_blocked(phi, rows, own_t, w_t, dmat, nb * BM, BM, 0.9)
-    b9 = ops.pos_hv_packed(phi, rows_p, own_p, w_p, dmat, nb * BM, BM, 0.9)
+    b9 = ops.pos_hv_packed(phi, rows_p, own_p, w_p, dmat, nb * BM, BM, 0.9,
+                           runs=runs)
     b10 = ops.pos_hv_blocked_g(phi, rows, own_t, w_t, dmat, nb * BM, BM,
                                groups, 0.9)
     torch.cuda.synchronize()
@@ -857,3 +861,68 @@ def test_b10_ring_matches_b1_and_plain(device, dtype, k, groups):
     with pytest.raises(ValueError, match="runs"):
         kernels.pos_hv_blocked_g(*args, groups, 0.9,
                                  runs=runs[:, :-1].contiguous())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("maxc", [64, 40, 1240])
+def test_b9_staged_windows_match_b1(device, dtype, maxc):
+    """B9's tensor-map stages on packed streams whose MAXC/4 is a multiple
+    of 8 (64) and is not (40, 1240), with CTA spans over 0 to 3 lane-group
+    boundaries, a block of pads only, empty row slices and signed zeros
+    (tests/test_torch_hv_packed_staged.py's streams): bit-equal to B1 and
+    to its plain version, with the static runs and with runs found in the
+    wrapper; wrong runs are refused."""
+    from test_torch_hv_packed_staged import BM as PBM
+    from test_torch_hv_packed_staged import W_SCALE, packed_stream
+
+    from one_class_ffm_torch.ops.layout import row_runs
+
+    rng = np.random.default_rng(100 + maxc)
+    (phi, rows, own, w, dmat), (rows_p, own_p, w_p) = packed_stream(
+        rng, maxc, dtype)
+    runs = torch.as_tensor(row_runs(own.numpy(), PBM), device=device)
+    phi, rows, own, w, dmat, rows_p, own_p, w_p = (
+        t.to(device).contiguous()
+        for t in (phi, rows, own, w, dmat, rows_p, own_p, w_p))
+    num = own.shape[0] * PBM
+    kernels.reset_launch_counts()
+    b1 = kernels.pos_hv_blocked(phi, rows, own, w, dmat, num, PBM, W_SCALE,
+                                runs=runs)
+    got = ops.pos_hv_packed(phi, rows_p, own_p, w_p, dmat, num, PBM,
+                            W_SCALE, runs=runs)
+    derived = kernels.pos_hv_packed(phi, rows_p, own_p, w_p, dmat, num, PBM,
+                                    W_SCALE)
+    ref = ops.pos_hv_packed_plain(phi, rows_p, own_p, w_p, dmat, num, PBM,
+                                  W_SCALE)
+    torch.cuda.synchronize()
+    for g in (got, derived, b1):
+        assert torch.equal(_bits(g), _bits(ref)), (maxc, dtype)
+    assert kernels.launch_counts()["pos_hv_packed"] == 2
+    with pytest.raises(ValueError, match="runs"):
+        kernels.pos_hv_packed(phi, rows_p, own_p, w_p, dmat, num, PBM,
+                              W_SCALE, runs=runs[:, :-1].contiguous())
+
+
+@pytest.mark.parametrize("name", ["rows_p", "w_p", "phi", "dense_mat"])
+def test_b9_refuses_an_unaligned_base(device, name):
+    """The tensor maps need 16-byte-aligned bases (and phi, dense are read
+    as 16-byte vectors): a contiguous tensor that starts 4 bytes into its
+    storage is refused, not copied or read by another path."""
+    rng = np.random.default_rng(5)
+    nb, maxc, BM = 2, 40, 8
+    own = np.sort(rng.integers(0, BM + 1, size=(nb, maxc)), axis=1)
+    own_t = torch.as_tensor(own, dtype=torch.int32, device=device)
+    rows = torch.randn(nb, maxc, 32, device=device)
+    w = torch.rand(nb, maxc, device=device) * (own_t < BM)
+    rows_p, own_p, w_p = ops.pack_rows(rows, own_t, w)
+    args = dict(phi=torch.randn(nb * BM, 32, device=device), rows_p=rows_p,
+                own_p=own_p, w_p=w_p,
+                dense_mat=torch.randn(32, 32, device=device))
+    t = args[name]
+    shifted = torch.empty(t.numel() + 1, device=device)[1:].view(t.shape)
+    shifted.copy_(t)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    args[name] = shifted
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kernels.pos_hv_packed(args["phi"], args["rows_p"], own_p,
+                              args["w_p"], args["dense_mat"], nb * BM, BM)

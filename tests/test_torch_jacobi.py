@@ -577,6 +577,40 @@ def test_chip_smoke_work_counts_the_runs_in_place_of_the_owners():
         assert nbytes_r - nbytes == 4 * nb * (bm + 1 - maxc), name
 
 
+def test_chip_smoke_work_counts_b9s_runs_in_place_of_its_owners_once():
+    """B9's bound, given the static row runs, counts the packed rows, the
+    runs, one lane of each 32-lane weight group, phi, dense and the output:
+    the runs replace the packed owners once (without them, one lane of each
+    owner group); the operations do not change.  Its sector floor counts a
+    32-byte sector per slot for the weight."""
+    from one_class_ffm_torch.ops.layout import row_runs
+
+    chip_smoke = _chip_smoke()
+    rng = np.random.default_rng(15)
+    nb, maxc, bm, k = 3, 40, 8, 32
+    own = np.sort(rng.integers(0, bm + 1, size=(nb, maxc)), axis=1)
+    own_t = torch.as_tensor(own, dtype=torch.int32)
+    runs = torch.as_tensor(row_runs(own, bm))
+    rows_p, own_p, w_p = tops.pack_rows(torch.rand(nb, maxc, k), own_t,
+                                        torch.rand(nb, maxc) * (own_t < bm))
+    phi, dense = torch.rand(nb * bm, k), torch.rand(k, k)
+    args = (phi, rows_p, own_p, w_p, dense, nb * bm, bm, 0.9)
+    out = torch.empty(nb * bm, k)
+    nbytes_r, ops_r = chip_smoke.work("pos_hv_packed", args, out,
+                                      {"runs": runs})
+    nbytes, ops = chip_smoke.work("pos_hv_packed", args, out)
+    size = {name: t.numel() * t.element_size() for name, t in (
+        ("rows_p", rows_p), ("own_p", own_p), ("w_p", w_p), ("phi", phi),
+        ("dense", dense), ("out", out), ("runs", runs))}
+    rest = size["rows_p"] + size["w_p"] // 32 + size["phi"] + size["dense"] \
+        + size["out"]
+    assert nbytes_r == rest + size["runs"]
+    assert nbytes == rest + size["own_p"] // 32
+    assert ops_r == ops and ops > 0
+    assert chip_smoke.sector_floor_bytes(args, nbytes_r) == \
+        nbytes_r + nb * maxc * (32 - 4)
+
+
 def test_chip_smoke_work_counts_the_runs_of_b3_and_b7():
     """B3's and B7's bounds (B7 with and without its Jacobi output), given
     the static row runs, count the runs' bytes in place of the owners' (own
