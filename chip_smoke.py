@@ -26,7 +26,10 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
    X^2) in FM solves (one flattened field per side, D=201,000 and 20,500);
    Then the Jacobi variants of three of them (the second output of B2, B5
    and B7) on arguments recorded from real Jacobi half-solves of the FFM,
-   and B9 and B10 on the MF streams, each also against B1's output.
+   and B9 and B10 on the MF streams, each also against B1's output; then
+   B1-B7 on the skewed FFM's streams (bench.py's BENCH_SKEW=1 problem:
+   item popularity zipf 1.0, whose v side takes the two-tier layout: its
+   tail, where the power items own no slots), timed apart from the rest.
    Before them, ``[data]`` lines give the static plans the redesigned
    kernels read: each stream side's row runs (mean and longest) and each
    feature-major list's single-chunk, multi-chunk and featureless
@@ -35,9 +38,11 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
    and a small FM problem whose fields are above a lowered fused-table cap,
    the gradients and Hv products the kernels give on the card match the
    fp64 numpy oracle, and the objective the solver tracks through two
-   kernel-driven epochs matches the oracle's brute-force loss; the FFM and
-   FM problems again under Jacobi, with the Hessian diagonal against the
-   oracle's and two epochs against the oracle's Jacobi epochs;
+   kernel-driven epochs matches the oracle's brute-force loss; the same on
+   a small skewed FFM (power rows on both sides, the head tier on both);
+   the FFM, FM and skewed problems again under Jacobi, with the Hessian
+   diagonal against the oracle's and two epochs against the oracle's
+   Jacobi epochs;
 5. main path, MF: the port's Trainer trains MF --ns at 200,000 users x
    20,000 items, ~5 positives per user, k=32, float32 for 3 epochs and
    validates once; its three kernels and B8 must have launched;
@@ -52,6 +57,10 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
    share and the kernels that take the time;
    FFM and FM again under Jacobi-preconditioned CG: the three diagonal
    variants must have launched, and the CG counts print beside plain CG's;
+   then the skewed FFM at the same sizes (the head tier on its v side):
+   B1-B8 must have launched, one epoch run twice from one state must give
+   the same bits, and each head op's per-call time on its v side is
+   printed;
 8. the Hv variants' path: ``hv_pack_bench`` checks B1, B9 and B10 on its
    synthetic stream and times them; B9 and B10 must have launched;
 9. entry point: ``python -m one_class_ffm_torch`` on small text datasets,
@@ -59,12 +68,12 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
    must exit 0.
 
 The line before the last is a JSON object with one entry per kernel: its
-launches summed over the five main paths (B9 and B10: over the bench's
+launches summed over the six main paths (B9 and B10: over the bench's
 run), its largest error against the plain version, and its times and bound
-summed over the sides and shapes of phase 3.  The last line is ``{"ok":
-true, "device": {...}}``.  Without a CUDA device, or without the
-one_class_ffm_torch package beside this file, it exits 1 and prints no
-result.  Nothing here imports jax or the JAX
+summed over the sides and shapes of phase 3 but the skewed FFM's.  The
+last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
+or without the one_class_ffm_torch package beside this file, it exits 1
+and prints no result.  Nothing here imports jax or the JAX
 package.
 """
 
@@ -166,13 +175,19 @@ def flatten_fields(pf):
 def build_data(n_users: int, n_items: int, avg_pos: float, seed: int,
                dims_u=None, dims_v=None, self_side: bool = False,
                fm: bool = False, row_multiple: int = 256,
-               va_frac: float = 0.2):
+               va_frac: float = 0.2, pop_skew: float = 0.0,
+               power: int = 0):
     """LoadedData from ``generate_vectorized``: one identity id field per
     side (MF) unless ``dims_u``/``dims_v`` name more fields, flattened into
     one field per side when ``fm``, with a fraction of each user's
     positives held out for validation as ``write_dataset`` does (users keep
     >= 1 training positive; users with no held-out label are not test
-    users; test users keep their feature rows)."""
+    users; test users keep their feature rows).  ``pop_skew`` > 0: item
+    popularity ~ rank^-pop_skew, from ``build_padded`` (the stream bench.py
+    draws with BENCH_SKEW; ``generate_vectorized`` ignores pop_skew).
+    ``power`` > 0: the first ``power`` items are training positives of
+    every user and the first ``power`` users like every item (power rows
+    on both sides)."""
     import numpy as np
 
     from one_class_ffm_torch.data.dataset import (
@@ -180,16 +195,22 @@ def build_data(n_users: int, n_items: int, avg_pos: float, seed: int,
         PaddedFields,
         pad_labels,
     )
-    from one_class_ffm_torch.data.synth import SynthSpec, generate_vectorized
+    from one_class_ffm_torch.data.synth import (
+        SynthSpec,
+        build_padded,
+        generate_vectorized,
+    )
     from one_class_ffm_torch.models.blocks import BlockLayout
     from one_class_ffm_torch.train import LoadedData
 
     spec = SynthSpec(n_users=n_users, n_items=n_items,
                      fu=len(dims_u) if dims_u else 1,
                      fv=len(dims_v) if dims_v else 1,
-                     dims_u=dims_u, dims_v=dims_v, avg_pos=avg_pos, seed=seed)
-    (du, dv), u_pad, v_pad, y_all = generate_vectorized(
-        spec, np.float32, row_multiple=row_multiple)
+                     dims_u=dims_u, dims_v=dims_v, avg_pos=avg_pos, seed=seed,
+                     pop_skew=pop_skew)
+    make = build_padded if pop_skew > 0 else generate_vectorized
+    (du, dv), u_pad, v_pad, y_all = make(spec, np.float32,
+                                         row_multiple=row_multiple)
     if fm:
         u_pad, v_pad = flatten_fields(u_pad), flatten_fields(v_pad)
         du, dv = list(u_pad.Ds), list(v_pad.Ds)
@@ -204,8 +225,18 @@ def build_data(n_users: int, n_items: int, avg_pos: float, seed: int,
     rank = np.arange(u.size) - np.repeat(np.cumsum(cnt) - cnt, cnt)
     is_va = rank < n_va[u]
 
-    tr = np.lexsort((v[~is_va], u[~is_va]))
-    ut, vt = u[~is_va][tr], v[~is_va][tr]
+    ut, vt = u[~is_va], v[~is_va]
+    if power:  # (user, item) pairs as keys; held-out pairs stay out
+        grid = np.arange(power)
+        key = np.union1d(
+            ut * n_items + vt,
+            np.concatenate([np.arange(n_users)[:, None] * n_items + grid,
+                            grid[:, None] * n_items + np.arange(n_items)],
+                           axis=None))
+        key = key[~np.isin(key, u[is_va] * n_items + v[is_va])]
+        ut, vt = key // n_items, key % n_items
+    tr = np.lexsort((vt, ut))
+    ut, vt = ut[tr], vt[tr]
     indptr = np.zeros(n_users + 1, np.int64)
     indptr[1:] = np.cumsum(np.bincount(ut, minlength=n_users))
     y_pad = pad_labels(Interactions(m=n_users, n=n_items, indptr=indptr,
@@ -242,14 +273,16 @@ def build_data(n_users: int, n_items: int, avg_pos: float, seed: int,
 
 
 def make_trainer(data, device, k: int = 32, dtype: str = "float32",
-                 epochs: int = 3, cg_precond: str = "auto"):
+                 epochs: int = 3, cg_precond: str = "auto",
+                 blocked_bm: int = 256, head_chunk: int = 512):
     from one_class_ffm_torch.train import TrainConfig, Trainer
 
     cfg = TrainConfig(item_path="<memory>", train_path="<memory>", k=k,
                       lam=0.05, omega=0.1, r=-1.0, nr_pass=epochs,
                       self_side=data.layout.self_side, dtype=dtype,
-                      eval_every=epochs, seed=0, cg_precond=cg_precond)
-    return Trainer(cfg, data=data, device=device)
+                      eval_every=epochs, seed=0, cg_precond=cg_precond,
+                      blocked_bm=blocked_bm)
+    return Trainer(cfg, data=data, device=device, head_chunk=head_chunk)
 
 
 @contextlib.contextmanager
@@ -296,7 +329,9 @@ def print_static_plan(tag: str, data) -> None:
     stream side's row runs (the span per CTA of B1, B2 and B4 and their
     longest dependent chain, the longest run) and each feature-major list's split into
     single-chunk features (written by the X^T stage's first pass), features
-    with several chunks and features with none (both by its second)."""
+    with several chunks and features with none (both by its second).  On a
+    two-tier side the stream is the tail; its head tier's rows and chunks
+    follow."""
     for side in ("u", "v"):
         runs = data[f"blk_{side}_runs"]
         length = (runs[:, 1:] - runs[:, :-1]).float()
@@ -305,6 +340,17 @@ def print_static_plan(tag: str, data) -> None:
               f"{int(runs[:, -1].sum())} valid slots, row runs mean "
               f"{length.mean().item():.2f} longest {int(length.max())} "
               "slots")
+        if f"blk_{side}_hd_take" in data:
+            nch, chunk = data[f"blk_{side}_hd_take"].shape
+            tab = data[f"blk_{side}_hd_tab"]
+            per_row = (tab < nch).sum(dim=1)
+            print(f"[data] {tag} head tier {side}: "
+                  f"{data[f'blk_{side}_hd_rows'].numel()} head rows, {nch} "
+                  f"chunks x {chunk} "
+                  f"({int((data[f'blk_{side}_hd_w'] != 0).sum())} valid "
+                  f"slots), chunks per row mean "
+                  f"{per_row.float().mean().item():.2f} most "
+                  f"{int(per_row.max())}")
         for fi, xt in enumerate(data[f"xf_{side}"]):
             if xt is None:
                 continue
@@ -714,28 +760,45 @@ def xt_stage_ms(name: str, args) -> float:
 
 
 @contextlib.contextmanager
-def first_calls(names):
-    """Record the arguments of the first call of each named kernel wrapper
-    while the block is run (the solver reaches the wrappers through the
-    ``kernels`` module); the wrappers are restored on exit."""
-    from one_class_ffm_torch.ops import kernels
-
-    seen = {}
-    saved = {name: getattr(kernels, name) for name in names}
+def recorded(obj, names, first_only: bool = False):
+    """Record the arguments of every call (with ``first_only``, of the
+    first call) of the named functions of ``obj`` (a module, or an
+    instance's methods) while the block runs; restored on exit."""
+    calls = {name: [] for name in names}
+    own = {name: name in vars(obj) for name in names}
+    saved = {name: getattr(obj, name) for name in names}
 
     def recording(name, fn):
         def call(*args, **kw):
-            seen.setdefault(name, (args, kw))
+            if not (first_only and calls[name]):
+                calls[name].append((args, kw))
             return fn(*args, **kw)
         return call
 
     try:
         for name, fn in saved.items():
-            setattr(kernels, name, recording(name, fn))
-        yield seen
+            setattr(obj, name, recording(name, fn))
+        yield calls
     finally:
         for name, fn in saved.items():
-            setattr(kernels, name, fn)
+            if own[name]:
+                setattr(obj, name, fn)
+            else:
+                delattr(obj, name)
+
+
+@contextlib.contextmanager
+def first_calls(names):
+    """Record the arguments of the first call of each named kernel wrapper
+    while the block is run (the solver reaches the wrappers through the
+    ``kernels`` module); the wrappers are restored on exit, and the dict
+    then holds each called wrapper's (args, kw)."""
+    from one_class_ffm_torch.ops import kernels
+
+    seen = {}
+    with recorded(kernels, names, first_only=True) as calls:
+        yield seen
+    seen.update({name: c[0] for name, c in calls.items() if c})
 
 
 def _cast(a, dt):
@@ -783,6 +846,10 @@ def kernel_phase(trainer, cases, tag: str, gpu: str, report) -> None:
         if "project" in seen:
             idx = seen["project"][0][0]
             desc.append(f"project rows={idx.shape[0]} p={idx.shape[1]}")
+        if "scatter" in seen and seen["scatter"][0][0] is not xt:
+            xs = seen["scatter"][0][0]  # a list the scatter has to itself
+            desc.append(f"scatter D={xs.feat_ptr.numel() - 1} "
+                        f"rows={xs.n_rows} X entries={xs.row.numel()}")
         print(f"[kernels] {tag} {side} side, {b.kind} block {b.f12}: "
               f"{' '.join(desc)}")
         for dt_name, dt in (("float32", torch.float32),
@@ -842,6 +909,108 @@ def jacobi_cases(trainer):
             (cross, blocks[(1, fu + 1)], False, "v"),
             (self_, blocks[(1, 1)], True, "u"),
             (self_, blocks[(fu + 1, fu + 1)], True, "v")]
+
+
+def skew_cases(trainer):
+    """The skewed FFM's solves that run B1-B8: the id fields' cross block
+    (B1-B3) and the categorical fields' cross block (B4, B5), both sides,
+    and each categorical self block (B6, B7).  On a two-tier side these
+    read its tail: a stream whose power rows own no slots.  On the v side
+    (the head side) the categorical cross solve's first B8 call projects
+    the head rows and its first X^T stage call scatters through the head
+    rows' own list (the fused gradient's and Hv's head terms), shapes no
+    other path gives them."""
+    lay = trainer.solver.meta.layout
+    blocks = {(b.f1, b.f2): b for b in lay.all_blocks()}
+    fu = lay.fu
+    cross = ("grad_cross_tbl", "pos_hv_tbl")
+    self_ = ("grad_self_tbl", "hv_self_tbl")
+    return [(BLOCKED, blocks[(0, fu)], True, "u"),
+            (BLOCKED, blocks[(0, fu)], False, "v"),
+            (cross, blocks[(1, fu + 1)], True, "u"),
+            (cross + WIDE, blocks[(1, fu + 1)], False, "v"),
+            (self_, blocks[(1, 1)], True, "u"),
+            (self_, blocks[(fu + 1, fu + 1)], True, "v")]
+
+
+# the head ops of a two-tier side, as the solver calls them: (label, name
+# in torch_solver or method of the solver)
+HEAD_OPS = (("rows_hd gather", "gather_blocked_rows"),
+            ("head_hv (row-space Hv term)", "head_hv"),
+            ("fused Hv head term", "_hd_hv_tbl"),
+            ("hd_tbl (fused gradient term)", "_hd_tbl"),
+            ("head_scatter (row-space gradient term)", "head_scatter"),
+            ("head_seg_sum (self gradient term)", "head_seg_sum"),
+            ("head gap (head_pq of the step)", "head_pq"))
+
+
+def record_head_ops(trainer):
+    """{label: (function, args, kw)}: each head op's first call on the v
+    side (the head side of the skewed FFM) in three real half-solves from
+    the trainer's state: the id fields' cross block (the row-space Hv and
+    gradient terms, the gap), the categorical fields' (the fused terms)
+    and the categorical v self block (the per-row sums); the gather is the
+    one that reads ``hd_take``."""
+    from one_class_ffm_torch.solver import torch_solver as ts
+
+    solver, state = trainer.solver, trainer.state
+    sa, sb = solver.sasb(state)
+    lay = solver.meta.layout
+    blocks = {(b.f1, b.f2): b for b in lay.all_blocks()}
+    fu = lay.fu
+    mod = [n for _, n in HEAD_OPS if not n.startswith("_")]
+    meth = [n for _, n in HEAD_OPS if n.startswith("_")]
+    with recorded(ts, mod) as calls, recorded(solver, meth) as mcalls:
+        for b, first in ((blocks[(0, fu)], False),
+                         (blocks[(1, fu + 1)], False),
+                         (blocks[(fu + 1, fu + 1)], True)):
+            solver._solve_half(state, b, first, sa, sb)
+    calls.update(mcalls)
+    hd_take = solver.data["blk_v_hd_take"]
+    calls["gather_blocked_rows"] = [
+        c for c in calls["gather_blocked_rows"] if c[0][1] is hd_take]
+    out = {}
+    for label, name in HEAD_OPS:
+        check(calls[name], f"FFM skew: {name} was not called on the v side")
+        fn = getattr(solver if name.startswith("_") else ts, name)
+        out[label] = (fn, *calls[name][0])
+    return out
+
+
+def head_op_phase(trainer, gpu: str) -> None:
+    """Per-call ms (CUDA events, ``time_ms``) of each head op on its
+    recorded arguments (``record_head_ops``)."""
+    ops = record_head_ops(trainer)
+    fn, args, kw = ops["rows_hd gather"]
+    nch, chunk = args[1].shape
+    print(f"[main ffm-skew] head ops, v side: head stream {nch} chunks x "
+          f"{chunk} x k {args[0].shape[1]} ({args[0].dtype}), "
+          f"{trainer.solver.data['blk_v_hd_rows'].numel()} head rows")
+    for label, (fn, args, kw) in ops.items():
+        ms = time_ms(lambda: fn(*args, **kw))
+        print(f"[main ffm-skew] head op {label}: {ms:.4f} ms per call "
+              f"[{gpu}]")
+
+
+def check_repeatable(tag: str, trainer) -> None:
+    """Two runs of one epoch from the same state give the same bits (no
+    float atomics on the path)."""
+    import torch
+
+    a, ia = trainer.solver.epoch_stats(trainer.state)
+    b, ib = trainer.solver.epoch_stats(trainer.state)
+    same = torch.equal(ia, ib)
+    for key in ("P", "Q"):
+        same = same and all(torch.equal(a[key][f], b[key][f]) for f in a[key])
+    for f12, blk in a["params"].items():
+        same = same and all(torch.equal(t, b["params"][f12][n])
+                            for n, t in blk.items())
+    for key, t in a.items():
+        if isinstance(t, torch.Tensor):
+            same = same and torch.equal(t, b[key])
+    print(f"[main {tag}] one epoch twice from the same state: the same bits "
+          f"{same}")
+    check(same, f"{tag}: two runs of one epoch differ")
 
 
 def variant_phase(trainer, gpu: str, report) -> None:
@@ -918,12 +1087,15 @@ def _without_repeated_ids(data):
 
 
 def reference_phase(device, tag: str, cg_precond: str = "auto") -> None:
-    """Small MF problem, small FFM problem with self blocks, or small FM
+    """Small MF problem, small FFM problem with self blocks, small FM
     problem with self blocks whose fields are above a lowered fused-table
-    cap: the kernel-driven gradient and Hv of every block side and the
-    tracked objective on the card against the fp64 numpy oracle.  Under
-    Jacobi also the Hessian diagonal of every block side against
-    ``oracle.diag_hessian``, and two epochs against ``oracle_epoch``."""
+    cap, or (``skew``) the small FFM problem with two power rows on each
+    side, whose layouts at 32 rows per block take the head tier of 16-slot
+    chunks on both sides: the kernel-driven gradient and Hv of every block
+    side and the tracked objective on the card against the fp64 numpy
+    oracle.  Under Jacobi also the Hessian diagonal of every block side
+    against ``oracle.diag_hessian``, and two epochs against
+    ``oracle_epoch``."""
     import numpy as np
     import torch
 
@@ -937,13 +1109,20 @@ def reference_phase(device, tag: str, cg_precond: str = "auto") -> None:
         data = build_data(2048, 512, 5.0, seed=3)
         tr = make_trainer(data, device, k=8)
     else:
-        fm = tag.startswith("FM")
+        fm, skew = tag.startswith("FM"), tag.startswith("skew")
         data = build_data(1024, 256, 5.0, seed=3, dims_u=(1024, 40),
-                          dims_v=(256, 24), self_side=True, fm=fm)
+                          dims_v=(256, 24), self_side=True, fm=fm,
+                          power=2 if skew else 0)
         if jacobi:
             data = _without_repeated_ids(data)
+        layout = dict(blocked_bm=32, head_chunk=16) if skew else {}
         with fused_cap(8) if fm else contextlib.nullcontext():
-            tr = make_trainer(data, device, k=8, cg_precond=cg_precond)
+            tr = make_trainer(data, device, k=8, cg_precond=cg_precond,
+                              **layout)
+        if skew:
+            check(tr.solver.hd_u and tr.solver.hd_v,
+                  f"{tag} reference: the head tier is not on both sides")
+            print_static_plan(tag, tr.solver.data)
     solver = tr.solver
     check(solver.cg_precond == ("jacobi" if jacobi else "none"),
           f"{tag} reference: CG is {solver.cg_precond}")
@@ -975,7 +1154,7 @@ def reference_phase(device, tag: str, cg_precond: str = "auto") -> None:
     worst_g = worst_h = worst_d = 0.0
     for b in data.layout.all_blocks():
         for first in (True, False):
-            G, hv, _, D = solver.solve_inputs(state, b, first, sa, sb)
+            G, hv, _, _, D = solver.solve_inputs(state, b, first, sa, sb)
             G_ref, hv_ref = oracle.grad_and_hv(prob, ref_params, b, first)
             V = rng.normal(size=G_ref.shape)
             H = hv(torch.as_tensor(V, dtype=solver.meta.dtype,
@@ -1222,6 +1401,15 @@ def main() -> int:
               f"{fm.u_pad.Ds} x {fm.v_pad.Ds} (p = {fm.u_pad.idx[0].shape[1]}"
               f" / {fm.v_pad.idx[0].shape[1]}); "
               f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        skew = build_data(N_USERS, N_ITEMS, 5.0, seed=0, self_side=True,
+                          pop_skew=1.0, **FFM_DIMS)
+        top = int(skew.y_pad.count_v.max())
+        print(f"[data] FFM skew {skew.u_pad.Ds} x {skew.v_pad.Ds}, item "
+              f"popularity zipf 1.0 (build_padded, bench.py BENCH_SKEW=1): "
+              f"{skew.nnz_true} training positives, {len(skew.va_labels)} "
+              f"test users, the top item {top} positives; "
+              f"{time.perf_counter() - t0:.1f} s")
         for side, pf in (("u", fm.u_pad), ("v", fm.v_pad)):
             t0 = time.perf_counter()
             fmj = feature_major(pf.idx[0], pf.val[0], pf.Ds[0])
@@ -1237,12 +1425,18 @@ def main() -> int:
               f"{time.perf_counter() - t0:.2f} s")
         ffm_jac = make_trainer(ffm, device, cg_precond="jacobi")
         fm_jac = make_trainer(fm, device, cg_precond="jacobi")
+        t0 = time.perf_counter()
+        skew_trainer = make_trainer(skew, device)
+        print(f"[data] FFM skew trainer (two-tier layouts, device data, "
+              f"evaluator) in {time.perf_counter() - t0:.2f} s")
+        check(skew_trainer.solver.hd_v,
+              "FFM skew: the v side took no head tier")
         meta = fm_trainer.solver.meta
         check(not any(meta.fused_u + meta.fused_v + meta.ident_u
                       + meta.ident_v),
               "FM: a field is identity or takes the fused table passes")
         for tag, tr in (("MF", mf_trainer), ("FFM", ffm_trainer),
-                        ("FM", fm_trainer)):
+                        ("FM", fm_trainer), ("FFM skew", skew_trainer)):
             print_static_plan(tag, tr.solver.data)
         kernel_phase(mf_trainer, mf_cases(mf_trainer), "MF", gpu, report)
         variant_phase(mf_trainer, gpu, report)
@@ -1250,11 +1444,19 @@ def main() -> int:
         kernel_phase(fm_trainer, fm_cases(fm_trainer), "FM", gpu, report)
         kernel_phase(ffm_jac, jacobi_cases(ffm_jac), "FFM jacobi", gpu,
                      report)
+        # the skewed FFM's tail streams: held like the others, timed
+        # apart (the JSON's times stay those of the shapes above)
+        skew_report = new_report()
+        kernel_phase(skew_trainer, skew_cases(skew_trainer), "FFM skew",
+                     gpu, skew_report)
+        for name, r in skew_report.items():
+            report[name]["max_abs_err"] = max(report[name]["max_abs_err"],
+                                              r["max_abs_err"])
 
         # 4. small-input references
-        for tag in ("MF", "FFM", "FM"):
+        for tag in ("MF", "FFM", "FM", "skew"):
             reference_phase(device, tag)
-        for tag in ("FFM", "FM"):
+        for tag in ("FFM", "FM", "skew"):
             reference_phase(device, tag, cg_precond="jacobi")
 
         # 5.-7. the main paths at full width, each with its own counts
@@ -1269,10 +1471,13 @@ def main() -> int:
                 ("ffm-jacobi", ffm_jac, jac_blocked + (
                     "pos_hv_tbl", "hv_self_tbl", "grad_cross_tbl_diag",
                     "grad_self_tbl_diag", "project")),
-                ("fm-jacobi", fm_jac, jac_blocked + WIDE)):
+                ("fm-jacobi", fm_jac, jac_blocked + WIDE),
+                ("ffm-skew", skew_trainer, BLOCKED + TABLE + ("project",))):
             got, results[tag] = main_path(tag, trainer, names, gpu)
             for name in REPLACES:
                 launches[name] += got[name]
+        check_repeatable("ffm-skew", skew_trainer)
+        head_op_phase(skew_trainer, gpu)
         for tag in ("ffm", "fm"):
             plain, jac = results[tag], results[tag + "-jacobi"]
             for i, (ip, ij) in enumerate(zip(plain["iters"], jac["iters"])):

@@ -15,7 +15,9 @@ kernels: a field's X^T as a chunked feature-major list (with X^2 beside it
 once the solver has squared the values at storage dtype) and the X^T
 kernel's plan of where each chunk's sum goes (``xt_plan``).  ``row_runs``
 gives the gradient scatter kernel (B2) each row's run of slots without a
-search.
+search; ``head_chunk_table`` gives each head row of a two-tier layout its
+chunks, so that the head ops sum a row's chunks in one fixed-order
+reduction.
 """
 
 from __future__ import annotations
@@ -344,6 +346,33 @@ def row_runs(own: np.ndarray, block_rows: int) -> np.ndarray:
     runs = np.zeros((nb, width), np.int64)
     runs[:, 1:] = np.cumsum(cnt[:, :block_rows], axis=1)
     return runs.astype(np.int32)
+
+
+def head_chunk_table(hd_loc: np.ndarray, hd_valid: np.ndarray,
+                     n_head: int) -> np.ndarray:
+    """(n_head, most chunks of one head row) int64: row h lists the head
+    tier's chunks of head row h (compact index ``hd_loc``) in chunk order,
+    then the chunk count NCH in the unused places, an index past the last
+    chunk that the row sum (``sparse_ops.head_row_payload``) reads as zero.
+    ``make_blocked_layout`` lays each head row's chunks out as one run, the
+    runs in row order, and the pad chunks (no valid slot, ``hd_loc`` 0)
+    after them; the pads are left out here, where the JAX ops add their
+    zero sums to the first head row, so only the sign of a zero can differ.
+    Built once, so that a row's chunks are summed in one reduction in a
+    fixed order, without float atomics."""
+    hd_loc = np.asarray(hd_loc, np.int64)
+    nch = hd_loc.shape[0]
+    real = np.asarray(hd_valid).any(axis=1)
+    n_real = int(real.sum())
+    loc = hd_loc[:n_real]
+    if not real[:n_real].all() or np.any(np.diff(loc) < 0):
+        raise ValueError("head chunks must be one run per head row, in row "
+                         "order, with the pad chunks last")
+    cnt = np.bincount(loc, minlength=n_head)
+    start = np.cumsum(cnt) - cnt
+    j = np.arange(max(1, int(cnt.max(initial=0))))
+    return np.where(j[None, :] < cnt[:, None], start[:, None] + j[None, :],
+                    nch)
 
 
 def check_own_runs(own: np.ndarray, block_rows: int) -> None:

@@ -19,8 +19,11 @@ payload from the same read of the stream; ``grad_self_tbl(dd=)``: one from
 Q1 and dd; scattered through the field's X^2).  Two Hv variants off the solver's path,
 the lane-packed ``pos_hv_packed`` (B9) and ``pos_hv_blocked_g`` with G
 blocks per CTA (B10), compute B1's function and serve ``hv_pack_bench``.
-The dispatching function takes the plain version only because its tensors
-lie on the CPU; on a CUDA tensor it launches the kernel or raises.
+The head ops of a two-tier layout (``head_*``) are plain torch on every
+device, as their JAX counterparts are XLA ops; the fused terms among them
+run B8 and the X^T stage.  The dispatching function takes the plain
+version only because its tensors lie on the CPU; on a CUDA tensor it
+launches the kernel or raises.
 Storage is float32 or bfloat16 (float64 on the CPU), sums run at a
 float32 floor, and the plain versions round where the kernels round: pq
 to storage, the output to storage, and for the table passes phi = X V
@@ -214,11 +217,14 @@ def pos_hv_blocked_plain(phi, rows, own, w_blk, dense_mat, num_out: int,
     return out.to(dt)
 
 
-def _storage_scale(w_blk, scale: float):
+def storage_scale(w_blk, scale: float):
     """storage(w * storage(scale)): the slot weights of the Jacobi
     diagonal's positive term, rounded as the TPU kernels round
-    ``w_ref * jnp.asarray(wq_scale, dt)``."""
-    return w_blk * torch.tensor(scale, dtype=w_blk.dtype, device=w_blk.device)
+    ``w_ref * jnp.asarray(wq_scale, dt)``.  The scale is rounded to storage
+    on the host: a product of two storage values is exact at the float32
+    floor, so multiplying by it as a Python scalar rounds once, as the
+    product of two storage tensors does, and moves nothing to the card."""
+    return w_blk * torch.tensor(scale, dtype=w_blk.dtype).item()
 
 
 def pos_scatter_blocked_plain(c_blk, rows, own, num_out: int,
@@ -239,7 +245,7 @@ def pos_scatter_blocked_plain(c_blk, rows, own, num_out: int,
     zpos = _slot_sum(seg, valid, own, terms, num_out).to(dt)
     if w_blk is None:
         return zpos
-    termq = (rows * rows) * _storage_scale(w_blk, wq_scale)[..., None]
+    termq = (rows * rows) * storage_scale(w_blk, wq_scale)[..., None]
     return zpos, _slot_sum(seg, valid, own, termq.to(acc), num_out).to(dt)
 
 
@@ -383,7 +389,7 @@ def grad_cross_payload_plain(rows, own, c_blk, dense, block_rows: int,
     if w_blk is None:
         return payload, None
     seg, valid = _slot_rows(own, block_rows)
-    termq = (_storage_scale(w_blk, wq_scale).to(acc)[..., None]
+    termq = (storage_scale(w_blk, wq_scale).to(acc)[..., None]
              * (rows * rows).to(acc))
     return payload, _slot_sum(seg, valid, own, termq, num).to(dt)
 
@@ -525,6 +531,118 @@ def grad_self_tbl(xt, Q1, zdense, own, c_blk, block_rows: int, dd=None,
                                      runs=runs)
     return kernels.grad_self_tbl_diag(xt, Q1, zdense, own, c_blk,
                                       block_rows, dd, runs=runs)
+
+
+# ---------------------------------------------------------------------------
+# the head tier of a two-tier layout (a popularity-skewed side)
+# ---------------------------------------------------------------------------
+#
+# Counterparts of the JAX package's head ops (sparse_ops.py:911-988), plain
+# torch on every device: XLA ops there, no Pallas kernel.  Every positive
+# pass is linear in the stream entries, so the tail tier runs the blocked
+# passes and kernels with the head entries dropped and these ops add the
+# head entries' part; the dense omega terms are not repeated, since the
+# tail still spans every row.  A chunk holds CHUNK consecutive entries of
+# one head row.  The head stream is row-major, (NCH, CHUNK, k), gathered
+# per solve by ``gather_blocked_rows``.  Chunk products are batched matrix
+# products at the float32 floor (true float32: TF32 is off).
+#
+# Where the JAX ops scatter-add chunk sums into rows (``.at[hd_row].add``),
+# these sum each head row's chunks through the static chunk table
+# (``layout.head_chunk_table``) in one reduction at the accumulation type,
+# then write the rows by unique index: no float atomics, the same bits on
+# every run.  At float32 and float64 only the order of those sums differs
+# from the JAX ops; at bfloat16 the JAX ops round after every add of a
+# chunk sum (``head_scatter``, ``head_hv``, the solver's ``z_hd``), and
+# these round once.
+#
+# The JAX ``head_project`` and ``head_tbl_scatter`` are the port's
+# ``project`` (B8) on the head rows' field data and ``scatter`` (the X^T
+# stage) through the head rows' feature-major list: the same rounding
+# (float32 sums, one cast to storage), so the solver calls those.
+
+
+def head_chunk_sums(c_hd: torch.Tensor, rows_hd: torch.Tensor):
+    """out[c] = sum_t c_hd[c, t] rows_hd[c, t]: (NCH, CHUNK) x (NCH, CHUNK,
+    k) -> (NCH, k), summed at the accumulation type, one cast to
+    storage."""
+    acc = acc_dtype(rows_hd.dtype)
+    z = torch.bmm(c_hd.to(acc).unsqueeze(1), rows_hd.to(acc))
+    return z.squeeze(1).to(rows_hd.dtype)
+
+
+def head_pq(phig: torch.Tensor, rows_hd: torch.Tensor) -> torch.Tensor:
+    """pq[c, t] = <phig[c], rows_hd[c, t]>: (NCH, k) x (NCH, CHUNK, k) ->
+    (NCH, CHUNK), summed at the accumulation type, one cast to storage (pad
+    slots are masked by the caller's weights)."""
+    acc = acc_dtype(rows_hd.dtype)
+    pq = torch.bmm(rows_hd.to(acc), phig.to(acc).unsqueeze(2))
+    return pq.squeeze(2).to(rows_hd.dtype)
+
+
+def head_row_sums(z_c: torch.Tensor, hd_tab: torch.Tensor) -> torch.Tensor:
+    """Per head row, the sum of its chunks' values (NCH, ...) -> (NH, ...),
+    at the accumulation type: one gather through the chunk table, whose
+    unused places name a zero row past the last chunk, and one reduction."""
+    z = torch.nn.functional.pad(z_c.to(acc_dtype(z_c.dtype)),
+                                (0, 0) * (z_c.dim() - 1) + (0, 1))
+    nh, width = hd_tab.shape
+    return z.index_select(0, hd_tab.reshape(-1)).reshape(
+        nh, width, *z_c.shape[1:]).sum(dim=1)
+
+
+def head_row_payload(c_hd: torch.Tensor, rows_hd: torch.Tensor,
+                     hd_tab: torch.Tensor) -> torch.Tensor:
+    """(NH, k) at the accumulation type: per head row, the sum over its
+    entries of c rows_t (``head_chunk_sums``, then each row's chunk sums
+    through the table)."""
+    return head_row_sums(head_chunk_sums(c_hd, rows_hd), hd_tab)
+
+
+def _rows_out(row_sums: torch.Tensor, hd_rows: torch.Tensor, num_rows: int,
+              dt: torch.dtype) -> torch.Tensor:
+    """(num_rows, ...) at storage: the head rows' sums cast once and written
+    at their rows (unique, so a write, not an accumulation), zero
+    elsewhere."""
+    out = row_sums.new_zeros((num_rows, *row_sums.shape[1:]), dtype=dt)
+    return out.index_copy_(0, hd_rows, row_sums.to(dt))
+
+
+def head_seg_sum(c_hd: torch.Tensor, hd_tab: torch.Tensor,
+                 hd_rows: torch.Tensor, num_rows: int) -> torch.Tensor:
+    """Per-row sums of head slot values, (NCH, CHUNK) -> (num_rows,): the
+    chunk sums and each row's sum of them at the accumulation type, one
+    cast at the end."""
+    s = c_hd.to(acc_dtype(c_hd.dtype)).sum(dim=1)
+    return _rows_out(head_row_sums(s, hd_tab), hd_rows, num_rows, c_hd.dtype)
+
+
+def head_scatter(c_hd, rows_hd, hd_tab, hd_rows, num_out: int,
+                 diag_w_hd=None):
+    """Head form of the gradient scatter: out[r] = sum over r's head entries
+    of c rows_t, (num_out, k) at storage; with ``diag_w_hd`` also the Jacobi
+    diagonal's payload sum of diag_w rows_t^2 (rows_t^2 at storage), as
+    (out, posq)."""
+    dt = rows_hd.dtype
+    out = _rows_out(head_row_payload(c_hd, rows_hd, hd_tab), hd_rows,
+                    num_out, dt)
+    if diag_w_hd is None:
+        return out
+    q = head_row_payload(diag_w_hd, rows_hd * rows_hd, hd_tab)
+    return out, _rows_out(q, hd_rows, num_out, dt)
+
+
+def head_hv(phi, rows_hd, wq_hd, hd_row, hd_tab, hd_rows,
+            num_out: int) -> torch.Tensor:
+    """Head form of the per-CG-iteration positive pass: zp[r] = sum over
+    r's head entries of wq <phi_r, rows_t> rows_t, (num_out, k) at
+    storage.  ``wq_hd``: the slots' scaled weights, storage(w *
+    storage(w_scale)) (``storage_scale``; the JAX op takes w and w_scale
+    and forms the same product).  The dense omega term is the tail
+    pass's."""
+    c = head_pq(phi.index_select(0, hd_row), rows_hd) * wq_hd
+    return _rows_out(head_row_payload(c, rows_hd, hd_tab), hd_rows,
+                     num_out, rows_hd.dtype)
 
 
 # ---------------------------------------------------------------------------

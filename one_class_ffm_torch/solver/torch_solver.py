@@ -14,7 +14,9 @@ field's projections (init, refresh, each step's dP) go through B8.  Cross
 (``uv``) and self (``uu``/``vv``) blocks are both ported.
 The math, the block order, the CG stop rule and the rounding points are
 the reference's; the stream and table passes run the hand-written kernels
-on a CUDA device (ops/sparse_ops.py dispatches).
+on a CUDA device (ops/sparse_ops.py dispatches).  A popularity-skewed side
+takes the two-tier layout: the kernels run on its tail, and the head ops
+(``sparse_ops.head_*``, plain torch) add its power rows' entries.
 
 Out-of-slice configurations raise ``NotImplementedError`` naming the
 ROADMAP item that ports them.
@@ -22,8 +24,9 @@ ROADMAP item that ports them.
 The state is a dict of tensors, as in the JAX package: ``params`` ({f12:
 {"W", "H"}}), the caches ``P``/``Q`` ({f12: (rows, k)}), the side sums
 ``a``/``b``, and the residual carried in each side's slot order,
-``yt_u``/``yt_v`` ((n_blocks, MAXC)).  Functions return new dicts and never
-modify a state they were given.
+``yt_u``/``yt_v`` ((n_blocks, MAXC)), on a two-tier side also in its head
+slots, ``yt_u_hd``/``yt_v_hd`` ((NCH, CHUNK)).  Functions return new dicts
+and never modify a state they were given.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ from ..ops.layout import (
     FeatureMajor,
     check_own_runs,
     feature_major,
+    head_chunk_table,
     make_blocked_layout,
     row_runs,
 )
@@ -50,6 +54,11 @@ from ..ops.sparse_ops import (
     gather_blocked_rows,
     grad_cross_tbl,
     grad_self_tbl,
+    head_hv,
+    head_pq,
+    head_row_payload,
+    head_scatter,
+    head_seg_sum,
     hv_self_tbl,
     pos_dot,
     pos_gap_blocked,
@@ -59,16 +68,16 @@ from ..ops.sparse_ops import (
     project,
     scatter,
     seg_sum_blocked,
+    storage_scale,
 )
 from ..utils.device import resolve_device
 from .params import HyperParams
 
 Tensor = torch.Tensor
 
-# the JAX package's defaults for the blocked layout's skew guard
-# (OCFFM_BLK_PAD_RATIO) and two-tier split (OCFFM_HEAD_CHUNK)
+# the JAX package's default for the blocked layout's skew guard
+# (OCFFM_BLK_PAD_RATIO)
 _PAD_RATIO = 2.0
-_HEAD_CHUNK = 512
 # largest field dim whose solves run the fused table-space passes (the JAX
 # package's OCFFM_FUSED_TBL_D default); a wider non-identity field projects
 # and scatters around the blocked passes
@@ -114,7 +123,7 @@ def _ident_flags(pf: PaddedFields) -> Tuple[bool, ...]:
 def make_device_data(u: PaddedFields, v: PaddedFields, y: PaddedLabels,
                      layout: BlockLayout, hp: HyperParams,
                      dtype: torch.dtype = torch.float32,
-                     blocked_bm: int = 256,
+                     blocked_bm: int = 256, head_chunk: int = 512,
                      device: torch.device | str = "cuda",
                      ) -> Tuple[ProblemMeta, Dict[str, Any]]:
     """Assemble the device tensor dict + static meta from host padded views
@@ -130,8 +139,19 @@ def make_device_data(u: PaddedFields, v: PaddedFields, y: PaddedLabels,
     per-feature sums of squared values (``colsq_u``/``colsq_v``).  Each
     side's blocked layout also gets each row's run of slots
     (``blk_*_runs``, ``row_runs``), which the gradient scatter and the
-    cross Hv kernels (B2, B1, B4) read in place of a search.  The tensors go to the card unless ``device``
-    asks for the CPU."""
+    cross Hv kernels (B2, B1, B4) read in place of a search.
+
+    A popularity-skewed side takes the two-tier layout: its tail is the
+    blocked layout above with the power rows' entries dropped, its head
+    ``(NCH, head_chunk)`` slots of those rows (``head_chunk``: the JAX
+    package's ``OCFFM_HEAD_CHUNK``, same default; 0 turns the split off).
+    Such a side gets the JAX package's head keys ``blk_*_hd_take/src/row/
+    loc/w``, the head cross-order map ``blk_*_hd_from_*``, and for each
+    fused field the head rows' field data ``xh_*`` ((idx, val), else None);
+    and the port's own: the head rows ``blk_*_hd_rows``, their chunk table
+    ``blk_*_hd_tab`` (``layout.head_chunk_table``) and the feature-major
+    lists of ``xh_*`` (``xhf_*``).  The tensors go to the card unless
+    ``device`` asks for the CPU."""
     device = resolve_device(device)
     if not blocked_bm:
         raise NotImplementedError(
@@ -139,20 +159,17 @@ def make_device_data(u: PaddedFields, v: PaddedFields, y: PaddedLabels,
     pads = np.asarray(y.w) == 0
     blk_u = make_blocked_layout(y.u, y.v, u.m, blocked_bm,
                                 max_pad_ratio=_PAD_RATIO, drop=pads,
-                                head_chunk=_HEAD_CHUNK)
+                                head_chunk=head_chunk)
     blk_v = make_blocked_layout(y.v, y.u, v.m, blocked_bm,
                                 max_pad_ratio=_PAD_RATIO, drop=pads,
-                                head_chunk=_HEAD_CHUNK)
+                                head_chunk=head_chunk)
     for side, b in (("u", blk_u), ("v", blk_v)):
         if b is None:
             raise NotImplementedError(
                 f"no blocked layout for the {side} side (row count not a "
-                f"multiple of {blocked_bm}, or skew beyond the pad budget): "
-                "the plain COO positive passes are ROADMAP A3")
-        if "hd_row" in b:
-            raise NotImplementedError(
-                f"the {side} side's layout needs the two-tier head tier "
-                "(popularity skew): ROADMAP A9")
+                f"multiple of {blocked_bm}, or skew beyond the pad budget "
+                "even with the head tier): the plain COO positive passes "
+                "are ROADMAP A3")
         check_own_runs(b["own"], blocked_bm)
 
     ident_u, ident_v = _ident_flags(u), _ident_flags(v)
@@ -177,13 +194,17 @@ def make_device_data(u: PaddedFields, v: PaddedFields, y: PaddedLabels,
         return tuple(torch.ones(d, dtype=dtype, device=device)
                      for d in pf.Ds)
 
-    def xf(pf: PaddedFields, flags):
+    def xf(pf: PaddedFields, flags, rows=None):
+        # ``rows``: the lists of those rows' field data only (the head rows)
         out = []
         for fi, on in enumerate(flags):
             if not on:
                 out.append(None)
                 continue
-            fm = feature_major(pf.idx[fi], pf.val[fi], pf.Ds[fi])
+            idx, val = pf.idx[fi], pf.val[fi]
+            if rows is not None:
+                idx, val = idx[rows], val[rows]
+            fm = feature_major(idx, val, pf.Ds[fi])
             val = t(fm.val, dtype)
             # X^2 for the Jacobi diagonal, squared at storage dtype: the
             # rounding of both JAX forms, _scat_sq's v1 * v1 and the fused
@@ -234,10 +255,35 @@ def make_device_data(u: PaddedFields, v: PaddedFields, y: PaddedLabels,
         data[pre + "w"] = t(y.w[b["src"]] * (b["own"] < b["block_rows"]),
                             dtype)
         data[pre + "inv"] = t(b["inv"])
+        if "hd_row" in b:
+            # the head tier: chunked slots of the power rows' entries
+            for key in ("hd_take", "hd_src", "hd_row", "hd_loc"):
+                data[pre + key] = t(b[key])
+            data[pre + "hd_w"] = t(y.w[b["hd_src"]] * b["hd_valid"], dtype)
+            data[pre + "hd_rows"] = t(b["hd_rows"])
+            data[pre + "hd_tab"] = t(head_chunk_table(
+                b["hd_loc"], b["hd_valid"], len(b["hd_rows"])))
+    for s, pf, b, flags in (("u", u, blk_u, meta.fused_u),
+                            ("v", v, blk_v, meta.fused_v)):
+        # the head rows' field data of each fused field, row-major for
+        # their projection (B8) and feature-major for their X^T
+        if "hd_rows" not in b:
+            continue
+        rows = b["hd_rows"]
+        data["xh_" + s] = tuple(
+            (t(pf.idx[fi][rows]), t(pf.val[fi][rows], dtype)) if on
+            else None for fi, on in enumerate(flags))
+        data["xhf_" + s] = xf(pf, flags, rows)
     # cross-order slot maps of the residual carry: for each slot of one
-    # side's layout, the flat slot index of the same entry on the other side
+    # side's layout, the flat slot index of the same entry on the other
+    # side.  A two-tier side's ``inv`` maps into its concatenated (tail,
+    # head) slot space, and each tier of the receiving side gets its map.
     data["blk_u_from_v"] = t(blk_v["inv"][blk_u["src"]])
     data["blk_v_from_u"] = t(blk_u["inv"][blk_v["src"]])
+    if "hd_row" in blk_u:
+        data["blk_u_hd_from_v"] = t(blk_v["inv"][blk_u["hd_src"]])
+    if "hd_row" in blk_v:
+        data["blk_v_hd_from_u"] = t(blk_u["inv"][blk_v["hd_src"]])
     return meta, data
 
 
@@ -267,6 +313,15 @@ class FFMSolver:
         self.data = data
         self.blocks: List[BlockInfo] = meta.layout.all_blocks()
         self.device = data["pos_u"].device
+        # two-tier head tiers: wherever a side's tail arrays are read, its
+        # head entries' part is added (the tail layout dropped them)
+        self.hd_u = "blk_u_hd_row" in data
+        self.hd_v = "blk_v_hd_row" in data
+        # the head slots' (1 - omega) w, the weights of the head Hv terms
+        # and of the Jacobi diagonal's head payload (static)
+        self._hd_wq = {s: storage_scale(data[f"blk_{s}_hd_w"],
+                                        1.0 - hp.omega)
+                       for s in ("u", "v") if f"blk_{s}_hd_w" in data}
 
     # -- field accessors ------------------------------------------------------
 
@@ -337,6 +392,28 @@ class FFMSolver:
         u_side, fl = self._u_field(b, first)
         return self.data["colsq_u" if u_side else "colsq_v"][fl]
 
+    def _side_xh(self, b: BlockInfo, first: bool):
+        """(xh_idx, xh_val, feature-major list) of the head rows' data of
+        the block side's field, or None (no head tier on that side, or a
+        field off the fused passes)."""
+        u_side, fl = self._u_field(b, first)
+        s = "u" if u_side else "v"
+        xh = self.data.get("xh_" + s)
+        if xh is None or xh[fl] is None:
+            return None
+        return (*xh[fl], self.data["xhf_" + s][fl])
+
+    def _hd_side(self, u_side: bool) -> bool:
+        """Head tier present on the u (True) / v (False) segment side."""
+        return self.hd_u if u_side else self.hd_v
+
+    def _hd_coeff(self, state, u_side: bool) -> Tensor:
+        """Gradient coefficients on the head tier's slots (NCH, CHUNK),
+        elementwise on the carried head residual (pad slots weigh 0)."""
+        s = "u" if u_side else "v"
+        return (self._pos_coeff(state[f"yt_{s}_hd"])
+                * self.data[f"blk_{s}_hd_w"])
+
     def _tbl_grad(self, b: BlockInfo, first: bool, T: Tensor,
                   Gt: Tensor) -> Tensor:
         """lam reg T + Gt at the float32 floor: a fused pass's table-space
@@ -377,16 +454,23 @@ class FFMSolver:
         a, b_vec = self._side_sums(P, Q)
         yt = self._pos_scores(P, Q, a, b_vec) - 1.0
         d = self.data
-        return dict(params=params, P=P, Q=Q, a=a, b=b_vec,
-                    yt_u=yt[d["blk_u_src"].long()] * d["blk_u_w"],
-                    yt_v=yt[d["blk_v_src"].long()] * d["blk_v_w"])
+        out = dict(params=params, P=P, Q=Q, a=a, b=b_vec)
+        for s in ("u", "v"):
+            out["yt_" + s] = yt[d[f"blk_{s}_src"].long()] * d[f"blk_{s}_w"]
+            if self._hd_side(s == "u"):
+                out[f"yt_{s}_hd"] = (yt[d[f"blk_{s}_hd_src"].long()]
+                                     * d[f"blk_{s}_hd_w"])
+        return out
 
     def yt_stream(self, state) -> Tensor:
         """The positive residual in stream order, pad-masked (diagnostics and
-        the objective; the epoch works on the slot-order carry)."""
+        the objective; the epoch works on the slot-order carry).  A two-tier
+        u side's ``inv`` maps into its concatenated (tail, head) slots."""
         d = self.data
-        return (state["yt_u"].reshape(-1)[d["blk_u_inv"].long()]
-                * d["pos_w"])
+        flat = state["yt_u"].reshape(-1)
+        if self.hd_u:
+            flat = torch.cat([flat, state["yt_u_hd"].reshape(-1)])
+        return flat[d["blk_u_inv"].long()] * d["pos_w"]
 
     def _side_sums(self, P, Q) -> Tuple[Tensor, Tensor]:
         """a_i / b_j self-interaction sums (calc_side, ffm.cpp:360-373)."""
@@ -444,7 +528,8 @@ class FFMSolver:
         return "blk_v_", meta.n, meta.blocked_bm_v
 
     def _grad_cross(self, state, b: BlockInfo, first: bool,
-                    rows_pre: Tensor, with_diag_pos: bool = False):
+                    rows_pre: Tensor, with_diag_pos: bool = False,
+                    rows_hd: Optional[Tensor] = None):
         """Gradient for one table of a cross block (gd_cross, ffm.cpp:630-703):
         omega part via k x k Grams, positive part by the scatter kernel over
         the pre-gathered stream; on a small-D feature field both go to table
@@ -454,7 +539,11 @@ class FFMSolver:
         Hessian diagonal's positive part from the same read of the stream:
         on a fused field ("tbl", the complete table-space scatter term at
         the float32 floor), else the row-space posq[r] = sum_t (1-w) w_t
-        rows_t^2 that _diag_H scatters through X^2."""
+        rows_t^2 that _diag_H scatters through X^2.
+
+        ``rows_hd``: the solve's head stream on a two-tier side, whose
+        entries' part is added in table space on a fused field
+        (``_hd_tbl``), else in row space (``head_scatter``)."""
         meta, d = self.meta, self.data
         hp = meta.hp
         reg, _, _ = self._side(b, first)
@@ -484,9 +573,15 @@ class FFMSolver:
         if self._fused(b, first):
             res = grad_cross_tbl(xf, rows_pre, d[pre + "own"], c_blk, dense,
                                  bm, runs=d[pre + "runs"], **diag_w)
+            Gt, Qt = res if with_diag_pos else (res, None)
+            if rows_hd is not None:
+                g_hd, q_hd = self._hd_tbl(state, b, first, rows_hd,
+                                          with_diag_pos)
+                Gt = Gt + g_hd
+                if with_diag_pos:
+                    Qt = Qt + q_hd
             if not with_diag_pos:
-                return self._tbl_grad(b, first, T, res)
-            Gt, Qt = res
+                return self._tbl_grad(b, first, T, Gt)
             qtq_d = (B1 * B1).sum(dim=0)  # pad rows are zero
             acc = acc_dtype(meta.dtype)
             tbl_d = (hp.omega * (self._side_colsq(b, first).to(acc)[:, None]
@@ -494,10 +589,42 @@ class FFMSolver:
             return self._tbl_grad(b, first, T, Gt), ("tbl", tbl_d)
         res = pos_scatter_blocked(c_blk, rows_pre, d[pre + "own"], num, bm,
                                   runs=d[pre + "runs"], **diag_w)
-        zpos = res[0] if with_diag_pos else res
+        zpos, posq = res if with_diag_pos else (res, None)
+        if rows_hd is not None:
+            hpre = pre + "hd_"
+            res_h = head_scatter(
+                self._hd_coeff(state, first), rows_hd, d[hpre + "tab"],
+                d[hpre + "rows"], num,
+                diag_w_hd=self._hd_wq["u" if first else "v"]
+                if with_diag_pos else None)
+            if with_diag_pos:
+                zpos, posq = zpos + res_h[0], posq + res_h[1]
+            else:
+                zpos = zpos + res_h
         G = hp.lam * reg[:, None] * T + self._scat(
             b, first, dense + zpos, T.shape[0])
-        return (G, res[1]) if with_diag_pos else G
+        return (G, posq) if with_diag_pos else G
+
+    def _hd_tbl(self, state, b: BlockInfo, first: bool, rows_hd: Tensor,
+                with_diag: bool = False):
+        """The head entries' part of a fused cross gradient in table space
+        (jax_solver.py ``hd_tbl``): each head row's chunk sums of c rows_t,
+        scattered through X_head^T; with ``with_diag`` also the Jacobi
+        diagonal's, the sums of (1-w) w rows_t^2 through X_head^2.  Returns
+        (Gt term, Qt term or None), at storage dtype."""
+        d = self.data
+        pre = "blk_u_hd_" if first else "blk_v_hd_"
+        _, _, xh = self._side_xh(b, first)
+        dt = rows_hd.dtype
+        # X_head^T through the head rows' list: the JAX head_tbl_scatter
+        z_hd = head_row_payload(self._hd_coeff(state, first), rows_hd,
+                                d[pre + "tab"]).to(dt)
+        g = scatter(xh, z_hd)
+        if not with_diag:
+            return g, None
+        q_hd = head_row_payload(self._hd_wq["u" if first else "v"],
+                                rows_hd * rows_hd, d[pre + "tab"]).to(dt)
+        return g, scatter(xh, q_hd, squared=True)
 
     def _grad_self(self, state, b: BlockInfo, first: bool, sa: Tensor,
                    sb: Tensor, want_diag: bool = False):
@@ -527,8 +654,16 @@ class FFMSolver:
         c_blk = self._pos_coeff(state["yt_u" if u_side else "yt_v"]) \
             * d[pre + "w"]
         zdense = hp.omega * (n_other * (side - hp.r) + other_sum + s_cache)
+        # the head entries' per-row sums (absent from the tail slots): on a
+        # fused field they ride zdense into the pass, else zpos
+        z_hd = None
+        if self._hd_side(u_side):
+            z_hd = head_seg_sum(self._hd_coeff(state, u_side),
+                                d[pre + "hd_tab"], d[pre + "hd_rows"], num)
         _, _, xf = self._x(b, first)
         if self._fused(b, first):
+            if z_hd is not None:
+                zdense = zdense + z_hd
             if not want_diag:
                 return self._tbl_grad(b, first, T, grad_self_tbl(
                     xf, Q1, zdense, d[pre + "own"], c_blk, bm,
@@ -538,7 +673,10 @@ class FFMSolver:
                                    runs=d[pre + "runs"])
             return (self._tbl_grad(b, first, T, Gt),
                     ("tbl", Dq.to(acc_dtype(meta.dtype))))
-        z = zdense + seg_sum_blocked(c_blk, d[pre + "own"], num, bm)
+        zpos = seg_sum_blocked(c_blk, d[pre + "own"], num, bm)
+        if z_hd is not None:
+            zpos = zpos + z_hd
+        z = zdense + zpos
         reg, _, _ = self._side(b, first)
         G = hp.lam * reg[:, None] * T + self._scat(
             b, first, z[:, None] * Q1, T.shape[0])
@@ -552,11 +690,15 @@ class FFMSolver:
             return (1.0 - hp.omega) * d["cnt_u"] + hp.omega * meta.n_true
         return (1.0 - hp.omega) * d["cnt_v"] + hp.omega * meta.m_true
 
-    def _hv_cross(self, state, b: BlockInfo, first: bool, rows_pre: Tensor):
+    def _hv_cross(self, state, b: BlockInfo, first: bool, rows_pre: Tensor,
+                  rows_hd: Optional[Tensor] = None):
         """Hv closure for a cross-block table (hs_cross, ffm.cpp:706-742):
         one kernel pass per call, the omega Q1^T Q1 term fused into it (and
         on a small-D feature field the projection and the X^T scatter too;
-        a wide field projects with B8 before it and scatters after it)."""
+        a wide field projects with B8 before it and scatters after it).
+        With ``rows_hd`` (a two-tier side's head stream) the head entries'
+        part is added: in table space on a fused field (``_hd_hv_tbl``),
+        else in row space before the scatter (``head_hv``)."""
         meta, d = self.meta, self.data
         hp = meta.hp
         reg, _, _ = self._side(b, first)
@@ -569,16 +711,41 @@ class FFMSolver:
         idx, val, xf = self._x(b, first)
         fused = self._fused(b, first)
 
+        hpre = pre + "hd_"
+        wq_hd = self._hd_wq.get("u" if first else "v")
+
         def hv(V: Tensor) -> Tensor:
             if fused:
                 G = pos_hv_tbl(V, idx, val, xf, rows_pre, own, w_blk, dmat,
                                bm, w_scale, runs=runs)
+                if rows_hd is not None:
+                    G = G + self._hd_hv_tbl(b, first, V, rows_hd)
                 return hp.lam * reg[:, None] * V + G.to(V.dtype)
-            zp = pos_hv_blocked(self._proj(b, first, V), rows_pre, own,
-                                w_blk, dmat, num, bm, w_scale, runs=runs)
+            phi = self._proj(b, first, V)
+            zp = pos_hv_blocked(phi, rows_pre, own, w_blk, dmat, num, bm,
+                                w_scale, runs=runs)
+            if rows_hd is not None:
+                zp = zp + head_hv(phi, rows_hd, wq_hd, d[hpre + "row"],
+                                  d[hpre + "tab"], d[hpre + "rows"], num)
             return hp.lam * reg[:, None] * V + self._scat(b, first, zp, dim)
 
         return hv
+
+    def _hd_hv_tbl(self, b: BlockInfo, first: bool, V: Tensor,
+                   rows_hd: Tensor) -> Tensor:
+        """The head entries' part of a fused cross Hv in table space, at
+        storage dtype (jax_solver.py:1831-1845): phi of the head rows only
+        (B8), each entry's w_scale w <phi, row_t> row_t summed per head
+        row, scattered through X_head^T.  The dense omega term is the tail
+        pass's."""
+        d = self.data
+        pre = "blk_u_hd_" if first else "blk_v_hd_"
+        xh_idx, xh_val, xh = self._side_xh(b, first)
+        phi_hd = project(xh_idx, xh_val, V)  # the JAX head_project
+        cq = head_pq(phi_hd.index_select(0, d[pre + "loc"]), rows_hd) \
+            * self._hd_wq["u" if first else "v"]
+        z_hd = head_row_payload(cq, rows_hd, d[pre + "tab"])
+        return scatter(xh, z_hd.to(phi_hd.dtype))  # the JAX head_tbl_scatter
 
     def _hv_self(self, state, b: BlockInfo, first: bool):
         """Hv closure for a self-block table (hs_side, ffm.cpp:594-628):
@@ -683,13 +850,17 @@ class FFMSolver:
     # -- block update -----------------------------------------------------------
 
     def _apply_step(self, state, b: BlockInfo, first: bool, S: Tensor,
-                    rows_pre: Optional[Tensor]) -> Dict[str, Any]:
+                    rows_pre: Optional[Tensor],
+                    rows_hd: Optional[Tensor] = None) -> Dict[str, Any]:
         """Apply the Newton step and refresh the cache and both sides' slot-
         order residuals (update_cross ffm.cpp:439-465, update_side 405-437).
         A cross step's gap kernel reuses the solve's stream: the other
-        side's cache did not move.  A self step moves the side sum a (or b)
-        by <dP, other cache> per row, and every positive of the row by the
-        same amount."""
+        side's cache did not move; on a two-tier side the head stream
+        ``rows_hd`` gives the head slots' gaps, and the other side's
+        carries read the concatenated (tail, head) gaps through the
+        cross-order maps.  A self step moves the side sum a (or b) by <dP,
+        other cache> per row, and every positive of the row by the same
+        amount, head slots included."""
         meta, d = self.meta, self.data
         key, cache_key = ("W", "P") if first else ("H", "Q")
         state = dict(state)
@@ -707,15 +878,28 @@ class FFMSolver:
         state[cache_key] = caches
 
         if b.kind == "uv":
+            if (rows_hd is not None) != self._hd_side(first):
+                raise ValueError("a cross step on a two-tier side needs the "
+                                 "solve's head stream, and only there")
             pre, _, bm = self._blk(first)
             gap = pos_gap_blocked(dP, rows_pre, d[pre + "own"], bm,
                                   runs=d[pre + "runs"])
-            own_key, oth_key = ("yt_u", "yt_v") if first else ("yt_v", "yt_u")
-            oth_pre = "blk_v_" if first else "blk_u_"
-            state[own_key] = state[own_key] + gap.reshape(
-                state[own_key].shape) * d[pre + "w"]
-            cross = d["blk_v_from_u" if first else "blk_u_from_v"].long()
-            state[oth_key] = state[oth_key] + gap[cross] * d[oth_pre + "w"]
+            own, oth = ("u", "v") if first else ("v", "u")
+            state["yt_" + own] = state["yt_" + own] + gap.reshape(
+                state["yt_" + own].shape) * d[pre + "w"]
+            if rows_hd is not None:
+                gap_hd = head_pq(dP.index_select(0, d[pre + "hd_row"]),
+                                 rows_hd)
+                state[f"yt_{own}_hd"] = (state[f"yt_{own}_hd"]
+                                         + gap_hd * d[pre + "hd_w"])
+                gap = torch.cat([gap, gap_hd.reshape(-1)])
+            cross = d[f"blk_{oth}_from_{own}"].long()
+            state["yt_" + oth] = state["yt_" + oth] \
+                + gap[cross] * d[f"blk_{oth}_w"]
+            if self._hd_side(not first):
+                cross = d[f"blk_{oth}_hd_from_{own}"].long()
+                state[f"yt_{oth}_hd"] = state[f"yt_{oth}_hd"] \
+                    + gap[cross] * d[f"blk_{oth}_hd_w"]
             return state
         other = state["Q"][b.f12] if first else state["P"][b.f12]
         da = (dP * other).sum(dim=1)
@@ -729,6 +913,14 @@ class FFMSolver:
             da, d[pre + "own"], bm).reshape(state["yt_" + own].shape)
         state["yt_" + oth] = state["yt_" + oth] \
             + da[d[f"blk_{oth}_take"].long()] * d[f"blk_{oth}_w"]
+        # head tiers: da per slot is the chunk's row's on the own side, a
+        # scalar gather through hd_take on the other
+        if self._hd_side(own == "u"):
+            state[f"yt_{own}_hd"] = state[f"yt_{own}_hd"] + da.index_select(
+                0, d[pre + "hd_row"])[:, None] * d[pre + "hd_w"]
+        if self._hd_side(oth == "u"):
+            state[f"yt_{oth}_hd"] = state[f"yt_{oth}_hd"] \
+                + da[d[f"blk_{oth}_hd_take"].long()] * d[f"blk_{oth}_hd_w"]
         return state
 
     def grad_and_hv(self, state, b: BlockInfo, first: bool, sa, sb):
@@ -738,28 +930,35 @@ class FFMSolver:
         return self.solve_inputs(state, b, first, sa, sb)[:3]
 
     def solve_inputs(self, state, b: BlockInfo, first: bool, sa, sb):
-        """``grad_and_hv`` plus the Jacobi diagonal (None under plain CG),
-        whose scatter term the gradient's pass computes from the same read
-        of the stream (jax_solver.py:2278-2298)."""
+        """(G, Hv closure, stream, head stream, D): ``grad_and_hv`` plus
+        the head stream of a cross solve on a two-tier side (else None),
+        gathered once per solve as the tail stream is, and the Jacobi
+        diagonal (None under plain CG), whose scatter term the gradient's
+        pass computes from the same read of the stream
+        (jax_solver.py:2278-2298)."""
         jac = self.cg_precond == "jacobi"
         if b.kind != "uv":
             res = self._grad_self(state, b, first, sa, sb, want_diag=jac)
             G, term = res if jac else (res, None)
-            return (G, self._hv_self(state, b, first), None,
+            return (G, self._hv_self(state, b, first), None, None,
                     self._diag_H(state, b, first, term))
         B1 = state["Q"][b.f12] if first else state["P"][b.f12]
         pre, _, _ = self._blk(first)
         rows_pre = gather_blocked_rows(B1, self.data[pre + "take"])
-        res = self._grad_cross(state, b, first, rows_pre, with_diag_pos=jac)
+        rows_hd = (gather_blocked_rows(B1, self.data[pre + "hd_take"])
+                   if self._hd_side(first) else None)
+        res = self._grad_cross(state, b, first, rows_pre, with_diag_pos=jac,
+                               rows_hd=rows_hd)
         G, term = res if jac else (res, None)
-        return (G, self._hv_cross(state, b, first, rows_pre), rows_pre,
-                self._diag_H(state, b, first, term))
+        return (G, self._hv_cross(state, b, first, rows_pre, rows_hd),
+                rows_pre, rows_hd, self._diag_H(state, b, first, term))
 
     def _solve_half(self, state, b: BlockInfo, first: bool, sa, sb):
         """Gradient, (P)CG and step for one table of a block."""
-        G, hv, rows_pre, D = self.solve_inputs(state, b, first, sa, sb)
+        G, hv, rows_pre, rows_hd, D = self.solve_inputs(state, b, first, sa,
+                                                        sb)
         S, it = self._cg(hv, G, D)
-        return self._apply_step(state, b, first, S, rows_pre), it
+        return self._apply_step(state, b, first, S, rows_pre, rows_hd), it
 
     # -- epoch ------------------------------------------------------------------
 

@@ -242,10 +242,12 @@ def resolve_dtype(name: str) -> torch.dtype:
 
 
 class Trainer:
-    """Owns the solver + evaluator for one run on one device."""
+    """Owns the solver + evaluator for one run on one device.
+    ``head_chunk``: the chunk width of a popularity-skewed side's head tier
+    (``make_device_data``)."""
 
     def __init__(self, cfg: TrainConfig, data: Optional[LoadedData] = None,
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda", head_chunk: int = 512):
         if cfg.mesh_shape or cfg.distributed:
             raise NotImplementedError(
                 "--mesh / --distributed (multi-device runs): ROADMAP A11")
@@ -267,7 +269,8 @@ class Trainer:
         self.dtype = resolve_dtype(cfg.dtype)
         self.meta, dev = make_device_data(
             d.u_pad, d.v_pad, d.y_pad, d.layout, cfg.hyper(),
-            dtype=self.dtype, blocked_bm=cfg.blocked_bm, device=self.device)
+            dtype=self.dtype, blocked_bm=cfg.blocked_bm,
+            head_chunk=head_chunk, device=self.device)
         self.solver = FFMSolver(self.meta, dev)
         self.evaluator = None
         if d.uva_pad is not None and d.va_labels:

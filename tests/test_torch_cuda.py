@@ -926,3 +926,105 @@ def test_b9_refuses_an_unaligned_base(device, name):
     with pytest.raises(ValueError, match="16-byte aligned"):
         kernels.pos_hv_packed(args["phi"], args["rows_p"], own_p,
                               args["w_p"], args["dense_mat"], nb * BM, BM)
+
+
+# ---------------------------------------------------------------------------
+# the two-tier head tier on the card
+# ---------------------------------------------------------------------------
+
+
+def _skewed_solvers(device, cg_precond="none", dtype=torch.float32):
+    """One skewed FFM (zipf 1.0 item popularity, an id and a small feature
+    field per side, self blocks; 8 rows per block and 8-slot chunks, so the
+    v side takes the head tier) as solvers on the CPU and on the card, from
+    one set of tables."""
+    from one_class_ffm_torch.data.synth import SynthSpec, build_padded
+    from one_class_ffm_torch.models.blocks import BlockLayout
+    from one_class_ffm_torch.solver import torch_solver
+    from one_class_ffm_torch.solver.params import HyperParams
+
+    spec = SynthSpec(n_users=600, n_items=120, dims_u=(600, 30),
+                     dims_v=(120, 20), avg_pos=5.0, seed=1, pop_skew=1.0)
+    (du, dv), u, v, y = build_padded(spec, np.float32, row_multiple=8)
+    hp = HyperParams(k=32, lam=0.05, omega=0.1, r=-1.0,
+                     cg_precond=cg_precond)
+    out = []
+    for dev in ("cpu", device):
+        meta, data = torch_solver.make_device_data(
+            u, v, y, BlockLayout.make(du, dv, True), hp, dtype=dtype,
+            blocked_bm=8, head_chunk=8, device=dev)
+        out.append(torch_solver.FFMSolver(meta, data))
+    assert all(s.hd_v for s in out)
+    state = out[0].init(torch.Generator().manual_seed(0))
+    params = {f: {n: t.to(device) for n, t in blk.items()}
+              for f, blk in state["params"].items()}
+    return out, (state, out[1].refresh_caches({"params": params}))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_head_ops_on_the_card_match_the_cpu(device, dtype):
+    """Each head op on the card (batched products, the chunk table's row
+    sums, B8 and the X^T stage for the fused terms) against the same op on
+    the CPU: sums in other orders, so max-rel within the kernels' bound."""
+    (cpu, gpu), (cst, gst) = _skewed_solvers(device, dtype=dtype)
+    nch = cpu.data["blk_v_hd_take"].shape[0]
+    fu = cpu.meta.layout.fu  # the two feature fields' cross block
+    b = next(b for b in cpu.blocks if (b.f1, b.f2) == (1, fu + 1))
+    results = []
+    for solver, st in ((cpu, cst), (gpu, gst)):
+        d = solver.data
+        B1 = st["P"][b.f12]
+        rows_hd = ops.gather_blocked_rows(B1, d["blk_v_hd_take"])
+        phi = st["Q"][b.f12]
+        c = solver._hd_coeff(st, False)
+        args = (d["blk_v_hd_tab"], d["blk_v_hd_rows"])
+        results.append(dict(
+            chunk_sums=ops.head_chunk_sums(c, rows_hd),
+            pq=ops.head_pq(phi.index_select(0, d["blk_v_hd_row"]), rows_hd),
+            seg_sum=ops.head_seg_sum(c, *args, solver.meta.n),
+            scatter=ops.head_scatter(c, rows_hd, *args, solver.meta.n,
+                                     diag_w_hd=d["blk_v_hd_w"])[1],
+            hv=ops.head_hv(phi, rows_hd, solver._hd_wq["v"],
+                           d["blk_v_hd_row"], *args, solver.meta.n),
+            hv_tbl=solver._hd_hv_tbl(b, False, st["params"][b.f12]["H"],
+                                     rows_hd),
+            tbl=solver._hd_tbl(st, b, False, rows_hd, with_diag=True)[1]))
+    assert results[0]["chunk_sums"].shape[0] == nch
+    for name, ref in results[0].items():
+        got = results[1][name]
+        assert got.device.type == torch.device(device).type, name
+        assert got.dtype == ref.dtype, name
+        assert _max_rel(got.cpu(), ref) <= BOUND[dtype], name
+
+
+@pytest.mark.parametrize("cg_precond", ["none", "jacobi"])
+def test_two_tier_solver_on_the_card_matches_the_cpu(device, cg_precond):
+    """The skewed FFM's gradient, Hv and (Jacobi) diagonal of every block
+    side on the card against the CPU's plain path; one epoch on the card
+    run twice from one state gives the same bits, and its carried head
+    residual equals a fresh ``refresh_caches``."""
+    (cpu, gpu), (cst, gst) = _skewed_solvers(device, cg_precond)
+    sa_c, sb_c = cpu.sasb(cst)
+    sa_g, sb_g = gpu.sasb(gst)
+    rng = np.random.default_rng(2)
+    for b in cpu.blocks:
+        for first in (True, False):
+            Gc, hvc, _, _, Dc = cpu.solve_inputs(cst, b, first, sa_c, sb_c)
+            Gg, hvg, _, _, Dg = gpu.solve_inputs(gst, b, first, sa_g, sb_g)
+            V = torch.as_tensor(rng.normal(size=tuple(Gc.shape)),
+                                dtype=torch.float32)
+            pairs = [(Gg, Gc), (hvg(V.to(device)), hvc(V))]
+            if cg_precond == "jacobi":
+                pairs.append((Dg, Dc))
+            for got, ref in pairs:
+                assert _max_rel(got.cpu(), ref) <= 1e-4, (b.f12, first)
+    kernels.reset_launch_counts()
+    g1, it1 = gpu.epoch_stats(gst)
+    assert sum(kernels.launch_counts().values()) > 0
+    g2, it2 = gpu.epoch_stats(gst)
+    assert torch.equal(it1, it2)
+    for key in ("yt_u", "yt_v", "yt_v_hd", "a", "b"):
+        assert torch.equal(_bits(g1[key]), _bits(g2[key])), key
+    re = gpu.refresh_caches({"params": g1["params"]})
+    for key in ("yt_v", "yt_v_hd"):
+        assert _max_rel(g1[key].cpu(), re[key].cpu()) <= 1e-4, key

@@ -264,7 +264,7 @@ def test_diag_matches_oracle(case, cap_for):
     sa, sb = solver.sasb(state)
     for b in prob.layout.all_blocks():
         for first in (True, False):
-            G, _, _, D = solver.solve_inputs(state, b, first, sa, sb)
+            G, _, _, _, D = solver.solve_inputs(state, b, first, sa, sb)
             D_ref = oracle.diag_hessian(prob, params, b, first)
             assert D.shape == D_ref.shape
             np.testing.assert_allclose(D.numpy(), D_ref, rtol=1e-8,
@@ -331,8 +331,8 @@ def test_jacobi_changes_the_search_not_the_stop_rule():
     assert plain.cg_precond == "none" and jac.cg_precond == "jacobi"
     b = prob.layout.epoch_order()[0]
     sa, sb = plain.sasb(pst)
-    Gp, _, _, Dp = plain.solve_inputs(pst, b, True, sa, sb)
-    Gj, _, _, Dj = jac.solve_inputs(jst, b, True, sa, sb)
+    Gp, _, _, _, Dp = plain.solve_inputs(pst, b, True, sa, sb)
+    Gj, _, _, _, Dj = jac.solve_inputs(jst, b, True, sa, sb)
     assert Dp is None and torch.all(Dj > 0)
     assert torch.equal(Gp, Gj)
     sp, _ = plain._solve_half(pst, b, True, sa, sb)
@@ -450,7 +450,7 @@ def test_chip_smoke_jacobi_rehearsal_on_cpu():
     for names, b, first, _ in cases:
         fused = solver._fused(b, first)
         assert fused == (names[0] != "pos_scatter_blocked_diag")
-        _, _, _, D = solver.solve_inputs(state, b, first, sa, sb)
+        _, _, _, _, D = solver.solve_inputs(state, b, first, sa, sb)
         assert D is not None and torch.all(D > 0)
     # the work of the variants: two outputs, the X^2 list read as well
     xt = solver.data["xf_u"][1]

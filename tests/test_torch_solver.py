@@ -260,26 +260,27 @@ def test_params_numpy_round_trip():
 
 
 def _skewed_problem():
-    """Four power users hold most positives: the u side needs the head
-    tier."""
+    """Four power users hold most positives: beyond the u side's pad budget,
+    and too few entries each to fill the default 512-slot head chunks."""
     prob, params = mf_problem(m=64, n=40, density=0.05)
     prob.pos[:4, :] = True
     return prob, params
 
 
-# self blocks, feature fields of any width and Jacobi run now
-# (tests/test_torch_jacobi.py holds Jacobi); the cases hold what still
-# raises
+# self blocks, feature fields of any width, Jacobi and the head tier run
+# now (tests/test_torch_jacobi.py holds Jacobi, tests/test_torch_two_tier.py
+# the head tier); the cases hold what still raises
 OUT_OF_SLICE = {
-    "head_tier": dict(skewed=True),
+    "skew_without_head_chunk": dict(skewed=True),
     "no_layout": dict(blocked_bm=0),
     "mesh": dict(mesh=object()),
 }
 
 
-# a skewed side whose power rows fit no head chunk falls back to the plain
-# COO passes (A3); one that takes the head tier needs A9
-ROADMAP_ITEM = {"head_tier": "A[39]", "no_layout": "A3", "mesh": "A11"}
+# a skewed side that even the head tier rejects falls back to the plain COO
+# passes
+ROADMAP_ITEM = {"skew_without_head_chunk": "A3", "no_layout": "A3",
+                "mesh": "A11"}
 
 
 @pytest.mark.parametrize("case", sorted(OUT_OF_SLICE))
