@@ -29,20 +29,26 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
    and B9 and B10 on the MF streams, each also against B1's output; then
    B1-B7 on the skewed FFM's streams (bench.py's BENCH_SKEW=1 problem:
    item popularity zipf 1.0, whose v side takes the two-tier layout: its
-   tail, where the power items own no slots), timed apart from the rest.
+   tail, where the power items own no slots), timed apart from the rest;
+   then the COO passes (``pos_scatter``, ``pos_scatter_pair``,
+   ``pos_seg_sum``: the X^T stage's kernel over a side's list of the
+   positive stream) on the FFM with both sides COO (``blocked_bm=0``, both
+   sides) and on the skewed FFM without the head tier under Jacobi (its v
+   side COO), with ``Tensor.index_add_`` as their library yardstick.
    Before them, ``[data]`` lines give the static plans the redesigned
-   kernels read: each stream side's row runs (mean and longest) and each
-   feature-major list's single-chunk, multi-chunk and featureless
-   features;
+   kernels read: each stream side's row runs (mean and longest), each COO
+   side's list of the stream and each feature-major list's single-chunk,
+   multi-chunk and featureless features;
 4. reference: on a small MF problem, a small FFM problem with self blocks
    and a small FM problem whose fields are above a lowered fused-table cap,
    the gradients and Hv products the kernels give on the card match the
    fp64 numpy oracle, and the objective the solver tracks through two
    kernel-driven epochs matches the oracle's brute-force loss; the same on
    a small skewed FFM (power rows on both sides, the head tier on both);
-   the FFM, FM and skewed problems again under Jacobi, with the Hessian
-   diagonal against the oracle's and two epochs against the oracle's
-   Jacobi epochs;
+   a small FFM with both sides COO and a small skewed FFM with its v side
+   COO and its u side blocked; the FFM, FM, skewed and COO problems again
+   under Jacobi, with the Hessian diagonal against the oracle's and two
+   epochs against the oracle's Jacobi epochs;
 5. main path, MF: the port's Trainer trains MF --ns at 200,000 users x
    20,000 items, ~5 positives per user, k=32, float32 for 3 epochs and
    validates once; its three kernels and B8 must have launched;
@@ -60,15 +66,19 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
    then the skewed FFM at the same sizes (the head tier on its v side):
    B1-B8 must have launched, one epoch run twice from one state must give
    the same bits, and each head op's per-call time on its v side is
-   printed;
+   printed; then the FFM with both sides COO (``blocked_bm=0``, plain CG:
+   the COO passes, B8 and the general scatter must have launched, no
+   blocked or fused kernel) and the skewed FFM with ``head_chunk=0`` under
+   Jacobi (v COO: the three COO passes; u blocked: its blocked and fused
+   Jacobi kernels), each also run twice from one state;
 8. the Hv variants' path: ``hv_pack_bench`` checks B1, B9 and B10 on its
    synthetic stream and times them; B9 and B10 must have launched;
 9. entry point: ``python -m one_class_ffm_torch`` on small text datasets,
-   MF with --ns, FFM without, and FM with its user field above the cap,
-   must exit 0.
+   MF with --ns, FFM without, FM with its user field above the cap, and
+   MF with --ns --blocked-bm 0, must exit 0.
 
 The line before the last is a JSON object with one entry per kernel: its
-launches summed over the six main paths (B9 and B10: over the bench's
+launches summed over the eight main paths (B9 and B10: over the bench's
 run), its largest error against the plain version, and its times and bound
 summed over the sides and shapes of phase 3 but the skewed FFM's.  The
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -111,6 +121,12 @@ REPLACES = {
     "grad_self_tbl_diag": f"{_JAX_OPS}:1900",
     "pos_hv_packed": "scripts/hv_pack_bench.py:84",
     "pos_hv_blocked_g": "scripts/hv_pack_bench.py:150",
+    # the plain COO positive passes (XLA ops there, ported as the X^T
+    # stage's kernel for determinism): pos_scatter, pos_scatter_pair and
+    # the self blocks' segment_sum of the stream's coefficients
+    "pos_scatter": f"{_JAX_OPS}:230",
+    "pos_scatter_pair": f"{_JAX_OPS}:264",
+    "pos_seg_sum": "one_class_ffm_tpu/solver/jax_solver.py:1215",
 }
 BLOCKED = ("pos_hv_blocked", "pos_scatter_blocked", "pos_gap_blocked")
 TABLE = ("pos_hv_tbl", "grad_cross_tbl", "hv_self_tbl", "grad_self_tbl")
@@ -118,6 +134,7 @@ WIDE = ("project", "scatter")
 DIAG = ("pos_scatter_blocked_diag", "grad_cross_tbl_diag",
         "grad_self_tbl_diag")
 VARIANTS = ("pos_hv_packed", "pos_hv_blocked_g")
+COO = ("pos_scatter", "pos_scatter_pair", "pos_seg_sum")
 _CSRC = "one_class_ffm_torch/csrc/"
 # (B5's row stage runs on B2's body in blocked_ops.cu, its X^T stage in
 # table_ops.cu)
@@ -331,26 +348,24 @@ def print_static_plan(tag: str, data) -> None:
     single-chunk features (written by the X^T stage's first pass), features
     with several chunks and features with none (both by its second).  On a
     two-tier side the stream is the tail; its head tier's rows and chunks
-    follow."""
+    follow.  A COO side prints its list of the stream instead: its rows
+    with one chunk, with several, with none, and the longest row."""
     for side in ("u", "v"):
-        runs = data[f"blk_{side}_runs"]
-        length = (runs[:, 1:] - runs[:, :-1]).float()
-        print(f"[data] {tag} stream {side}: {runs.shape[0]} blocks x MAXC "
-              f"{data[f'blk_{side}_own'].shape[1]}, "
-              f"{int(runs[:, -1].sum())} valid slots, row runs mean "
-              f"{length.mean().item():.2f} longest {int(length.max())} "
-              "slots")
-        if f"blk_{side}_hd_take" in data:
-            nch, chunk = data[f"blk_{side}_hd_take"].shape
-            tab = data[f"blk_{side}_hd_tab"]
-            per_row = (tab < nch).sum(dim=1)
-            print(f"[data] {tag} head tier {side}: "
-                  f"{data[f'blk_{side}_hd_rows'].numel()} head rows, {nch} "
-                  f"chunks x {chunk} "
-                  f"({int((data[f'blk_{side}_hd_w'] != 0).sum())} valid "
-                  f"slots), chunks per row mean "
-                  f"{per_row.float().mean().item():.2f} most "
-                  f"{int(per_row.max())}")
+        coo = data.get("coo_" + side)
+        if coo is not None:
+            nch = coo.feat_ptr[1:] - coo.feat_ptr[:-1]
+            per_row = (coo.chunk_ptr[coo.feat_ptr[1:].long()]
+                       - coo.chunk_ptr[coo.feat_ptr[:-1].long()])
+            print(f"[data] {tag} COO side {side}: list of the stream, "
+                  f"{coo.row.numel()} entries in {nch.sum().item()} chunks "
+                  f"over {nch.numel()} rows: single-chunk rows "
+                  f"{int((nch == 1).sum())}, multi-chunk "
+                  f"{int((nch > 1).sum())} (their chunks "
+                  f"{int(nch[nch > 1].sum())}), empty "
+                  f"{int((nch == 0).sum())}, longest row "
+                  f"{int(per_row.max())} entries")
+        else:
+            print_stream_plan(tag, side, data)
         for fi, xt in enumerate(data[f"xf_{side}"]):
             if xt is None:
                 continue
@@ -361,6 +376,27 @@ def print_static_plan(tag: str, data) -> None:
                   f"{int((nch > 1).sum())} (their chunks "
                   f"{int(nch[nch > 1].sum())}), featureless "
                   f"{int((nch == 0).sum())}")
+
+
+def print_stream_plan(tag: str, side: str, data) -> None:
+    """A blocked side's row runs, and its head tier's rows and chunks."""
+    runs = data[f"blk_{side}_runs"]
+    length = (runs[:, 1:] - runs[:, :-1]).float()
+    print(f"[data] {tag} stream {side}: {runs.shape[0]} blocks x MAXC "
+          f"{data[f'blk_{side}_own'].shape[1]}, "
+          f"{int(runs[:, -1].sum())} valid slots, row runs mean "
+          f"{length.mean().item():.2f} longest {int(length.max())} slots")
+    if f"blk_{side}_hd_take" in data:
+        nch, chunk = data[f"blk_{side}_hd_take"].shape
+        tab = data[f"blk_{side}_hd_tab"]
+        per_row = (tab < nch).sum(dim=1)
+        print(f"[data] {tag} head tier {side}: "
+              f"{data[f'blk_{side}_hd_rows'].numel()} head rows, {nch} "
+              f"chunks x {chunk} "
+              f"({int((data[f'blk_{side}_hd_w'] != 0).sum())} valid "
+              f"slots), chunks per row mean "
+              f"{per_row.float().mean().item():.2f} most "
+              f"{int(per_row.max())}")
 
 
 def check_main_path(res) -> None:
@@ -389,10 +425,10 @@ def _nbytes(a, squared: bool = False) -> int:
         return a.numel() * a.element_size()
     if isinstance(a, tuple) and not isinstance(a, FeatureMajor):
         return sum(_nbytes(t) for t in a)
-    if isinstance(a, FeatureMajor):
+    if isinstance(a, FeatureMajor):  # a list of the stream: pos, no val
         return sum(_nbytes(t) for t in (a.row, a.val, a.chunk_ptr,
                                         a.feat_ptr, a.combine, a.chunk_dst,
-                                        a.slot_feat)) + (
+                                        a.slot_feat, a.pos)) + (
             _nbytes(a.val_sq) if squared else 0)
     return 0
 
@@ -415,11 +451,22 @@ def work(name: str, args, out, kw=None):
     the owners), and the products and sums of the
     entries these inputs hold (valid slots, nonzero X entries), not of
     padding.  A Jacobi variant adds its second payload (rows^2 scaled and
-    summed per slot, or dd Q1 Q1 per row) and its X^2 pass."""
+    summed per slot, or dd Q1 Q1 per row) and its X^2 pass.  A COO pass
+    reads its list of the stream, the coefficients and the table whole
+    (the rows its entries gather mostly from L2: not counted again), the
+    scalar sum its list without the other ids."""
     import torch
 
     diag = name.endswith("_diag")
     nbytes = (sum(_nbytes(a, squared=diag) for a in args) + _nbytes(out))
+    if name in COO:
+        coo = args[-1]
+        nnz = coo.row.numel()
+        if name == "pos_seg_sum":
+            return nbytes - _nbytes(coo.row), nnz
+        k = args[-2].shape[1]
+        # c B and its add; with the pair also wq B, its product by B, add
+        return nbytes, (5 if name == "pos_scatter_pair" else 2) * k * nnz
     runs = (kw or {}).get("runs")
     if runs is not None:  # the kernel reads the runs, not the owners
         nbytes += _nbytes(runs) - _nbytes(args[OWN_ARG[name]])
@@ -513,12 +560,39 @@ def library_call(name: str, args):
     """One PyTorch call that computes the same function on the same inputs,
     where there is one, as a yardstick (the port never calls it): a
     weighted sum of embedding rows for B8, a sparse product for the
-    blocked gradient scatter and the general scatter.  Index conversion
-    and the sparse matrix's structure are built here, outside the timing;
-    returns the call or None."""
+    blocked gradient scatter and the general scatter, ``Tensor.index_add_``
+    of the scaled gathered rows (float atomics: not deterministic) for the
+    COO passes.  Index conversion and the sparse matrix's structure are
+    built here, outside the timing; returns the call or None."""
     import warnings
 
     import torch
+
+    if name in COO:
+        coo = args[-1]
+        d = coo.feat_ptr.numel() - 1
+        per_row = (coo.chunk_ptr.long()[coo.feat_ptr.long()[1:]]
+                   - coo.chunk_ptr.long()[coo.feat_ptr.long()[:-1]])
+        seg = torch.repeat_interleave(
+            torch.arange(d, device=per_row.device), per_row)
+        pos, take = coo.pos.long(), coo.row.long()
+        if name == "pos_seg_sum":
+            c = args[0]
+            return lambda: c.new_zeros(d).index_add_(0, seg, c[pos])
+        c, B = args[0], args[-2]
+        k = B.shape[1]
+        if name == "pos_scatter":
+            return lambda: B.new_zeros((d, k)).index_add_(
+                0, seg, c[pos][:, None] * B[take])
+        wq = args[1]
+
+        def pair():
+            rows = B[take]  # one gather for both payloads
+            return (B.new_zeros((d, k)).index_add_(0, seg,
+                                                   c[pos][:, None] * rows),
+                    B.new_zeros((d, k)).index_add_(
+                        0, seg, (wq[pos][:, None] * rows) * rows))
+        return pair
 
     # the sparse tensors' constructors warn that CSR support is in beta
     warnings.filterwarnings("ignore", message="Sparse")
@@ -810,7 +884,7 @@ def _cast(a, dt):
 
     if isinstance(a, torch.Tensor) and a.is_floating_point():
         return a.to(dt).contiguous()
-    if isinstance(a, FeatureMajor):
+    if isinstance(a, FeatureMajor) and a.val is not None:
         v = a.val.to(dt)
         return a._replace(val=v, val_sq=None if a.val_sq is None else v * v)
     return a
@@ -839,7 +913,12 @@ def kernel_phase(trainer, cases, tag: str, gpu: str, report) -> None:
         if stream is not None:  # the blocked stream (n_blocks, MAXC, k)
             nb, maxc, k = stream.shape
             desc.append(f"n_blocks={nb} MAXC={maxc} k={k} slots={nb * maxc}")
-        if xt is not None:  # a feature field's X^T list
+        if xt is not None and xt.pos is not None:  # a COO side's list
+            desc.append(f"list of the stream: rows={xt.feat_ptr.numel() - 1}"
+                        f" gathering from {xt.n_rows} rows, "
+                        f"entries={xt.row.numel()} "
+                        f"chunks={xt.chunk_ptr.numel() - 1}")
+        elif xt is not None:  # a feature field's X^T list
             desc.append(f"D={xt.feat_ptr.numel() - 1} rows={xt.n_rows} "
                         f"X entries={xt.row.numel()} "
                         f"chunks={xt.chunk_ptr.numel() - 1}")
@@ -931,6 +1010,45 @@ def skew_cases(trainer):
             (cross + WIDE, blocks[(1, fu + 1)], False, "v"),
             (self_, blocks[(1, 1)], True, "u"),
             (self_, blocks[(fu + 1, fu + 1)], True, "v")]
+
+
+def coo_sides(solver) -> str:
+    """The sides that take the plain COO positive passes."""
+    sides = [s for s in ("u", "v") if solver._coo(s == "u") is not None]
+    return " and ".join(sides) or "none"
+
+
+def coo_cases(trainer):
+    """The FFM with both sides COO (blocked_bm=0, plain CG): the
+    categorical fields' cross block on both sides (the gradient's
+    ``pos_scatter`` over the solve's list, gathering the other side's
+    cache; off the fused passes, B8 projects and the X^T stage scatters
+    through the field's list, D=1000 over the u rows, D=500 over the v
+    rows) and each categorical self block (``pos_seg_sum``)."""
+    lay = trainer.solver.meta.layout
+    blocks = {(b.f1, b.f2): b for b in lay.all_blocks()}
+    fu = lay.fu
+    cross = ("pos_scatter",) + WIDE
+    return [(cross, blocks[(1, fu + 1)], True, "u"),
+            (cross, blocks[(1, fu + 1)], False, "v"),
+            (("pos_seg_sum",), blocks[(1, 1)], True, "u"),
+            (("pos_seg_sum",), blocks[(fu + 1, fu + 1)], True, "v")]
+
+
+def skew_coo_cases(trainer):
+    """The skewed FFM under Jacobi with its v side COO (head_chunk=0): the
+    categorical cross block's v solve (the gradient's and diagonal's
+    ``pos_scatter_pair``, the Hv's ``pos_scatter`` of (1-w) pq) and the v
+    self block (``pos_seg_sum``), on a list whose power items span
+    hundreds of chunks.  Off the fused passes, the cross solve projects
+    (B8) and scatters (the X^T stage) through the skewed data's field
+    list, through X^2 for the diagonal."""
+    lay = trainer.solver.meta.layout
+    blocks = {(b.f1, b.f2): b for b in lay.all_blocks()}
+    fu = lay.fu
+    return [(("pos_scatter_pair", "pos_scatter") + WIDE, blocks[(1, fu + 1)],
+             False, "v"),
+            (("pos_seg_sum",), blocks[(fu + 1, fu + 1)], True, "v")]
 
 
 # the head ops of a two-tier side, as the solver calls them: (label, name
@@ -1091,7 +1209,10 @@ def reference_phase(device, tag: str, cg_precond: str = "auto") -> None:
     problem with self blocks whose fields are above a lowered fused-table
     cap, or (``skew``) the small FFM problem with two power rows on each
     side, whose layouts at 32 rows per block take the head tier of 16-slot
-    chunks on both sides: the kernel-driven gradient and Hv of every block
+    chunks on both sides; ``coo``: the small FFM with both sides COO
+    (blocked_bm=0); ``mixed``: the small FFM with item popularity zipf 1.0
+    at 8 rows per block and head_chunk=0, its v side COO and its u side
+    blocked: the kernel-driven gradient and Hv of every block
     side and the tracked objective on the card against the fp64 numpy
     oracle.  Under Jacobi also the Hessian diagonal of every block side
     against ``oracle.diag_hessian``, and two epochs against
@@ -1108,6 +1229,22 @@ def reference_phase(device, tag: str, cg_precond: str = "auto") -> None:
     if tag == "MF":
         data = build_data(2048, 512, 5.0, seed=3)
         tr = make_trainer(data, device, k=8)
+    elif tag.startswith(("coo", "mixed")):
+        mixed = tag.startswith("mixed")
+        data = build_data(1024, 256, 5.0, seed=3, dims_u=(1024, 40),
+                          dims_v=(256, 24), self_side=True,
+                          pop_skew=1.0 if mixed else 0.0)
+        if jacobi:
+            data = _without_repeated_ids(data)
+        # zipf 1.0 over 256 items: at 8 rows per block the v side's
+        # heaviest block pads past the budget, the u side's does not
+        layout = (dict(blocked_bm=8, head_chunk=0) if mixed
+                  else dict(blocked_bm=0))
+        tr = make_trainer(data, device, k=8, cg_precond=cg_precond, **layout)
+        sides = coo_sides(tr.solver)
+        check(sides == ("v" if mixed else "u and v"),
+              f"{tag} reference: COO sides {sides}")
+        print_static_plan(tag, tr.solver.data)
     else:
         fm, skew = tag.startswith("FM"), tag.startswith("skew")
         data = build_data(1024, 256, 5.0, seed=3, dims_u=(1024, 40),
@@ -1273,6 +1410,7 @@ def main_path(tag: str, trainer, names, gpu: str, epochs: int = 3):
         check(launches[name] > 0,
               f"{name} never launched on the {tag} main path")
     profile_epoch(tag, trainer, gpu)
+    res["launches"] = launches
     return launches, res
 
 
@@ -1309,20 +1447,22 @@ def write_fm_dataset(work: str, spec):
 
 
 def cli_phase() -> None:
-    """The command line on small text datasets: MF --ns, FFM, and FM whose
-    user field (5,050 features) is above the fused-table cap."""
+    """The command line on small text datasets: MF --ns, FFM, FM whose
+    user field (5,050 features) is above the fused-table cap, and MF --ns
+    with --blocked-bm 0 (both sides COO)."""
     from one_class_ffm_torch.data.synth import SynthSpec, write_dataset
 
     env = dict(os.environ)
     env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
-    for tag, flags in (("mf", ["--ns"]), ("ffm", []), ("fm", [])):
+    for tag, flags in (("mf", ["--ns"]), ("ffm", []), ("fm", []),
+                       ("mf-coo", ["--ns", "--blocked-bm", "0"])):
         work = os.path.join(WORK, "cli_" + tag)
         os.makedirs(work, exist_ok=True)
         if tag == "fm":
             write_fm_dataset(work, SynthSpec(n_users=5000, n_items=300,
                                              avg_pos=6.0, seed=1))
         else:
-            fields = 1 if tag == "mf" else 2
+            fields = 1 if tag.startswith("mf") else 2
             write_dataset(work, SynthSpec(n_users=2000, n_items=300,
                                           fu=fields, fv=fields, avg_pos=6.0,
                                           seed=1))
@@ -1431,12 +1571,31 @@ def main() -> int:
               f"evaluator) in {time.perf_counter() - t0:.2f} s")
         check(skew_trainer.solver.hd_v,
               "FFM skew: the v side took no head tier")
+        # the plain COO positive passes: the FFM with both sides COO, and
+        # the skewed FFM without the head tier (its v side COO) under Jacobi
+        t0 = time.perf_counter()
+        coo_trainer = make_trainer(ffm, device, blocked_bm=0)
+        skew_coo = make_trainer(skew, device, cg_precond="jacobi",
+                                head_chunk=0)
+        print(f"[data] FFM coo and FFM skew-coo trainers (lists of the "
+              f"stream, device data, evaluators) in "
+              f"{time.perf_counter() - t0:.2f} s")
+        for tag, tr, want in (("FFM coo", coo_trainer, "u and v"),
+                              ("FFM skew-coo", skew_coo, "v")):
+            got = coo_sides(tr.solver)
+            check(got == want, f"{tag}: COO sides {got}, not {want}")
+            meta = tr.solver.meta
+            print(f"[data] {tag}: COO sides {got}; blocked_bm u "
+                  f"{meta.blocked_bm_u} v {meta.blocked_bm_v}; fused fields "
+                  f"u {meta.fused_u} v {meta.fused_v}")
         meta = fm_trainer.solver.meta
         check(not any(meta.fused_u + meta.fused_v + meta.ident_u
                       + meta.ident_v),
               "FM: a field is identity or takes the fused table passes")
         for tag, tr in (("MF", mf_trainer), ("FFM", ffm_trainer),
-                        ("FM", fm_trainer), ("FFM skew", skew_trainer)):
+                        ("FM", fm_trainer), ("FFM skew", skew_trainer),
+                        ("FFM coo", coo_trainer),
+                        ("FFM skew-coo", skew_coo)):
             print_static_plan(tag, tr.solver.data)
         kernel_phase(mf_trainer, mf_cases(mf_trainer), "MF", gpu, report)
         variant_phase(mf_trainer, gpu, report)
@@ -1452,11 +1611,17 @@ def main() -> int:
         for name, r in skew_report.items():
             report[name]["max_abs_err"] = max(report[name]["max_abs_err"],
                                               r["max_abs_err"])
+        # the COO passes at both COO paths' shapes (their JSON times sum
+        # over these sides and shapes)
+        kernel_phase(coo_trainer, coo_cases(coo_trainer), "FFM coo", gpu,
+                     report)
+        kernel_phase(skew_coo, skew_coo_cases(skew_coo), "FFM skew-coo",
+                     gpu, report)
 
         # 4. small-input references
-        for tag in ("MF", "FFM", "FM", "skew"):
+        for tag in ("MF", "FFM", "FM", "skew", "coo", "mixed"):
             reference_phase(device, tag)
-        for tag in ("FFM", "FM", "skew"):
+        for tag in ("FFM", "FM", "skew", "coo", "mixed"):
             reference_phase(device, tag, cg_precond="jacobi")
 
         # 5.-7. the main paths at full width, each with its own counts
@@ -1472,11 +1637,26 @@ def main() -> int:
                     "pos_hv_tbl", "hv_self_tbl", "grad_cross_tbl_diag",
                     "grad_self_tbl_diag", "project")),
                 ("fm-jacobi", fm_jac, jac_blocked + WIDE),
-                ("ffm-skew", skew_trainer, BLOCKED + TABLE + ("project",))):
+                ("ffm-skew", skew_trainer, BLOCKED + TABLE + ("project",)),
+                # both sides COO: every field off the fused passes
+                ("ffm-coo", coo_trainer,
+                 ("pos_scatter", "pos_seg_sum") + WIDE),
+                # v COO under Jacobi, u blocked (its fused field too)
+                ("ffm-skew-coo", skew_coo, COO + WIDE + jac_blocked + (
+                    "pos_hv_tbl", "hv_self_tbl", "grad_cross_tbl_diag",
+                    "grad_self_tbl_diag"))):
+            if tag.endswith("coo"):
+                print(f"[main {tag}] COO sides: {coo_sides(trainer.solver)}")
             got, results[tag] = main_path(tag, trainer, names, gpu)
             for name in REPLACES:
                 launches[name] += got[name]
+        check(not any(results["ffm-coo"]["launches"][name]
+                      for name in BLOCKED + TABLE + DIAG),
+              "ffm-coo: a blocked or fused kernel launched with both sides "
+              "COO")
         check_repeatable("ffm-skew", skew_trainer)
+        check_repeatable("ffm-coo", coo_trainer)
+        check_repeatable("ffm-skew-coo", skew_coo)
         head_op_phase(skew_trainer, gpu)
         for tag in ("ffm", "fm"):
             plain, jac = results[tag], results[tag + "-jacobi"]

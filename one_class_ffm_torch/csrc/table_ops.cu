@@ -299,6 +299,28 @@ __device__ __forceinline__ void load_f32_cg(const float* p, float (&f)[VE]) {
 // Jacobi payload with scale = dd, payload = Q1, through X^2).  Each is
 // formed per gathered entry with the roundings of the payload row a row
 // stage would have stored, so the same bits.
+// The plain COO positive passes of a side without a blocked layout
+// (replacing the JAX package's XLA ops pos_scatter, pos_scatter_pair and
+// the self blocks' segment_sum, one_class_ffm_tpu/ops/sparse_ops.py:230,
+// :264, one_class_ffm_tpu/solver/jax_solver.py:1215) run this body over
+// the side's destination-major list of the positive stream
+// (ops/layout.py coo_list: a "feature" is a row of the segment side, an
+// entry a positive; `xf_row` holds the other side's id, `xf_pos` the
+// entry's stream position).  The entry's value is then a coefficient read
+// at its stream position, coef[pos], in place of X's value, and its term is
+// rounded to storage as the JAX ops form the payload at storage dtype:
+//   sum = 0 + storage(c[pos_s] * B[row_s]) + ...      (kCoef: pos_scatter)
+//   sum = 0 + storage(storage(wq[pos_s] * B[row_s]) * B[row_s]) + ...
+//                                      (kCoefSq: pos_scatter_pair's second)
+//   sum = 0 + c[pos_s] + ...       (kCoefSum, k = 1, a lane per chunk: the
+//                                              self blocks' per-row sums)
+// with B's rows gathered in the kernel, as XLA fuses the gather into its
+// segment reduction: the (nnz, k) payload is never written.  A power row
+// (a popular item's 35k positives) is cut into chunks like a heavy
+// feature.  Bound on the H100: the list, c and the output are read or
+// written once (~42 MB per side at 200k x 20k, k = 32 f32); the gathered
+// rows, 128 B per entry (~113 MB, mostly served by L2: Q1 is 2.6 MB), are
+// the traffic that sets its time, as for the general scatter.
 // A chunk of a single-chunk feature f writes `sum` straight to out[f] (the
 // two-stage order adds it to 0.f, which gives the same bits: the sum starts
 // at +0 and so is never -0).  A chunk of a feature with several writes its
@@ -314,14 +336,29 @@ __device__ __forceinline__ void load_f32_cg(const float* p, float (&f)[VE]) {
 // fastest of the batch depths (4, 8, 16) and CTA counts per SM (1 to 4)
 // tried; holding the (row, val) pairs across the group's lanes and
 // shuffling them out per entry was slower than any of them.
-enum XtSource { kPayload, kScaled, kScaledSq };
+enum XtSource { kPayload, kScaled, kScaledSq, kCoef, kCoefSq, kCoefSum };
+
+// an entry's value: X's (xf_val[e]), or the coefficient at the entry's
+// stream position (coef[xf_pos[e]]) in a list of the positive stream
+template <typename T, XtSource kSrc>
+__device__ __forceinline__ float entry_val(const T* __restrict__ xf_val,
+                                           const T* __restrict__ coef,
+                                           const int* __restrict__ xf_pos,
+                                           int e) {
+  if constexpr (kSrc >= kCoef) {
+    return to_f(coef[xf_pos[e]]);
+  } else {
+    return to_f(xf_val[e]);
+  }
+}
 
 template <typename T, int G, int NV, int VE, XtSource kSrc>
 __device__ __forceinline__ void xt_body(
     const T* __restrict__ payload, const T* __restrict__ scale,
     const int* __restrict__ xf_row, const T* __restrict__ xf_val,
-    const int* __restrict__ chunk_ptr, const int* __restrict__ chunk_dst,
-    int n_chunks, const int* __restrict__ feat_ptr,
+    const int* __restrict__ xf_pos, const int* __restrict__ chunk_ptr,
+    const int* __restrict__ chunk_dst, int n_chunks,
+    const int* __restrict__ feat_ptr,
     const int* __restrict__ combine, int n_combine,
     const int* __restrict__ slot_feat, int* __restrict__ ticket,
     float* __restrict__ partial, float* __restrict__ out, int k) {
@@ -329,10 +366,13 @@ __device__ __forceinline__ void xt_body(
   constexpr int D0 = batch_depth<T, NV, VE>() > 4
                          ? batch_depth<T, NV, VE>() / 2
                          : 2;
-  // kScaledSq keeps each loaded value beside its scaled product: half the
-  // batch where a lane's values outnumber four (bf16, or NV > 1), so that
-  // it fits the 85 registers without a stack
-  constexpr int D = kSrc == kScaledSq && VE * NV > 4 ? D0 / 2 : D0;
+  // kScaledSq and kCoefSq keep each loaded value beside its scaled
+  // product: half the batch where a lane's values outnumber four (bf16, or
+  // NV > 1), so that it fits the 85 registers without a stack
+  constexpr bool kSq = kSrc == kScaledSq || kSrc == kCoefSq;
+  constexpr int D = kSq && VE * NV > 4 ? D0 / 2 : D0;
+  // the per-row scale of kScaled / kScaledSq, read at the payload row
+  constexpr bool kRowScale = kSrc == kScaled || kSrc == kScaledSq;
   constexpr int DC = 4;  // partial rows per batch of the finishing adds
   const int lane = threadIdx.x % G;
   // the group's lanes (a warp's groups may run chunks of other lengths)
@@ -365,17 +405,17 @@ __device__ __forceinline__ void xt_body(
 #pragma unroll
     for (int j = 0; j < D; ++j)
       if (s + j < e) {
-        row_c[j] = xf_row[s + j];
-        val_c[j] = to_f(xf_val[s + j]);
+        if constexpr (kSrc != kCoefSum) row_c[j] = xf_row[s + j];
+        val_c[j] = entry_val<T, kSrc>(xf_val, scale, xf_pos, s + j);
       }
     for (int b0 = s; b0 < e; b0 += D) {
       RawVec<T, VE> raw[D][NV];
       float sc[D];
 #pragma unroll
       for (int j = 0; j < D; ++j)
-        if (b0 + j < e) {
+        if (kSrc != kCoefSum && b0 + j < e) {
           const T* pr = payload + (int64_t)row_c[j] * k;
-          if constexpr (kSrc != kPayload) sc[j] = to_f(scale[row_c[j]]);
+          if constexpr (kRowScale) sc[j] = to_f(scale[row_c[j]]);
 #pragma unroll
           for (int v = 0; v < NV; ++v) {
             const int c0 = (v * G + lane) * VE;
@@ -387,12 +427,16 @@ __device__ __forceinline__ void xt_body(
 #pragma unroll
       for (int j = 0; j < D; ++j)
         if (b0 + D + j < e) {
-          row_n[j] = xf_row[b0 + D + j];
-          val_n[j] = to_f(xf_val[b0 + D + j]);
+          if constexpr (kSrc != kCoefSum) row_n[j] = xf_row[b0 + D + j];
+          val_n[j] = entry_val<T, kSrc>(xf_val, scale, xf_pos, b0 + D + j);
         }
 #pragma unroll
       for (int j = 0; j < D; ++j)
         if (b0 + j < e) {
+          if constexpr (kSrc == kCoefSum) {  // k = 1, a lane per chunk
+            acc[0][0] = __fadd_rn(acc[0][0], val_c[j]);
+            continue;
+          }
 #pragma unroll
           for (int v = 0; v < NV; ++v) {
             if ((v * G + lane) * VE >= k) continue;
@@ -407,9 +451,23 @@ __device__ __forceinline__ void xt_body(
               for (int i = 0; i < VE; ++i)
                 f[i] = rnd<T>(__fmul_rn(rnd<T>(__fmul_rn(sc[j], f[i])), f[i]));
             }
+            if constexpr (kSrc == kCoef) {
 #pragma unroll
-            for (int i = 0; i < VE; ++i)
-              acc[v][i] = __fadd_rn(acc[v][i], __fmul_rn(val_c[j], f[i]));
+              for (int i = 0; i < VE; ++i)
+                acc[v][i] = __fadd_rn(acc[v][i],
+                                      rnd<T>(__fmul_rn(val_c[j], f[i])));
+            } else if constexpr (kSrc == kCoefSq) {
+#pragma unroll
+              for (int i = 0; i < VE; ++i)
+                acc[v][i] = __fadd_rn(
+                    acc[v][i],
+                    rnd<T>(__fmul_rn(rnd<T>(__fmul_rn(val_c[j], f[i])),
+                                     f[i])));
+            } else {
+#pragma unroll
+              for (int i = 0; i < VE; ++i)
+                acc[v][i] = __fadd_rn(acc[v][i], __fmul_rn(val_c[j], f[i]));
+            }
           }
         }
 #pragma unroll
@@ -481,14 +539,15 @@ __device__ __forceinline__ void xt_body(
 #define OCFFM_XT_PARAMS                                                    \
   const T *__restrict__ payload, const T *__restrict__ scale,              \
       const int *__restrict__ xf_row, const T *__restrict__ xf_val,        \
-      const int *__restrict__ chunk_ptr, const int *__restrict__ chunk_dst, \
-      int n_chunks, const int *__restrict__ feat_ptr,                      \
+      const int *__restrict__ xf_pos, const int *__restrict__ chunk_ptr,   \
+      const int *__restrict__ chunk_dst, int n_chunks,                     \
+      const int *__restrict__ feat_ptr,                                    \
       const int *__restrict__ combine, int n_combine,                      \
       const int *__restrict__ slot_feat, int *__restrict__ ticket,         \
       float *__restrict__ partial, float *__restrict__ out, int k
-#define OCFFM_XT_ARGS                                                       \
-  payload, scale, xf_row, xf_val, chunk_ptr, chunk_dst, n_chunks, feat_ptr, \
-      combine, n_combine, slot_feat, ticket, partial, out, k
+#define OCFFM_XT_ARGS                                                     \
+  payload, scale, xf_row, xf_val, xf_pos, chunk_ptr, chunk_dst, n_chunks, \
+      feat_ptr, combine, n_combine, slot_feat, ticket, partial, out, k
 
 template <typename T, int G, int NV, int VE>
 __global__ void __launch_bounds__(kWarps * 32, 3) xt_kernel(OCFFM_XT_PARAMS) {
@@ -507,6 +566,24 @@ xt_scaled_sq_kernel(OCFFM_XT_PARAMS) {
   xt_body<T, G, NV, VE, kScaledSq>(OCFFM_XT_ARGS);
 }
 
+template <typename T, int G, int NV, int VE>
+__global__ void __launch_bounds__(kWarps * 32, 3)
+xt_coef_kernel(OCFFM_XT_PARAMS) {
+  xt_body<T, G, NV, VE, kCoef>(OCFFM_XT_ARGS);
+}
+
+template <typename T, int G, int NV, int VE>
+__global__ void __launch_bounds__(kWarps * 32, 3)
+xt_coef_sq_kernel(OCFFM_XT_PARAMS) {
+  xt_body<T, G, NV, VE, kCoefSq>(OCFFM_XT_ARGS);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kWarps * 32, 3)
+xt_coef_sum_kernel(OCFFM_XT_PARAMS) {
+  xt_body<T, 1, 1, 1, kCoefSum>(OCFFM_XT_ARGS);
+}
+
 // grid of a group-per-item grid-stride loop over n items
 inline unsigned group_grid(long long n, int G) {
   const long long per_cta = kWarps * 32 / G;
@@ -519,7 +596,7 @@ struct XtLaunch {
   const T *payload, *scale;
   const int* xf_row;
   const T* xf_val;
-  const int *chunk_ptr, *chunk_dst;
+  const int *xf_pos, *chunk_ptr, *chunk_dst;
   int n_chunks;
   const int *feat_ptr, *combine;
   int n_combine;
@@ -529,17 +606,39 @@ struct XtLaunch {
   int k;
   XtSource src;
   cudaStream_t st;
+  // <1, 1, 1>: the scalar sums' plan (a lane per chunk), which by_width
+  // never picks; the other plans serve the five row-gathering sources
   template <int G, int NV, int VE>
   int run() const {
     const unsigned grid = group_grid((long long)n_chunks + n_combine, G);
-    if (src == kPayload) {
-      xt_kernel<T, G, NV, VE><<<grid, kWarps * 32, 0, st>>>(OCFFM_XT_ARGS);
-    } else if (src == kScaled) {
-      xt_scaled_kernel<T, G, NV, VE><<<grid, kWarps * 32, 0, st>>>(
-          OCFFM_XT_ARGS);
+    if constexpr (G == 1 && NV == 1 && VE == 1) {
+      if (src != kCoefSum) return (int)cudaErrorInvalidValue;
+      xt_coef_sum_kernel<T><<<grid, kWarps * 32, 0, st>>>(OCFFM_XT_ARGS);
     } else {
-      xt_scaled_sq_kernel<T, G, NV, VE><<<grid, kWarps * 32, 0, st>>>(
-          OCFFM_XT_ARGS);
+      switch (src) {
+        case kPayload:
+          xt_kernel<T, G, NV, VE><<<grid, kWarps * 32, 0, st>>>(
+              OCFFM_XT_ARGS);
+          break;
+        case kScaled:
+          xt_scaled_kernel<T, G, NV, VE><<<grid, kWarps * 32, 0, st>>>(
+              OCFFM_XT_ARGS);
+          break;
+        case kScaledSq:
+          xt_scaled_sq_kernel<T, G, NV, VE><<<grid, kWarps * 32, 0, st>>>(
+              OCFFM_XT_ARGS);
+          break;
+        case kCoef:
+          xt_coef_kernel<T, G, NV, VE><<<grid, kWarps * 32, 0, st>>>(
+              OCFFM_XT_ARGS);
+          break;
+        case kCoefSq:
+          xt_coef_sq_kernel<T, G, NV, VE><<<grid, kWarps * 32, 0, st>>>(
+              OCFFM_XT_ARGS);
+          break;
+        default:
+          return (int)cudaErrorInvalidValue;
+      }
     }
     return (int)cudaGetLastError();
   }
@@ -593,29 +692,40 @@ int ocffm_grad_self_tbl_rows(int dtype, const void* zdense, const void* runs,
 // out (d, k) f32 = X^T payload through the feature-major list and its plan
 // (combine, chunk_dst, slot_feat); source 0: the payload rows; 1 (B6, B7)
 // storage(scale[row] * payload[row]) per entry; 2 (B7's Jacobi payload)
-// storage(storage(scale[row] * payload[row]) * payload[row]).  `partial`
-// holds a row of k floats for each chunk whose chunk_dst is >= 0; `ticket`
-// holds one int per feature, zero before and after each launch.
+// storage(storage(scale[row] * payload[row]) * payload[row]).  Through a
+// destination-major list of the positive stream (xf_pos, no xf_val), with
+// scale = the coefficients per stream entry and payload = the gathered
+// table B: 3 storage(scale[pos] * B[row]); 4 storage(storage(scale[pos] *
+// B[row]) * B[row]); 5 (k = 1, no payload) scale[pos].  `partial` holds a
+// row of k floats for each chunk whose chunk_dst is >= 0; `ticket` holds
+// one int per feature, zero before and after each launch.
 int ocffm_xt_scatter(int dtype, const void* payload, const void* scale,
                      int source, const void* xf_row, const void* xf_val,
-                     const void* chunk_ptr,
+                     const void* xf_pos, const void* chunk_ptr,
                      const void* chunk_dst, int n_chunks, const void* feat_ptr,
                      const void* combine, int n_combine,
                      const void* slot_feat, void* ticket, int k,
                      void* partial, void* out, void* stream) {
   if (n_chunks + n_combine == 0) return 0;
-  if (source < kPayload || source > kScaledSq ||
-      (source != kPayload && scale == nullptr))
+  const bool coef = source >= kCoef;
+  if (source < kPayload || source > kCoefSum ||
+      (source != kPayload && scale == nullptr) ||
+      (coef ? xf_pos == nullptr : xf_val == nullptr) ||
+      (source == kCoefSum ? k != 1 : payload == nullptr))
     return (int)cudaErrorInvalidValue;
   const void* ptrs[] = {payload, out, partial};
   const bool vec = vec_ok(k, dtype == kF32 ? 4 : 2, ptrs, 3);
   cudaStream_t st = (cudaStream_t)stream;
-  OCFFM_BY_DTYPE(dtype, return by_width<T>(k, vec, XtLaunch<T>{
-      (const T*)payload, (const T*)scale, (const int*)xf_row,
-      (const T*)xf_val, (const int*)chunk_ptr, (const int*)chunk_dst, n_chunks,
-      (const int*)feat_ptr, (const int*)combine, n_combine,
-      (const int*)slot_feat, (int*)ticket, (float*)partial, (float*)out, k,
-      (XtSource)source, st}));
+  OCFFM_BY_DTYPE(dtype, {
+    const XtLaunch<T> l{
+        (const T*)payload, (const T*)scale, (const int*)xf_row,
+        (const T*)xf_val, (const int*)xf_pos, (const int*)chunk_ptr,
+        (const int*)chunk_dst, n_chunks, (const int*)feat_ptr,
+        (const int*)combine, n_combine, (const int*)slot_feat, (int*)ticket,
+        (float*)partial, (float*)out, k, (XtSource)source, st};
+    return source == kCoefSum ? l.run<1, 1, 1>()
+                              : by_width<T>(k, vec, l);
+  });
 }
 
 }  // extern "C"

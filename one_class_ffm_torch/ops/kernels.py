@@ -45,13 +45,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # its row stage and the shared X^T stage), the projection X W of a feature
 # field (B8), the general scatter X^T Z of a wide field (the X^T stage on
 # its own, through X or X^2), the three gradient passes with the Jacobi
-# diagonal's second output, and the two Hv variants of hv_pack_bench (B9,
-# B10)
+# diagonal's second output, the two Hv variants of hv_pack_bench (B9,
+# B10), and the plain COO positive passes of a side without a blocked
+# layout (the X^T stage over the side's list of the positive stream: the
+# gradient's and Hv's scatter, with the Jacobi payload in a second launch,
+# and the self blocks' per-row sums)
 KERNELS = ("pos_hv_blocked", "pos_scatter_blocked", "pos_gap_blocked",
            "pos_hv_tbl", "grad_cross_tbl", "hv_self_tbl", "grad_self_tbl",
            "project", "scatter", "pos_scatter_blocked_diag",
            "grad_cross_tbl_diag", "grad_self_tbl_diag", "pos_hv_packed",
-           "pos_hv_blocked_g")
+           "pos_hv_blocked_g", "pos_scatter", "pos_scatter_pair",
+           "pos_seg_sum")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # Launches per kernel since the last reset: a run reads them to show that
@@ -155,8 +159,8 @@ def load() -> ctypes.CDLL:
     lib.ocffm_grad_self_tbl_rows.argtypes = [
         i32, vp, vp, vp, vp, i64, i32, i32, vp]
     lib.ocffm_xt_scatter.argtypes = [
-        i32, vp, vp, i32, vp, vp, vp, vp, i32, vp, vp, i32, vp, vp, i32, vp,
-        vp, vp]
+        i32, vp, vp, i32, vp, vp, vp, vp, vp, i32, vp, vp, i32, vp, vp, i32,
+        vp, vp, vp]
     lib.ocffm_project.argtypes = [i32, vp, vp, vp, vp, i64, i32, i32, i32, vp]
     lib.ocffm_pos_hv_packed.argtypes = [
         i32, vp, vp, vp, vp, vp, vp, i64, i32, i32, f32, vp]
@@ -378,10 +382,11 @@ def _table(V, xt: FeatureMajor, dt, k: int, dev, name: str) -> int:
 
 class _XtPlan:
     """A feature-major list as one launch of the X^T kernel reads it: the
-    device pointers of its arrays and plan, its sizes, and the launch's
-    scratch: tickets (one int per feature, zero between launches) and
-    partial rows per width k.  The scratch is shared by the list's launches,
-    which run in order on the one stream of a solve."""
+    device pointers of its arrays and plan (its values, or for a list of
+    the positive stream its stream positions, the other NULL), its sizes,
+    and the launch's scratch: tickets (one int per feature, zero between
+    launches) and partial rows per width k.  The scratch is shared by the
+    list's launches, which run in order on the one stream of a solve."""
 
     def __init__(self, xt: FeatureMajor, vals, plan, dev):
         combine, chunk_dst, slot_feat = plan
@@ -393,9 +398,9 @@ class _XtPlan:
         # each of which has exactly one chunk
         self.n_partial = self.n_chunks - (self.d - self.n_combine)
         self.tickets = torch.zeros(self.d, dtype=torch.int32, device=dev)
-        self.ptrs = tuple(t.data_ptr() for t in (
-            xt.row, vals, xt.chunk_ptr, chunk_dst, xt.feat_ptr, combine,
-            slot_feat, self.tickets))
+        self.ptrs = tuple(_ptr(t) for t in (
+            xt.row, vals, xt.pos, xt.chunk_ptr, chunk_dst, xt.feat_ptr,
+            combine, slot_feat, self.tickets))
         self._partial: Dict[int, torch.Tensor] = {}
 
     def partial(self, k: int) -> torch.Tensor:
@@ -422,6 +427,9 @@ def _xt_inputs(xt: FeatureMajor, dt, dev, squared: bool,
     hit = _xt_checked.get(key)
     if hit is not None and hit.xt is xt:
         return hit
+    if xt.val is None or xt.pos is not None:
+        raise ValueError(f"{name}: a list of the positive stream, not of a "
+                         "field's X")
     vals = xt.val
     if squared:
         if xt.val_sq is None:
@@ -432,11 +440,18 @@ def _xt_inputs(xt: FeatureMajor, dt, dev, squared: bool,
     if any(a is None for a in plan):
         plan = tuple(torch.from_numpy(a).to(dev) for a in
                      xt_plan(xt.feat_ptr.cpu().numpy()))
+    _check("xt.val_sq" if squared else "xt.val", vals, dt,
+           (xt.row.numel(),), dev)
+    return _plan_of(key, xt, vals, plan, dev)
+
+
+def _plan_of(key, xt: FeatureMajor, vals, plan, dev) -> _XtPlan:
+    """Checks a list's index arrays and plan; caches and returns its
+    launch inputs."""
     nnz, n_chunks, d = xt.row.numel(), xt.chunk_ptr.numel() - 1, \
         xt.feat_ptr.numel() - 1
     combine, chunk_dst, slot_feat = plan
     _check("xt.row", xt.row, torch.int32, (nnz,), dev)
-    _check("xt.val_sq" if squared else "xt.val", vals, dt, (nnz,), dev)
     _check("xt.chunk_ptr", xt.chunk_ptr, torch.int32, (n_chunks + 1,), dev)
     _check("xt.feat_ptr", xt.feat_ptr, torch.int32, (d + 1,), dev)
     _check("xt.chunk_dst", chunk_dst, torch.int32, (n_chunks,), dev)
@@ -469,15 +484,23 @@ def _xt_scatter(lib, payload: torch.Tensor, xt: FeatureMajor,
     elif payload_sq:
         raise ValueError(f"{name}: a squared payload needs its scale")
     p = _xt_inputs(xt, dt, dev, squared, name)
-    row, vals, chunk_ptr, chunk_dst, feat_ptr, combine, slot_feat, \
+    source = 0 if scale is None else 2 if payload_sq else 1
+    return _xt_launch(lib, p, payload, scale, source, k, dt, dev, name)
+
+
+def _xt_launch(lib, p: _XtPlan, payload, scale, source: int, k: int, dt,
+               dev, name: str) -> torch.Tensor:
+    """One launch of the X^T kernel over a checked list: the (d, k) float32
+    sums of the entries' terms of ``source`` (table_ops.cu
+    ocffm_xt_scatter)."""
+    row, vals, pos, chunk_ptr, chunk_dst, feat_ptr, combine, slot_feat, \
         tickets = p.ptrs
     out = torch.empty((p.d, k), dtype=torch.float32, device=dev)
-    source = 0 if scale is None else 2 if payload_sq else 1
     err = lib.ocffm_xt_scatter(
-        _DTYPE_CODE[dt], payload.data_ptr(), _ptr(scale), source, row, vals,
-        chunk_ptr, chunk_dst,
-        p.n_chunks, feat_ptr, combine, p.n_combine, slot_feat, tickets, k,
-        p.partial(k).data_ptr(), out.data_ptr(), _stream(dev))
+        _DTYPE_CODE[dt], _ptr(payload), _ptr(scale), source, row, vals, pos,
+        chunk_ptr, chunk_dst, p.n_chunks, feat_ptr, combine, p.n_combine,
+        slot_feat, tickets, k, p.partial(k).data_ptr(), out.data_ptr(),
+        _stream(dev))
     _raise_on(err, name)
     return out
 
@@ -685,6 +708,100 @@ def scatter(xt: FeatureMajor, Z, squared: bool = False) -> torch.Tensor:
     out = _xt_scatter(lib, Z, xt, "scatter", squared)
     _launches["scatter"] += 1
     return out if Z.dtype == torch.float32 else out.to(Z.dtype)
+
+
+# ---------------------------------------------------------------------------
+# the plain COO positive passes: the X^T stage over a side's list of the
+# positive stream, a coefficient per stream entry
+# ---------------------------------------------------------------------------
+
+# the kernel's sources of an entry's term (table_ops.cu XtSource)
+_COEF, _COEF_SQ, _COEF_SUM = 3, 4, 5
+
+
+def _coo_inputs(coo: FeatureMajor, c: torch.Tensor, name: str) -> _XtPlan:
+    """The launch inputs of a destination-major list of the positive stream
+    (``layout.coo_list``), checked once per list (its stream positions and
+    other ids against the coefficients' and the table's lengths: one read
+    of their largest values, then cached); ``c`` the coefficients (nnz,)."""
+    if c.device.type != "cuda":
+        raise ValueError(f"c must be a CUDA tensor, got {c.device}")
+    if c.dtype not in _DTYPE_CODE:
+        raise TypeError(f"kernels take float32 or bfloat16, got {c.dtype}")
+    if c.dim() != 1 or not c.is_contiguous():
+        raise ValueError(f"c must be a contiguous (nnz,) vector, got "
+                         f"{tuple(c.shape)}")
+    if coo.pos is None:
+        raise ValueError(f"{name}: not a list of the positive stream (no "
+                         "stream positions)")
+    dev = c.device
+    key = (id(coo), "coo", dev, c.numel())
+    hit = _xt_checked.get(key)
+    if hit is not None and hit.xt is coo:
+        return hit
+    plan = (coo.combine, coo.chunk_dst, coo.slot_feat)
+    if any(a is None for a in plan):
+        plan = tuple(torch.from_numpy(a).to(dev) for a in
+                     xt_plan(coo.feat_ptr.cpu().numpy()))
+    _check("coo.pos", coo.pos, torch.int32, (coo.row.numel(),), dev)
+    if coo.row.numel():
+        hi = torch.stack([coo.pos.max(), coo.row.max()]).tolist()
+        lo = torch.stack([coo.pos.min(), coo.row.min()]).tolist()
+        if min(lo) < 0 or hi[0] >= c.numel() or hi[1] >= coo.n_rows:
+            raise ValueError(f"{name}: the list's stream positions or other "
+                             f"ids are outside [0, {c.numel()}) / "
+                             f"[0, {coo.n_rows})")
+    return _plan_of(key, coo, None, plan, dev)
+
+
+def _coo_table(B: torch.Tensor, coo: FeatureMajor, c: torch.Tensor,
+               name: str):
+    """Checks the gathered table (n_rows, k) and the coefficients' dtype;
+    returns (lib, k)."""
+    lib, k = _table_dtype("B", B)
+    if B.shape[0] != coo.n_rows:
+        raise ValueError(f"{name}: the list gathers from {coo.n_rows} rows, "
+                         f"B has {B.shape[0]}")
+    _check("c", c, B.dtype, (c.numel(),), B.device)
+    return lib, k
+
+
+def pos_scatter(c, B, coo: FeatureMajor) -> torch.Tensor:
+    """(rows, k) storage: per row of the list, the sum at f32 of
+    storage(c[pos] * B[row]) over its entries, cast once (the X^T stage's
+    coefficient source)."""
+    lib, k = _coo_table(B, coo, c, "pos_scatter")
+    p = _coo_inputs(coo, c, "pos_scatter")
+    out = _xt_launch(lib, p, B, c, _COEF, k, B.dtype, B.device,
+                     "pos_scatter")
+    _launches["pos_scatter"] += 1
+    return out.to(B.dtype)
+
+
+def pos_scatter_pair(c, wq, B, coo: FeatureMajor):
+    """(zpos, posq): ``pos_scatter`` of c, and the Jacobi diagonal's
+    positive term, the sums of storage(storage(wq[pos] * B[row]) * B[row]),
+    in a second launch over the same list."""
+    lib, k = _coo_table(B, coo, c, "pos_scatter_pair")
+    _check("wq", wq, B.dtype, (c.numel(),), B.device)
+    p = _coo_inputs(coo, c, "pos_scatter_pair")
+    outs = [_xt_launch(lib, p, B, coef, src, k, B.dtype, B.device,
+                       "pos_scatter_pair")
+            for coef, src in ((c, _COEF), (wq, _COEF_SQ))]
+    _launches["pos_scatter_pair"] += 1
+    return tuple(o.to(B.dtype) for o in outs)
+
+
+def pos_seg_sum(c, coo: FeatureMajor) -> torch.Tensor:
+    """(rows,) storage: per row of the list, the sum at f32 of c[pos] over
+    its entries, cast once (the coefficient source at width 1, a lane per
+    chunk)."""
+    lib = load()
+    p = _coo_inputs(coo, c, "pos_seg_sum")
+    out = _xt_launch(lib, p, None, c, _COEF_SUM, 1, c.dtype, c.device,
+                     "pos_seg_sum")[:, 0]
+    _launches["pos_seg_sum"] += 1
+    return out.to(c.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -17,7 +17,9 @@ kernel's plan of where each chunk's sum goes (``xt_plan``).  ``row_runs``
 gives the gradient scatter kernel (B2) each row's run of slots without a
 search; ``head_chunk_table`` gives each head row of a two-tier layout its
 chunks, so that the head ops sum a row's chunks in one fixed-order
-reduction.
+reduction.  ``coo_list`` is the same chunked list over the positive stream
+of a side that takes no blocked layout: the plain COO positive passes sum
+each of its rows' entries through it.
 """
 
 from __future__ import annotations
@@ -263,7 +265,10 @@ class FeatureMajor(NamedTuple):
     entry's squared value at storage dtype, the list of X^2 that the Jacobi
     diagonal scatters through (the solver's device data fills it).
     ``combine``/``chunk_dst``/``slot_feat`` or None: the X^T kernel's plan
-    (``xt_plan``), derived from ``feat_ptr``."""
+    (``xt_plan``), derived from ``feat_ptr``.  ``pos`` (nnz,) or None: in a
+    destination-major list of the positive stream (``coo_list``), each
+    entry's stream position, where its coefficient is read; ``val`` is None
+    there."""
 
     row: Any
     val: Any
@@ -274,6 +279,7 @@ class FeatureMajor(NamedTuple):
     combine: Any = None
     chunk_dst: Any = None
     slot_feat: Any = None
+    pos: Any = None
 
 
 def xt_plan(feat_ptr: np.ndarray):
@@ -316,6 +322,18 @@ def feature_major(idx: np.ndarray, val: np.ndarray, d: int,
     v = val.reshape(-1)[keep]
     order = np.argsort(feat, kind="stable")  # keeps (row, slot) order
     feat, row, v = feat[order], row[order], v[order]
+    feat_ptr, chunk_ptr = _chunks(feat, d, chunk)
+    combine, chunk_dst, slot_feat = xt_plan(feat_ptr)
+    return FeatureMajor(row=row.astype(np.int32), val=v,
+                        chunk_ptr=chunk_ptr.astype(np.int32),
+                        feat_ptr=feat_ptr.astype(np.int32), n_rows=rows,
+                        combine=combine, chunk_dst=chunk_dst,
+                        slot_feat=slot_feat)
+
+
+def _chunks(feat: np.ndarray, d: int, chunk: int):
+    """(feat_ptr, chunk_ptr) of entries sorted by feature: each feature's
+    run cut into chunks of at most ``chunk`` entries."""
     cnt = np.bincount(feat, minlength=d)
     n_ch = -(-cnt // chunk)
     feat_ptr = np.zeros(d + 1, np.int64)
@@ -323,13 +341,39 @@ def feature_major(idx: np.ndarray, val: np.ndarray, d: int,
     feat_start = np.cumsum(cnt) - cnt
     owner = np.repeat(np.arange(d), n_ch)
     j = np.arange(owner.size) - feat_ptr[owner]
-    chunk_ptr = np.append(feat_start[owner] + j * chunk, feat.size)
+    return feat_ptr, np.append(feat_start[owner] + j * chunk, feat.size)
+
+
+def coo_list(seg_ids, take_ids, keep, num_seg: int, num_take: int,
+             chunk: int = XT_CHUNK) -> FeatureMajor:
+    """The destination-major list of the positive stream of one segment
+    side (the side's ``pos_u`` or ``pos_v`` in ``seg_ids``): a feature-major
+    list whose features are the side's rows.  Each entry keeps its stream
+    position (``pos``, where its coefficient is read) and the other side's
+    id (``row``, the row of the table it gathers; ``n_rows`` = that table's
+    row count).  Entries outside ``keep`` (the zero-weight pads) are
+    dropped, and so are segment ids outside ``[0, num_seg)``, as the JAX
+    package's ``segment_sum`` drops them; a kept entry whose other id is
+    outside ``[0, num_take)`` is refused.  A row's entries keep stream
+    order and are cut into chunks of ``chunk``, so that a power row (a
+    popular item's tens of thousands of positives) is summed by many
+    groups, then combined in chunk order (``xt_plan``)."""
+    seg = np.asarray(seg_ids, np.int64)
+    take = np.asarray(take_ids, np.int64)
+    pos = np.nonzero(np.asarray(keep, bool) & (seg >= 0)
+                     & (seg < num_seg))[0]
+    seg, take = seg[pos], take[pos]
+    if take.size and (take.min() < 0 or take.max() >= num_take):
+        raise ValueError(f"kept entries' other ids outside [0, {num_take})")
+    order = np.argsort(seg, kind="stable")
+    seg, take, pos = seg[order], take[order], pos[order]
+    feat_ptr, chunk_ptr = _chunks(seg, num_seg, chunk)
     combine, chunk_dst, slot_feat = xt_plan(feat_ptr)
-    return FeatureMajor(row=row.astype(np.int32), val=v,
+    return FeatureMajor(row=take.astype(np.int32), val=None,
                         chunk_ptr=chunk_ptr.astype(np.int32),
-                        feat_ptr=feat_ptr.astype(np.int32), n_rows=rows,
+                        feat_ptr=feat_ptr.astype(np.int32), n_rows=num_take,
                         combine=combine, chunk_dst=chunk_dst,
-                        slot_feat=slot_feat)
+                        slot_feat=slot_feat, pos=pos.astype(np.int32))
 
 
 def row_runs(own: np.ndarray, block_rows: int) -> np.ndarray:

@@ -21,9 +21,12 @@ the lane-packed ``pos_hv_packed`` (B9) and ``pos_hv_blocked_g`` with G
 blocks per CTA (B10), compute B1's function and serve ``hv_pack_bench``.
 The head ops of a two-tier layout (``head_*``) are plain torch on every
 device, as their JAX counterparts are XLA ops; the fused terms among them
-run B8 and the X^T stage.  The dispatching function takes the plain
-version only because its tensors lie on the CPU; on a CUDA tensor it
-launches the kernel or raises.
+run B8 and the X^T stage.  The plain COO positive passes of a side without
+a blocked layout (``pos_scatter``, ``pos_scatter_pair``, ``pos_seg_sum``)
+sum through the side's destination-major list of the stream, on the card
+by the X^T stage's kernel with a coefficient per stream entry.  The
+dispatching function takes the plain version only because its tensors lie
+on the CPU; on a CUDA tensor it launches the kernel or raises.
 Storage is float32 or bfloat16 (float64 on the CPU), sums run at a
 float32 floor, and the plain versions round where the kernels round: pq
 to storage, the output to storage, and for the table passes phi = X V
@@ -318,32 +321,40 @@ def _list_values(xt: FeatureMajor, squared: bool):
     return xt.val_sq
 
 
-def _xt_scatter_plain(payload: torch.Tensor, xt: FeatureMajor,
-                      squared: bool = False):
-    """(d, k) = X^T payload (X^2 with ``squared``) at the accumulation type,
-    in the kernels' order: each chunk's entries in list order, then each
-    feature's chunk sums in chunk order."""
-    acc = acc_dtype(payload.dtype)
-    k = payload.shape[1]
-    vals = _list_values(xt, squared)
+def _list_sums(xt: FeatureMajor, terms, k: int, acc: torch.dtype,
+               device) -> torch.Tensor:
+    """(d, k) at the accumulation type: per feature of the list, the sum of
+    its entries' terms in the X^T stage's order, each chunk's entries in
+    list order, then the feature's chunk sums in chunk order.
+    ``terms(e)``: the (chunks, k) terms at ``acc`` of the entries ``e``, one
+    per chunk."""
     cptr, fptr = xt.chunk_ptr.long(), xt.feat_ptr.long()
     n_chunks, d = cptr.numel() - 1, fptr.numel() - 1
-    part = torch.zeros((max(n_chunks, 1), k), dtype=acc,
-                       device=payload.device)
+    part = torch.zeros((max(n_chunks, 1), k), dtype=acc, device=device)
     if n_chunks:
         start, length = cptr[:-1], cptr[1:] - cptr[:-1]
         last = xt.row.numel() - 1
         for j in range(int(length.max())):
-            e = (start + j).clamp(max=last)
-            term = (vals[e].to(acc)[:, None]
-                    * payload[xt.row[e].long()].to(acc))
+            term = terms((start + j).clamp(max=last))
             part = part + torch.where((length > j)[:, None], term, 0)
-    out = torch.zeros((d, k), dtype=acc, device=payload.device)
+    out = torch.zeros((d, k), dtype=acc, device=device)
     start, length = fptr[:-1], fptr[1:] - fptr[:-1]
     for j in range(int(length.max()) if d else 0):
         ch = (start + j).clamp(max=part.shape[0] - 1)
         out = out + torch.where((length > j)[:, None], part[ch], 0)
     return out
+
+
+def _xt_scatter_plain(payload: torch.Tensor, xt: FeatureMajor,
+                      squared: bool = False):
+    """(d, k) = X^T payload (X^2 with ``squared``) at the accumulation type,
+    in the kernels' order (``_list_sums``)."""
+    acc = acc_dtype(payload.dtype)
+    vals = _list_values(xt, squared)
+    return _list_sums(
+        xt, lambda e: (vals[e].to(acc)[:, None]
+                       * payload[xt.row[e].long()].to(acc)),
+        payload.shape[1], acc, payload.device)
 
 
 def pos_hv_tbl_plain(V, x_idx, x_val, xt, rows, own, w_blk, dense_mat,
@@ -531,6 +542,106 @@ def grad_self_tbl(xt, Q1, zdense, own, c_blk, block_rows: int, dd=None,
                                      runs=runs)
     return kernels.grad_self_tbl_diag(xt, Q1, zdense, own, c_blk,
                                       block_rows, dd, runs=runs)
+
+
+# ---------------------------------------------------------------------------
+# the plain COO positive passes of a side without a blocked layout
+# ---------------------------------------------------------------------------
+#
+# Counterparts of the JAX package's ``pos_scatter`` and ``pos_scatter_pair``
+# (sparse_ops.py:230, :264) and of the self blocks' scalar
+# ``jax.ops.segment_sum`` of the stream's coefficients (jax_solver.py:1215),
+# XLA segment sums there.  Here each sums its rows' entries through the
+# side's destination-major list of the positive stream (``layout.coo_list``:
+# pads and ghost ids dropped, a row's entries in stream order, power rows
+# cut into chunks), at the float32 floor in the X^T stage's order, and
+# rounds once to storage; the per-entry product is rounded to storage first,
+# as the JAX ops form ``w[:, None] * B[take]`` at storage dtype.  On a CUDA
+# tensor they run the X^T stage's kernel with the coefficient read at the
+# entry's stream position and the table row gathered in the kernel (the
+# (nnz, k) payload is never written), no float atomics: the same bits on
+# every run, and the plain versions' bits.  At float32 only the order of
+# the sums differs from the JAX ops; at bfloat16 the JAX ops add at
+# storage, these once at the end.  ``pos_dot`` above is their gather-and-dot
+# counterpart, plain torch as it is an XLA gather there.
+
+
+def _coo_check(coo: FeatureMajor, c: torch.Tensor, B=None) -> None:
+    if coo.pos is None:
+        raise ValueError("not a destination-major list of the positive "
+                         "stream (it holds no stream positions)")
+    if B is not None and B.shape[0] != coo.n_rows:
+        raise ValueError(f"the list gathers from {coo.n_rows} rows, the "
+                         f"table has {B.shape[0]}")
+
+
+def _coo_terms(c: torch.Tensor, B: torch.Tensor, coo: FeatureMajor,
+               squared: bool):
+    """terms(e) of ``_list_sums``: storage(c[pos] B[row]) per entry, or with
+    ``squared`` storage(storage(c[pos] B[row]) B[row]), at the accumulation
+    type."""
+    dt, acc = B.dtype, acc_dtype(B.dtype)
+
+    def terms(e):
+        rows = B[coo.row[e].long()].to(acc)
+        t = (c[coo.pos[e].long()].to(acc)[:, None] * rows).to(dt)
+        if squared:
+            t = (t.to(acc) * rows).to(dt)
+        return t.to(acc)
+    return terms
+
+
+def pos_scatter_plain(c, B, coo: FeatureMajor) -> torch.Tensor:
+    """out[s] = storage(sum over row s's entries t of storage(c[t]
+    B[take_t])), (rows, k)."""
+    _coo_check(coo, c, B)
+    acc = acc_dtype(B.dtype)
+    return _list_sums(coo, _coo_terms(c, B, coo, False), B.shape[1], acc,
+                      B.device).to(B.dtype)
+
+
+def pos_scatter_pair_plain(c, wq, B, coo: FeatureMajor):
+    """(zpos, posq): ``pos_scatter_plain`` of c, and the Jacobi diagonal's
+    positive term posq[s] = storage(sum_t storage(storage(wq[t] B[take_t])
+    B[take_t])), the roundings of the JAX ``wb * rows * rows``."""
+    acc = acc_dtype(B.dtype)
+    posq = _list_sums(coo, _coo_terms(wq, B, coo, True), B.shape[1], acc,
+                      B.device).to(B.dtype)
+    return pos_scatter_plain(c, B, coo), posq
+
+
+def pos_seg_sum_plain(c, coo: FeatureMajor) -> torch.Tensor:
+    """out[s] = storage(sum over row s's entries t of c[t]), (rows,): the
+    self blocks' per-row sums of the stream's coefficients."""
+    _coo_check(coo, c)
+    acc = acc_dtype(c.dtype)
+    return _list_sums(coo, lambda e: c[coo.pos[e].long()].to(acc)[:, None],
+                      1, acc, c.device)[:, 0].to(c.dtype)
+
+
+def pos_scatter(c, B, coo: FeatureMajor) -> torch.Tensor:
+    """The gradient's (and the Hv's) positive scatter of a COO side:
+    ``pos_scatter_plain``'s function, its kernel on a CUDA tensor."""
+    if _plain_device(B):
+        return pos_scatter_plain(c, B, coo)
+    return kernels.pos_scatter(c, B, coo)
+
+
+def pos_scatter_pair(c, wq, B, coo: FeatureMajor):
+    """The gradient's positive scatter and the Jacobi diagonal's positive
+    term of a COO side (``pos_scatter_pair_plain``), two launches of the
+    kernel on a CUDA tensor."""
+    if _plain_device(B):
+        return pos_scatter_pair_plain(c, wq, B, coo)
+    return kernels.pos_scatter_pair(c, wq, B, coo)
+
+
+def pos_seg_sum(c, coo: FeatureMajor) -> torch.Tensor:
+    """The self blocks' per-row sums of a COO side's coefficients
+    (``pos_seg_sum_plain``), the kernel's width-1 form on a CUDA tensor."""
+    if _plain_device(c):
+        return pos_seg_sum_plain(c, coo)
+    return kernels.pos_seg_sum(c, coo)
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,13 @@
 """Alternating Gauss-Newton solver for one-class FFM / FM / MF, in PyTorch.
 
 The port of ``one_class_ffm_tpu/solver/jax_solver.py`` on one device, plain
-or Jacobi-preconditioned CG, the blocked stream on both sides with the
-slot-order residual carry.
+or Jacobi-preconditioned CG.  Each segment side of the positive stream
+takes the blocked layout where it applies (both sides, with the slot-order
+residual carry), or the plain COO positive passes (``blocked_bm=0``, or a
+side the blocked builder rejects even with the head tier): that side's
+positive sums run through its destination-major list of the stream
+(``layout.coo_list``), its carry is in stream order, and its fields take no
+fused table pass.
 A field is an identity id field (X is the identity: projection and scatter
 are a pad and a slice), a non-identity feature field with at most
 ``FUSED_TBL_D`` features, whose solves run the fused table-space passes
@@ -18,15 +23,17 @@ on a CUDA device (ops/sparse_ops.py dispatches).  A popularity-skewed side
 takes the two-tier layout: the kernels run on its tail, and the head ops
 (``sparse_ops.head_*``, plain torch) add its power rows' entries.
 
-Out-of-slice configurations raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+Multi-device runs raise ``NotImplementedError`` naming the ROADMAP item
+that ports them.
 
 The state is a dict of tensors, as in the JAX package: ``params`` ({f12:
 {"W", "H"}}), the caches ``P``/``Q`` ({f12: (rows, k)}), the side sums
-``a``/``b``, and the residual carried in each side's slot order,
-``yt_u``/``yt_v`` ((n_blocks, MAXC)), on a two-tier side also in its head
-slots, ``yt_u_hd``/``yt_v_hd`` ((NCH, CHUNK)).  Functions return new dicts
-and never modify a state they were given.
+``a``/``b``, and the residual carried in each side's order, ``yt_u``/
+``yt_v``: a blocked side's slot order ((n_blocks, MAXC)), on a two-tier
+side also its head slots, ``yt_u_hd``/``yt_v_hd`` ((NCH, CHUNK)); a COO
+side's order is the stream itself ((nnz,), the JAX solver's stream-order
+``yt``: the same floats).  Functions return new dicts and never modify a
+state they were given.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ from ..models.blocks import BlockInfo, BlockLayout
 from ..ops.layout import (
     FeatureMajor,
     check_own_runs,
+    coo_list,
     feature_major,
     head_chunk_table,
     make_blocked_layout,
@@ -64,7 +72,10 @@ from ..ops.sparse_ops import (
     pos_gap_blocked,
     pos_hv_blocked,
     pos_hv_tbl,
+    pos_scatter,
     pos_scatter_blocked,
+    pos_scatter_pair,
+    pos_seg_sum,
     project,
     scatter,
     seg_sum_blocked,
@@ -97,11 +108,13 @@ class ProblemMeta:
     dtype: torch.dtype = torch.float32
     ident_u: Tuple[bool, ...] = ()
     ident_v: Tuple[bool, ...] = ()
-    # per field: non-identity with D <= FUSED_TBL_D (JAX _fused_field) — its
-    # solves run the fused table passes; every non-identity field has its
-    # feature-major list in data["xf_u"/"xf_v"]
+    # per field: non-identity with D <= FUSED_TBL_D on a blocked side (JAX
+    # _fused_field and _fused_tbl_side) — its solves run the fused table
+    # passes; every non-identity field has its feature-major list in
+    # data["xf_u"/"xf_v"]
     fused_u: Tuple[bool, ...] = ()
     fused_v: Tuple[bool, ...] = ()
+    # rows per block of each side's blocked layout, 0 on a COO side
     blocked_bm_u: int = 0
     blocked_bm_v: int = 0
 
@@ -128,10 +141,19 @@ def make_device_data(u: PaddedFields, v: PaddedFields, y: PaddedLabels,
                      ) -> Tuple[ProblemMeta, Dict[str, Any]]:
     """Assemble the device tensor dict + static meta from host padded views
     (jax_solver.make_device_data, restricted to the keys the port uses).
-    Builds the blocked layout of the positive stream for both segment sides
-    and checks the contiguous-run property of each.  For each non-identity
-    field it builds the feature-major list of its X (``xf_u``/``xf_v``,
-    None for an identity field) with X^2's values beside X's: the static
+    Builds the blocked layout of the positive stream for each segment side
+    and checks the contiguous-run property of each.  A side without one
+    (``blocked_bm=0``, or a side the builder rejects: rows not a multiple of
+    ``blocked_bm``, or skew beyond the pad budget even with the head tier)
+    takes the plain COO positive passes, as the JAX package's does
+    (``blocked_bm_u`` / ``blocked_bm_v`` 0): its order is the stream itself
+    (``blk_*_src``/``inv`` the identity, ``blk_*_w`` = ``pos_w``,
+    ``blk_*_take`` and ``blk_*_seg`` the other side's and its own ids, 0 at
+    the pads), and it gets its destination-major list of the stream
+    (``coo_u``/``coo_v``, ``layout.coo_list``: pads dropped, power rows cut
+    into chunks), built once.  For each non-identity field it builds the
+    feature-major list of its X (``xf_u``/``xf_v``, None for an identity
+    field) with X^2's values beside X's: the static
     X^T side of the fused table kernels (in place of the JAX package's
     transposed (p, rows) copies), of the general scatter and of the Jacobi
     diagonal, and the X^T kernel's plan beside them.  Building it rejects
@@ -153,36 +175,32 @@ def make_device_data(u: PaddedFields, v: PaddedFields, y: PaddedLabels,
     lists of ``xh_*`` (``xhf_*``).  The tensors go to the card unless
     ``device`` asks for the CPU."""
     device = resolve_device(device)
-    if not blocked_bm:
-        raise NotImplementedError(
-            "blocked_bm=0 (plain COO positive passes): ROADMAP A3")
     pads = np.asarray(y.w) == 0
-    blk_u = make_blocked_layout(y.u, y.v, u.m, blocked_bm,
-                                max_pad_ratio=_PAD_RATIO, drop=pads,
-                                head_chunk=head_chunk)
-    blk_v = make_blocked_layout(y.v, y.u, v.m, blocked_bm,
-                                max_pad_ratio=_PAD_RATIO, drop=pads,
-                                head_chunk=head_chunk)
-    for side, b in (("u", blk_u), ("v", blk_v)):
-        if b is None:
-            raise NotImplementedError(
-                f"no blocked layout for the {side} side (row count not a "
-                f"multiple of {blocked_bm}, or skew beyond the pad budget "
-                "even with the head tier): the plain COO positive passes "
-                "are ROADMAP A3")
-        check_own_runs(b["own"], blocked_bm)
+    blk_u = blk_v = None
+    if blocked_bm:
+        blk_u = make_blocked_layout(y.u, y.v, u.m, blocked_bm,
+                                    max_pad_ratio=_PAD_RATIO, drop=pads,
+                                    head_chunk=head_chunk)
+        blk_v = make_blocked_layout(y.v, y.u, v.m, blocked_bm,
+                                    max_pad_ratio=_PAD_RATIO, drop=pads,
+                                    head_chunk=head_chunk)
+    for b in (blk_u, blk_v):
+        if b is not None:
+            check_own_runs(b["own"], blocked_bm)
 
     ident_u, ident_v = _ident_flags(u), _ident_flags(v)
 
-    def fused(pf: PaddedFields, ident):
-        return tuple(not i and d <= FUSED_TBL_D
+    def fused(pf: PaddedFields, ident, blk):
+        # a fused pass reads its side's blocked stream
+        return tuple(blk is not None and not i and d <= FUSED_TBL_D
                      for i, d in zip(ident, pf.Ds))
 
     meta = ProblemMeta(
         layout=layout, hp=hp, m=u.m, n=v.m, m_true=u.m_true, n_true=v.m_true,
         dtype=dtype, ident_u=ident_u, ident_v=ident_v,
-        fused_u=fused(u, ident_u), fused_v=fused(v, ident_v),
-        blocked_bm_u=blocked_bm, blocked_bm_v=blocked_bm)
+        fused_u=fused(u, ident_u, blk_u), fused_v=fused(v, ident_v, blk_v),
+        blocked_bm_u=blocked_bm if blk_u is not None else 0,
+        blocked_bm_v=blocked_bm if blk_v is not None else 0)
 
     def t(a, dt=None):
         x = torch.from_numpy(np.ascontiguousarray(a))
@@ -245,7 +263,30 @@ def make_device_data(u: PaddedFields, v: PaddedFields, y: PaddedLabels,
         cnt_u=t(y.count_u, dtype), cnt_v=t(y.count_v, dtype),
         reg_u=regs(u), reg_v=regs(v),
     )
+    # each side's order: its blocked layout's slots, or the stream itself
+    nnz = int(y.w.shape[0])
+    ident = np.arange(nnz, dtype=np.int32)
+    order = {}
+    for s, b, seg, take, rows, rows_o in (("u", blk_u, y.u, y.v, u.m, v.m),
+                                          ("v", blk_v, y.v, y.u, v.m, u.m)):
+        pre = f"blk_{s}_"
+        if b is not None:
+            order[s] = (b["src"], b["inv"], b.get("hd_src"))
+            continue
+        order[s] = (ident, ident, None)
+        data[pre + "src"] = data[pre + "inv"] = t(ident)
+        data[pre + "w"] = data["pos_w"]
+        data[pre + "take"] = t(np.where(pads, 0, take).astype(np.int32))
+        data[pre + "seg"] = t(np.where(pads, 0, seg).astype(np.int32))
+        lst = coo_list(seg, take, ~pads, rows, rows_o)
+        data["coo_" + s] = FeatureMajor(
+            row=t(lst.row), val=None, chunk_ptr=t(lst.chunk_ptr),
+            feat_ptr=t(lst.feat_ptr), n_rows=lst.n_rows,
+            combine=t(lst.combine), chunk_dst=t(lst.chunk_dst),
+            slot_feat=t(lst.slot_feat), pos=t(lst.pos))
     for pre, b in (("blk_u_", blk_u), ("blk_v_", blk_v)):
+        if b is None:
+            continue
         data[pre + "take"] = t(b["take"])
         data[pre + "src"] = t(b["src"])
         data[pre + "own"] = t(b["own"])
@@ -267,23 +308,24 @@ def make_device_data(u: PaddedFields, v: PaddedFields, y: PaddedLabels,
                             ("v", v, blk_v, meta.fused_v)):
         # the head rows' field data of each fused field, row-major for
         # their projection (B8) and feature-major for their X^T
-        if "hd_rows" not in b:
+        if b is None or "hd_rows" not in b:
             continue
         rows = b["hd_rows"]
         data["xh_" + s] = tuple(
             (t(pf.idx[fi][rows]), t(pf.val[fi][rows], dtype)) if on
             else None for fi, on in enumerate(flags))
         data["xhf_" + s] = xf(pf, flags, rows)
-    # cross-order slot maps of the residual carry: for each slot of one
-    # side's layout, the flat slot index of the same entry on the other
-    # side.  A two-tier side's ``inv`` maps into its concatenated (tail,
-    # head) slot space, and each tier of the receiving side gets its map.
-    data["blk_u_from_v"] = t(blk_v["inv"][blk_u["src"]])
-    data["blk_v_from_u"] = t(blk_u["inv"][blk_v["src"]])
-    if "hd_row" in blk_u:
-        data["blk_u_hd_from_v"] = t(blk_v["inv"][blk_u["hd_src"]])
-    if "hd_row" in blk_v:
-        data["blk_v_hd_from_u"] = t(blk_u["inv"][blk_v["hd_src"]])
+    # cross-order maps of the residual carry: for each slot of one side's
+    # order, the flat index of the same entry in the other side's.  A
+    # two-tier side's ``inv`` maps into its concatenated (tail, head) slot
+    # space, and each tier of the receiving side gets its map; a COO side's
+    # order is the stream, its ``src`` and ``inv`` the identity.
+    for s, o in (("u", "v"), ("v", "u")):
+        src, _, hd_src = order[s]
+        inv_o = order[o][1]
+        data[f"blk_{s}_from_{o}"] = t(inv_o[src])
+        if hd_src is not None:
+            data[f"blk_{s}_hd_from_{o}"] = t(inv_o[hd_src])
     return meta, data
 
 
@@ -306,9 +348,6 @@ class FFMSolver:
         self.cg_precond = "none" if hp.cg_precond == "auto" else hp.cg_precond
         if self.cg_precond not in ("none", "jacobi"):
             raise ValueError(f"unknown cg_precond {hp.cg_precond!r}")
-        if not (meta.blocked_bm_u and meta.blocked_bm_v):
-            raise NotImplementedError(
-                "the plain COO positive passes: ROADMAP A3")
         self.meta = meta
         self.data = data
         self.blocks: List[BlockInfo] = meta.layout.all_blocks()
@@ -322,6 +361,11 @@ class FFMSolver:
         self._hd_wq = {s: storage_scale(data[f"blk_{s}_hd_w"],
                                         1.0 - hp.omega)
                        for s in ("u", "v") if f"blk_{s}_hd_w" in data}
+        # (1 - omega) w per stream entry, the weights of a COO side's
+        # Jacobi diagonal positive term (the JAX ``wq``, static; None when
+        # no side is COO)
+        self._coo_wq = (storage_scale(data["pos_w"], 1.0 - hp.omega)
+                        if "coo_u" in data or "coo_v" in data else None)
 
     # -- field accessors ------------------------------------------------------
 
@@ -521,11 +565,25 @@ class FFMSolver:
     # -- gradient and Hv --------------------------------------------------------
 
     def _blk(self, u_side: bool):
-        """(key prefix, output rows, block rows) of a side's blocked layout."""
+        """(key prefix, output rows, block rows) of a side's blocked layout
+        (block rows 0 on a COO side: read them only where ``_coo`` is
+        None)."""
         meta = self.meta
         if u_side:
             return "blk_u_", meta.m, meta.blocked_bm_u
         return "blk_v_", meta.n, meta.blocked_bm_v
+
+    def _coo(self, u_side: bool) -> Optional[FeatureMajor]:
+        """A COO side's destination-major list of the positive stream, or
+        None on a blocked side."""
+        return self.data.get("coo_u" if u_side else "coo_v")
+
+    def _stream_ids(self, u_side: bool) -> Tuple[Tensor, Tensor]:
+        """(own ids, other side's ids) of the stream's entries, seen from the
+        u (True) or v (False) side."""
+        d = self.data
+        return ((d["pos_u"], d["pos_v"]) if u_side
+                else (d["pos_v"], d["pos_u"]))
 
     def _grad_cross(self, state, b: BlockInfo, first: bool,
                     rows_pre: Tensor, with_diag_pos: bool = False,
@@ -534,6 +592,9 @@ class FFMSolver:
         omega part via k x k Grams, positive part by the scatter kernel over
         the pre-gathered stream; on a small-D feature field both go to table
         space in one fused pass, on a wide one the X^T stage scatters them.
+        A COO side's positive part sums through its list of the stream
+        (``pos_scatter``, under Jacobi ``pos_scatter_pair``:
+        jax_solver.py:1578-1586, 1620-1627).
 
         ``with_diag_pos`` (Jacobi): returns (G, term) where term is the
         Hessian diagonal's positive part from the same read of the stream:
@@ -587,8 +648,14 @@ class FFMSolver:
             tbl_d = (hp.omega * (self._side_colsq(b, first).to(acc)[:, None]
                                  * qtq_d.to(acc)[None, :]) + Qt.to(acc))
             return self._tbl_grad(b, first, T, Gt), ("tbl", tbl_d)
-        res = pos_scatter_blocked(c_blk, rows_pre, d[pre + "own"], num, bm,
-                                  runs=d[pre + "runs"], **diag_w)
+        coo = self._coo(first)
+        if coo is None:
+            res = pos_scatter_blocked(c_blk, rows_pre, d[pre + "own"], num,
+                                      bm, runs=d[pre + "runs"], **diag_w)
+        elif with_diag_pos:
+            res = pos_scatter_pair(c_blk, self._coo_wq, B1, coo)
+        else:
+            res = pos_scatter(c_blk, B1, coo)
         zpos, posq = res if with_diag_pos else (res, None)
         if rows_hd is not None:
             hpre = pre + "hd_"
@@ -634,11 +701,12 @@ class FFMSolver:
             G   = lam reg T + X1^T diag(z) Q1
 
         The per-row positive sums run over the slot-order carry of the
-        block's side; on a small-D feature field they, the dense term and
-        the X^T scatter are one fused pass.  ``want_diag`` (Jacobi): returns
-        (G, term), term the fused pass's table-space diagonal ("tbl",
-        (X^2)^T diag(dd) Q1^2) or None off the fused path (_diag_H then
-        scatters its own)."""
+        block's side (on a COO side through its list of the stream,
+        ``pos_seg_sum``: jax_solver.py:1213-1217); on a small-D feature
+        field they, the dense term and the X^T scatter are one fused pass.
+        ``want_diag`` (Jacobi): returns (G, term), term the fused pass's
+        table-space diagonal ("tbl", (X^2)^T diag(dd) Q1^2) or None off the
+        fused path (_diag_H then scatters its own)."""
         meta, d = self.meta, self.data
         hp = meta.hp
         T = state["params"][b.f12]["W" if first else "H"]
@@ -673,7 +741,9 @@ class FFMSolver:
                                    runs=d[pre + "runs"])
             return (self._tbl_grad(b, first, T, Gt),
                     ("tbl", Dq.to(acc_dtype(meta.dtype))))
-        zpos = seg_sum_blocked(c_blk, d[pre + "own"], num, bm)
+        coo = self._coo(u_side)
+        zpos = (seg_sum_blocked(c_blk, d[pre + "own"], num, bm)
+                if coo is None else pos_seg_sum(c_blk, coo))
         if z_hd is not None:
             zpos = zpos + z_hd
         z = zdense + zpos
@@ -698,12 +768,28 @@ class FFMSolver:
         a wide field projects with B8 before it and scatters after it).
         With ``rows_hd`` (a two-tier side's head stream) the head entries'
         part is added: in table space on a fused field (``_hd_hv_tbl``),
-        else in row space before the scatter (``head_hv``)."""
+        else in row space before the scatter (``head_hv``).  A COO side
+        runs the JAX package's two-call form (jax_solver.py:1894-1903):
+        ``pos_dot`` times w, then ``pos_scatter`` of (1-w) pq, the omega
+        term a matmul beside them."""
         meta, d = self.meta, self.data
         hp = meta.hp
         reg, _, _ = self._side(b, first)
         B1 = state["Q"][b.f12] if first else state["P"][b.f12]
         dim = state["params"][b.f12]["W" if first else "H"].shape[0]
+        coo = self._coo(first)
+        if coo is not None:
+            qtq = B1.T @ B1  # pad rows are zero
+            own_ids, oth_ids = self._stream_ids(first)
+
+            def hv_coo(V: Tensor) -> Tensor:
+                phi = self._proj(b, first, V)
+                pq = pos_dot(phi, own_ids, B1, oth_ids) * d["pos_w"]
+                zp = pos_scatter(storage_scale(pq, 1.0 - hp.omega), B1, coo)
+                return hp.lam * reg[:, None] * V + self._scat(
+                    b, first, hp.omega * (phi @ qtq) + zp, dim)
+
+            return hv_coo
         pre, num, bm = self._blk(first)
         dmat = (hp.omega * (B1.T @ B1)).to(meta.dtype)
         own, w_blk, runs = d[pre + "own"], d[pre + "w"], d[pre + "runs"]
@@ -783,8 +869,11 @@ class FFMSolver:
         ``term``: the gradient pass's diagonal output — ("tbl", the whole
         scatter term) from a fused pass, or a cross solve's row-space posq;
         None for a self block off the fused path, whose term is scattered
-        here.  Clamped at 1e-12, so that a pad table row (D == 0, R == 0)
-        gives R / D == 0, not NaN (jax_solver.py:1918-1961)."""
+        here, and for a cross block of a COO side, whose posq is summed here
+        by the gradient pass's own formula (``pos_scatter_pair``'s second
+        output; jax_solver.py:1946-1951).
+        Clamped at 1e-12, so that a pad table row (D == 0, R == 0) gives
+        R / D == 0, not NaN (jax_solver.py:1918-1961)."""
         if self.cg_precond != "jacobi":
             return None
         hp = self.meta.hp
@@ -794,6 +883,13 @@ class FFMSolver:
         Q1 = state["Q"][b.f12] if first else state["P"][b.f12]
         dim = state["params"][b.f12]["W" if first else "H"].shape[0]
         if b.kind == "uv":
+            if term is None:
+                coo = self._coo(first)
+                if coo is None:
+                    raise ValueError("a blocked side's diagonal term comes "
+                                     "from its gradient pass")
+                term = pos_scatter_pair(self._coo_wq, self._coo_wq, Q1,
+                                        coo)[1]
             qtq_d = (Q1 * Q1).sum(dim=0)  # pad rows are zero
             rowq = hp.omega * qtq_d[None, :] + term
         else:
@@ -858,9 +954,10 @@ class FFMSolver:
         side's cache did not move; on a two-tier side the head stream
         ``rows_hd`` gives the head slots' gaps, and the other side's
         carries read the concatenated (tail, head) gaps through the
-        cross-order maps.  A self step moves the side sum a (or b) by <dP,
-        other cache> per row, and every positive of the row by the same
-        amount, head slots included."""
+        cross-order maps.  A COO side's gaps are ``pos_dot`` over the
+        stream (jax_solver.py:2201-2205).  A self step moves the side sum a
+        (or b) by <dP, other cache> per row, and every positive of the row by
+        the same amount, head slots included."""
         meta, d = self.meta, self.data
         key, cache_key = ("W", "P") if first else ("H", "Q")
         state = dict(state)
@@ -882,8 +979,13 @@ class FFMSolver:
                 raise ValueError("a cross step on a two-tier side needs the "
                                  "solve's head stream, and only there")
             pre, _, bm = self._blk(first)
-            gap = pos_gap_blocked(dP, rows_pre, d[pre + "own"], bm,
-                                  runs=d[pre + "runs"])
+            if self._coo(first) is None:
+                gap = pos_gap_blocked(dP, rows_pre, d[pre + "own"], bm,
+                                      runs=d[pre + "runs"])
+            else:
+                own_ids, oth_ids = self._stream_ids(first)
+                other = state["Q" if first else "P"][b.f12]
+                gap = pos_dot(dP, own_ids, other, oth_ids)
             own, oth = ("u", "v") if first else ("v", "u")
             state["yt_" + own] = state["yt_" + own] + gap.reshape(
                 state["yt_" + own].shape) * d[pre + "w"]
@@ -907,10 +1009,15 @@ class FFMSolver:
         side_key = "a" if b.kind == "uu" else "b"
         state[side_key] = state[side_key] + da
         pre, _, bm = self._blk(b.kind == "uu")
-        # own side: da per slot of its row; other side: the other layout's
-        # take IS this side's row id in that slot order (one scalar gather)
-        state["yt_" + own] = state["yt_" + own] + expand_rows_blocked(
-            da, d[pre + "own"], bm).reshape(state["yt_" + own].shape)
+        # own side: da per slot of its row (on a COO side a gather through
+        # its ids); other side: the other order's take IS this side's row
+        # id in that order (one scalar gather)
+        if self._coo(b.kind == "uu") is None:
+            exp = expand_rows_blocked(da, d[pre + "own"], bm).reshape(
+                state["yt_" + own].shape)
+        else:
+            exp = da[d[pre + "seg"].long()] * d[pre + "w"]
+        state["yt_" + own] = state["yt_" + own] + exp
         state["yt_" + oth] = state["yt_" + oth] \
             + da[d[f"blk_{oth}_take"].long()] * d[f"blk_{oth}_w"]
         # head tiers: da per slot is the chunk's row's on the own side, a
@@ -935,7 +1042,8 @@ class FFMSolver:
         gathered once per solve as the tail stream is, and the Jacobi
         diagonal (None under plain CG), whose scatter term the gradient's
         pass computes from the same read of the stream
-        (jax_solver.py:2278-2298)."""
+        (jax_solver.py:2278-2298).  A COO side gathers no stream: its
+        passes gather B's rows themselves (the stream is then None)."""
         jac = self.cg_precond == "jacobi"
         if b.kind != "uv":
             res = self._grad_self(state, b, first, sa, sb, want_diag=jac)
@@ -943,8 +1051,9 @@ class FFMSolver:
             return (G, self._hv_self(state, b, first), None, None,
                     self._diag_H(state, b, first, term))
         B1 = state["Q"][b.f12] if first else state["P"][b.f12]
-        pre, _, _ = self._blk(first)
-        rows_pre = gather_blocked_rows(B1, self.data[pre + "take"])
+        pre = self._blk(first)[0]
+        rows_pre = (gather_blocked_rows(B1, self.data[pre + "take"])
+                    if self._coo(first) is None else None)
         rows_hd = (gather_blocked_rows(B1, self.data[pre + "hd_take"])
                    if self._hd_side(first) else None)
         res = self._grad_cross(state, b, first, rows_pre, with_diag_pos=jac,

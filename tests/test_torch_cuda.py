@@ -1028,3 +1028,162 @@ def test_two_tier_solver_on_the_card_matches_the_cpu(device, cg_precond):
     re = gpu.refresh_caches({"params": g1["params"]})
     for key in ("yt_v", "yt_v_hd"):
         assert _max_rel(g1[key].cpu(), re[key].cpu()) <= 1e-4, key
+
+
+# ---------------------------------------------------------------------------
+# the plain COO positive passes on the card
+# ---------------------------------------------------------------------------
+
+
+def _coo_stream(device, dtype, k, sorted_seg, chunk):
+    """A stream of 700 rows x 300 other rows: a power row with 3,000
+    entries (24 chunks of the default 128, 375 of 8), rows without
+    entries, 50 pad entries with ghost ids; the coefficients, a weight per
+    entry and the table on the card."""
+    from one_class_ffm_torch.ops.layout import coo_list
+
+    rng = np.random.default_rng(7)
+    num, n_other, nnz = 700, 300, 6000
+    seg = rng.integers(0, num - 40, size=nnz)
+    seg[:3000] = 5
+    if sorted_seg:
+        seg = np.sort(seg)
+    else:
+        seg = seg[rng.permutation(nnz)]
+    take = rng.integers(0, n_other, size=nnz)
+    seg = np.concatenate([seg, np.full(50, num)]).astype(np.int32)
+    take = np.concatenate([take, np.full(50, n_other)]).astype(np.int32)
+    w = np.concatenate([np.ones(nnz), np.zeros(50)])
+    lst = coo_list(seg, take, w != 0, num, n_other, chunk=chunk)
+    coo = lst._replace(**{f: torch.as_tensor(getattr(lst, f), device=device)
+                          for f in ("row", "chunk_ptr", "feat_ptr",
+                                    "combine", "chunk_dst", "slot_feat",
+                                    "pos")})
+
+    def T(a):
+        return torch.as_tensor(a).to(device=device, dtype=dtype).contiguous()
+
+    return (coo, T(rng.normal(size=w.size) * w),
+            T(rng.uniform(0.5, 1.5, size=w.size) * w),
+            T(rng.normal(size=(n_other, k))))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [8, 12, 32, 40, 256])
+@pytest.mark.parametrize("sorted_seg", [True, False])
+@pytest.mark.parametrize("chunk", [8, 128])
+def test_coo_kernels_match_plain_bits(device, dtype, k, sorted_seg, chunk):
+    """The X^T stage's coefficient sources bit-equal to the plain versions:
+    ``pos_scatter``, both outputs of ``pos_scatter_pair`` (two launches)
+    and the width-1 ``pos_seg_sum``; a repeat gives the same bits; a power
+    row spanning hundreds of chunks is finished in chunk order; each
+    wrapper counts one launch."""
+    coo, c, wq, B = _coo_stream(device, dtype, k, sorted_seg, chunk)
+    kernels.reset_launch_counts()
+    got = {
+        "pos_scatter": (kernels.pos_scatter(c, B, coo),),
+        "pos_scatter_pair": kernels.pos_scatter_pair(c, wq, B, coo),
+        "pos_seg_sum": (kernels.pos_seg_sum(c, coo),),
+    }
+    counts = kernels.launch_counts()
+    assert all(counts[name] == 1 for name in got), counts
+    again = {
+        "pos_scatter": (kernels.pos_scatter(c, B, coo),),
+        "pos_scatter_pair": kernels.pos_scatter_pair(c, wq, B, coo),
+        "pos_seg_sum": (kernels.pos_seg_sum(c, coo),),
+    }
+    ref = {
+        "pos_scatter": (ops.pos_scatter_plain(c, B, coo),),
+        "pos_scatter_pair": ops.pos_scatter_pair_plain(c, wq, B, coo),
+        "pos_seg_sum": (ops.pos_seg_sum_plain(c, coo),),
+    }
+    for name in got:
+        for g, g2, r in zip(got[name], again[name], ref[name]):
+            assert g.dtype == dtype and g.shape == r.shape, name
+            assert torch.equal(_bits(g), _bits(g2)), name
+            assert torch.equal(_bits(g), _bits(r)), name
+    assert got["pos_seg_sum"][0][5] != 0  # the power row
+    assert torch.equal(got["pos_scatter_pair"][0], got["pos_scatter"][0])
+
+
+def test_coo_wrappers_reject_bad_inputs(device):
+    """A list of a field's X, a table of the wrong height, coefficients of
+    another dtype or too short for the list's stream positions are refused
+    before a launch."""
+    coo, c, wq, B = _coo_stream(device, torch.float32, 8, True, 128)
+    with pytest.raises(ValueError, match="gathers from"):
+        kernels.pos_scatter(c, B[:-1], coo)
+    with pytest.raises(TypeError):
+        kernels.pos_scatter(c.double(), B, coo)
+    with pytest.raises(ValueError, match="stream positions"):
+        kernels.pos_seg_sum(c[:100], coo)
+    with pytest.raises(ValueError, match="not a list of the positive"):
+        kernels.pos_scatter(c, B, coo._replace(pos=None))
+
+
+def _coo_solvers(device, cg_precond="none", blocked_bm=0):
+    """The skewed FFM of ``_skewed_solvers`` with the head tier off: at
+    ``blocked_bm=0`` both sides COO, at 8 rows per block its v side COO
+    and its u side blocked; on the CPU and on the card from one set of
+    tables."""
+    from one_class_ffm_torch.data.synth import SynthSpec, build_padded
+    from one_class_ffm_torch.models.blocks import BlockLayout
+    from one_class_ffm_torch.solver import torch_solver
+    from one_class_ffm_torch.solver.params import HyperParams
+
+    spec = SynthSpec(n_users=600, n_items=120, dims_u=(600, 30),
+                     dims_v=(120, 20), avg_pos=5.0, seed=1, pop_skew=1.0)
+    (du, dv), u, v, y = build_padded(spec, np.float32, row_multiple=8)
+    hp = HyperParams(k=32, lam=0.05, omega=0.1, r=-1.0,
+                     cg_precond=cg_precond)
+    out = []
+    for dev in ("cpu", device):
+        meta, data = torch_solver.make_device_data(
+            u, v, y, BlockLayout.make(du, dv, True), hp,
+            dtype=torch.float32, blocked_bm=blocked_bm, head_chunk=0,
+            device=dev)
+        out.append(torch_solver.FFMSolver(meta, data))
+    assert "coo_v" in out[1].data
+    assert ("coo_u" in out[1].data) == (blocked_bm == 0)
+    state = out[0].init(torch.Generator().manual_seed(0))
+    params = {f: {n: t.to(device) for n, t in blk.items()}
+              for f, blk in state["params"].items()}
+    return out, (state, out[1].refresh_caches({"params": params}))
+
+
+@pytest.mark.parametrize("cg_precond", ["none", "jacobi"])
+@pytest.mark.parametrize("blocked_bm", [0, 8], ids=["coo", "mixed"])
+def test_coo_solver_on_the_card_matches_the_cpu(device, cg_precond,
+                                                 blocked_bm):
+    """Both sides COO, or v COO and u blocked: the gradient, Hv and
+    (Jacobi) diagonal of every block side on the card against the CPU's
+    plain path; the COO kernels launch, no float atomics: one epoch run
+    twice from one state gives the same bits, and the carry equals a fresh
+    ``refresh_caches``."""
+    (cpu, gpu), (cst, gst) = _coo_solvers(device, cg_precond, blocked_bm)
+    sa_c, sb_c = cpu.sasb(cst)
+    sa_g, sb_g = gpu.sasb(gst)
+    rng = np.random.default_rng(2)
+    for b in cpu.blocks:
+        for first in (True, False):
+            Gc, hvc, _, _, Dc = cpu.solve_inputs(cst, b, first, sa_c, sb_c)
+            Gg, hvg, _, _, Dg = gpu.solve_inputs(gst, b, first, sa_g, sb_g)
+            V = torch.as_tensor(rng.normal(size=tuple(Gc.shape)),
+                                dtype=torch.float32)
+            pairs = [(Gg, Gc), (hvg(V.to(device)), hvc(V))]
+            if cg_precond == "jacobi":
+                pairs.append((Dg, Dc))
+            for got, ref in pairs:
+                assert _max_rel(got.cpu(), ref) <= 1e-4, (b.f12, first)
+    kernels.reset_launch_counts()
+    g1, it1 = gpu.epoch_stats(gst)
+    counts = kernels.launch_counts()
+    assert counts["pos_scatter"] > 0 and counts["pos_seg_sum"] > 0
+    assert (counts["pos_scatter_pair"] > 0) == (cg_precond == "jacobi")
+    g2, it2 = gpu.epoch_stats(gst)
+    assert torch.equal(it1, it2)
+    for key in ("yt_u", "yt_v", "a", "b"):
+        assert torch.equal(_bits(g1[key]), _bits(g2[key])), key
+    re = gpu.refresh_caches({"params": g1["params"]})
+    for key in ("yt_u", "yt_v"):
+        assert _max_rel(g1[key].cpu(), re[key].cpu()) <= 1e-4, key

@@ -149,15 +149,44 @@ def test_cli_fm_rows_match_jax(fm_set, tmp_path, capsys, monkeypatch, extra):
     assert meta.ident_u == (False,) and meta.ident_v == (False,)
 
 
-# models without --ns and --cg-precond jacobi run now (test_torch_jacobi.py);
-# the last two cases are MF and such a model without the blocked layout
+@pytest.mark.parametrize("tag, extra", [
+    ("mf", ("--ns", "--blocked-bm", "0")),
+    ("ffm", ("--blocked-bm", "0")),
+], ids=["mf-ns", "ffm"])
+def test_cli_coo_rows_match_jax(mf_set, ffm_set, tmp_path, capsys, tag,
+                                extra):
+    """``--blocked-bm 0``: both sides take the plain COO positive passes
+    (on the FFM its feature fields the general scatter, not the fused
+    passes), and the log rows, header and top-K ids equal the JAX CLI's
+    with the same flag, byte for byte."""
+    data_set = mf_set if tag == "mf" else ffm_set
+    ref_out, ref_js = _run(jax_cli.main, data_set, tmp_path, capsys, "jax",
+                           extra=extra)
+    got_out, got_js = _run(torch_cli.main, data_set, tmp_path, capsys,
+                           "torch", extra=extra)
+    assert got_out == ref_out
+    assert len(got_out.splitlines()) > 3
+    for a, b in zip(got_js, ref_js):
+        for key in ("p@5", "ndcg@10", "ploss", "auc"):
+            assert a[key] == pytest.approx(b[key], rel=1e-9)
+    item, train, _, _ = data_set
+    trainer = Trainer(TrainConfig(item_path=item, train_path=train, k=4,
+                                  dtype="float64", blocked_bm=0,
+                                  self_side="--ns" not in extra),
+                      device="cpu")
+    meta = trainer.meta
+    assert (meta.blocked_bm_u, meta.blocked_bm_v) == (0, 0)
+    assert not any(meta.fused_u + meta.fused_v)
+    assert "coo_u" in trainer.solver.data and "coo_v" in trainer.solver.data
+
+
+# models without --ns, --cg-precond jacobi (test_torch_jacobi.py) and
+# --blocked-bm 0 (test_cli_coo_rows_match_jax) run now
 @pytest.mark.parametrize("argv, message", [
     (["--ns", "--mesh", "2"], "--mesh"),
     (["--ns", "--distributed"], "--distributed"),
     (["--ns", "--ckpt-format", "orbax"], "orbax"),
     (["--ns", "--profile-dir", "trace"], "--profile-dir"),
-    (["--ns", "--blocked-bm", "0"], "blocked_bm=0"),
-    (["--blocked-bm", "0"], "blocked_bm=0"),
 ])
 def test_cli_refuses_what_the_port_lacks(mf_set, capsys, argv, message):
     item, train, _, _ = mf_set

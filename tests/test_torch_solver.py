@@ -267,20 +267,16 @@ def _skewed_problem():
     return prob, params
 
 
-# self blocks, feature fields of any width, Jacobi and the head tier run
-# now (tests/test_torch_jacobi.py holds Jacobi, tests/test_torch_two_tier.py
-# the head tier); the cases hold what still raises
+# self blocks, feature fields of any width, Jacobi, the head tier and the
+# plain COO positive passes run now (tests/test_torch_jacobi.py holds
+# Jacobi, tests/test_torch_two_tier.py the head tier, tests/test_torch_coo.py
+# the COO passes); the case holds what still raises
 OUT_OF_SLICE = {
-    "skew_without_head_chunk": dict(skewed=True),
-    "no_layout": dict(blocked_bm=0),
     "mesh": dict(mesh=object()),
 }
 
 
-# a skewed side that even the head tier rejects falls back to the plain COO
-# passes
-ROADMAP_ITEM = {"skew_without_head_chunk": "A3", "no_layout": "A3",
-                "mesh": "A11"}
+ROADMAP_ITEM = {"mesh": "A11"}
 
 
 @pytest.mark.parametrize("case", sorted(OUT_OF_SLICE))
@@ -294,6 +290,43 @@ def test_out_of_slice_configs_raise(case):
             u, v, y, prob.layout, prob.hp, dtype=torch.float64,
             blocked_bm=kw.get("blocked_bm", BM), device="cpu")
         torch_solver.FFMSolver(meta, data, mesh=kw.get("mesh"))
+
+
+# the configurations that once raised (both COO; a skewed side that even the
+# head tier rejects falls back to COO) beside those that never did:
+# (skewed?, blocked_bm, head_chunk)
+LAYOUT_CASES = {
+    "skew_without_head_chunk": (True, BM, 0),
+    "no_layout": (False, 0, 512),
+    "unskewed": (False, BM, 512),
+    "two_tier": (True, BM, 4),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LAYOUT_CASES))
+def test_sides_take_the_layouts_jax_takes(case, monkeypatch):
+    """Each side's blocked layout or plain COO passes as the JAX package's
+    ``make_device_data`` decides (``blocked_bm_u`` / ``blocked_bm_v``, the
+    head tiers under OCFFM_HEAD_CHUNK), and the solver builds on them."""
+    skewed, bm, hc = LAYOUT_CASES[case]
+    prob, _ = _skewed_problem() if skewed else mf_problem()
+    u, v, y = padded(prob)
+    meta, data = torch_solver.make_device_data(
+        u, v, y, prob.layout, prob.hp, dtype=torch.float64, blocked_bm=bm,
+        head_chunk=hc, device="cpu")
+    monkeypatch.setenv("OCFFM_HEAD_CHUNK", str(hc))
+    jmeta, jdata = jax_solver.make_device_data(
+        u, v, y, prob.layout, prob.hp, dtype=jnp.float64, blocked_bm=bm)
+    assert (meta.blocked_bm_u, meta.blocked_bm_v) == (jmeta.blocked_bm_u,
+                                                      jmeta.blocked_bm_v)
+    for s in ("u", "v"):
+        assert (f"blk_{s}_hd_row" in data) == (f"blk_{s}_hd_row" in jdata)
+        assert ("coo_" + s in data) == (
+            not (meta.blocked_bm_u if s == "u" else meta.blocked_bm_v))
+    want = {"skew_without_head_chunk": (0, BM), "no_layout": (0, 0),
+            "unskewed": (BM, BM), "two_tier": (BM, BM)}[case]
+    assert (meta.blocked_bm_u, meta.blocked_bm_v) == want
+    torch_solver.FFMSolver(meta, data)
 
 
 # ---------------------------------------------------------------------------

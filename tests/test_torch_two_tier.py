@@ -533,15 +533,23 @@ def test_cross_step_needs_the_head_stream_on_a_two_tier_side():
             solver._apply_step(state, b, first, S, rows_pre, wrong)
 
 
-def test_head_chunk_zero_turns_the_split_off():
+def test_head_chunk_zero_turns_the_split_off(monkeypatch):
     """``head_chunk=0`` leaves a side the blocked builder rejects to the
-    plain COO passes (ROADMAP A3), as OCFFM_HEAD_CHUNK=0 does."""
+    plain COO passes, as OCFFM_HEAD_CHUNK=0 does: the skewed v side goes
+    COO (no head tier, its list of the stream), the u side stays
+    blocked."""
     prob, _ = skewed_problem("mf")
     u, v, y = padded(prob)
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        torch_solver.make_device_data(
-            u, v, y, prob.layout, prob.hp, dtype=torch.float64,
-            blocked_bm=BM, head_chunk=0, device="cpu")
+    meta, data = torch_solver.make_device_data(
+        u, v, y, prob.layout, prob.hp, dtype=torch.float64,
+        blocked_bm=BM, head_chunk=0, device="cpu")
+    assert (meta.blocked_bm_u, meta.blocked_bm_v) == (BM, 0)
+    assert "coo_v" in data and "coo_u" not in data
+    assert not any(key.startswith("blk_") and "_hd_" in key for key in data)
+    monkeypatch.setenv("OCFFM_HEAD_CHUNK", "0")
+    jmeta, _ = jax_solver.make_device_data(u, v, y, prob.layout, prob.hp,
+                                           dtype=jnp.float64, blocked_bm=BM)
+    assert (jmeta.blocked_bm_u, jmeta.blocked_bm_v) == (BM, 0)
 
 
 # ---------------------------------------------------------------------------
