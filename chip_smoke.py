@@ -71,17 +71,31 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
    blocked or fused kernel) and the skewed FFM with ``head_chunk=0`` under
    Jacobi (v COO: the three COO passes; u blocked: its blocked and fused
    Jacobi kernels), each also run twice from one state;
-8. the Hv variants' path: ``hv_pack_bench`` checks B1, B9 and B10 on its
+8. serving: the headline FFM of phase 6 saved as a text model and a
+   checkpoint, its items' and its 111,963 test users' feature rows written
+   to files; ``predict_topk_from_model`` ranks every test user over the
+   full 20,000-item catalog, top 10, from the checkpoint (B8 must have
+   launched), with the ids of the same call on ``project_plain``
+   (identical), of ``Trainer.predict_topk`` (at least 0.99 shared) and of
+   the text model (printed); users/s over its device work, best of 3,
+   split into projection, scoring and ranking; then the scoring entry
+   point (``one_class_ffm_torch.entry``) on the card and ``serve_bench``
+   at its defaults with its ``torch.topk`` yardstick;
+9. the Hv variants' path: ``hv_pack_bench`` checks B1, B9 and B10 on its
    synthetic stream and times them; B9 and B10 must have launched;
-9. entry point: ``python -m one_class_ffm_torch`` on small text datasets,
-   MF with --ns, FFM without, FM with its user field above the cap, and
-   MF with --ns --blocked-bm 0, must exit 0.
+10. entry points: ``python -m one_class_ffm_torch`` on small text
+   datasets, MF with --ns, FFM without, FM with its user field above the
+   cap, and MF with --ns --blocked-bm 0, must exit 0;
+   ``python -m one_class_ffm_torch.predict --scores`` on the FFM run's text
+   model and checkpoint must exit 0 and print the in-process call's lines;
+   MF with --ns under ``--profile-dir`` must exit 0 and leave a trace with
+   CUDA kernel events.
 
 The line before the last is a JSON object with one entry per kernel: its
-launches summed over the eight main paths (B9 and B10: over the bench's
-run), its largest error against the plain version, and its times and bound
-summed over the sides and shapes of phase 3 but the skewed FFM's.  The
-last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
+launches summed over the eight main paths and the serving path (B9 and
+B10: over the bench's run), its largest error against the plain version,
+and its times and bound summed over the sides and shapes of phase 3 but
+the skewed FFM's.  The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the one_class_ffm_torch package beside this file, it exits 1
 and prints no result.  Nothing here imports jax or the JAX
 package.
@@ -1343,10 +1357,18 @@ def reference_phase(device, tag: str, cg_precond: str = "auto") -> None:
 
 
 def profile_epoch(tag: str, trainer, gpu: str) -> None:
-    """One more epoch under torch.profiler: the device's idle share (1 -
-    the union of the kernels' intervals over the window) and the kernels
-    that take the device time (the top eight, then every other kernel of
-    the port's own)."""
+    """One more epoch under torch.profiler (``device_profile``)."""
+    def epoch():
+        trainer.state, _ = trainer.solver.epoch_stats(trainer.state)
+
+    device_profile(f"main {tag}", "profiled epoch", epoch, gpu)
+
+
+def device_profile(label: str, what: str, fn, gpu: str) -> None:
+    """``fn()`` under torch.profiler: the device's idle share (1 - the
+    union of the kernels' intervals over the window) and the kernels that
+    take the device time (the top eight, then every other kernel of the
+    port's own)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1354,14 +1376,14 @@ def profile_epoch(tag: str, trainer, gpu: str) -> None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        trainer.state, _ = trainer.solver.epoch_stats(trainer.state)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = list(prof.events())
     dev = sorted((e.time_range.start, e.time_range.end) for e in events
                  if e.device_type == torch.autograd.DeviceType.CUDA)
     if not dev:
-        print(f"[main {tag}] profiled epoch {wall:.4f} s: no device events "
+        print(f"[{label}] {what} {wall:.4f} s: no device events "
               f"in the trace, idle share not measured [{gpu}]")
         return
     busy, cur_s, cur_e = 0.0, dev[0][0], dev[0][1]
@@ -1374,7 +1396,7 @@ def profile_epoch(tag: str, trainer, gpu: str) -> None:
     busy += cur_e - cur_s
     lo = min(e.time_range.start for e in events)
     hi = max(e.time_range.end for e in events)
-    print(f"[main {tag}] profiled epoch {wall:.4f} s: device busy "
+    print(f"[{label}] {what} {wall:.4f} s: device busy "
           f"{busy / 1e3:.3f} ms of {(hi - lo) / 1e3:.3f} ms, idle share "
           f"{1.0 - busy / (hi - lo):.4f} [{gpu}]")
     rows = sorted(prof.key_averages(),
@@ -1385,7 +1407,7 @@ def profile_epoch(tag: str, trainer, gpu: str) -> None:
         if a.self_device_time_total <= 0:
             break
         if i < 8 or a.key.startswith("void (anonymous namespace)::"):
-            print(f"[main {tag}]   {a.self_device_time_total / 1e3:9.3f} ms "
+            print(f"[{label}]   {a.self_device_time_total / 1e3:9.3f} ms "
                   f"{a.count:6d} calls  {a.key[:90]}")
 
 
@@ -1412,6 +1434,235 @@ def main_path(tag: str, trainer, names, gpu: str, epochs: int = 3):
     profile_epoch(tag, trainer, gpu)
     res["launches"] = launches
     return launches, res
+
+
+def write_feature_rows(path: str, pf, m: int) -> str:
+    """The first ``m`` rows of a side's padded fields as unlabeled text rows
+    (``field:index:value`` in field then slot order, pad slots left out),
+    which ``read_data`` turns back into the same rows."""
+    with open(path, "w") as out:
+        for i in range(m):
+            out.write(" ".join(
+                f"{f}:{idx}:{float(val)!r}"
+                for f in range(pf.f)
+                for idx, val in zip(pf.idx[f][i].tolist(),
+                                    pf.val[f][i].tolist()) if val != 0)
+                + "\n")
+    return path
+
+
+@contextlib.contextmanager
+def plain_projection():
+    """predict's projections through ``project_plain`` (plain torch on the
+    tensors' device) in place of the dispatcher, which launches B8."""
+    from one_class_ffm_torch import predict
+    from one_class_ffm_torch.ops import sparse_ops
+
+    saved = predict.project
+    predict.project = sparse_ops.project_plain
+    try:
+        yield
+    finally:
+        predict.project = saved
+
+
+def serve_split(layout, tables, v_pad, u_pad, popular, device,
+                top_k: int = 10, chunk: int = 2048):
+    """predict_topk_from_model's device work on rows already read, phase by
+    phase, each phase ended by a device sync: (ids, seconds of the
+    projections (items and users), of the scores, of the ranking and the
+    ids' copy to the host)."""
+    import numpy as np
+    import torch
+
+    from one_class_ffm_torch import predict
+
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    v_idx, v_val = [dev(a) for a in v_pad.idx], [dev(a) for a in v_pad.val]
+    u_idx, u_val = [dev(a) for a in u_pad.idx], [dev(a) for a in u_pad.val]
+    cold = dev(u_pad.row_nnz == 0)
+    pop = np.zeros(v_pad.m, np.float32)
+    pop[:min(len(popular), v_pad.m)] = popular[:v_pad.m]
+    pop = dev(pop)
+    cat = v_pad.m_true
+    sync()
+    t0 = time.perf_counter()
+    Q, bt = predict.item_side(layout, tables, v_idx, v_val)
+    slices = [slice(lo, min(lo + chunk, u_pad.m_true))
+              for lo in range(0, u_pad.m_true, chunk)]
+    P = [predict.project_users(layout, tables, [a[sl] for a in u_idx],
+                               [a[sl] for a in u_val]) for sl in slices]
+    sync()
+    t_proj, t_score, t_rank = time.perf_counter() - t0, 0.0, 0.0
+    ids = []
+    for sl, Pc in zip(slices, P):
+        t0 = time.perf_counter()
+        z = torch.where(cold[sl][:, None], pop[None, :],
+                        predict.catalog_scores(layout, Pc, Q, bt))
+        sync()
+        t1 = time.perf_counter()
+        ids.append(predict.rank_topk(z[:, :cat], top_k)[1])
+        sync()
+        t_score += t1 - t0
+        t_rank += time.perf_counter() - t1
+    t0 = time.perf_counter()
+    ids = torch.cat(ids).cpu().numpy()
+    return ids, t_proj, t_score, t_rank + time.perf_counter() - t0
+
+
+def serve_phase(trainer, device, gpu: str, reps: int = 3):
+    """The serving path on a trained model: its text model and checkpoint,
+    its item rows and its test users' feature rows written to files, then
+    ``predict_topk_from_model`` over every test user x the full catalog,
+    top 10, from the checkpoint (B8 must launch: the launch counts are set
+    to 0 just before and read just after), against the same call with the
+    projections on ``project_plain`` (identical ids), against
+    ``Trainer.predict_topk`` (at least 0.99 of the top-10 ids shared; the
+    two differ by the rounding of the carried item caches and near-ties)
+    and from the text model (6 significant digits: printed, not gated);
+    then users/s over the device work, best of ``reps``, split into
+    projection, scoring and ranking.  Returns the launch counts."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from one_class_ffm_torch import predict
+    from one_class_ffm_torch.data.dataset import (
+        pad_fields,
+        read_data,
+        split_fields,
+    )
+    from one_class_ffm_torch.ops import kernels
+    from one_class_ffm_torch.solver.convert import params_from_numpy
+    from one_class_ffm_torch.train import save_text_model
+
+    d, top_k = trainer.data, 10
+    work = os.path.join(WORK, "serve_ffm")
+    os.makedirs(work, exist_ok=True)
+    t0 = time.perf_counter()
+    model = os.path.join(work, "model.txt")
+    save_text_model(model, trainer.params_numpy(), d.layout, trainer.cfg.k)
+    ckpt = os.path.join(work, "ck")
+    trainer.cfg = dataclasses.replace(trainer.cfg, ckpt_dir=ckpt)
+    trainer.save_checkpoint()
+    items = write_feature_rows(os.path.join(work, "items.ffm"), d.v_pad,
+                               d.n_items_true)
+    users = write_feature_rows(os.path.join(work, "users.ffm"), d.uva_pad,
+                               d.uva_pad.m_true)
+    print(f"[serve ffm] text model, checkpoint, {d.n_items_true} item rows "
+          f"and {d.uva_pad.m_true} test users' rows written in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    def call(source, plain=False):
+        lay, k, params = predict.load_any_model(*source)
+        t0 = time.perf_counter()
+        with plain_projection() if plain else contextlib.nullcontext():
+            ids, _ = predict.predict_topk_from_model(
+                lay, k, params, items, users, top_k, popular=d.popular,
+                device=device)
+        return ids, time.perf_counter() - t0
+
+    kernels.reset_launch_counts()
+    ids, secs = call((None, ckpt))
+    launches = kernels.launch_counts()
+    print(f"[serve ffm] predict_topk_from_model (checkpoint): {ids.shape[0]} "
+          f"users x {d.n_items_true} items, top {top_k}, in {secs:.2f} s "
+          f"(reading the files included); kernel launches "
+          f"{ {n: c for n, c in launches.items() if c} } [{gpu}]")
+    check(ids.shape == (d.uva_pad.m_true, top_k),
+          f"serve ffm: ids of shape {ids.shape}")
+    if torch.device(device).type == "cuda":  # (the CPU runs the plain ops)
+        check(launches["project"] > 0, "project (B8) never launched on the "
+                                       "serving path")
+    plain_ids, _ = call((None, ckpt), plain=True)
+    same = bool(np.array_equal(ids, plain_ids))
+    print(f"[serve ffm] ids equal to the project_plain route's: {same}")
+    check(same, "serve ffm: B8's route ranks otherwise than project_plain's")
+    want = trainer.predict_topk(top_k)
+    shared = float(np.mean([len(set(a) & set(b)) / top_k
+                            for a, b in zip(ids.tolist(), want.tolist())]))
+    print(f"[serve ffm] top-{top_k} ids shared with Trainer.predict_topk: "
+          f"{shared:.6f} (same order on {np.mean(np.all(ids == want, 1)):.6f}"
+          f" of the users)")
+    check(shared >= 0.99, f"serve ffm: only {shared:.4f} of the top-{top_k} "
+                          "ids shared with Trainer.predict_topk")
+    text_ids, secs = call((model, None))
+    text_shared = np.mean(text_ids[:, :, None] == ids[:, None, :]) * top_k
+    print(f"[serve ffm] text model route ({secs:.2f} s): top-{top_k} ids "
+          f"equal to the checkpoint's on "
+          f"{np.mean(np.all(text_ids == ids, 1)):.6f} of the users, "
+          f"shared {text_shared:.6f}")
+
+    lay, _, params = predict.load_any_model(None, ckpt)
+    v_fd = split_fields(read_data(items, has_label=False, ds=list(lay.Dv)),
+                        f_override=lay.fv)
+    u_fd = split_fields(read_data(users, has_label=False, ds=list(lay.Du)),
+                        f_override=lay.fu)
+    v_pad, u_pad = pad_fields(v_fd), pad_fields(u_fd)
+    tables = params_from_numpy(params, device)
+    runs = []
+    for _ in range(reps):
+        got, *split = serve_split(lay, tables, v_pad, u_pad, d.popular,
+                                  device, top_k)
+        check(np.array_equal(got, ids), "serve ffm: the timed run's ids "
+                                        "differ from predict's")
+        runs.append(split)
+    for i, (proj, sc, rank) in enumerate(runs):
+        total = proj + sc + rank
+        print(f"[serve ffm] run {i + 1}: {u_pad.m_true / total:.1f} users/s "
+              f"({total:.4f} s: projection {proj:.4f}, scoring {sc:.4f}, "
+              f"ranking {rank:.4f} s) [{gpu}]")
+    best = min(runs, key=sum)
+    print(f"[serve ffm] best of {reps}: {u_pad.m_true / sum(best):.1f} "
+          f"users/s, {u_pad.m_true * v_pad.m_true / sum(best):.1f} pair "
+          f"scores/s; ranking share {best[2] / sum(best):.4f} [{gpu}]")
+    if torch.device(device).type == "cuda":
+        device_profile("serve ffm", "profiled predict_topk_from_model",
+                       lambda: call((None, ckpt)), gpu)
+    return launches
+
+
+def entry_phase(device, gpu: str):
+    """The scoring entry point on ``device``: its step on its example
+    arguments gives finite (64, 32) scores, equal to the same step with
+    the projections on ``project_plain``.  Returns the launch counts."""
+    import torch
+
+    from one_class_ffm_torch.entry import entry
+    from one_class_ffm_torch.ops import kernels
+
+    fn, args = entry(device)
+    kernels.reset_launch_counts()
+    z = fn(*args)
+    launches = kernels.launch_counts()
+    with plain_projection():
+        same = bool(torch.equal(z, fn(*args)))
+    print(f"[entry] scores {tuple(z.shape)} on {z.device}, finite "
+          f"{bool(torch.isfinite(z).all())}, equal to the project_plain "
+          f"step's {same}; kernel launches "
+          f"{ {n: c for n, c in launches.items() if c} } [{gpu}]")
+    check(tuple(z.shape) == (64, 32) and bool(torch.isfinite(z).all())
+          and same, "entry: wrong scores")
+    return launches
+
+
+def serve_bench_phase(device, gpu: str) -> None:
+    """serve_bench at its defaults, in process: its JSON line and the
+    torch.topk yardstick's."""
+    from one_class_ffm_torch import serve_bench
+
+    rec, lib, ids = serve_bench.run(device, **serve_bench.knobs())
+    print(f"[serve bench] {json.dumps(rec)}")
+    print(f"[serve bench] library yardstick {json.dumps(lib)}")
+    check(rec["value"] > 0 and ids is not None and int(ids.max()) <
+          rec["catalog"], "serve bench: no ranking")
 
 
 def write_fm_dataset(work: str, spec):
@@ -1446,15 +1697,18 @@ def write_fm_dataset(work: str, spec):
     _write_rows(os.path.join(work, "va.ffm"), va_rows, True)
 
 
-def cli_phase() -> None:
+def cli_phase(device) -> None:
     """The command line on small text datasets: MF --ns, FFM, FM whose
     user field (5,050 features) is above the fused-table cap, and MF --ns
-    with --blocked-bm 0 (both sides COO)."""
+    with --blocked-bm 0 (both sides COO); then the predictor's command line
+    on the FFM run's model, and MF --ns again under --profile-dir."""
     from one_class_ffm_torch.data.synth import SynthSpec, write_dataset
 
     env = dict(os.environ)
     env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
-    for tag, flags in (("mf", ["--ns"]), ("ffm", []), ("fm", []),
+    for tag, flags in (("mf", ["--ns"]),
+                       ("ffm", ["-o", "model.txt", "--ckpt", "ck"]),
+                       ("fm", []),
                        ("mf-coo", ["--ns", "--blocked-bm", "0"])):
         work = os.path.join(WORK, "cli_" + tag)
         os.makedirs(work, exist_ok=True)
@@ -1478,6 +1732,73 @@ def cli_phase() -> None:
         rows = [ln for ln in proc.stdout.splitlines()
                 if ln.startswith("iter") or ln.startswith(" ")]
         check(len(rows) == 3, f"{tag} CLI printed no header + 2 rows")
+    cli_predict(os.path.join(WORK, "cli_ffm"), env, device)
+    cli_profile(os.path.join(WORK, "cli_mf"), env)
+
+
+def cli_predict(work: str, env, device) -> None:
+    """``python -m one_class_ffm_torch.predict`` with --scores on the test
+    users of the FFM run (labeled rows, the popularity prior from its
+    training file), from the text model and from the checkpoint: each must
+    exit 0 and print the lines of the same call in this process."""
+    from one_class_ffm_torch import predict
+    from one_class_ffm_torch.data.dataset import read_data
+
+    popular = read_data(os.path.join(work, "train.ffm"),
+                        has_label=True).popular
+    for source, args in (("text model", ["model.txt"]),
+                         ("checkpoint", ["--ckpt", "ck"])):
+        cmd = [sys.executable, "-m", "one_class_ffm_torch.predict", *args,
+               "items.ffm", "va.ffm", "-k", "5", "--scores", "--labeled",
+               "--popular-from", "train.ffm"]
+        proc = subprocess.run(cmd, cwd=work, env=env, capture_output=True,
+                              text=True, timeout=600)
+        check(proc.returncode == 0,
+              f"predict CLI ({source}) exited {proc.returncode}: "
+              f"{proc.stderr[-2000:]}")
+        paths = [os.path.join(work, a) for a in args if a != "--ckpt"]
+        lay, k, params = predict.load_any_model(
+            *((paths[0], None) if source == "text model"
+              else (None, paths[0])))
+        ids, scores = predict.predict_topk_from_model(
+            lay, k, params, os.path.join(work, "items.ffm"),
+            os.path.join(work, "va.ffm"), 5, popular=popular,
+            with_scores=True, labeled=True, device=device)
+        want = [",".join(f"{int(j)}:{scores[i][t]:.6g}"
+                         for t, j in enumerate(row))
+                for i, row in enumerate(ids)]
+        got = proc.stdout.splitlines()
+        print(f"[cli predict] {source}: exit 0, {len(got)} lines, first "
+              f"{got[0] if got else None!r}; equal to the in-process "
+              f"call's: {got == want}")
+        check(got == want, f"predict CLI ({source}) printed other lines "
+                           "than the in-process call")
+
+
+def cli_profile(work: str, env) -> None:
+    """``python -m one_class_ffm_torch --profile-dir`` on the small MF set:
+    exit 0 and a Chrome trace under the directory holding CUDA kernel
+    events."""
+    import glob
+
+    trace_dir = os.path.join(work, "trace")
+    cmd = [sys.executable, "-m", "one_class_ffm_torch", "items.ffm",
+           "train.ffm", "-p", "va.ffm", "--ns", "-k", "8", "-t", "2",
+           "--eval-every", "2", "--profile-dir", trace_dir]
+    proc = subprocess.run(cmd, cwd=work, env=env, capture_output=True,
+                          text=True, timeout=600)
+    check(proc.returncode == 0, f"--profile-dir CLI exited "
+                                f"{proc.returncode}: {proc.stderr[-2000:]}")
+    files = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+    check(len(files) == 1, f"--profile-dir: trace files {files}")
+    with open(files[0]) as fh:
+        events = json.load(fh)["traceEvents"]
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    names = sorted({e["name"] for e in kern})
+    print(f"[cli profile] exit 0, {os.path.basename(files[0])}: "
+          f"{len(events)} events, {len(kern)} CUDA kernel events of "
+          f"{len(names)} kernels, e.g. {[n[:60] for n in names[:3]]}")
+    check(kern, "--profile-dir: no CUDA kernel event in the trace")
 
 
 def main() -> int:
@@ -1508,13 +1829,27 @@ def main() -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
 
-        # 2. build
+        # 2. build; beside the kernels the native text parser and model
+        # reader (native/parser.cpp), with which the serving phase writes
+        # and reads a full-width text model
         from one_class_ffm_torch.ops import kernels
         from one_class_ffm_torch.ops.layout import feature_major
 
-        kernels.load()
+        native = subprocess.Popen(["make", "-C",
+                                   os.path.join(ROOT, "native")],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+        try:
+            kernels.load()
+            made = native.communicate(timeout=600)[0]
+        finally:
+            if native.poll() is None:
+                native.kill()
+                native.wait()
+        check(native.returncode == 0, f"make -C native: {made[-2000:]}")
         print(f"[build] {kernels.library_path().name} in "
-              f"{kernels.build_seconds:.2f} s")
+              f"{kernels.build_seconds:.2f} s; native/libocffm.so (make "
+              f"exit 0)")
         regs = kernel_registers(str(kernels.library_path()))
         for (kname, dt_name, diag, targs), (n, shared, stack) in sorted(
                 (regs or {}).items()):
@@ -1666,7 +2001,14 @@ def main() -> int:
                       f"{jac['seconds'][i]:.4f} s) vs plain CG {ip} (sum "
                       f"{sum(ip)}, {plain['seconds'][i]:.4f} s) [{gpu}]")
 
-        # 8. the Hv variants' path: the comparison of hv_pack_bench
+        # 8. the serving path on the headline FFM the main path trained
+        for got in (serve_phase(ffm_trainer, device, gpu),
+                    entry_phase(device, gpu)):
+            for name in REPLACES:
+                launches[name] += got[name]
+        serve_bench_phase(device, gpu)
+
+        # 9. the Hv variants' path: the comparison of hv_pack_bench
         from one_class_ffm_torch import hv_pack_bench
 
         kernels.reset_launch_counts()
@@ -1679,8 +2021,8 @@ def main() -> int:
             check(got[name] > 0, f"{name} never launched in hv_pack_bench")
             launches[name] += got[name]
 
-        # 9. the command-line entry point
-        cli_phase()
+        # 10. the command-line entry points
+        cli_phase(device)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

@@ -8,7 +8,8 @@ one-class MF, FM and FFM end to end on one device, with or without self
 blocks, on identity id fields and on feature fields of any width: the
 stream, table and projection passes of each solve are hand-written CUDA
 kernels for Hopper (``csrc/``), with plain PyTorch versions beside them
-for the CPU.
+for the CPU.  It serves a saved model (``predict``: every projection on
+the projection kernel, a tie-exact full-catalog top-K).
 
 Layout:
   data/     text reader, padded views, synthetic data (copies)
@@ -19,8 +20,13 @@ Layout:
   solver/   Gauss-Newton/CG block solver, parameter conversion,
             hyperparameters and the fp64 oracle (copies)
   evalx/    full-catalog ranking evaluation, numpy metrics (copy)
-  utils/    phase timer (copy)
+  utils/    phase timer (copy), torch.profiler traces, device choice
   train.py  trainer;  cli.py  command line
+  predict.py      scorer / top-K predictor of a saved model (serving)
+  serve_bench.py  serving throughput: full-catalog scoring + top-K
+  entry.py        the scoring step with example arguments
+  sweep.py, logtools.py  sweep runner and log tools (copies)
+  parity.py       metric parity against the C++ reference binary
 """
 
 __version__ = "0.1.0"

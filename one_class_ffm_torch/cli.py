@@ -72,7 +72,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="device to train on: cuda (default; an error when "
                         "no GPU is available) or cpu")
     p.add_argument("--profile-dir", default=None,
-                   help="write a jax.profiler trace here (TensorBoard format)")
+                   help="write a torch.profiler trace here (Chrome trace, "
+                        "TensorBoard format)")
     p.add_argument("--timing", action="store_true",
                    help="print per-phase timing summary at the end")
     p.add_argument("--init-model", default=None,

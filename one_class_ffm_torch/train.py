@@ -40,7 +40,7 @@ from .solver.convert import params_from_numpy, params_to_numpy
 from .solver.params import HyperParams
 from .solver.torch_solver import FFMSolver, make_device_data
 from .utils.device import resolve_device
-from .utils.profiling import PhaseTimer
+from .utils.profiling import PhaseTimer, trace_profile
 
 TOP_KS = (5, 10, 20, 40, 80)
 
@@ -75,7 +75,7 @@ class TrainConfig:
     row_multiple: int = 8  # pad rows for TPU tiling / even sharding
     jsonl_path: Optional[str] = None
     resume: bool = False
-    profile_dir: Optional[str] = None  # jax.profiler trace output
+    profile_dir: Optional[str] = None  # torch.profiler trace output
     timing: bool = False  # print per-phase timing at the end
     ckpt_format: str = "npz"  # "npz" (single-host) | "orbax" (sharded-native)
     init_model: Optional[str] = None  # warm-start from a text model file
@@ -255,8 +255,6 @@ class Trainer:
             raise NotImplementedError(
                 f"--ckpt-format {cfg.ckpt_format} (JAX-only): the port "
                 "writes npz checkpoints")
-        if cfg.profile_dir:
-            raise NotImplementedError("--profile-dir (traces): ROADMAP A12")
         self.device = resolve_device(device)
         if cfg.blocked_bm > 0:
             # user and item rows must divide the block size
@@ -377,30 +375,33 @@ class Trainer:
             self.init_state()
         self._print_header(log)
         metrics: Dict[str, float] = {}
-        while self.epoch_idx < cfg.nr_pass:
-            self._sync()
-            t0 = time.perf_counter()
-            with self.timer.phase("epoch"):
-                self.state, iters = self.solver.epoch_stats(self.state)
+        with trace_profile(cfg.profile_dir, self.device):
+            while self.epoch_idx < cfg.nr_pass:
                 self._sync()
-            self.epoch_idx += 1
-            t_epoch = time.perf_counter() - t0
-            self.history.append(dict(epoch=self.epoch_idx, seconds=t_epoch,
-                                     cg_iters=iters.tolist()))
-            if self.refresh_every and self.epoch_idx % self.refresh_every == 0:
-                with self.timer.phase("refresh"):
-                    self.state = self.solver.refresh_caches(
-                        {"params": self.state["params"]})
-            if (self.evaluator is not None
-                    and self.epoch_idx % cfg.eval_every == 0):
-                with self.timer.phase("validate"):
-                    metrics = self.validate()
-                self._check_finite(metrics)
-                log(self._format_row(self.epoch_idx, metrics))
-                self._write_jsonl(self.epoch_idx, metrics, t_epoch)
-            if cfg.ckpt_dir and self.epoch_idx % cfg.eval_every == 0:
-                with self.timer.phase("checkpoint"):
-                    self.save_checkpoint()
+                t0 = time.perf_counter()
+                with self.timer.phase("epoch"):
+                    self.state, iters = self.solver.epoch_stats(self.state)
+                    self._sync()
+                self.epoch_idx += 1
+                t_epoch = time.perf_counter() - t0
+                self.history.append(dict(epoch=self.epoch_idx,
+                                         seconds=t_epoch,
+                                         cg_iters=iters.tolist()))
+                if (self.refresh_every
+                        and self.epoch_idx % self.refresh_every == 0):
+                    with self.timer.phase("refresh"):
+                        self.state = self.solver.refresh_caches(
+                            {"params": self.state["params"]})
+                if (self.evaluator is not None
+                        and self.epoch_idx % cfg.eval_every == 0):
+                    with self.timer.phase("validate"):
+                        metrics = self.validate()
+                    self._check_finite(metrics)
+                    log(self._format_row(self.epoch_idx, metrics))
+                    self._write_jsonl(self.epoch_idx, metrics, t_epoch)
+                if cfg.ckpt_dir and self.epoch_idx % cfg.eval_every == 0:
+                    with self.timer.phase("checkpoint"):
+                        self.save_checkpoint()
         if cfg.model_path:
             save_text_model(cfg.model_path, self.params_numpy(),
                             self.data.layout, cfg.k)

@@ -1,9 +1,9 @@
-"""Per-phase wall timers.
+"""Per-phase wall timers and device traces.
 
 ``PhaseTimer`` is a copy of the one in ``one_class_ffm_tpu/utils/profiling.py``
 (the port imports nothing of the JAX package); ``tests/test_torch_copies.py``
-holds the two equal.  Device traces (the JAX package's ``trace_profile``) are
-ROADMAP A12.
+holds the two equal.  ``trace_profile`` is the counterpart of the JAX
+package's context manager of the same name, on ``torch.profiler``.
 """
 
 from __future__ import annotations
@@ -11,7 +11,7 @@ from __future__ import annotations
 import contextlib
 import time
 from collections import defaultdict
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 
 class PhaseTimer:
@@ -50,3 +50,28 @@ class PhaseTimer:
             avg = s["seconds"] / max(s["calls"], 1)
             echo(f"[timing] {name:>16}: {s['seconds']:8.3f}s total, "
                  f"{int(s['calls'])} calls, {avg:8.4f}s avg")
+
+
+@contextlib.contextmanager
+def trace_profile(log_dir: Optional[str], device="cpu") -> Iterator[None]:
+    """torch.profiler trace around a block (no-op when log_dir is falsy),
+    written under ``log_dir`` as a Chrome trace
+    (``<host>_<pid>.<time>.pt.trace.json``, TensorBoard's and Perfetto's
+    format): host operators always, the card's kernels too when ``device``
+    is a CUDA device."""
+    if not log_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import (
+        ProfilerActivity,
+        profile,
+        tensorboard_trace_handler,
+    )
+
+    activities = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(log_dir)):
+        yield

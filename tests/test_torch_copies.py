@@ -36,7 +36,7 @@ from one_class_ffm_torch.utils import profiling as torch_profiling
 
 COPIED_MODULES = ("data", "data.dataset", "data.io", "data.native_io",
                   "data.synth", "models.blocks", "solver.params",
-                  "solver.oracle", "evalx.numpy_metrics")
+                  "solver.oracle", "evalx.numpy_metrics", "logtools")
 
 
 def _tree(path: str) -> ast.Module:
@@ -74,6 +74,18 @@ def test_copied_module_has_the_original_syntax_tree(name):
     copy = importlib.import_module(f"one_class_ffm_torch.{name}")
     assert _body_dump(_tree(copy.__file__)) == _body_dump(
         _tree(orig.__file__))
+
+
+def test_sweep_has_the_original_syntax_tree_but_the_module_it_runs():
+    """The port's sweep runner is the JAX package's, its jobs running
+    ``python -m one_class_ffm_torch`` (the one string constant swapped)."""
+    from one_class_ffm_torch import sweep as torch_sweep
+    from one_class_ffm_tpu import sweep as jax_sweep
+
+    copy = _body_dump(_tree(torch_sweep.__file__))
+    assert copy.count("'one_class_ffm_torch'") == 1
+    assert copy.replace("'one_class_ffm_torch'", "'one_class_ffm_tpu'") == (
+        _body_dump(_tree(jax_sweep.__file__)))
 
 
 # (module, names) of the definitions the port copied into train.py, cli.py
@@ -188,10 +200,15 @@ def _options(parser):
 
 
 def test_parser_options_match_but_the_platform():
+    """The same options; ``--platform`` takes cuda or cpu, and
+    ``--profile-dir``'s help names the port's profiler."""
     got, ref = _options(torch_cli.build_parser()), _options(
         jax_cli.build_parser())
     assert got.pop("platform")[3] == ["cuda", "cpu"]
     ref.pop("platform")
+    *got_trace, help_ = got.pop("profile_dir")
+    assert "torch.profiler" in help_ and "jax" not in help_
+    assert got_trace == list(ref.pop("profile_dir")[:-1])
     assert got == ref
     argv = ["items", "train", "-p", "va", "-k", "8", "-t", "3", "-l", "0.2",
             "-w", "0.05", "-r", "-0.5", "--ns", "--freq", "--seed", "4",

@@ -1187,3 +1187,68 @@ def test_coo_solver_on_the_card_matches_the_cpu(device, cg_precond,
     re = gpu.refresh_caches({"params": g1["params"]})
     for key in ("yt_u", "yt_v"):
         assert _max_rel(g1[key].cpu(), re[key].cpu()) <= 1e-4, key
+
+
+def test_predict_on_the_card_matches_the_cpu(device, tmp_path):
+    """The predictor on the card (B8 for every projection) against the
+    same call on the CPU, on a small FFM model with self blocks and cold
+    user rows: the same ids, scores within 1e-5 max-rel."""
+    from one_class_ffm_torch import predict
+    from one_class_ffm_torch.data.synth import SynthSpec, write_dataset
+    from one_class_ffm_torch.train import TrainConfig, Trainer
+
+    item, train, va = write_dataset(
+        str(tmp_path), SynthSpec(n_users=300, n_items=60, avg_pos=10.0,
+                                 seed=4))
+    model = str(tmp_path / "model.txt")
+    Trainer(TrainConfig(item_path=item, train_path=train, k=8, nr_pass=2,
+                        model_path=model), device="cpu").run(
+        log=lambda *_: None)
+    users = tmp_path / "users.txt"
+    with open(va) as fh:
+        rows = [ln.split(None, 1)[1] for ln in fh if " " in ln.strip()]
+    users.write_text("".join(rows) + "0:999999:1\n\n")
+    lay, k, params = predict.load_any_model(model, None)
+    popular = predict.read_data(train, has_label=True).popular
+    out = {}
+    for dev in ("cpu", device):
+        kernels.reset_launch_counts()
+        out[str(dev)] = predict.predict_topk_from_model(
+            lay, k, params, item, str(users), 10, popular=popular,
+            with_scores=True, chunk=128, device=dev)
+        launched = kernels.launch_counts()["project"]
+        assert (launched > 0) == (str(dev) != "cpu")
+    (ids_c, s_c), (ids_g, s_g) = out["cpu"], out[str(device)]
+    assert ids_g.shape == (len(rows) + 2, 10)
+    assert np.abs(s_g - s_c).max() <= 1e-5 * np.abs(s_c).max()
+    np.testing.assert_array_equal(ids_g, ids_c)
+
+
+def test_serve_bench_at_tiny_sizes(device, monkeypatch, capsys):
+    """serve_bench through its knobs: its JSON lines, and its ids equal to
+    a stable sort on the CPU of the same bfloat16 scores (ties to the
+    lowest id)."""
+    import json
+
+    from one_class_ffm_torch import serve_bench
+
+    for key, val in dict(SB_USERS=1000, SB_ITEMS=700, SB_K=8, SB_CHUNK=256,
+                         SB_TOPK=10, SB_REPS=2).items():
+        monkeypatch.setenv(key, str(val))
+    assert serve_bench.main([]) == 0
+    lib, rec = [json.loads(ln) for ln in
+                capsys.readouterr().out.strip().splitlines()[-2:]]
+    assert rec["metric"] == "serving_users_per_sec" and rec["value"] > 0
+    assert rec["catalog"] == 700 and len(rec["segments_users_per_sec"]) == 2
+    assert "bfloat16" in rec["backend"] and rec["device"]
+    assert lib["users_per_sec"] > 0
+    P1, P2, Q1, Q2, bt = serve_bench.tables(1000, 700, 8, device,
+                                            torch.bfloat16)
+    ids = serve_bench.score_all(P1, P2, Q1, Q2, bt, 256, 10)
+    assert ids.shape == (768, 10)
+    z = (P1[:768] @ Q1.T + P2[:768] @ Q2.T + bt[None, :]).cpu()
+    want = torch.sort(z.float(), dim=1, descending=True,
+                      stable=True).indices[:, :10]
+    srt = z.sort(dim=1).values
+    assert (srt[:, 1:] == srt[:, :-1]).any()  # bfloat16 scores tie
+    assert torch.equal(ids.cpu(), want)

@@ -89,6 +89,21 @@ def test_cli_ffm_rows_match_jax(ffm_set, tmp_path, capsys):
             assert a[key] == pytest.approx(b[key], rel=1e-9)
 
 
+def test_cli_ffm_freq_rows_match_jax(ffm_set, tmp_path, capsys):
+    """FFM with --freq (frequency-weighted lambda, the ffm-freq variant of
+    the parity harness): the same header, log rows and top-K ids as the JAX
+    CLI from the same model."""
+    ref_out, ref_js = _run(jax_cli.main, ffm_set, tmp_path, capsys, "jax",
+                           extra=("--freq",))
+    got_out, got_js = _run(torch_cli.main, ffm_set, tmp_path, capsys,
+                           "torch", extra=("--freq",))
+    assert got_out == ref_out
+    assert len(got_out.splitlines()) > 3
+    for a, b in zip(got_js, ref_js):
+        for key in ("p@5", "ndcg@10", "ploss", "auc"):
+            assert a[key] == pytest.approx(b[key], rel=1e-9)
+
+
 @pytest.fixture(scope="module")
 def fm_set(tmp_path_factory):
     """FM text files (one field per side: the id and the feature columns,
@@ -180,13 +195,13 @@ def test_cli_coo_rows_match_jax(mf_set, ffm_set, tmp_path, capsys, tag,
     assert "coo_u" in trainer.solver.data and "coo_v" in trainer.solver.data
 
 
-# models without --ns, --cg-precond jacobi (test_torch_jacobi.py) and
-# --blocked-bm 0 (test_cli_coo_rows_match_jax) run now
+# models without --ns, --cg-precond jacobi (test_torch_jacobi.py),
+# --blocked-bm 0 (test_cli_coo_rows_match_jax) and --profile-dir
+# (test_cli_profile_dir_writes_a_trace) run now
 @pytest.mark.parametrize("argv, message", [
     (["--ns", "--mesh", "2"], "--mesh"),
     (["--ns", "--distributed"], "--distributed"),
     (["--ns", "--ckpt-format", "orbax"], "orbax"),
-    (["--ns", "--profile-dir", "trace"], "--profile-dir"),
 ])
 def test_cli_refuses_what_the_port_lacks(mf_set, capsys, argv, message):
     item, train, _, _ = mf_set
@@ -195,6 +210,39 @@ def test_cli_refuses_what_the_port_lacks(mf_set, capsys, argv, message):
     err = capsys.readouterr().err
     assert message in err
     assert "ROADMAP" in err or "JAX-only" in err
+
+
+def test_cli_profile_dir_writes_a_trace(mf_set, tmp_path, capsys):
+    """--profile-dir traces the epochs with torch.profiler (host operators
+    on the CPU) into a Chrome trace, and trains as without it."""
+    import glob
+
+    item, train, va, model = mf_set
+    argv = [item, train, "-p", va, "--ns", "-k", "4", "-t", "2",
+            "--eval-every", "2", "--platform", "cpu", "--dtype", "float64",
+            "--init-model", model, "--eval-chunk", "16"]
+    trace_dir = tmp_path / "trace"
+    assert torch_cli.main(argv + ["--profile-dir", str(trace_dir)]) == 0
+    traced = capsys.readouterr().out
+    assert torch_cli.main(argv) == 0
+    assert traced == capsys.readouterr().out
+    files = glob.glob(str(trace_dir / "*.pt.trace.json"))
+    assert len(files) == 1
+    with open(files[0]) as fh:
+        events = json.load(fh)["traceEvents"]
+    names = {e.get("name") for e in events}
+    assert any(str(n).startswith("aten::") for n in names)
+
+
+def test_trace_profile_is_a_no_op_without_a_directory(tmp_path,
+                                                      monkeypatch):
+    from one_class_ffm_torch.utils.profiling import trace_profile
+
+    monkeypatch.chdir(tmp_path)
+    for log_dir in (None, ""):
+        with trace_profile(log_dir, "cpu"):
+            torch.ones(3).sum()
+    assert list(tmp_path.iterdir()) == []
 
 
 def test_cli_refuses_a_missing_gpu(mf_set, capsys):

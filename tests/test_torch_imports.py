@@ -213,6 +213,38 @@ def test_chip_smoke_fm_rehearsal_on_cpu(tmp_path):
     assert loaded.u_pad.Ds == (90 + 50,) and loaded.v_pad.Ds == (30 + 30,)
 
 
+def test_chip_smoke_serve_rehearsal_on_cpu(tmp_path, monkeypatch, capsys):
+    """The smoke script's serving phase (files written from the padded
+    rows, predict from the checkpoint, the project_plain route, the
+    comparison with Trainer.predict_topk, the text model route and the
+    timed split) on a toy FFM on the CPU, serve_bench through its knobs
+    and the scoring entry point."""
+    sys.path.insert(0, ROOT)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(ROOT)
+    monkeypatch.setattr(chip_smoke, "WORK", str(tmp_path))
+    data = chip_smoke.build_data(600, 120, 5.0, seed=1, dims_u=(600, 30),
+                                 dims_v=(120, 20), self_side=True)
+    trainer = chip_smoke.make_trainer(data, "cpu", k=4)
+    chip_smoke.train_and_validate(trainer, epochs=3)
+    chip_smoke.serve_phase(trainer, "cpu", "cpu", reps=2)
+    out = capsys.readouterr().out
+    assert "ids equal to the project_plain route's: True" in out
+    assert out.count("users/s (") == 2 and "best of 2" in out
+    items = (tmp_path / "serve_ffm" / "items.ffm").read_text().splitlines()
+    assert len(items) == 120 and items[0].startswith("0:0:1.0 1:")
+    for key, val in dict(SB_USERS=300, SB_ITEMS=50, SB_K=4, SB_CHUNK=64,
+                         SB_REPS=1).items():
+        monkeypatch.setenv(key, str(val))
+    chip_smoke.serve_bench_phase(torch.device("cpu"), "cpu")
+    chip_smoke.entry_phase("cpu", "cpu")
+    out = capsys.readouterr().out
+    assert '"metric": "serving_users_per_sec"' in out
+    assert "[entry] scores (64, 32) on cpu, finite True" in out
+
+
 def ops_mod():
     from one_class_ffm_torch.ops import sparse_ops
 
