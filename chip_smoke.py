@@ -83,7 +83,20 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
    at its defaults with its ``torch.topk`` yardstick;
 9. the Hv variants' path: ``hv_pack_bench`` checks B1, B9 and B10 on its
    synthetic stream and times them; B9 and B10 must have launched;
-10. entry points: ``python -m one_class_ffm_torch`` on small text
+10. the data mesh (``[mesh ffm]``): the headline FFM at full width on a
+   2-rank data mesh (``torch.distributed``, gloo: both ranks share the
+   one card, each in its own spawned process; NCCL would need a card per
+   rank): each rank's half-solves of four block kinds from the
+   single-process state after one epoch against the single-process path
+   (gradient and Hv within 1e-5 of the largest value, the step within
+   1e-4), 3 epochs from the seed's tables through the Trainer (objective
+   within 1e-3 of the single-process run's, CG counts printed beside it,
+   epoch seconds not a scaling number), validation sharded by users and
+   by items, the item-sharded top 10 equal to the top 10 of the ranks'
+   gathered scores, the collective census of each epoch (inside CG one
+   all-reduce per Hv, never an all-gather) and B1-B8 launched on each
+   rank;
+11. entry points: ``python -m one_class_ffm_torch`` on small text
    datasets, MF with --ns, FFM without, FM with its user field above the
    cap, and MF with --ns --blocked-bm 0, must exit 0;
    ``python -m one_class_ffm_torch.predict --scores`` on the FFM run's text
@@ -92,8 +105,9 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
    CUDA kernel events.
 
 The line before the last is a JSON object with one entry per kernel: its
-launches summed over the eight main paths and the serving path (B9 and
-B10: over the bench's run), its largest error against the plain version,
+launches summed over the eight main paths, the serving path and the mesh
+path's ranks (B9 and B10: over the bench's run), its largest error against
+the plain version,
 and its times and bound summed over the sides and shapes of phase 3 but
 the skewed FFM's.  The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the one_class_ffm_torch package beside this file, it exits 1
@@ -181,6 +195,13 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
+def _sync(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 # ---------------------------------------------------------------------------
 # data: synthetic MF / FFM / FM with a held-out validation split, in memory
 # ---------------------------------------------------------------------------
@@ -207,7 +228,7 @@ def build_data(n_users: int, n_items: int, avg_pos: float, seed: int,
                dims_u=None, dims_v=None, self_side: bool = False,
                fm: bool = False, row_multiple: int = 256,
                va_frac: float = 0.2, pop_skew: float = 0.0,
-               power: int = 0):
+               power: int = 0, shards: int = 1):
     """LoadedData from ``generate_vectorized``: one identity id field per
     side (MF) unless ``dims_u``/``dims_v`` name more fields, flattened into
     one field per side when ``fm``, with a fraction of each user's
@@ -218,7 +239,8 @@ def build_data(n_users: int, n_items: int, avg_pos: float, seed: int,
     draws with BENCH_SKEW; ``generate_vectorized`` ignores pop_skew).
     ``power`` > 0: the first ``power`` items are training positives of
     every user and the first ``power`` users like every item (power rows
-    on both sides)."""
+    on both sides).  ``shards`` > 1: the stream shard-aligned for a data
+    mesh of that many ranks (``pad_labels(shard_rows=)``)."""
     import numpy as np
 
     from one_class_ffm_torch.data.dataset import (
@@ -273,7 +295,8 @@ def build_data(n_users: int, n_items: int, avg_pos: float, seed: int,
     y_pad = pad_labels(Interactions(m=n_users, n=n_items, indptr=indptr,
                                     col=vt),
                        u_pad.m, v_pad.m, nnz_multiple=row_multiple * 8,
-                       dtype=np.float32)
+                       dtype=np.float32,
+                       shard_rows=u_pad.m // shards if shards > 1 else 0)
     popular = np.bincount(vt, minlength=n_items).astype(np.float64)
     popular /= popular.sum()
 
@@ -305,14 +328,14 @@ def build_data(n_users: int, n_items: int, avg_pos: float, seed: int,
 
 def make_trainer(data, device, k: int = 32, dtype: str = "float32",
                  epochs: int = 3, cg_precond: str = "auto",
-                 blocked_bm: int = 256, head_chunk: int = 512):
+                 blocked_bm: int = 256, head_chunk: int = 512, **cfg_kw):
     from one_class_ffm_torch.train import TrainConfig, Trainer
 
     cfg = TrainConfig(item_path="<memory>", train_path="<memory>", k=k,
                       lam=0.05, omega=0.1, r=-1.0, nr_pass=epochs,
                       self_side=data.layout.self_side, dtype=dtype,
                       eval_every=epochs, seed=0, cg_precond=cg_precond,
-                      blocked_bm=blocked_bm)
+                      blocked_bm=blocked_bm, **cfg_kw)
     return Trainer(cfg, data=data, device=device, head_chunk=head_chunk)
 
 
@@ -748,7 +771,7 @@ def compare(name: str, side: str, dt_name: str, args, kw, report, gpu: str,
     pkw = {key: a for key, a in kw.items() if key != "runs"}
     got, got2 = kern(*args, **kw), kern(*args, **kw)
     ref = plain(*args, **pkw)
-    torch.cuda.synchronize()
+    _sync(ref.device if isinstance(ref, torch.Tensor) else ref[0].device)
     pairs = list(zip(_outputs(got), _outputs(got2), _outputs(ref)))
     check(len(pairs) == len(_outputs(ref)),
           f"{name} {side} {dt_name}: {len(_outputs(got))} outputs, plain "
@@ -904,10 +927,12 @@ def _cast(a, dt):
     return a
 
 
-def kernel_phase(trainer, cases, tag: str, gpu: str, report) -> None:
+def kernel_phase(trainer, cases, tag: str, gpu: str, report,
+                 timed: bool = True) -> None:
     """Each kernel vs its plain version on the arguments the solver gives
     it in one real half-solve (its first call there), from a fresh init.
-    ``cases``: (kernel names, block, first side?, side label)."""
+    ``cases``: (kernel names, block, first side?, side label); ``timed``:
+    also time each kernel at float32 (``compare``)."""
     import torch
 
     solver = trainer.solver
@@ -952,7 +977,7 @@ def kernel_phase(trainer, cases, tag: str, gpu: str, report) -> None:
                 args = [_cast(a, dt) for a in args]
                 kw = {key: _cast(a, dt) for key, a in kw.items()}
                 compare(name, f"{tag} {side}", dt_name, args, kw, report,
-                        gpu)
+                        gpu, timed=timed)
                 if name == "scatter":  # the same list through X^2 (Jacobi)
                     compare(name, f"{tag} {side} X^2", dt_name,
                             [*args[:2], True], kw, report, gpu, timed=False)
@@ -1024,6 +1049,18 @@ def skew_cases(trainer):
             (cross + WIDE, blocks[(1, fu + 1)], False, "v"),
             (self_, blocks[(1, 1)], True, "u"),
             (self_, blocks[(fu + 1, fu + 1)], True, "v")]
+
+
+def mesh_cases(trainer):
+    """The headline FFM's solves on a data mesh rank, over the rank's own
+    rows, blocks and feature-major lists: the id fields' cross block on
+    both sides (B1-B3 on the rank's stream slice, local ``src``) and
+    ``ffm_cases`` (B4-B8 and the X^T stage)."""
+    lay = trainer.solver.meta.layout
+    blocks = {(b.f1, b.f2): b for b in lay.all_blocks()}
+    b = blocks[(0, lay.fu)]
+    return [(BLOCKED, b, True, "u"), (BLOCKED, b, False, "v"),
+            *ffm_cases(trainer)]
 
 
 def coo_sides(solver) -> str:
@@ -1801,6 +1838,319 @@ def cli_profile(work: str, env) -> None:
     check(kern, "--profile-dir: no CUDA kernel event in the trace")
 
 
+# ---------------------------------------------------------------------------
+# the data mesh: 2 ranks sharing the card over gloo
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 2
+MESH_ROWS = 512  # row multiple: blocked_bm 256 x 2 ranks, both sides
+MESH_TOL = 1e-5  # max|delta| / max|ref|, float32: gradient and Hv
+MESH_STEP_TOL = 1e-4  # the step: up to 20 CG iterations on those
+MESH_OBJ_TOL = 1e-3  # relative, the objective after each epoch
+MESH_CHECK_USERS = 4096  # users whose gathered scores re-rank the top-K
+# the problem of the mesh path: the headline FFM (``mesh_phase`` takes
+# another, e.g. a toy size on the CPU)
+MESH_SPEC = dict(n_users=N_USERS, n_items=N_ITEMS, dims=FFM_DIMS,
+                 rows=MESH_ROWS)
+
+
+def mesh_picks(solver):
+    """One cross half-solve on identity fields (B1-B3), one on a fused
+    field (B4, B5), one user and one item self block (B6, B7): (label,
+    block index, first) for the identical-state comparison."""
+    meta = solver.meta
+    blocks = meta.layout.all_blocks()
+    picks = []
+    for label, want in (
+            ("uv id", lambda b: b.kind == "uv" and meta.ident_u[b.fi]
+             and meta.ident_v[b.fj]),
+            ("uv fused", lambda b: b.kind == "uv" and meta.fused_u[b.fi]),
+            ("uu", lambda b: b.kind == "uu"),
+            ("vv", lambda b: b.kind == "vv")):
+        i = next(i for i, b in enumerate(blocks) if want(b))
+        picks.append((label, i, True))
+    return picks
+
+
+def half_solve_outputs(solver, state, picks):
+    """Per pick: the gradient, one Hv (of -G, the first CG direction) and
+    the table after the step, as numpy, and the CG count."""
+    sa, sb = solver.sasb(state)
+    blocks = solver.meta.layout.all_blocks()
+    out = {}
+    for label, i, first in picks:
+        b = blocks[i]
+        G, hv, _, _, _ = solver.solve_inputs(state, b, first, sa, sb)
+        Hv = hv((-G).to(solver.meta.dtype))
+        st2, it = solver._solve_half(state, b, first, sa, sb)
+        T = st2["params"][b.f12]["W" if first else "H"]
+        _sync(solver.device)
+        out[label] = dict(G=G.float().cpu().numpy(),
+                          Hv=Hv.float().cpu().numpy(),
+                          T=T.float().cpu().numpy(), iters=int(it))
+    return out
+
+
+def mesh_rank(state_path: str, picks, epochs: int, device: str,
+              spec: dict):
+    """One rank of ``[mesh ffm]`` (spawned by ``mesh_phase``, in its own
+    process, the group on gloo, the tensors on cuda:0 that both ranks
+    share): the headline FFM on its half of the rows through the Trainer
+    with ``mesh_shape="2"``.  1. the half-solves of ``picks`` from the
+    single-process state at ``state_path`` (numpy, cut to this rank's part
+    by ``Trainer._place_state``); 2. ``epochs`` epochs from the seed's
+    tables with the launch counts and the census read around them, the
+    census per epoch; validation sharded by users, then by items; 3. the
+    item-sharded ``predict_topk(k=10)``, and for its first users the top 10
+    of the ranks' gathered scores.  On the card first ``mesh_cases``: each
+    kernel against its plain version on this rank's inputs (untimed: the
+    ranks share the card).  Returns what the parent checks."""
+    import dataclasses
+    import io
+    import pickle
+
+    import torch
+
+    from one_class_ffm_torch.evalx.torch_eval import (
+        Evaluator,
+        make_eval_data,
+    )
+    from one_class_ffm_torch.ops import kernels
+    from one_class_ffm_torch.predict import rank_topk
+    from one_class_ffm_torch.train import TOP_KS
+
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    # the ranks share the host's cores
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // (2 * MESH_RANKS)))
+    t0 = time.perf_counter()
+    data = build_data(spec["n_users"], spec["n_items"], 5.0, seed=0,
+                      self_side=True, row_multiple=spec["rows"],
+                      shards=MESH_RANKS, **spec["dims"])
+    trainer = make_trainer(data, device, epochs=epochs,
+                           mesh_shape=str(MESH_RANKS), distributed=True,
+                           eval_shard="users")
+    mesh, solver = trainer.mesh, trainer.solver
+    out = dict(rank=mesh.rank, setup_s=time.perf_counter() - t0,
+               rows=(solver.m_l, solver.n_l),
+               u_blocks=int(solver.data["blk_u_own"].shape[0]),
+               v_blocks=int(solver.data["blk_v_own"].shape[0]),
+               stream=int(solver.data["pos_w"].shape[0]))
+
+    # 0. the kernels at this rank's shapes (the CPU runs the plain versions)
+    report, lines = new_report(), io.StringIO()
+    if device.type == "cuda":
+        with contextlib.redirect_stdout(lines):
+            kernel_phase(trainer, mesh_cases(trainer), f"mesh rank "
+                         f"{mesh.rank}", "", report, timed=False)
+    out["kernel_lines"] = lines.getvalue().splitlines()
+    out["kernel_errs"] = {name: r["max_abs_err"]
+                          for name, r in report.items()}
+
+    # 1. one identical state: the single-process state after its first
+    # epoch, this rank's part of it
+    with open(state_path, "rb") as fh:
+        state1 = pickle.load(fh)
+    state = trainer._place_state(state1)
+    del state1
+    out["halves"] = half_solve_outputs(solver, state, picks)
+    del state
+
+    # 2. epochs from the seed's tables, validation by users
+    kernels.reset_launch_counts()
+    trainer.init_state()
+    objectives = [float(solver.objective(trainer.state))]
+    rows, census, seconds = [], [], []
+    for ep in range(1, epochs + 1):
+        trainer.cfg = dataclasses.replace(trainer.cfg, nr_pass=ep)
+        mesh.census.reset()
+        trainer.run(log=rows.append)
+        census.append(mesh.census.rows())
+        seconds.append(trainer.history[-1]["seconds"])
+        objectives.append(float(solver.objective(trainer.state)))
+    out["launches"] = kernels.launch_counts()
+    out.update(objectives=objectives, census=census, seconds=seconds,
+               iters=[h["cg_iters"] for h in trainer.history],
+               rows_logged=rows,
+               validate_s=trainer.timer.summary()["validate"]["seconds"])
+    st = trainer.state
+    out["metrics_users"] = trainer.validate()
+
+    # validation by items: every rank the same users, its items
+    d = trainer.data
+    emeta, edata = make_eval_data(
+        d.uva_pad, d.va_labels, d.popular, n_items=d.v_pad.m,
+        n_items_true=d.n_items_true, layout=d.layout, dtype=trainer.dtype,
+        top_ks=TOP_KS, device=device)
+    ev_items = Evaluator(emeta, edata, chunk=trainer.cfg.eval_chunk
+                         ).shard_items(mesh)
+    _sync(device)
+    t0 = time.perf_counter()
+    out["metrics_items"] = ev_items.validate(st["params"], st["Q"], st["b"])
+    out["validate_items_s"] = time.perf_counter() - t0
+
+    # 3. the item-sharded top 10, and its first users re-ranked from the
+    # ranks' gathered scores
+    trainer.evaluator = ev_items
+    t0 = time.perf_counter()
+    ids = trainer.predict_topk(k=10)
+    out["predict_s"] = time.perf_counter() - t0
+    out["ids_shape"] = ids.shape
+    Pva, _ = ev_items._project_users(st["params"])
+    f12s = [b.f12 for b in emeta.layout.cross_blocks()]
+    n_local = emeta.n // mesh.size
+    gid = mesh.rank * n_local + torch.arange(n_local, device=device)
+    same = 0
+    users = min(MESH_CHECK_USERS, emeta.mt_true)
+    for lo in range(0, users, 1024):
+        sl = slice(lo, min(lo + 1024, users))
+        z = st["b"][None, :].expand(sl.stop - sl.start, n_local)
+        for f12 in sorted(f12s):
+            z = z + Pva[f12][sl] @ st["Q"][f12].T
+        z = torch.where(ev_items.data["cold"][sl][:, None],
+                        ev_items.data["popular"][None, :], z)
+        z = torch.where((gid < emeta.catalog)[None, :], z,
+                        torch.full_like(z, torch.finfo(z.dtype).min))
+        full = mesh.all_gather(z, "check", dim=1)
+        ref = rank_topk(full, 10)[1].cpu().numpy()
+        same += int((ref == ids[sl]).all(axis=1).sum())
+    out["ids_same"], out["ids_checked"] = same, users
+    return out
+
+
+def mesh_phase(device, gpu: str, report, spec: dict = MESH_SPEC):
+    """``[mesh ffm]``: the headline FFM at full width on a 2-rank data mesh
+    whose ranks share the one card over gloo (NCCL runs one rank per card;
+    the timing is not a scaling number).  The parent runs the
+    single-process reference on the same padding (rows to 512, the flat
+    stream), hands its state after one epoch to the ranks, spawns them
+    (``parallel.distributed.spawn``: a rank that fails fails the run) and
+    checks: the half-solves against the single-process path (``MESH_TOL``,
+    the step ``MESH_STEP_TOL``), the objective after each of 3 epochs
+    (``MESH_OBJ_TOL``), finite metrics by users and by items, the merged
+    top-10 against the gathered scores' bit for bit, the census (in CG one
+    all-reduce per Hv, no all-gather), and on the card each kernel of the
+    path held against its plain version on each rank's inputs
+    (``mesh_cases``; its error goes into ``report``) and launched on each
+    rank.  Returns the launch counts summed over the ranks."""
+    import pickle
+
+    import numpy as np
+
+    from one_class_ffm_torch.parallel.distributed import spawn
+    from one_class_ffm_torch.parallel.mesh import host_arrays
+
+    t0 = time.perf_counter()
+    ffm = build_data(spec["n_users"], spec["n_items"], 5.0, seed=0,
+                     self_side=True, row_multiple=spec["rows"],
+                     **spec["dims"])
+    ref = make_trainer(ffm, device)
+    solver = ref.solver
+    state = ref.init_state()
+    state1, _ = solver.epoch_stats(state)
+    picks = mesh_picks(solver)
+    ref_halves = half_solve_outputs(solver, state1, picks)
+    work = os.path.join(WORK, "mesh")
+    os.makedirs(work, exist_ok=True)
+    state_path = os.path.join(work, "state1.pkl")
+    with open(state_path, "wb") as fh:
+        pickle.dump(host_arrays(state1), fh, protocol=4)
+    del state1
+    single = train_and_validate(ref, 3)
+    print(f"[mesh ffm] single-process reference (rows to {spec['rows']}, flat "
+          f"stream): {time.perf_counter() - t0:.1f} s; ranks {MESH_RANKS} "
+          f"on {device} over gloo: 2 ranks sharing one card, not a scaling "
+          f"number [{gpu}]")
+    t0 = time.perf_counter()
+    outs = spawn("chip_smoke:mesh_rank", MESH_RANKS,
+                 args=(state_path, picks, 3, str(device), spec),
+                 backend="gloo", workdir=work, timeout=900)
+    print(f"[mesh ffm] {MESH_RANKS} ranks done in "
+          f"{time.perf_counter() - t0:.1f} s (each: process start, data, "
+          f"layouts, the checks below)")
+    names = BLOCKED + TABLE + ("project",)
+    launches = {name: 0 for name in REPLACES}
+    for o in outs:
+        r = o["rank"]
+        print(f"[mesh ffm] rank {r}: rows u {o['rows'][0]} v {o['rows'][1]}, "
+              f"blocks u {o['u_blocks']} v {o['v_blocks']}, stream slice "
+              f"{o['stream']}; set-up {o['setup_s']:.1f} s")
+        for line in o["kernel_lines"]:
+            print(line)
+        held = {line.split()[1] for line in o["kernel_lines"]
+                if "bit-equal" in line}
+        for name in names if device.type == "cuda" else ():
+            check(name in held, f"{name} not held against its plain version "
+                                f"on mesh rank {r}")
+        for name, err in o["kernel_errs"].items():
+            report[name]["max_abs_err"] = max(report[name]["max_abs_err"],
+                                              err)
+        for label, got in o["halves"].items():
+            want = ref_halves[label]
+            errs = {}
+            for key in ("G", "Hv", "T"):
+                scale = float(np.abs(want[key]).max()) or 1.0
+                errs[key] = float(np.abs(got[key] - want[key]).max()) / scale
+            print(f"[mesh ffm] rank {r} half-solve {label}: max|d|/max|ref| "
+                  f"gradient {errs['G']:.3e}, Hv {errs['Hv']:.3e}, step "
+                  f"{errs['T']:.3e}; CG {got['iters']} vs single "
+                  f"{want['iters']}")
+            check(errs["G"] <= MESH_TOL and errs["Hv"] <= MESH_TOL,
+                  f"mesh ffm rank {r} {label}: gradient / Hv off the "
+                  f"single-process path by {errs}")
+            check(errs["T"] <= MESH_STEP_TOL,
+                  f"mesh ffm rank {r} {label}: step off by {errs['T']}")
+        for i, (sec, it) in enumerate(zip(o["seconds"], o["iters"])):
+            obj, ref_obj = o["objectives"][i + 1], single["objectives"][i + 1]
+            print(f"[mesh ffm] rank {r} epoch {i + 1}: {sec:.4f} s (2 ranks "
+                  f"sharing one card: not a scaling number), CG {it}, "
+                  f"objective {obj:.6f} vs single {ref_obj:.6f} (CG "
+                  f"{single['iters'][i]}) [{gpu}]")
+            check(abs(obj - ref_obj) <= MESH_OBJ_TOL * abs(ref_obj),
+                  f"mesh ffm rank {r} epoch {i + 1}: objective {obj} vs "
+                  f"{ref_obj}")
+            cen = o["census"][i]
+            in_cg = {(op, site): c for op, site, sc, c, _ in cen
+                     if sc == "cg"}
+            check(in_cg == {("all_reduce", "hv"): sum(it)},
+                  f"mesh ffm rank {r} epoch {i + 1}: collectives in CG "
+                  f"{in_cg}, CG iterations {sum(it)}")
+            print(f"[mesh ffm] rank {r} epoch {i + 1} census (op, site, "
+                  f"scope: calls, bytes): " + "; ".join(
+                      f"{op} {site} {sc}: {c}, {b}"
+                      for op, site, sc, c, b in cen))
+        for by in ("users", "items"):
+            m = o[f"metrics_{by}"]
+            bad = {k: v for k, v in m.items() if not math.isfinite(v)}
+            check(not bad, f"mesh ffm rank {r}: non-finite metrics {bad}")
+            print(f"[mesh ffm] rank {r} validation by {by}: "
+                  f"{json.dumps(m)}")
+        print(f"[mesh ffm] single-process validation: "
+              f"{json.dumps(single['metrics'])}")
+        print(f"[mesh ffm] rank {r} validation s: by users "
+              f"{o['validate_s']:.4f}, by items {o['validate_items_s']:.4f}; "
+              f"item-sharded predict_topk(k=10) {o['predict_s']:.4f} s, ids "
+              f"{tuple(o['ids_shape'])}, the first {o['ids_checked']} users "
+              f"equal to the gathered scores' top 10: {o['ids_same']} "
+              f"[{gpu}]")
+        check(o["ids_same"] == o["ids_checked"],
+              f"mesh ffm rank {r}: merged top-10 ids differ from the "
+              f"gathered scores' on {o['ids_checked'] - o['ids_same']} users")
+        check(tuple(o["ids_shape"]) == (len(ffm.va_labels), 10),
+              f"mesh ffm rank {r}: top-K shape {o['ids_shape']}")
+        print(f"[mesh ffm] rank {r} kernel launches {o['launches']} (the "
+              f"X^T stage runs inside each B4-B7 launch)")
+        for name in names if device.type == "cuda" else ():
+            check(o["launches"][name] > 0,
+                  f"{name} never launched on mesh rank {r}")
+        for name in REPLACES:
+            launches[name] += o["launches"][name]
+    check(outs[0]["iters"] == outs[1]["iters"],
+          "mesh ffm: the ranks' CG counts differ")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -2021,7 +2371,12 @@ def main() -> int:
             check(got[name] > 0, f"{name} never launched in hv_pack_bench")
             launches[name] += got[name]
 
-        # 10. the command-line entry points
+        # 10. the data mesh: the headline FFM on 2 ranks sharing the card
+        got = mesh_phase(device, gpu, report)
+        for name in REPLACES:
+            launches[name] += got[name]
+
+        # 11. the command-line entry points
         cli_phase(device)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)

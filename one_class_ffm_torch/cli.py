@@ -1,13 +1,17 @@
 """Command line of the PyTorch port: the reference trainer's flags.
 
     python -m one_class_ffm_torch items.ffm train.ffm -p va.ffm --ns -k 8
+    torchrun --nproc-per-node 4 -m one_class_ffm_torch items.ffm train.ffm \
+        -p va.ffm -k 8 --mesh 4 --distributed      # a 4-card data mesh
 
 The parser and ``config_from_args`` are copies of the JAX package's
 (``one_class_ffm_tpu/cli.py``; ``tests/test_torch_copies.py`` holds the
 options equal), except that ``--platform`` takes ``cuda`` (the default) or
-``cpu``.  A missing GPU under ``cuda`` is an error.  Flags and models the
-port does not run yet fail with a message naming them and the ROADMAP item
-that ports them.
+``cpu``, and ``--distributed`` joins torchrun's process group.  A missing
+GPU under ``cuda`` is an error.  Flags and models the port does not run yet
+fail with a message naming them and the ROADMAP item that ports them; a
+``--mesh N`` that the run's ranks cannot form fails naming the launch that
+can.
 """
 
 from __future__ import annotations
@@ -106,9 +110,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "0 = plain COO ops (default 256; auto-falls-back "
                         "when the stream's row skew would over-pad)")
     p.add_argument("--distributed", action="store_true",
-                   help="multi-host: jax.distributed.initialize() from env "
-                        "(JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / "
-                        "JAX_PROCESS_ID) before building the mesh")
+                   help="multi-process: join torchrun's process group from "
+                        "its environment (RANK / WORLD_SIZE / LOCAL_RANK / "
+                        "MASTER_ADDR / MASTER_PORT) before building the "
+                        "mesh; NCCL with a card per rank, gloo under "
+                        "--platform cpu")
     p.add_argument("--refresh-every", dest="refresh_every", type=int,
                    default=None,
                    help="re-derive the incremental caches from the tables "
@@ -212,16 +218,23 @@ def main(argv=None) -> int:
         print(f"{PROG}: error: not supported by the PyTorch port: {e}",
               file=sys.stderr)
         return 1
+    except ValueError as e:  # a mesh the run's ranks cannot form
+        print(f"{PROG}: error: {e}", file=sys.stderr)
+        return 1
+    # on a mesh rank 0 prints (every rank computes the same rows)
+    log = print if trainer.is_writer else (lambda *_: None)
     if args.verbose:
-        trainer.describe()
+        trainer.describe(log)
     try:
-        trainer.run()
+        trainer.run(log)
     except NonFiniteMetricError as e:
         print(f"{PROG}: error: {e}", file=sys.stderr)
         return 2
     if args.predict_topk and trainer.evaluator is not None:
         for row in trainer.predict_topk(k=args.predict_topk):
-            print(",".join(str(int(x)) for x in row))
+            log(",".join(str(int(x)) for x in row))
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
     return 0
 
 

@@ -23,8 +23,18 @@ on a CUDA device (ops/sparse_ops.py dispatches).  A popularity-skewed side
 takes the two-tier layout: the kernels run on its tail, and the head ops
 (``sparse_ops.head_*``, plain torch) add its power rows' entries.
 
-Multi-device runs raise ``NotImplementedError`` naming the ROADMAP item
-that ports them.
+On a 1-D data mesh (``parallel.mesh``; one process per rank on
+``torch.distributed``) each rank holds its rows, its slice of the
+shard-aligned stream and its blocks of both layouts (``make_device_data(
+..., blocked_shards=S)``, then ``parallel.shard_data``), and a copy of the
+tables.  Every kernel runs on the rank's part unchanged, with ``num_l =
+rows // S`` and rank-local ``src``; the collectives sit where the JAX
+solver's are (jax_solver.py:1224-1395): per cross half-solve one all-gather
+of the other side's cache rows for the stream, the Grams' and the
+gradient's all-reduces and the carry's cross-order propagation outside CG,
+and inside each CG iteration one all-reduce of Hv's table-space output.
+The head tier and the plain COO passes under a mesh raise
+``NotImplementedError`` naming ROADMAP A11b.
 
 The state is a dict of tensors, as in the JAX package: ``params`` ({f12:
 {"W", "H"}}), the caches ``P``/``Q`` ({f12: (rows, k)}), the side sums
@@ -117,6 +127,9 @@ class ProblemMeta:
     # rows per block of each side's blocked layout, 0 on a COO side
     blocked_bm_u: int = 0
     blocked_bm_v: int = 0
+    # ranks of the data mesh the stream and both layouts are laid out for
+    # (shard-aligned), 1 for one device
+    blocked_shards: int = 1
 
 
 def _ident_flags(pf: PaddedFields) -> Tuple[bool, ...]:
@@ -138,6 +151,7 @@ def make_device_data(u: PaddedFields, v: PaddedFields, y: PaddedLabels,
                      dtype: torch.dtype = torch.float32,
                      blocked_bm: int = 256, head_chunk: int = 512,
                      device: torch.device | str = "cuda",
+                     blocked_shards: int = 1,
                      ) -> Tuple[ProblemMeta, Dict[str, Any]]:
     """Assemble the device tensor dict + static meta from host padded views
     (jax_solver.make_device_data, restricted to the keys the port uses).
@@ -173,11 +187,25 @@ def make_device_data(u: PaddedFields, v: PaddedFields, y: PaddedLabels,
     and the port's own: the head rows ``blk_*_hd_rows``, their chunk table
     ``blk_*_hd_tab`` (``layout.head_chunk_table``) and the feature-major
     lists of ``xh_*`` (``xhf_*``).  The tensors go to the card unless
-    ``device`` asks for the CPU."""
+    ``device`` asks for the CPU.
+
+    ``blocked_shards`` = S > 1: the full data of an S-rank data mesh, which
+    ``parallel.mesh.shard_data`` cuts into each rank's part (the JAX
+    package's shard-aligned layout, jax_solver.py:160-219).  The stream
+    must be shard-aligned (``pad_labels(shard_rows=u.m // S)``); the u
+    layout's ``blk_u_src`` is then local to its rank's stream slice, and
+    ``blocked_bm`` must divide both sides' rows per rank, so that blocks
+    nest in ranks.  Both sides must take the blocked layout without the
+    head tier: a side that would take the head tier or the plain COO passes
+    under a mesh raises ``NotImplementedError`` (ROADMAP A11b)."""
     device = resolve_device(device)
     pads = np.asarray(y.w) == 0
     blk_u = blk_v = None
-    if blocked_bm:
+    S = int(blocked_shards)
+    if S > 1:
+        blk_u, blk_v = _sharded_layouts(u, v, y, blocked_bm, head_chunk,
+                                        pads, S)
+    elif blocked_bm:
         blk_u = make_blocked_layout(y.u, y.v, u.m, blocked_bm,
                                     max_pad_ratio=_PAD_RATIO, drop=pads,
                                     head_chunk=head_chunk)
@@ -200,7 +228,8 @@ def make_device_data(u: PaddedFields, v: PaddedFields, y: PaddedLabels,
         dtype=dtype, ident_u=ident_u, ident_v=ident_v,
         fused_u=fused(u, ident_u, blk_u), fused_v=fused(v, ident_v, blk_v),
         blocked_bm_u=blocked_bm if blk_u is not None else 0,
-        blocked_bm_v=blocked_bm if blk_v is not None else 0)
+        blocked_bm_v=blocked_bm if blk_v is not None else 0,
+        blocked_shards=S)
 
     def t(a, dt=None):
         x = torch.from_numpy(np.ascontiguousarray(a))
@@ -222,18 +251,7 @@ def make_device_data(u: PaddedFields, v: PaddedFields, y: PaddedLabels,
             idx, val = pf.idx[fi], pf.val[fi]
             if rows is not None:
                 idx, val = idx[rows], val[rows]
-            fm = feature_major(idx, val, pf.Ds[fi])
-            val = t(fm.val, dtype)
-            # X^2 for the Jacobi diagonal, squared at storage dtype: the
-            # rounding of both JAX forms, _scat_sq's v1 * v1 and the fused
-            # kernels' _xoh_block(square=True) (jax_solver.py:1916,
-            # sparse_ops.py:1094), which square the stored value and round
-            # the square to storage
-            out.append(FeatureMajor(
-                row=t(fm.row), val=val, chunk_ptr=t(fm.chunk_ptr),
-                feat_ptr=t(fm.feat_ptr), n_rows=fm.n_rows, val_sq=val * val,
-                combine=t(fm.combine), chunk_dst=t(fm.chunk_dst),
-                slot_feat=t(fm.slot_feat)))
+            out.append(feature_list(idx, val, pf.Ds[fi], dtype, device))
         return tuple(out)
 
     def colsq(pf: PaddedFields, flags):
@@ -271,7 +289,10 @@ def make_device_data(u: PaddedFields, v: PaddedFields, y: PaddedLabels,
                                           ("v", blk_v, y.v, y.u, v.m, u.m)):
         pre = f"blk_{s}_"
         if b is not None:
-            order[s] = (b["src"], b["inv"], b.get("hd_src"))
+            # a shard-aligned layout's ``src`` is local to its rank's
+            # stream slice: the maps read the stream positions
+            order[s] = (b.get("src_abs", b["src"]), b["inv"],
+                        b.get("hd_src"))
             continue
         order[s] = (ident, ident, None)
         data[pre + "src"] = data[pre + "inv"] = t(ident)
@@ -293,8 +314,8 @@ def make_device_data(u: PaddedFields, v: PaddedFields, y: PaddedLabels,
         data[pre + "runs"] = t(row_runs(b["own"], blocked_bm))
         # pre-permuted pad-mask weights, exactly 0 at structural pad slots:
         # also the slot-order pad mask of the residual carry
-        data[pre + "w"] = t(y.w[b["src"]] * (b["own"] < b["block_rows"]),
-                            dtype)
+        data[pre + "w"] = t(y.w[b.get("src_abs", b["src"])]
+                            * (b["own"] < b["block_rows"]), dtype)
         data[pre + "inv"] = t(b["inv"])
         if "hd_row" in b:
             # the head tier: chunked slots of the power rows' entries
@@ -329,6 +350,62 @@ def make_device_data(u: PaddedFields, v: PaddedFields, y: PaddedLabels,
     return meta, data
 
 
+def _sharded_layouts(u: PaddedFields, v: PaddedFields, y: PaddedLabels,
+                     blocked_bm: int, head_chunk: int, pads, S: int):
+    """Both sides' blocked layouts for an S-rank data mesh: the u side's
+    over the shard-aligned stream with rank-local ``src`` (``shard_rows``),
+    the v side's flat, its blocks nesting in ranks (jax_solver.py:176-199).
+    A side without one, or with a head tier, raises (ROADMAP A11b)."""
+    if not blocked_bm or u.m % (S * blocked_bm) or v.m % (S * blocked_bm):
+        raise NotImplementedError(
+            f"a data mesh of {S} ranks runs both sides on the blocked "
+            f"layout: blocked_bm ({blocked_bm}) x {S} must divide the user "
+            f"({u.m}) and item ({v.m}) rows; the plain COO passes under a "
+            f"mesh: ROADMAP A11b")
+    blk_u = make_blocked_layout(y.u, y.v, u.m, blocked_bm,
+                                max_pad_ratio=_PAD_RATIO,
+                                shard_rows=u.m // S, drop=pads,
+                                head_chunk=head_chunk)
+    blk_v = make_blocked_layout(y.v, y.u, v.m, blocked_bm,
+                                max_pad_ratio=_PAD_RATIO, drop=pads,
+                                head_chunk=head_chunk)
+    for side, b in (("u", blk_u), ("v", blk_v)):
+        if b is None:
+            raise NotImplementedError(
+                f"the {side} side takes no blocked layout under a mesh of "
+                f"{S} ranks (stream not shard-aligned, or skew beyond the "
+                f"pad budget): the plain COO passes under a mesh: ROADMAP "
+                f"A11b")
+        if "hd_row" in b:
+            raise NotImplementedError(
+                f"the {side} side takes the head tier: the head tier under "
+                f"a mesh: ROADMAP A11b")
+    return blk_u, blk_v
+
+
+def feature_list(idx, val, D: int, dtype: torch.dtype,
+                 device: torch.device | str) -> FeatureMajor:
+    """The feature-major list of a field's padded (idx, val) rows as device
+    tensors (``layout.feature_major``), with X^2's values beside X's,
+    squared at storage dtype: the rounding of both JAX forms, _scat_sq's
+    v1 * v1 and the fused kernels' _xoh_block(square=True)
+    (jax_solver.py:1916, sparse_ops.py:1094), which square the stored value
+    and round the square to storage.  Building it rejects ids outside the
+    field (ghost ids)."""
+    fm = feature_major(np.asarray(idx), np.asarray(val), D)
+
+    def t(a, dt=None):
+        x = torch.from_numpy(np.ascontiguousarray(a))
+        return x.to(device=device, dtype=dt or x.dtype)
+
+    vals = t(fm.val, dtype)
+    return FeatureMajor(
+        row=t(fm.row), val=vals, chunk_ptr=t(fm.chunk_ptr),
+        feat_ptr=t(fm.feat_ptr), n_rows=fm.n_rows, val_sq=vals * vals,
+        combine=t(fm.combine), chunk_dst=t(fm.chunk_dst),
+        slot_feat=t(fm.slot_feat))
+
+
 class FFMSolver:
     """Solver bound to one problem instance.
 
@@ -340,8 +417,19 @@ class FFMSolver:
 
     def __init__(self, meta: ProblemMeta, data: Dict[str, Any],
                  mesh=None):
-        if mesh is not None:
-            raise NotImplementedError("multi-device runs: ROADMAP A11")
+        S = meta.blocked_shards
+        if mesh is not None and getattr(mesh, "size", None) == 1 and S == 1:
+            mesh = None  # one rank: the single-device solver
+        if mesh is not None and (getattr(mesh, "size", None) != S or S < 2):
+            raise NotImplementedError(
+                "a mesh runs the shard-aligned layout of its ranks "
+                "(make_device_data(blocked_shards=mesh.size), then "
+                "parallel.shard_data); the JAX package's sharded fallback "
+                "on the flat layout runs the plain COO passes under a mesh: "
+                "ROADMAP A11b")
+        if mesh is None and S > 1:
+            raise ValueError("blocked_shards > 1 (the shard-aligned layout) "
+                             "requires constructing FFMSolver with mesh=")
         hp = meta.hp
         # "auto" is plain CG, the reference's exact solver; Jacobi-PCG is
         # an opt-in (jax_solver.py:517-519)
@@ -352,6 +440,18 @@ class FFMSolver:
         self.data = data
         self.blocks: List[BlockInfo] = meta.layout.all_blocks()
         self.device = data["pos_u"].device
+        # under a data mesh: this rank's rows of each side (``m_l`` /
+        # ``n_l`` from row ``lo_u`` / ``lo_v``); the data is its part
+        # (parallel.shard_data), the tables are replicated
+        self.mesh = mesh
+        rank = mesh.rank if mesh is not None else 0
+        self.m_l, self.n_l = meta.m // S, meta.n // S
+        self.lo_u, self.lo_v = rank * self.m_l, rank * self.n_l
+        if data["xu_idx"][0].shape[0] != self.m_l:
+            raise ValueError(
+                f"the data holds {data['xu_idx'][0].shape[0]} user rows, "
+                f"not this rank's {self.m_l}: pass parallel.shard_data's "
+                f"part of it")
         # two-tier head tiers: wherever a side's tail arrays are read, its
         # head entries' part is added (the tail layout dropped them)
         self.hd_u = "blk_u_hd_row" in data
@@ -367,6 +467,33 @@ class FFMSolver:
         self._coo_wq = (storage_scale(data["pos_w"], 1.0 - hp.omega)
                         if "coo_u" in data or "coo_v" in data else None)
 
+    # -- collectives (a data mesh; no-ops on one device) ----------------------
+
+    def _allreduce(self, t: Tensor, site: str) -> Tensor:
+        """Sum of a rank's partial over the mesh (table-space outputs,
+        Grams, scalar sums)."""
+        return t if self.mesh is None else self.mesh.all_reduce_sum(t, site)
+
+    def _allreduce_many(self, ts, site: str):
+        """``_allreduce`` of several tensors of one dtype in one call."""
+        if self.mesh is None:
+            return list(ts)
+        flat = self.mesh.all_reduce_sum(
+            torch.cat([t.reshape(-1) for t in ts]), site)
+        out, i = [], 0
+        for t in ts:
+            out.append(flat[i:i + t.numel()].reshape(t.shape))
+            i += t.numel()
+        return out
+
+    def _gather(self, t: Tensor, site: str) -> Tensor:
+        """Every rank's rows of a row-sharded array, in row order."""
+        return t if self.mesh is None else self.mesh.all_gather(t, site)
+
+    def _lo(self, u_side: bool) -> int:
+        """This rank's first row of the u (True) / v (False) side."""
+        return self.lo_u if u_side else self.lo_v
+
     # -- field accessors ------------------------------------------------------
 
     def _u_field(self, b: BlockInfo, first: bool) -> Tuple[bool, int]:
@@ -379,8 +506,8 @@ class FFMSolver:
         """(reg, padded rows, true rows) of the block's f1 or f2 side."""
         u_side, fl = self._u_field(b, first)
         if u_side:
-            return self.data["reg_u"][fl], self.meta.m, self.meta.m_true
-        return self.data["reg_v"][fl], self.meta.n, self.meta.n_true
+            return self.data["reg_u"][fl], self.m_l, self.meta.m_true
+        return self.data["reg_v"][fl], self.n_l, self.meta.n_true
 
     def _x(self, b: BlockInfo, first: bool):
         """(x_idx, x_val, feature-major list) of the block side's field;
@@ -398,36 +525,58 @@ class FFMSolver:
     def _proj(self, b: BlockInfo, first: bool, T: Tensor) -> Tensor:
         """X_side @ T: the projection B8 for a feature field; for an
         identity field the table zero-padded to the row count (table pad
-        rows are zero by invariant)."""
+        rows are zero by invariant): under a mesh this rank's rows of it."""
         idx, val, xf = self._x(b, first)
         if xf is not None:
             return project(idx, val, T)
         _, rows, _ = self._side(b, first)
-        if T.shape[0] == rows:
-            return T
-        return torch.nn.functional.pad(T, (0, 0, 0, rows - T.shape[0]))
+        if self.mesh is None:
+            if T.shape[0] == rows:
+                return T
+            return torch.nn.functional.pad(T, (0, 0, 0, rows - T.shape[0]))
+        lo = self._lo(self._u_field(b, first)[0])
+        out = T.new_zeros((rows, T.shape[1]))
+        hi = min(lo + rows, T.shape[0])
+        if hi > lo:
+            out[: hi - lo] = T[lo:hi]
+        return out
 
-    def _scat(self, b: BlockInfo, first: bool, Z: Tensor, dim: int) -> Tensor:
+    def _ident_scat(self, b: BlockInfo, first: bool, Z: Tensor,
+                    dim: int) -> Tensor:
+        """X^T Z of an identity field: row d receives row d (under a mesh
+        this rank's rows, at their place in the table, zero elsewhere)."""
+        if self.mesh is None:
+            return Z[:dim]
+        lo = self._lo(self._u_field(b, first)[0])
+        out = Z.new_zeros((dim, Z.shape[1]))
+        hi = min(lo + Z.shape[0], dim)
+        if hi > lo:
+            out[lo:hi] = Z[: hi - lo]
+        return out
+
+    def _scat(self, b: BlockInfo, first: bool, Z: Tensor, dim: int,
+              site: str = "grad") -> Tensor:
         """X_side^T @ Z at storage dtype: for an identity field row d
         receives row d; a wide feature field scatters through its
         feature-major list (pad rows carry val == 0 and are not in it, so
         nothing is masked).  A small-D field's solves scatter inside the
-        fused table passes."""
+        fused table passes.  Under a mesh each rank scatters its rows and
+        the partial tables are all-reduced (``site`` names the call)."""
         _, _, xf = self._x(b, first)
         if xf is not None:
-            return scatter(xf, Z)
-        return Z[:dim]
+            return self._allreduce(scatter(xf, Z), site)
+        return self._allreduce(self._ident_scat(b, first, Z, dim), site)
 
     def _scat_sq(self, b: BlockInfo, first: bool, Z: Tensor,
                  dim: int) -> Tensor:
         """(X_side^2)^T @ Z at storage dtype, the squared-feature scatter of
         the Jacobi diagonal (jax_solver.py _scat_sq): for an identity field
         X^2 == X, the slice; a wide field scatters through its list's
-        squared values."""
+        squared values (all-reduced under a mesh, as ``_scat``)."""
         _, _, xf = self._x(b, first)
         if xf is not None:
-            return scatter(xf, Z, squared=True)
-        return Z[:dim]
+            return self._allreduce(scatter(xf, Z, squared=True), "diag")
+        return self._allreduce(self._ident_scat(b, first, Z, dim), "diag")
 
     def _side_colsq(self, b: BlockInfo, first: bool) -> Tensor:
         """Per-feature sum of squared values of a fused field, (D,): the
@@ -499,6 +648,13 @@ class FFMSolver:
         yt = self._pos_scores(P, Q, a, b_vec) - 1.0
         d = self.data
         out = dict(params=params, P=P, Q=Q, a=a, b=b_vec)
+        if self.mesh is not None:
+            # a rank's stream slice holds its u slots' entries; the v
+            # carry reads the u carry through the cross-order map
+            out["yt_u"] = yt[d["blk_u_src"].long()] * d["blk_u_w"]
+            flat = self._gather(out["yt_u"].reshape(-1), "refresh")
+            out["yt_v"] = flat[d["blk_v_from_u"].long()] * d["blk_v_w"]
+            return out
         for s in ("u", "v"):
             out["yt_" + s] = yt[d[f"blk_{s}_src"].long()] * d[f"blk_{s}_w"]
             if self._hd_side(s == "u"):
@@ -511,7 +667,7 @@ class FFMSolver:
         the objective; the epoch works on the slot-order carry).  A two-tier
         u side's ``inv`` maps into its concatenated (tail, head) slots."""
         d = self.data
-        flat = state["yt_u"].reshape(-1)
+        flat = state["yt_u"].reshape(-1)  # under a mesh: this rank's slots
         if self.hd_u:
             flat = torch.cat([flat, state["yt_u_hd"].reshape(-1)])
         return flat[d["blk_u_inv"].long()] * d["pos_w"]
@@ -519,8 +675,8 @@ class FFMSolver:
     def _side_sums(self, P, Q) -> Tuple[Tensor, Tensor]:
         """a_i / b_j self-interaction sums (calc_side, ffm.cpp:360-373)."""
         meta = self.meta
-        a = torch.zeros(meta.m, dtype=meta.dtype, device=self.device)
-        b_vec = torch.zeros(meta.n, dtype=meta.dtype, device=self.device)
+        a = torch.zeros(self.m_l, dtype=meta.dtype, device=self.device)
+        b_vec = torch.zeros(self.n_l, dtype=meta.dtype, device=self.device)
         for blk in meta.layout.user_self_blocks():
             a = a + (P[blk.f12] * Q[blk.f12]).sum(dim=1)
         for blk in meta.layout.item_self_blocks():
@@ -528,11 +684,18 @@ class FFMSolver:
         return a, b_vec
 
     def _pos_scores(self, P, Q, a, b_vec) -> Tensor:
-        """yhat at every positive pair (init_y_tilde, ffm.cpp:388-403)."""
+        """yhat at every positive pair (init_y_tilde, ffm.cpp:388-403).
+        Under a mesh: at this rank's stream slice, whose users are its own
+        rows; the items' side sums and caches are gathered."""
         d = self.data
-        u, v = d["pos_u"].long(), d["pos_v"].long()
+        u, v = d["pos_u"].long() - self.lo_u, d["pos_v"].long()
+        cross = self.meta.layout.cross_blocks()
+        if self.mesh is not None:
+            b_vec = self._gather(b_vec, "refresh")
+            Q = {blk.f12: self._gather(Q[blk.f12], "refresh")
+                 for blk in cross}
         z = a[u.clamp(max=a.shape[0] - 1)] + b_vec[v.clamp(max=b_vec.shape[0] - 1)]
-        for blk in self.meta.layout.cross_blocks():
+        for blk in cross:
             z = z + pos_dot(P[blk.f12], u, Q[blk.f12], v)
         return z
 
@@ -540,12 +703,15 @@ class FFMSolver:
         """sa_i = sum_j cross(i, j), sb_j = sum_i cross(i, j) (cache_sasb,
         ffm.cpp:514-535); only self-block gradients read them."""
         meta = self.meta
-        sa = torch.zeros(meta.m, dtype=meta.dtype, device=self.device)
-        sb = torch.zeros(meta.n, dtype=meta.dtype, device=self.device)
-        for blk in meta.layout.cross_blocks():
+        sa = torch.zeros(self.m_l, dtype=meta.dtype, device=self.device)
+        sb = torch.zeros(self.n_l, dtype=meta.dtype, device=self.device)
+        cross = meta.layout.cross_blocks()
+        sums = self._allreduce_many(
+            [X[blk.f12].sum(dim=0) for blk in cross for X in (Q, P)], "sums")
+        for i, blk in enumerate(cross):
             Pb, Qb = P[blk.f12], Q[blk.f12]
-            sa = sa + Pb @ Qb.sum(dim=0)
-            sb = sb + Qb @ Pb.sum(dim=0)
+            sa = sa + Pb @ sums[2 * i]
+            sb = sb + Qb @ sums[2 * i + 1]
         return sa, sb
 
     def sasb(self, state):
@@ -567,11 +733,11 @@ class FFMSolver:
     def _blk(self, u_side: bool):
         """(key prefix, output rows, block rows) of a side's blocked layout
         (block rows 0 on a COO side: read them only where ``_coo`` is
-        None)."""
+        None); the output rows are this rank's under a mesh."""
         meta = self.meta
         if u_side:
-            return "blk_u_", meta.m, meta.blocked_bm_u
-        return "blk_v_", meta.n, meta.blocked_bm_v
+            return "blk_u_", self.m_l, meta.blocked_bm_u
+        return "blk_v_", self.n_l, meta.blocked_bm_v
 
     def _coo(self, u_side: bool) -> Optional[FeatureMajor]:
         """A COO side's destination-major list of the positive stream, or
@@ -619,11 +785,18 @@ class FFMSolver:
             own_c, oth_c, side, oth_vec = state["Q"], state["P"], state["b"], \
                 state["a"]
         B1 = oth_c[b.f12]
-        oQ = B1.sum(dim=0)
-        bQ = B1.T @ oth_vec
+        cross = meta.layout.cross_blocks()
+        # the k-vectors and k x k Grams over the other side's rows: one
+        # all-reduce of their partials under a mesh
+        red = self._allreduce_many(
+            [B1.sum(dim=0), B1.T @ oth_vec]
+            + [oth_c[blk.f12].T @ B1 for blk in cross]
+            + ([(B1 * B1).sum(dim=0)]
+               if with_diag_pos and self._fused(b, first) else []), "gram")
+        oQ, bQ = red[0], red[1]
         gram_T = torch.zeros((num, hp.k), dtype=meta.dtype, device=self.device)
-        for blk in meta.layout.cross_blocks():
-            gram_T = gram_T + own_c[blk.f12] @ (oth_c[blk.f12].T @ B1)
+        for i, blk in enumerate(cross):
+            gram_T = gram_T + own_c[blk.f12] @ red[2 + i]
         dense = hp.omega * ((side - hp.r)[:, None] * oQ[None, :]
                             + bQ[None, :] + gram_T)
         _, _, xf = self._x(b, first)
@@ -635,6 +808,11 @@ class FFMSolver:
             res = grad_cross_tbl(xf, rows_pre, d[pre + "own"], c_blk, dense,
                                  bm, runs=d[pre + "runs"], **diag_w)
             Gt, Qt = res if with_diag_pos else (res, None)
+            if self.mesh is not None:
+                if with_diag_pos:
+                    Gt, Qt = self._allreduce_many([Gt, Qt], "grad")
+                else:
+                    Gt = self._allreduce(Gt, "grad")
             if rows_hd is not None:
                 g_hd, q_hd = self._hd_tbl(state, b, first, rows_hd,
                                           with_diag_pos)
@@ -643,7 +821,7 @@ class FFMSolver:
                     Qt = Qt + q_hd
             if not with_diag_pos:
                 return self._tbl_grad(b, first, T, Gt)
-            qtq_d = (B1 * B1).sum(dim=0)  # pad rows are zero
+            qtq_d = red[-1]  # (B1 * B1).sum(dim=0); pad rows are zero
             acc = acc_dtype(meta.dtype)
             tbl_d = (hp.omega * (self._side_colsq(b, first).to(acc)[:, None]
                                  * qtq_d.to(acc)[None, :]) + Qt.to(acc))
@@ -718,6 +896,7 @@ class FFMSolver:
         else:
             n_other, side, s_cache, other_sum = (
                 meta.m_true, state["b"], sb, state["a"].sum())
+        other_sum = self._allreduce(other_sum, "sums")
         pre, num, bm = self._blk(u_side)
         c_blk = self._pos_coeff(state["yt_u" if u_side else "yt_v"]) \
             * d[pre + "w"]
@@ -733,12 +912,12 @@ class FFMSolver:
             if z_hd is not None:
                 zdense = zdense + z_hd
             if not want_diag:
-                return self._tbl_grad(b, first, T, grad_self_tbl(
-                    xf, Q1, zdense, d[pre + "own"], c_blk, bm,
-                    runs=d[pre + "runs"]))
-            Gt, Dq = grad_self_tbl(xf, Q1, zdense, d[pre + "own"], c_blk,
-                                   bm, dd=self._self_dd(b),
-                                   runs=d[pre + "runs"])
+                return self._tbl_grad(b, first, T, self._allreduce(
+                    grad_self_tbl(xf, Q1, zdense, d[pre + "own"], c_blk, bm,
+                                  runs=d[pre + "runs"]), "grad"))
+            Gt, Dq = self._allreduce_many(grad_self_tbl(
+                xf, Q1, zdense, d[pre + "own"], c_blk, bm,
+                dd=self._self_dd(b), runs=d[pre + "runs"]), "grad")
             return (self._tbl_grad(b, first, T, Gt),
                     ("tbl", Dq.to(acc_dtype(meta.dtype))))
         coo = self._coo(u_side)
@@ -791,7 +970,7 @@ class FFMSolver:
 
             return hv_coo
         pre, num, bm = self._blk(first)
-        dmat = (hp.omega * (B1.T @ B1)).to(meta.dtype)
+        dmat = (hp.omega * self._allreduce(B1.T @ B1, "gram")).to(meta.dtype)
         own, w_blk, runs = d[pre + "own"], d[pre + "w"], d[pre + "runs"]
         w_scale = 1.0 - hp.omega
         idx, val, xf = self._x(b, first)
@@ -806,6 +985,7 @@ class FFMSolver:
                                bm, w_scale, runs=runs)
                 if rows_hd is not None:
                     G = G + self._hd_hv_tbl(b, first, V, rows_hd)
+                G = self._allreduce(G, "hv")
                 return hp.lam * reg[:, None] * V + G.to(V.dtype)
             phi = self._proj(b, first, V)
             zp = pos_hv_blocked(phi, rows_pre, own, w_blk, dmat, num, bm,
@@ -813,7 +993,8 @@ class FFMSolver:
             if rows_hd is not None:
                 zp = zp + head_hv(phi, rows_hd, wq_hd, d[hpre + "row"],
                                   d[hpre + "tab"], d[hpre + "rows"], num)
-            return hp.lam * reg[:, None] * V + self._scat(b, first, zp, dim)
+            return hp.lam * reg[:, None] * V + self._scat(b, first, zp, dim,
+                                                          "hv")
 
         return hv
 
@@ -848,11 +1029,12 @@ class FFMSolver:
 
         def hv(V: Tensor) -> Tensor:
             if fused:
-                G = hv_self_tbl(V, idx, val, xf, Q1, dd)
+                G = self._allreduce(hv_self_tbl(V, idx, val, xf, Q1, dd),
+                                    "hv")
                 return hp.lam * reg[:, None] * V + G.to(V.dtype)
             s = dd * (Q1 * self._proj(b, first, V)).sum(dim=1)
             return hp.lam * reg[:, None] * V + self._scat(
-                b, first, s[:, None] * Q1, dim)
+                b, first, s[:, None] * Q1, dim, "hv")
 
         return hv
 
@@ -890,7 +1072,8 @@ class FFMSolver:
                                      "from its gradient pass")
                 term = pos_scatter_pair(self._coo_wq, self._coo_wq, Q1,
                                         coo)[1]
-            qtq_d = (Q1 * Q1).sum(dim=0)  # pad rows are zero
+            # pad rows are zero
+            qtq_d = self._allreduce((Q1 * Q1).sum(dim=0), "gram")
             rowq = hp.omega * qtq_d[None, :] + term
         else:
             rowq = self._self_dd(b)[:, None] * (Q1 * Q1)
@@ -905,7 +1088,16 @@ class FFMSolver:
         Jacobi-preconditioned CG on the same system with the same
         true-residual stop rule: only the search directions change.  The
         recurrence runs at a float32 floor; Hv is evaluated at storage
-        dtype.  One host sync per iteration reads the stop condition."""
+        dtype.  One host sync per iteration reads the stop condition.
+        Under a mesh every rank runs the same recurrence on the replicated
+        variable (its dot products local, the same bits on every rank), and
+        each Hv makes the iteration's one all-reduce."""
+        if self.mesh is not None:
+            with self.mesh.scope("cg"):
+                return self._cg_loop(hv, G, D)
+        return self._cg_loop(hv, G, D)
+
+    def _cg_loop(self, hv, G: Tensor, D: Optional[Tensor] = None):
         hp = self.meta.hp
         storage = self.meta.dtype
         ct = torch.promote_types(G.dtype, torch.float32)
@@ -989,6 +1181,8 @@ class FFMSolver:
             own, oth = ("u", "v") if first else ("v", "u")
             state["yt_" + own] = state["yt_" + own] + gap.reshape(
                 state["yt_" + own].shape) * d[pre + "w"]
+            # the other order's slots read gaps of every rank's slots
+            gap = self._gather(gap, "carry")
             if rows_hd is not None:
                 gap_hd = head_pq(dP.index_select(0, d[pre + "hd_row"]),
                                  rows_hd)
@@ -1018,8 +1212,9 @@ class FFMSolver:
         else:
             exp = da[d[pre + "seg"].long()] * d[pre + "w"]
         state["yt_" + own] = state["yt_" + own] + exp
+        da_all = self._gather(da, "carry")  # the other order's rows: any rank
         state["yt_" + oth] = state["yt_" + oth] \
-            + da[d[f"blk_{oth}_take"].long()] * d[f"blk_{oth}_w"]
+            + da_all[d[f"blk_{oth}_take"].long()] * d[f"blk_{oth}_w"]
         # head tiers: da per slot is the chunk's row's on the own side, a
         # scalar gather through hd_take on the other
         if self._hd_side(own == "u"):
@@ -1052,7 +1247,9 @@ class FFMSolver:
                     self._diag_H(state, b, first, term))
         B1 = state["Q"][b.f12] if first else state["P"][b.f12]
         pre = self._blk(first)[0]
-        rows_pre = (gather_blocked_rows(B1, self.data[pre + "take"])
+        # the stream's rows are any rank's: gathered once per solve
+        rows_pre = (gather_blocked_rows(self._gather(B1, "rows_pre"),
+                                        self.data[pre + "take"])
                     if self._coo(first) is None else None)
         rows_hd = (gather_blocked_rows(B1, self.data[pre + "hd_take"])
                    if self._hd_side(first) else None)
@@ -1098,29 +1295,38 @@ class FFMSolver:
 
     def objective(self, state: Dict[str, Any]) -> Tensor:
         """Exact loss via the rank-k decomposition (the reference's func(),
-        ffm.cpp:1321-1351, without materializing m x n)."""
+        ffm.cpp:1321-1351, without materializing m x n).  On a data mesh
+        each rank sums over its true rows and stream slice: the global sums
+        and Grams are all-reduced first, then the partial scalar sums (the
+        tables are replicated)."""
         meta, d = self.meta, self.data
         hp = meta.hp
-        P, Q, a, b_vec = state["P"], state["Q"], state["a"], state["b"]
-        yt = self.yt_stream(state)
+        P, Q = state["P"], state["Q"]
         m, n = meta.m_true, meta.n_true
-        at, bt = a[:m], b_vec[:n]
+        mu = max(0, min(self.m_l, m - self.lo_u))
+        nv = max(0, min(self.n_l, n - self.lo_v))
+        at, bt = state["a"][:mu], state["b"][:nv]
         cross = meta.layout.cross_blocks()
         alpha = at - hp.r
-        sumP = {c.f12: P[c.f12][:m].sum(dim=0) for c in cross}
-        sumQ = {c.f12: Q[c.f12][:n].sum(dim=0) for c in cross}
-        e2 = n * (alpha ** 2).sum() + m * (bt ** 2).sum()
-        e2 = e2 + 2.0 * alpha.sum() * bt.sum()
-        Pcat = torch.cat([P[c.f12][:m] for c in cross], dim=1)
-        Qcat = torch.cat([Q[c.f12][:n] for c in cross], dim=1)
-        e2 = e2 + ((Pcat.T @ Pcat) * (Qcat.T @ Qcat)).sum()
-        for c in cross:
-            e2 = e2 + 2.0 * (alpha @ (P[c.f12][:m] @ sumQ[c.f12]))
-            e2 = e2 + 2.0 * (bt @ (Q[c.f12][:n] @ sumP[c.f12]))
-        w = d["pos_w"]
-        y_minus_r = yt + (1.0 - hp.r)
-        loss = hp.omega * (e2 - (w * y_minus_r ** 2).sum()) \
-            + (w * yt ** 2).sum()
+        Pt = [P[c.f12][:mu] for c in cross]
+        Qt = [Q[c.f12][:nv] for c in cross]
+        Pcat, Qcat = torch.cat(Pt, dim=1), torch.cat(Qt, dim=1)
+        nc = len(cross)
+        red = self._allreduce_many(
+            [alpha.sum(), bt.sum(), Pcat.T @ Pcat, Qcat.T @ Qcat]
+            + [x.sum(dim=0) for x in Pt] + [x.sum(dim=0) for x in Qt],
+            "objective")
+        sumP, sumQ = red[4:4 + nc], red[4 + nc:]
+        part = n * (alpha ** 2).sum() + m * (bt ** 2).sum()
+        for i in range(nc):
+            part = part + 2.0 * (alpha @ (Pt[i] @ sumQ[i]))
+            part = part + 2.0 * (bt @ (Qt[i] @ sumP[i]))
+        yt, w = self.yt_stream(state), d["pos_w"]
+        tot = self._allreduce_many(
+            [part, (w * (yt + (1.0 - hp.r)) ** 2).sum(), (w * yt ** 2).sum()],
+            "objective")
+        e2 = tot[0] + 2.0 * red[0] * red[1] + (red[2] * red[3]).sum()
+        loss = hp.omega * (e2 - tot[1]) + tot[2]
         for b in self.blocks:
             reg1, _, _ = self._side(b, True)
             reg2, _, _ = self._side(b, False)

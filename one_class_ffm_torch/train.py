@@ -1,6 +1,8 @@
 """End-to-end trainer of the PyTorch port.
 
-Counterpart of ``one_class_ffm_tpu/train.py`` on one device.  The host-side
+Counterpart of ``one_class_ffm_tpu/train.py``, on one device or on a 1-D
+data mesh of ``torch.distributed`` ranks (``mesh_shape``, one process per
+rank: ``torchrun ... --mesh N --distributed``).  The host-side
 pieces are copies of the JAX package's, unchanged, so that the port imports
 nothing of it (``tests/test_torch_copies.py`` holds each copy equal to its
 original): the run configuration (``TrainConfig``), the data pipeline
@@ -36,6 +38,8 @@ from .data.dataset import (
 )
 from .evalx.torch_eval import Evaluator, make_eval_data
 from .models.blocks import BlockLayout
+from .parallel.distributed import init_distributed
+from .parallel.mesh import resolve_mesh, shard_data, shard_state
 from .solver.convert import params_from_numpy, params_to_numpy
 from .solver.params import HyperParams
 from .solver.torch_solver import FFMSolver, make_device_data
@@ -83,7 +87,7 @@ class TrainConfig:
     # omp_set_num_threads — the parallelism knob wired into the binary) ---
     mesh_shape: Optional[str] = None  # None | "auto" | "N" | "NxM" (dataxmodel)
     model_min_rows: int = 4096  # row-shard tables >= this on the model axis
-    distributed: bool = False  # jax.distributed.initialize() before meshing
+    distributed: bool = False  # join torchrun's process group before meshing
     # eval sharding axis: "users" (row-DP), "items" (catalog-sharded top-K
     # merge — scales past the dense (chunk, n) cliff), or "auto" (items when
     # the catalog exceeds eval_item_threshold)
@@ -242,34 +246,65 @@ def resolve_dtype(name: str) -> torch.dtype:
 
 
 class Trainer:
-    """Owns the solver + evaluator for one run on one device.
+    """Owns the solver + evaluator for one run, on one device or on a 1-D
+    data mesh (``cfg.mesh_shape``; ``cfg.distributed`` joins torchrun's
+    process group first: NCCL with a card per rank, gloo for a CPU run;
+    a group that already exists is used as it is).  Under a mesh each rank
+    builds the full host arrays the same way from the seed and keeps its
+    part (``parallel.shard_data``); the tables are replicated, and rank 0
+    alone writes the model, checkpoint and JSONL files.
     ``head_chunk``: the chunk width of a popularity-skewed side's head tier
     (``make_device_data``)."""
 
     def __init__(self, cfg: TrainConfig, data: Optional[LoadedData] = None,
                  device: torch.device | str = "cuda", head_chunk: int = 512):
-        if cfg.mesh_shape or cfg.distributed:
-            raise NotImplementedError(
-                "--mesh / --distributed (multi-device runs): ROADMAP A11")
         if cfg.ckpt_format != "npz":
             raise NotImplementedError(
                 f"--ckpt-format {cfg.ckpt_format} (JAX-only): the port "
                 "writes npz checkpoints")
         self.device = resolve_device(device)
-        if cfg.blocked_bm > 0:
+        # mesh resolution BEFORE the data layout: the padding multiples
+        # must divide the data axis (train.py:250-296 of the JAX package)
+        if cfg.distributed:
+            init_distributed(
+                backend="gloo" if self.device.type == "cpu" else "nccl")
+        self.mesh = resolve_mesh(cfg.mesh_shape, device=self.device)
+        n_data = 1
+        if self.mesh is not None:
+            self.device = self.mesh.device
+            n_data = self.mesh.size
+            if n_data > 1 and cfg.blocked_bm <= 0:
+                raise NotImplementedError(
+                    "--mesh with --blocked-bm 0: the plain COO passes under "
+                    "a mesh: ROADMAP A11b")
+            # rows divide n_data * blocked_bm, so that blocks nest in ranks
+            cfg = dataclasses.replace(
+                cfg,
+                row_multiple=_lcm(max(1, cfg.row_multiple),
+                                  n_data * max(1, cfg.blocked_bm)),
+                eval_chunk=_lcm(max(1, cfg.eval_chunk), n_data),
+                stream_shards=n_data if n_data > 1 else 0)
+        elif cfg.blocked_bm > 0:
             # user and item rows must divide the block size
             cfg = dataclasses.replace(
                 cfg, row_multiple=_lcm(max(1, cfg.row_multiple),
                                        cfg.blocked_bm))
         self.cfg = cfg
+        sharded = n_data > 1
+        # rank 0 writes the files of a run on a mesh
+        self.is_writer = self.mesh is None or self.mesh.rank == 0
         self.data = data if data is not None else load_problem(cfg)
         d = self.data
         self.dtype = resolve_dtype(cfg.dtype)
         self.meta, dev = make_device_data(
             d.u_pad, d.v_pad, d.y_pad, d.layout, cfg.hyper(),
             dtype=self.dtype, blocked_bm=cfg.blocked_bm,
-            head_chunk=head_chunk, device=self.device)
-        self.solver = FFMSolver(self.meta, dev)
+            head_chunk=head_chunk,
+            device="cpu" if sharded else self.device,
+            blocked_shards=max(1, cfg.stream_shards))
+        if sharded:
+            dev = shard_data(dev, self.mesh)
+        self.solver = FFMSolver(self.meta, dev, mesh=self.mesh)
         self.evaluator = None
         if d.uva_pad is not None and d.va_labels:
             emeta, edata = make_eval_data(
@@ -277,6 +312,13 @@ class Trainer:
                 n_items_true=d.n_items_true, layout=d.layout,
                 dtype=self.dtype, top_ks=TOP_KS, device=self.device)
             self.evaluator = Evaluator(emeta, edata, chunk=cfg.eval_chunk)
+            if sharded:
+                by_items = cfg.eval_shard == "items" or (
+                    cfg.eval_shard == "auto"
+                    and emeta.n >= cfg.eval_item_threshold)
+                self.evaluator = (self.evaluator.shard_items(self.mesh)
+                                  if by_items
+                                  else self.evaluator.shard(self.mesh))
         self.state = None
         self.epoch_idx = 0
         # bf16's incremental bookkeeping drift is reset periodically
@@ -293,6 +335,13 @@ class Trainer:
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _place_state(self, state):
+        """A full state (tensors or numpy arrays, on the layout of the full
+        data) cut to this rank's part on a mesh; on one device, as given."""
+        if self.mesh is None or self.mesh.size == 1:
+            return state
+        return shard_state(state, self.mesh)
 
     # -- lifecycle ------------------------------------------------------------
 
@@ -341,6 +390,8 @@ class Trainer:
         self.epoch_idx = epoch
 
     def save_checkpoint(self):
+        if not self.is_writer:
+            return
         lay = self.data.layout
         layout_doc = dict(fu=lay.fu, fv=lay.fv, Du=list(lay.Du),
                           Dv=list(lay.Dv), self_side=lay.self_side)
@@ -398,11 +449,12 @@ class Trainer:
                         metrics = self.validate()
                     self._check_finite(metrics)
                     log(self._format_row(self.epoch_idx, metrics))
-                    self._write_jsonl(self.epoch_idx, metrics, t_epoch)
+                    if self.is_writer:
+                        self._write_jsonl(self.epoch_idx, metrics, t_epoch)
                 if cfg.ckpt_dir and self.epoch_idx % cfg.eval_every == 0:
                     with self.timer.phase("checkpoint"):
                         self.save_checkpoint()
-        if cfg.model_path:
+        if cfg.model_path and self.is_writer:
             save_text_model(cfg.model_path, self.params_numpy(),
                             self.data.layout, cfg.k)
         if cfg.ckpt_dir:
@@ -487,21 +539,48 @@ class Trainer:
 
     def predict_topk(self, k: int = 10, chunk: int = 1024) -> np.ndarray:
         """Top-k item ids for every test user (cold users ranked by
-        popularity; ties to the lowest id), using the current parameters."""
+        popularity; ties to the lowest id), using the current parameters.
+        Under an item-sharded evaluator the catalog stays sharded: each
+        rank's candidates merge (``make_sharded_topk_fn``, the JAX
+        package's train.py:623-640); under a user-sharded one each rank
+        ranks its users and the ids are gathered.  Every rank returns all
+        users' ids."""
         if self.evaluator is None:
             raise RuntimeError("no test set: construct with cfg.test_path")
         ev = self.evaluator
         Pva, _ = ev._project_users(self.state["params"])
         meta = ev.meta
+        Q, bt = self.state["Q"], self.state["b"]
+        if ev.shard_by == "items":
+            from .evalx.sharded_topk import make_sharded_topk_fn
+
+            fn = make_sharded_topk_fn(
+                [b.f12 for b in meta.layout.cross_blocks()], ev.mesh, k,
+                catalog=meta.catalog)
+            outs = []
+            for lo in range(0, meta.mt_true, chunk):
+                sl = slice(lo, min(lo + chunk, meta.mt_true))
+                _, ids = fn({f12: P[sl] for f12, P in Pva.items()},
+                            ev.data["cold"][sl], Q, bt, ev.data["popular"])
+                outs.append(ids.cpu().numpy())
+            return np.concatenate(outs, axis=0)
+        rows = meta.mt_true
+        if ev.shard_by == "users":
+            rows = ev.data["labels"].shape[0]  # this rank's padded rows
+            Q = {b.f12: ev.mesh.all_gather(Q[b.f12], "predict")
+                 for b in meta.layout.cross_blocks()}
+            bt = ev.mesh.all_gather(bt, "predict")
         outs = []
-        for lo in range(0, meta.mt_true, chunk):
-            sl = slice(lo, min(lo + chunk, meta.mt_true))
+        for lo in range(0, rows, chunk):
+            sl = slice(lo, min(lo + chunk, rows))
             z = ev.scores({f12: P[sl] for f12, P in Pva.items()},
-                          ev.data["cold"][sl], self.state["Q"],
-                          self.state["b"])[:, : meta.catalog]
+                          ev.data["cold"][sl], Q, bt)[:, : meta.catalog]
             top = torch.sort(z, dim=1, descending=True, stable=True).indices
-            outs.append(top[:, :k].cpu().numpy())
-        return np.concatenate(outs, axis=0)
+            outs.append(top[:, :k])
+        ids = torch.cat(outs, dim=0)
+        if ev.shard_by == "users":
+            ids = ev.mesh.all_gather(ids, "predict")[: meta.mt_true]
+        return ids.cpu().numpy()
 
 
 # ---------------------------------------------------------------------------

@@ -196,11 +196,21 @@ def test_cli_coo_rows_match_jax(mf_set, ffm_set, tmp_path, capsys, tag,
 
 
 # models without --ns, --cg-precond jacobi (test_torch_jacobi.py),
-# --blocked-bm 0 (test_cli_coo_rows_match_jax) and --profile-dir
-# (test_cli_profile_dir_writes_a_trace) run now
+# --blocked-bm 0 (test_cli_coo_rows_match_jax), --profile-dir
+# (test_cli_profile_dir_writes_a_trace) and --mesh N --distributed under
+# torchrun (test_torch_multihost.py) run now; a mesh the run's ranks cannot
+# form names the launch that can, and the 2-D mesh waits for ROADMAP A11b
+# what each refusal must say, by the case's option
+REFUSALS = {
+    "--mesh": ("--mesh 2 needs 2 ranks", "torchrun --nproc-per-node 2"),
+    "--distributed": ("2x2", "ROADMAP A11b"),
+    "orbax": ("orbax", "JAX-only"),
+}
+
+
 @pytest.mark.parametrize("argv, message", [
     (["--ns", "--mesh", "2"], "--mesh"),
-    (["--ns", "--distributed"], "--distributed"),
+    (["--ns", "--distributed", "--mesh", "2x2"], "--distributed"),
     (["--ns", "--ckpt-format", "orbax"], "orbax"),
 ])
 def test_cli_refuses_what_the_port_lacks(mf_set, capsys, argv, message):
@@ -208,8 +218,8 @@ def test_cli_refuses_what_the_port_lacks(mf_set, capsys, argv, message):
     rc = torch_cli.main([item, train, "--platform", "cpu", *argv])
     assert rc == 1
     err = capsys.readouterr().err
-    assert message in err
-    assert "ROADMAP" in err or "JAX-only" in err
+    for want in REFUSALS[message]:
+        assert want in err
 
 
 def test_cli_profile_dir_writes_a_trace(mf_set, tmp_path, capsys):

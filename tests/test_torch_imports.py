@@ -53,7 +53,10 @@ def test_jax_package_modules_the_port_uses_import_without_jax():
         "             if n.split('.')[0] == 'one_class_ffm_tpu')\n"
         "assert not tpu, tpu\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
-        "assert len(names) >= 20, names\n")
+        "assert len(names) >= 20, names\n"
+        "for n in ('parallel', 'parallel.mesh', 'parallel.distributed',\n"
+        "          'parallel.multihost', 'evalx.sharded_topk'):\n"
+        "    assert 'one_class_ffm_torch.' + n in names, n\n")
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
 
@@ -134,6 +137,8 @@ def test_chip_smoke_ffm_rehearsal_on_cpu():
     state = trainer.init_state()
     names = {n for case in chip_smoke.ffm_cases(trainer) for n in case[0]}
     assert names == set(chip_smoke.TABLE) | {"project"}
+    names = {n for case in chip_smoke.mesh_cases(trainer) for n in case[0]}
+    assert names == set(chip_smoke.BLOCKED + chip_smoke.TABLE) | {"project"}
     b = next(b for b in solver.blocks if b.kind == "uu" and b.f1 == 1)
     with chip_smoke.first_calls(chip_smoke.TABLE) as seen:
         solver._solve_half(state, b, True, *solver.sasb(state))
