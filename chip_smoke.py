@@ -83,19 +83,31 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
    at its defaults with its ``torch.topk`` yardstick;
 9. the Hv variants' path: ``hv_pack_bench`` checks B1, B9 and B10 on its
    synthetic stream and times them; B9 and B10 must have launched;
-10. the data mesh (``[mesh ffm]``): the headline FFM at full width on a
-   2-rank data mesh (``torch.distributed``, gloo: both ranks share the
-   one card, each in its own spawned process; NCCL would need a card per
-   rank): each rank's half-solves of four block kinds from the
-   single-process state after one epoch against the single-process path
-   (gradient and Hv within 1e-5 of the largest value, the step within
-   1e-4), 3 epochs from the seed's tables through the Trainer (objective
-   within 1e-3 of the single-process run's, CG counts printed beside it,
-   epoch seconds not a scaling number), validation sharded by users and
-   by items, the item-sharded top 10 equal to the top 10 of the ranks'
-   gathered scores, the collective census of each epoch (inside CG one
-   all-reduce per Hv, never an all-gather) and B1-B8 launched on each
-   rank;
+10. the meshes (``torch.distributed``, gloo: the ranks share the one
+   card, each in its own spawned process; NCCL would need a card per
+   rank): ``[mesh ffm]``, the headline FFM at full width on a 2-rank data
+   mesh; ``[mesh ffm-skew]``, the skewed FFM of phase 3 (its arrays
+   padded and shard-aligned, ``reshard``) with the head tier under 2
+   ranks; ``[mesh ffm-coo]``, the headline FFM with both sides COO
+   (``blocked_bm=0``) on 2 ranks; ``[mesh ffm-2d]``, the headline FFM on
+   the 2x2 data x model mesh (4 ranks, the id tables row-sharded on the
+   model axis); 2 epochs each.  Each: each rank's half-solves of the
+   cross and self block kinds (on the skewed and COO paths the cross
+   blocks' v halves too) from the one-process state after one epoch
+   against the one-process path (gradient and Hv within 1e-5 of the
+   largest value, the step within 1e-4 at the same CG count), the epochs
+   from the seed's tables through the Trainer
+   (objective within 1e-3 of the one-process run's, CG counts printed
+   beside it, epoch seconds not a scaling number), validation sharded by
+   users and by items, the item-sharded top 10 equal to the top 10 of
+   the ranks' gathered scores, the collective census of each epoch
+   (inside CG one all-reduce per Hv, never an all-gather), each rank's
+   kernels held against their plain versions on its own inputs and
+   launched on each rank; rank 0 of ``[mesh ffm]`` and of ``[mesh
+   ffm-2d]`` writes the text model after the epochs: the 2x2 mesh's file
+   equal to the 2-rank data mesh's (true dims, every value: the model
+   axis only gathers exact copies), each printed against the one
+   process's;
 11. entry points: ``python -m one_class_ffm_torch`` on small text
    datasets, MF with --ns, FFM without, FM with its user field above the
    cap, and MF with --ns --blocked-bm 0, must exit 0;
@@ -106,7 +118,7 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
 
 The line before the last is a JSON object with one entry per kernel: its
 launches summed over the eight main paths, the serving path and the mesh
-path's ranks (B9 and B10: over the bench's run), its largest error against
+paths' ranks (B9 and B10: over the bench's run), its largest error against
 the plain version,
 and its times and bound summed over the sides and shapes of phase 3 but
 the skewed FFM's.  The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -1051,11 +1063,19 @@ def skew_cases(trainer):
             (self_, blocks[(fu + 1, fu + 1)], True, "v")]
 
 
-def mesh_cases(trainer):
-    """The headline FFM's solves on a data mesh rank, over the rank's own
-    rows, blocks and feature-major lists: the id fields' cross block on
-    both sides (B1-B3 on the rank's stream slice, local ``src``) and
-    ``ffm_cases`` (B4-B8 and the X^T stage)."""
+def mesh_cases(trainer, kind: str = "blocked"):
+    """A mesh rank's solves over its own rows, blocks, head chunks and
+    lists.  ``blocked`` (the headline FFM, on a data or 2-D mesh): the id
+    fields' cross block on both sides (B1-B3 on the rank's stream slice,
+    local ``src``) and ``ffm_cases`` (B4-B8 and the X^T stage); ``skew``:
+    ``skew_cases`` (B1-B7 on the tails, B8 and the X^T stage on the head
+    rows of the rank's own power items); ``coo``: ``coo_cases`` (the X^T
+    stage's coefficient sources over the rank's lists of the entries of
+    its own rows)."""
+    if kind == "skew":
+        return skew_cases(trainer)
+    if kind == "coo":
+        return coo_cases(trainer)
     lay = trainer.solver.meta.layout
     blocks = {(b.f1, b.f2): b for b in lay.all_blocks()}
     b = blocks[(0, lay.fu)]
@@ -1839,42 +1859,101 @@ def cli_profile(work: str, env) -> None:
 
 
 # ---------------------------------------------------------------------------
-# the data mesh: 2 ranks sharing the card over gloo
+# the meshes: ranks sharing the card over gloo
 # ---------------------------------------------------------------------------
 
 MESH_RANKS = 2
-MESH_ROWS = 512  # row multiple: blocked_bm 256 x 2 ranks, both sides
+MESH_ROWS = 512  # row multiple: blocked_bm 256 x 2 data ranks, both sides
 MESH_TOL = 1e-5  # max|delta| / max|ref|, float32: gradient and Hv
 MESH_STEP_TOL = 1e-4  # the step: up to 20 CG iterations on those
 MESH_OBJ_TOL = 1e-3  # relative, the objective after each epoch
+MESH_MODEL_TOL = 0.0  # the 2x2 mesh's model file against the data mesh's
 MESH_CHECK_USERS = 4096  # users whose gathered scores re-rank the top-K
-# the problem of the mesh path: the headline FFM (``mesh_phase`` takes
-# another, e.g. a toy size on the CPU)
-MESH_SPEC = dict(n_users=N_USERS, n_items=N_ITEMS, dims=FFM_DIMS,
-                 rows=MESH_ROWS)
+# the problem of each mesh path: the headline FFM (``mesh_phase`` takes
+# another, e.g. a toy size on the CPU); ``ref_shards``: the stream of the
+# one-process reference (1: flat, else the ranks' shard-aligned stream, so
+# that a COO side's stream-order carry and a head tier's chunks are the
+# same on both); ``kernels``: the cases of ``mesh_cases`` and the kernels
+# every rank's epochs must launch; ``trainer``: the Trainer's options;
+# ``v_picks``: the cross blocks' v halves among the half-solves;
+# ``model_file``: rank 0 writes the model after the epochs;
+# ``model_ref``: the tag of the path whose rank-0 file it must equal
+MESH_SPEC = dict(tag="mesh ffm", n_users=N_USERS, n_items=N_ITEMS,
+                 dims=FFM_DIMS, rows=MESH_ROWS, mesh="2", ranks=2,
+                 epochs=2, ref_shards=1, kernels="blocked", trainer={},
+                 model_file=True)
+MESH_PATHS = {
+    "skew": dict(MESH_SPEC, tag="mesh ffm-skew", ref_shards=2,
+                 kernels="skew", v_picks=True, model_file=False),
+    "coo": dict(MESH_SPEC, tag="mesh ffm-coo", ref_shards=2, kernels="coo",
+                trainer=dict(blocked_bm=0), v_picks=True, model_file=False),
+    "2d": dict(MESH_SPEC, tag="mesh ffm-2d", mesh="2x2", ranks=4,
+               ref_shards=2, model_ref="mesh ffm",
+               trainer=dict(model_min_rows=4096)),
+}
+MESH_KERNELS = {"blocked": BLOCKED + TABLE + ("project",),
+                "skew": BLOCKED + TABLE + ("project",),
+                "coo": ("pos_scatter", "pos_seg_sum") + WIDE}
 
 
-def mesh_picks(solver):
-    """One cross half-solve on identity fields (B1-B3), one on a fused
-    field (B4, B5), one user and one item self block (B6, B7): (label,
-    block index, first) for the identical-state comparison."""
+def reshard(data, rows: int, shards: int):
+    """``data`` (a LoadedData) with both sides' rows padded to a multiple
+    of ``rows`` (zero rows) and its stream rebuilt shard-aligned for
+    ``shards`` data ranks (``pad_labels(shard_rows=)``): the arrays of one
+    build laid out for a mesh, without drawing them again."""
+    import dataclasses
+
+    import numpy as np
+
+    from one_class_ffm_torch.data.dataset import Interactions, pad_labels
+
+    def pad(pf):
+        extra = -(-pf.m // rows) * rows - pf.m
+        return dataclasses.replace(
+            pf, m=pf.m + extra,
+            idx=tuple(np.pad(a, ((0, extra), (0, 0))) for a in pf.idx),
+            val=tuple(np.pad(a, ((0, extra), (0, 0))) for a in pf.val),
+            row_nnz=np.pad(pf.row_nnz, (0, extra)))
+
+    u, v = pad(data.u_pad), pad(data.v_pad)
+    y = data.y_pad
+    real = y.w > 0
+    uu, vv = y.u[real].astype(np.int64), y.v[real].astype(np.int64)
+    indptr = np.zeros(data.m_users_true + 1, np.int64)
+    indptr[1:] = np.cumsum(np.bincount(uu, minlength=data.m_users_true))
+    y2 = pad_labels(Interactions(m=data.m_users_true, n=data.n_items_true,
+                                 indptr=indptr, col=vv),
+                    u.m, v.m, nnz_multiple=rows * 8, dtype=np.float32,
+                    shard_rows=u.m // shards)
+    return dataclasses.replace(data, u_pad=u, v_pad=v, y_pad=y2)
+
+
+def mesh_picks(solver, v_side: bool = False):
+    """One cross half-solve on identity fields (B1-B3), one on a feature
+    field (B4, B5, or a COO side's list and B8), one user and one item self
+    block (B6, B7): (label, block index, first) for the identical-state
+    comparison; with ``v_side`` the two cross blocks' v halves too (a
+    power item's head chunks, a v-side list over the rank's items)."""
     meta = solver.meta
     blocks = meta.layout.all_blocks()
     picks = []
-    for label, want in (
+    for label, want, sides in (
             ("uv id", lambda b: b.kind == "uv" and meta.ident_u[b.fi]
-             and meta.ident_v[b.fj]),
-            ("uv fused", lambda b: b.kind == "uv" and meta.fused_u[b.fi]),
-            ("uu", lambda b: b.kind == "uu"),
-            ("vv", lambda b: b.kind == "vv")):
+             and meta.ident_v[b.fj], (True, False)),
+            ("uv fused" if any(meta.fused_u) else "uv field",
+             lambda b: b.kind == "uv" and not meta.ident_u[b.fi],
+             (True, False)),
+            ("uu", lambda b: b.kind == "uu", (True,)),
+            ("vv", lambda b: b.kind == "vv", (True,))):
         i = next(i for i, b in enumerate(blocks) if want(b))
-        picks.append((label, i, True))
+        for first in sides if v_side else (True,):
+            picks.append((label if first else label + " v", i, first))
     return picks
 
 
 def half_solve_outputs(solver, state, picks):
     """Per pick: the gradient, one Hv (of -G, the first CG direction) and
-    the table after the step, as numpy, and the CG count."""
+    the whole table after the step, as numpy, and the CG count."""
     sa, sb = solver.sasb(state)
     blocks = solver.meta.layout.all_blocks()
     out = {}
@@ -1883,7 +1962,7 @@ def half_solve_outputs(solver, state, picks):
         G, hv, _, _, _ = solver.solve_inputs(state, b, first, sa, sb)
         Hv = hv((-G).to(solver.meta.dtype))
         st2, it = solver._solve_half(state, b, first, sa, sb)
-        T = st2["params"][b.f12]["W" if first else "H"]
+        T = solver.full_params(st2["params"])[b.f12]["W" if first else "H"]
         _sync(solver.device)
         out[label] = dict(G=G.float().cpu().numpy(),
                           Hv=Hv.float().cpu().numpy(),
@@ -1891,20 +1970,55 @@ def half_solve_outputs(solver, state, picks):
     return out
 
 
-def mesh_rank(state_path: str, picks, epochs: int, device: str,
-              spec: dict):
-    """One rank of ``[mesh ffm]`` (spawned by ``mesh_phase``, in its own
-    process, the group on gloo, the tensors on cuda:0 that both ranks
-    share): the headline FFM on its half of the rows through the Trainer
-    with ``mesh_shape="2"``.  1. the half-solves of ``picks`` from the
-    single-process state at ``state_path`` (numpy, cut to this rank's part
-    by ``Trainer._place_state``); 2. ``epochs`` epochs from the seed's
-    tables with the launch counts and the census read around them, the
-    census per epoch; validation sharded by users, then by items; 3. the
-    item-sharded ``predict_topk(k=10)``, and for its first users the top 10
-    of the ranks' gathered scores.  On the card first ``mesh_cases``: each
-    kernel against its plain version on this rank's inputs (untimed: the
-    ranks share the card).  Returns what the parent checks."""
+def coo_sums(solver, state):
+    """Each COO side's positive sums over its list (``pos_scatter`` of the
+    first cross block's gradient coefficients), this process's rows, as
+    numpy.  A rank's list holds the entries of its own rows in the one
+    process's order, so its rows' sums are the one process's; the
+    half-solves' gradients and Hv products also carry reductions over the
+    other side's rows, whose float32 order a mesh changes."""
+    from one_class_ffm_torch.ops.sparse_ops import pos_scatter
+
+    b = solver.meta.layout.cross_blocks()[0]
+    out = {}
+    for first, s in ((True, "u"), (False, "v")):
+        coo = solver._coo(first)
+        if coo is None:
+            continue
+        B1 = solver._gather(state["Q" if first else "P"][b.f12], "check")
+        c = solver._pos_coeff(state["yt_" + s]) * solver.data[f"blk_{s}_w"]
+        out[s] = pos_scatter(c, B1, coo).float().cpu().numpy()
+    return out
+
+
+def _mesh_data(spec: dict, shards: int):
+    """The problem of a mesh path: the pickled arrays at ``spec["data"]``
+    (padded and shard-aligned by the parent) or the build of its sizes."""
+    import pickle
+
+    if spec.get("data"):
+        with open(spec["data"], "rb") as fh:
+            return pickle.load(fh)
+    return build_data(spec["n_users"], spec["n_items"], 5.0, seed=0,
+                      self_side=True, row_multiple=spec["rows"],
+                      shards=shards, **spec["dims"])
+
+
+def mesh_rank(state_path: str, picks, device: str, spec: dict):
+    """One rank of a mesh path (spawned by ``mesh_phase``, in its own
+    process, the group on gloo, the tensors on cuda:0 that the ranks
+    share): the path's problem on its part of the rows through the Trainer
+    with ``mesh_shape=spec["mesh"]``.  1. the half-solves of ``picks`` from
+    the one-process state at ``state_path`` (numpy, cut to this rank's
+    part by ``Trainer._place_state``); 2. ``spec["epochs"]`` epochs from
+    the seed's tables with the launch counts and the census read around
+    them, the census per epoch (with ``spec["model_file"]`` then rank 0
+    writes its text model, ``Trainer.save_model``); validation by users,
+    then by items; 3. the item-sharded ``predict_topk(k=10)``, and for its
+    first users the top 10 of the ranks' gathered scores.  On the card
+    first ``mesh_cases``: each kernel against its plain version on this
+    rank's inputs (untimed: the ranks share the card).  Returns what the
+    parent checks."""
     import dataclasses
     import io
     import pickle
@@ -1923,37 +2037,50 @@ def mesh_rank(state_path: str, picks, epochs: int, device: str,
     if device.type == "cuda":
         torch.cuda.set_device(device)
     # the ranks share the host's cores
-    torch.set_num_threads(max(1, (os.cpu_count() or 2) // (2 * MESH_RANKS)))
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // (2 * spec["ranks"])))
+    epochs = spec["epochs"]
     t0 = time.perf_counter()
-    data = build_data(spec["n_users"], spec["n_items"], 5.0, seed=0,
-                      self_side=True, row_multiple=spec["rows"],
-                      shards=MESH_RANKS, **spec["dims"])
+    n_data = int(spec["mesh"].split("x")[0])
+    data = _mesh_data(spec, n_data)
     trainer = make_trainer(data, device, epochs=epochs,
-                           mesh_shape=str(MESH_RANKS), distributed=True,
-                           eval_shard="users")
+                           mesh_shape=spec["mesh"], distributed=True,
+                           eval_shard="users", **spec["trainer"])
     mesh, solver = trainer.mesh, trainer.solver
-    out = dict(rank=mesh.rank, setup_s=time.perf_counter() - t0,
+    d = solver.data
+    out = dict(rank=mesh.rank, model_rank=mesh.model_rank,
+               setup_s=time.perf_counter() - t0,
                rows=(solver.m_l, solver.n_l),
-               u_blocks=int(solver.data["blk_u_own"].shape[0]),
-               v_blocks=int(solver.data["blk_v_own"].shape[0]),
-               stream=int(solver.data["pos_w"].shape[0]))
+               u_blocks=(int(d["blk_u_own"].shape[0]) if "blk_u_own" in d
+                         else 0),
+               v_blocks=(int(d["blk_v_own"].shape[0]) if "blk_v_own" in d
+                         else 0),
+               stream=int(d["pos_w"].shape[0]), coo=coo_sides(solver),
+               head={s: (int(d[f"blk_{s}_hd_rows"].numel()),
+                         int((d[f"blk_{s}_hd_w"] != 0).any(dim=1).sum()),
+                         int(d[f"blk_{s}_hd_w"].shape[0]))
+                     for s in ("u", "v") if f"blk_{s}_hd_rows" in d},
+               tables={f"{name}[{f12}]": tuple(t.shape)
+                       for f12, blk in trainer.init_state()["params"].items()
+                       for name, t in blk.items()})
 
     # 0. the kernels at this rank's shapes (the CPU runs the plain versions)
     report, lines = new_report(), io.StringIO()
     if device.type == "cuda":
         with contextlib.redirect_stdout(lines):
-            kernel_phase(trainer, mesh_cases(trainer), f"mesh rank "
-                         f"{mesh.rank}", "", report, timed=False)
+            kernel_phase(trainer, mesh_cases(trainer, spec["kernels"]),
+                         f"{spec['tag']} rank {mesh.rank}.{mesh.model_rank}",
+                         "", report, timed=False)
     out["kernel_lines"] = lines.getvalue().splitlines()
     out["kernel_errs"] = {name: r["max_abs_err"]
                           for name, r in report.items()}
 
-    # 1. one identical state: the single-process state after its first
-    # epoch, this rank's part of it
+    # 1. one identical state: the one-process state after its first epoch,
+    # this rank's part of it
     with open(state_path, "rb") as fh:
         state1 = pickle.load(fh)
     state = trainer._place_state(state1)
     del state1
+    out["coo_sums"] = coo_sums(solver, state)
     out["halves"] = half_solve_outputs(solver, state, picks)
     del state
 
@@ -1970,11 +2097,16 @@ def mesh_rank(state_path: str, picks, epochs: int, device: str,
         seconds.append(trainer.history[-1]["seconds"])
         objectives.append(float(solver.objective(trainer.state)))
     out["launches"] = kernels.launch_counts()
+    if spec.get("model_file"):  # every rank gathers, rank 0 writes
+        trainer.save_model(spec["model_out"])
     out.update(objectives=objectives, census=census, seconds=seconds,
                iters=[h["cg_iters"] for h in trainer.history],
                rows_logged=rows,
+               model=(spec["model_out"] if spec.get("model_file")
+                      and trainer.is_writer else None),
                validate_s=trainer.timer.summary()["validate"]["seconds"])
     st = trainer.state
+    params = trainer.full_params()
     out["metrics_users"] = trainer.validate()
 
     # validation by items: every rank the same users, its items
@@ -1987,7 +2119,7 @@ def mesh_rank(state_path: str, picks, epochs: int, device: str,
                          ).shard_items(mesh)
     _sync(device)
     t0 = time.perf_counter()
-    out["metrics_items"] = ev_items.validate(st["params"], st["Q"], st["b"])
+    out["metrics_items"] = ev_items.validate(params, st["Q"], st["b"])
     out["validate_items_s"] = time.perf_counter() - t0
 
     # 3. the item-sharded top 10, and its first users re-ranked from the
@@ -1997,7 +2129,7 @@ def mesh_rank(state_path: str, picks, epochs: int, device: str,
     ids = trainer.predict_topk(k=10)
     out["predict_s"] = time.perf_counter() - t0
     out["ids_shape"] = ids.shape
-    Pva, _ = ev_items._project_users(st["params"])
+    Pva, _ = ev_items._project_users(params)
     f12s = [b.f12 for b in emeta.layout.cross_blocks()]
     n_local = emeta.n // mesh.size
     gid = mesh.rank * n_local + torch.arange(n_local, device=device)
@@ -2020,17 +2152,21 @@ def mesh_rank(state_path: str, picks, epochs: int, device: str,
 
 
 def mesh_phase(device, gpu: str, report, spec: dict = MESH_SPEC):
-    """``[mesh ffm]``: the headline FFM at full width on a 2-rank data mesh
-    whose ranks share the one card over gloo (NCCL runs one rank per card;
-    the timing is not a scaling number).  The parent runs the
-    single-process reference on the same padding (rows to 512, the flat
-    stream), hands its state after one epoch to the ranks, spawns them
-    (``parallel.distributed.spawn``: a rank that fails fails the run) and
-    checks: the half-solves against the single-process path (``MESH_TOL``,
-    the step ``MESH_STEP_TOL``), the objective after each of 3 epochs
-    (``MESH_OBJ_TOL``), finite metrics by users and by items, the merged
-    top-10 against the gathered scores' bit for bit, the census (in CG one
-    all-reduce per Hv, no all-gather), and on the card each kernel of the
+    """``[mesh ffm]`` and the other mesh paths (``MESH_PATHS``): the
+    path's problem at full width on ``spec["ranks"]`` ranks
+    (``spec["mesh"]``: ``"2"``, or ``"2x2"`` data x model) that share the
+    one card over gloo (NCCL runs one rank per card; the timing is not a
+    scaling number).  The parent runs the one-process reference on the
+    same padding, hands its state after one epoch to the ranks, spawns
+    them (``parallel.distributed.spawn``: a rank that fails fails the run)
+    and checks: the half-solves against the one-process path
+    (``MESH_TOL``, the step ``MESH_STEP_TOL``), the objective after each
+    epoch (``MESH_OBJ_TOL``), finite metrics by users and by items, the
+    merged top-10 against the gathered scores' bit for bit, the census (in
+    CG one all-reduce per Hv, no all-gather), with ``spec["model_file"]``
+    rank 0's model file after the epochs (true dims) printed against the
+    one process's and, with ``spec["model_ref"]``, equal to that path's
+    rank-0 file (``MESH_MODEL_TOL``), and on the card each kernel of the
     path held against its plain version on each rank's inputs
     (``mesh_cases``; its error goes into ``report``) and launched on each
     rank.  Returns the launch counts summed over the ranks."""
@@ -2040,114 +2176,162 @@ def mesh_phase(device, gpu: str, report, spec: dict = MESH_SPEC):
 
     from one_class_ffm_torch.parallel.distributed import spawn
     from one_class_ffm_torch.parallel.mesh import host_arrays
+    from one_class_ffm_torch.train import load_text_model, save_text_model
 
+    tag = spec["tag"]
     t0 = time.perf_counter()
-    ffm = build_data(spec["n_users"], spec["n_items"], 5.0, seed=0,
-                     self_side=True, row_multiple=spec["rows"],
-                     **spec["dims"])
-    ref = make_trainer(ffm, device)
+    data = _mesh_data(spec, spec["ref_shards"])
+    ref = make_trainer(data, device, epochs=spec["epochs"], **{
+        k: v for k, v in spec["trainer"].items() if k != "model_min_rows"})
     solver = ref.solver
     state = ref.init_state()
     state1, _ = solver.epoch_stats(state)
-    picks = mesh_picks(solver)
+    picks = mesh_picks(solver, spec.get("v_picks", False))
     ref_halves = half_solve_outputs(solver, state1, picks)
-    work = os.path.join(WORK, "mesh")
+    ref_sums = coo_sums(solver, state1)
+    work = os.path.join(WORK, tag.replace(" ", "_"))
     os.makedirs(work, exist_ok=True)
     state_path = os.path.join(work, "state1.pkl")
     with open(state_path, "wb") as fh:
         pickle.dump(host_arrays(state1), fh, protocol=4)
     del state1
-    single = train_and_validate(ref, 3)
-    print(f"[mesh ffm] single-process reference (rows to {spec['rows']}, flat "
-          f"stream): {time.perf_counter() - t0:.1f} s; ranks {MESH_RANKS} "
-          f"on {device} over gloo: 2 ranks sharing one card, not a scaling "
-          f"number [{gpu}]")
+    single = train_and_validate(ref, spec["epochs"])
+    ref_model = os.path.join(work, "one_process.txt")
+    if spec.get("model_file"):
+        save_text_model(ref_model, ref.params_numpy(), data.layout,
+                        ref.cfg.k)
+    stream = "flat" if spec["ref_shards"] == 1 else "shard-aligned"
+    print(f"[{tag}] one-process reference (rows to {spec['rows']}, {stream} "
+          f"stream, COO sides {coo_sides(solver)}): "
+          f"{time.perf_counter() - t0:.1f} s; {spec['ranks']} ranks "
+          f"(--mesh {spec['mesh']}) on {device} over gloo: ranks sharing "
+          f"one card, not a scaling number [{gpu}]")
     t0 = time.perf_counter()
-    outs = spawn("chip_smoke:mesh_rank", MESH_RANKS,
-                 args=(state_path, picks, 3, str(device), spec),
+    spec = dict(spec, model_out=os.path.join(work, "rank0.txt"))
+    outs = spawn("chip_smoke:mesh_rank", spec["ranks"],
+                 args=(state_path, picks, str(device), spec),
                  backend="gloo", workdir=work, timeout=900)
-    print(f"[mesh ffm] {MESH_RANKS} ranks done in "
+    print(f"[{tag}] {spec['ranks']} ranks done in "
           f"{time.perf_counter() - t0:.1f} s (each: process start, data, "
           f"layouts, the checks below)")
-    names = BLOCKED + TABLE + ("project",)
+    names = MESH_KERNELS[spec["kernels"]]
     launches = {name: 0 for name in REPLACES}
     for o in outs:
-        r = o["rank"]
-        print(f"[mesh ffm] rank {r}: rows u {o['rows'][0]} v {o['rows'][1]}, "
+        r = f"{o['rank']}.{o['model_rank']}" if "x" in spec["mesh"] \
+            else o["rank"]
+        print(f"[{tag}] rank {r}: rows u {o['rows'][0]} v {o['rows'][1]}, "
               f"blocks u {o['u_blocks']} v {o['v_blocks']}, stream slice "
-              f"{o['stream']}; set-up {o['setup_s']:.1f} s")
+              f"{o['stream']}, COO sides {o['coo']}, head tier (rows, real "
+              f"chunks, chunks) {o['head']}; set-up {o['setup_s']:.1f} s")
+        if "x" in spec["mesh"]:
+            print(f"[{tag}] rank {r} tables held: {o['tables']}")
         for line in o["kernel_lines"]:
             print(line)
         held = {line.split()[1] for line in o["kernel_lines"]
                 if "bit-equal" in line}
         for name in names if device.type == "cuda" else ():
             check(name in held, f"{name} not held against its plain version "
-                                f"on mesh rank {r}")
+                                f"on {tag} rank {r}")
         for name, err in o["kernel_errs"].items():
             report[name]["max_abs_err"] = max(report[name]["max_abs_err"],
                                               err)
+        for s, got in o["coo_sums"].items():
+            rows = got.shape[0]
+            want = ref_sums[s][o["rank"] * rows:(o["rank"] + 1) * rows]
+            err = float(np.abs(got - want).max())
+            scale = float(np.abs(want).max()) or 1.0
+            print(f"[{tag}] rank {r} the {s} side's list sums ({rows} rows): "
+                  f"max-abs against the one process's rows {err:.3e}")
+            check(err / scale <= MESH_TOL,
+                  f"{tag} rank {r}: the {s} side's list sums off by {err}")
         for label, got in o["halves"].items():
             want = ref_halves[label]
             errs = {}
             for key in ("G", "Hv", "T"):
                 scale = float(np.abs(want[key]).max()) or 1.0
                 errs[key] = float(np.abs(got[key] - want[key]).max()) / scale
-            print(f"[mesh ffm] rank {r} half-solve {label}: max|d|/max|ref| "
+            print(f"[{tag}] rank {r} half-solve {label}: max|d|/max|ref| "
                   f"gradient {errs['G']:.3e}, Hv {errs['Hv']:.3e}, step "
-                  f"{errs['T']:.3e}; CG {got['iters']} vs single "
+                  f"{errs['T']:.3e}; CG {got['iters']} vs one process "
                   f"{want['iters']}")
             check(errs["G"] <= MESH_TOL and errs["Hv"] <= MESH_TOL,
-                  f"mesh ffm rank {r} {label}: gradient / Hv off the "
-                  f"single-process path by {errs}")
-            check(errs["T"] <= MESH_STEP_TOL,
-                  f"mesh ffm rank {r} {label}: step off by {errs['T']}")
+                  f"{tag} rank {r} {label}: gradient / Hv off the "
+                  f"one-process path by {errs}")
+            check(errs["T"] <= MESH_STEP_TOL
+                  and got["iters"] == want["iters"],
+                  f"{tag} rank {r} {label}: step off by {errs['T']}, CG "
+                  f"{got['iters']} vs {want['iters']}")
         for i, (sec, it) in enumerate(zip(o["seconds"], o["iters"])):
             obj, ref_obj = o["objectives"][i + 1], single["objectives"][i + 1]
-            print(f"[mesh ffm] rank {r} epoch {i + 1}: {sec:.4f} s (2 ranks "
-                  f"sharing one card: not a scaling number), CG {it}, "
-                  f"objective {obj:.6f} vs single {ref_obj:.6f} (CG "
-                  f"{single['iters'][i]}) [{gpu}]")
+            print(f"[{tag}] rank {r} epoch {i + 1}: {sec:.4f} s "
+                  f"({spec['ranks']} ranks sharing one card: not a scaling "
+                  f"number), CG {it}, objective {obj:.6f} vs one process "
+                  f"{ref_obj:.6f} (CG {single['iters'][i]}) [{gpu}]")
             check(abs(obj - ref_obj) <= MESH_OBJ_TOL * abs(ref_obj),
-                  f"mesh ffm rank {r} epoch {i + 1}: objective {obj} vs "
+                  f"{tag} rank {r} epoch {i + 1}: objective {obj} vs "
                   f"{ref_obj}")
             cen = o["census"][i]
             in_cg = {(op, site): c for op, site, sc, c, _ in cen
                      if sc == "cg"}
             check(in_cg == {("all_reduce", "hv"): sum(it)},
-                  f"mesh ffm rank {r} epoch {i + 1}: collectives in CG "
+                  f"{tag} rank {r} epoch {i + 1}: collectives in CG "
                   f"{in_cg}, CG iterations {sum(it)}")
-            print(f"[mesh ffm] rank {r} epoch {i + 1} census (op, site, "
+            print(f"[{tag}] rank {r} epoch {i + 1} census (op, site, "
                   f"scope: calls, bytes): " + "; ".join(
                       f"{op} {site} {sc}: {c}, {b}"
                       for op, site, sc, c, b in cen))
         for by in ("users", "items"):
             m = o[f"metrics_{by}"]
             bad = {k: v for k, v in m.items() if not math.isfinite(v)}
-            check(not bad, f"mesh ffm rank {r}: non-finite metrics {bad}")
-            print(f"[mesh ffm] rank {r} validation by {by}: "
+            check(not bad, f"{tag} rank {r}: non-finite metrics {bad}")
+            print(f"[{tag}] rank {r} validation by {by}: "
                   f"{json.dumps(m)}")
-        print(f"[mesh ffm] single-process validation: "
+        print(f"[{tag}] one-process validation: "
               f"{json.dumps(single['metrics'])}")
-        print(f"[mesh ffm] rank {r} validation s: by users "
+        print(f"[{tag}] rank {r} validation s: by users "
               f"{o['validate_s']:.4f}, by items {o['validate_items_s']:.4f}; "
               f"item-sharded predict_topk(k=10) {o['predict_s']:.4f} s, ids "
               f"{tuple(o['ids_shape'])}, the first {o['ids_checked']} users "
               f"equal to the gathered scores' top 10: {o['ids_same']} "
               f"[{gpu}]")
         check(o["ids_same"] == o["ids_checked"],
-              f"mesh ffm rank {r}: merged top-10 ids differ from the "
+              f"{tag} rank {r}: merged top-10 ids differ from the "
               f"gathered scores' on {o['ids_checked'] - o['ids_same']} users")
-        check(tuple(o["ids_shape"]) == (len(ffm.va_labels), 10),
-              f"mesh ffm rank {r}: top-K shape {o['ids_shape']}")
-        print(f"[mesh ffm] rank {r} kernel launches {o['launches']} (the "
+        check(tuple(o["ids_shape"]) == (len(data.va_labels), 10),
+              f"{tag} rank {r}: top-K shape {o['ids_shape']}")
+        print(f"[{tag}] rank {r} kernel launches {o['launches']} (the "
               f"X^T stage runs inside each B4-B7 launch)")
         for name in names if device.type == "cuda" else ():
             check(o["launches"][name] > 0,
-                  f"{name} never launched on mesh rank {r}")
+                  f"{name} never launched on {tag} rank {r}")
         for name in REPLACES:
             launches[name] += o["launches"][name]
-    check(outs[0]["iters"] == outs[1]["iters"],
-          "mesh ffm: the ranks' CG counts differ")
+        if o["model"]:
+            _, k_m, p_m = load_text_model(o["model"])
+            refs = [("the one process's", ref_model, None)]
+            if spec.get("model_ref"):
+                refs.append((f"[{spec['model_ref']}] rank 0's",
+                             os.path.join(WORK, spec["model_ref"].replace(
+                                 " ", "_"), "rank0.txt"), MESH_MODEL_TOL))
+            for what, path, tol in refs:
+                _, k_r, p_r = load_text_model(path)
+                dims = {f"{n}[{f12}]": (p_m[f12][n].shape, blk[n].shape)
+                        for f12, blk in p_r.items() for n in ("W", "H")}
+                check(k_m == k_r and all(a == b for a, b in dims.values()),
+                      f"{tag}: model file dims {dims} against {what}")
+                err = max(float(np.abs(p_m[f12][n] - blk[n]).max())
+                          / (float(np.abs(blk[n]).max()) or 1.0)
+                          for f12, blk in p_r.items() for n in ("W", "H"))
+                print(f"[{tag}] rank {r} model file after epoch "
+                      f"{spec['epochs']}: k {k_m}, tables (rows, k) "
+                      f"{ {key: a for key, (a, _) in dims.items()} }, "
+                      f"max|d|/max|ref| against {what} file {err:.3e}")
+                check(tol is None or err <= tol,
+                      f"{tag}: model file off {what} by {err}")
+    check(all(o["iters"] == outs[0]["iters"] for o in outs),
+          f"{tag}: the ranks' CG counts differ")
+    check(any(o["model"] for o in outs) == bool(spec.get("model_file")),
+          f"{tag}: rank 0 wrote no model file")
     return launches
 
 
@@ -2371,10 +2555,21 @@ def main() -> int:
             check(got[name] > 0, f"{name} never launched in hv_pack_bench")
             launches[name] += got[name]
 
-        # 10. the data mesh: the headline FFM on 2 ranks sharing the card
-        got = mesh_phase(device, gpu, report)
-        for name in REPLACES:
-            launches[name] += got[name]
+        # 10. the meshes: the headline FFM on 2 data ranks sharing the
+        # card, then the skewed FFM (head tier under the mesh; the arrays
+        # of phase 3, padded and shard-aligned), the FFM with both sides
+        # COO, and the FFM on the 2x2 data x model mesh
+        import pickle
+
+        os.makedirs(WORK, exist_ok=True)
+        skew_path = os.path.join(WORK, "skew_mesh.pkl")
+        with open(skew_path, "wb") as fh:
+            pickle.dump(reshard(skew, MESH_ROWS, MESH_RANKS), fh, protocol=4)
+        for spec in (MESH_SPEC, dict(MESH_PATHS["skew"], data=skew_path),
+                     MESH_PATHS["coo"], MESH_PATHS["2d"]):
+            got = mesh_phase(device, gpu, report, spec)
+            for name in REPLACES:
+                launches[name] += got[name]
 
         # 11. the command-line entry points
         cli_phase(device)

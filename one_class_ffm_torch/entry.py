@@ -69,7 +69,9 @@ def entry(device: torch.device | str = "cuda"):
 def _dryrun_rank(device: str, n_devices: int):
     """One rank of ``dryrun_multichip``: its own copy of the dataset (the
     same files on every rank, from the seed), one epoch, one evaluation,
-    one top-5 on the mesh; returns what it checked."""
+    one top-5 on the mesh (``n_devices // 2 x 2`` at 4 or more, an even
+    count, its tables of 8 rows or more row-sharded on the model axis);
+    returns what it checked."""
     import math
     import tempfile
 
@@ -80,38 +82,51 @@ def _dryrun_rank(device: str, n_devices: int):
         item, train, va = write_dataset(
             td, SynthSpec(n_users=64, n_items=32, avg_pos=4.0, seed=0,
                           dims_u=(64, 24), dims_v=(32, 16)))
+        two_d = n_devices >= 4 and n_devices % 2 == 0
         cfg = TrainConfig(item_path=item, train_path=train, test_path=va,
                           k=8, lam=0.01, omega=0.1, nr_pass=1, eval_every=1,
-                          mesh_shape=str(n_devices), distributed=True,
+                          mesh_shape=(f"{n_devices // 2}x2" if two_d
+                                      else str(n_devices)),
+                          model_min_rows=8, distributed=True,
                           eval_shard="items", blocked_bm=8)
         trainer = Trainer(cfg, device=device)
         metrics = trainer.run(log=lambda *_: None)
         mesh = trainer.mesh
-        assert mesh is not None and mesh.size == n_devices
+        assert mesh is not None and mesh.size * mesh.n_model == n_devices
         # the training state stayed distributed: this rank's rows only
-        assert trainer.state["a"].shape[0] == trainer.meta.m // n_devices
+        assert trainer.state["a"].shape[0] == trainer.meta.m // mesh.size
+        dims = {b.f12: dict(W=b.d1, H=b.d2)
+                for b in trainer.data.layout.all_blocks()}
+        sharded = [f"{name}[{f12}]" for f12, blk in trainer.state[
+            "params"].items() for name, t in blk.items()
+            if t.shape[0] < trainer.meta.pad_d(dims[f12][name])]
+        assert sharded or not two_d, "no table sharded on the model axis"
         loss = float(trainer.solver.objective(trainer.state))
         assert math.isfinite(loss), "objective is not finite"
         assert metrics and math.isfinite(metrics["ploss"])
         assert trainer.evaluator.shard_by == "items"
         top = trainer.predict_topk(k=5)
         assert top.shape == (len(trainer.data.va_labels), 5), top.shape
-        return dict(rank=mesh.rank, objective=loss, ploss=metrics["ploss"],
-                    top_shape=top.shape)
+        return dict(rank=mesh.rank, model_rank=mesh.model_rank,
+                    objective=loss, ploss=metrics["ploss"],
+                    top_shape=top.shape, sharded=sharded)
 
 
 def dryrun_multichip(n_devices: int,
                      device: torch.device | str = "cuda") -> list:
     """One sharded training epoch (gradients, CG and Newton steps of every
     field-pair block), a sharded evaluation and an item-sharded
-    ``predict_topk(k=5)`` through the Trainer on a 1-D ``n_devices``-rank
-    data mesh, on a tiny synthetic dataset; asserts that the state stays
-    distributed, the objective and metrics are finite and the top-K has
-    its shape.  Inside a process group of ``n_devices`` ranks it runs this
-    rank; otherwise it spawns ``n_devices`` gloo ranks on ``device`` (which
-    may be one card that they share).  Returns each rank's summary (this
-    rank's alone inside a group).  The JAX package's 2-D data x model form
-    at ``n_devices >= 4`` waits for ROADMAP A11b."""
+    ``predict_topk(k=5)`` through the Trainer on a tiny synthetic dataset,
+    on the JAX package's mesh (``__graft_entry__.dryrun_multichip``): at 4
+    or more ranks, an even count, the ``n_devices // 2 x 2`` data x model
+    mesh with ``model_min_rows=8``, else the 1-D ``n_devices``-rank data
+    mesh; asserts that the state stays distributed (on the 2-D mesh a
+    table row-sharded on the model axis), the objective and metrics are
+    finite and the top-K has its shape.  Inside a process group of
+    ``n_devices`` ranks it runs this rank; otherwise it spawns
+    ``n_devices`` gloo ranks on ``device`` (which may be one card that they
+    share).  Returns each rank's summary (this rank's alone inside a
+    group)."""
     import torch.distributed as dist
 
     from .parallel.distributed import spawn

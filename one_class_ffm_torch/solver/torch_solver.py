@@ -23,18 +23,27 @@ on a CUDA device (ops/sparse_ops.py dispatches).  A popularity-skewed side
 takes the two-tier layout: the kernels run on its tail, and the head ops
 (``sparse_ops.head_*``, plain torch) add its power rows' entries.
 
-On a 1-D data mesh (``parallel.mesh``; one process per rank on
+On a data mesh (``parallel.mesh``; one process per rank on
 ``torch.distributed``) each rank holds its rows, its slice of the
-shard-aligned stream and its blocks of both layouts (``make_device_data(
-..., blocked_shards=S)``, then ``parallel.shard_data``), and a copy of the
-tables.  Every kernel runs on the rank's part unchanged, with ``num_l =
-rows // S`` and rank-local ``src``; the collectives sit where the JAX
-solver's are (jax_solver.py:1224-1395): per cross half-solve one all-gather
-of the other side's cache rows for the stream, the Grams' and the
-gradient's all-reduces and the carry's cross-order propagation outside CG,
-and inside each CG iteration one all-reduce of Hv's table-space output.
-The head tier and the plain COO passes under a mesh raise
-``NotImplementedError`` naming ROADMAP A11b.
+shard-aligned stream and its part of each side's order (``make_device_data(
+..., blocked_shards=S)``, then ``parallel.shard_data``): a blocked side's
+blocks and the head chunks of its own rows, a COO side's list of its stream
+slice; and a copy of the tables.  Every kernel runs on the rank's part
+unchanged, with ``num_l = rows // S`` and rank-local ``src``; the
+collectives sit where the JAX solver's are (jax_solver.py:1224-1395): per
+cross half-solve one all-gather of the other side's cache rows for the
+stream (blocked tail, head chunks and a COO list read it), the Grams' and
+the gradient's all-reduces and the carry's cross-order propagation outside
+CG, and inside each CG iteration one all-reduce of Hv's table-space
+output, into which the head rows' partial sums are added first.  A COO
+side's order on a rank is its entries of the rank's rows in stream order:
+the u side's stream slice, the v side's entries of the rank's items
+(``parallel.shard_data``), so that its sums are the one-process sums row
+for row.  On a 2-D ``data x model`` mesh the tables of
+at least ``model_min_rows`` rows (padded to ``d_multiple``) are row-sharded
+on the model axis: a half-solve gathers its table once over the model
+group and keeps its own rows of the new table; the caches' refresh, the
+objective and the callers' ``full_params`` gather the tables they read.
 
 The state is a dict of tensors, as in the JAX package: ``params`` ({f12:
 {"W", "H"}}), the caches ``P``/``Q`` ({f12: (rows, k)}), the side sums
@@ -91,6 +100,7 @@ from ..ops.sparse_ops import (
     seg_sum_blocked,
     storage_scale,
 )
+from ..parallel.mesh import model_sharded
 from ..utils.device import resolve_device
 from .params import HyperParams
 
@@ -130,6 +140,16 @@ class ProblemMeta:
     # ranks of the data mesh the stream and both layouts are laid out for
     # (shard-aligned), 1 for one device
     blocked_shards: int = 1
+    # block-table row dims rounded up to this multiple (the model axis of a
+    # 2-D mesh divides them)
+    d_multiple: int = 1
+
+    def pad_d(self, d: int) -> int:
+        """Padded table row dim (jax_solver.py ProblemMeta.pad_d).  Pad rows
+        are never indexed by any feature, are zero at init and receive zero
+        gradient and Hv, so they stay exactly zero."""
+        mult = max(1, self.d_multiple)
+        return -(-d // mult) * mult
 
 
 def _ident_flags(pf: PaddedFields) -> Tuple[bool, ...]:
@@ -151,7 +171,7 @@ def make_device_data(u: PaddedFields, v: PaddedFields, y: PaddedLabels,
                      dtype: torch.dtype = torch.float32,
                      blocked_bm: int = 256, head_chunk: int = 512,
                      device: torch.device | str = "cuda",
-                     blocked_shards: int = 1,
+                     blocked_shards: int = 1, d_multiple: int = 1,
                      ) -> Tuple[ProblemMeta, Dict[str, Any]]:
     """Assemble the device tensor dict + static meta from host padded views
     (jax_solver.make_device_data, restricted to the keys the port uses).
@@ -193,16 +213,27 @@ def make_device_data(u: PaddedFields, v: PaddedFields, y: PaddedLabels,
     ``parallel.mesh.shard_data`` cuts into each rank's part (the JAX
     package's shard-aligned layout, jax_solver.py:160-219).  The stream
     must be shard-aligned (``pad_labels(shard_rows=u.m // S)``); the u
-    layout's ``blk_u_src`` is then local to its rank's stream slice, and
-    ``blocked_bm`` must divide both sides' rows per rank, so that blocks
-    nest in ranks.  Both sides must take the blocked layout without the
-    head tier: a side that would take the head tier or the plain COO passes
-    under a mesh raises ``NotImplementedError`` (ROADMAP A11b)."""
+    layout's ``blk_u_src`` is then local to its rank's stream slice, and a
+    side takes the blocked layout only where ``blocked_bm`` divides its
+    rows per rank, so that blocks nest in ranks (a head tier's chunk count
+    padded to lcm(8, S)); as in the JAX package, a u side without one
+    leaves both sides COO, on the shard-aligned stream.
+
+    ``d_multiple`` > 1 rounds every block table's row dim up to that
+    multiple (``ProblemMeta.pad_d``): ``reg`` (padded with 1.0) and
+    ``colsq`` (with 0.0) take the padded lengths and the feature lists the
+    padded ``D``, so that the tables divide a model axis."""
     device = resolve_device(device)
     pads = np.asarray(y.w) == 0
     blk_u = blk_v = None
     S = int(blocked_shards)
+    mult = max(1, int(d_multiple))
+
+    def pad_d(d: int) -> int:
+        return -(-d // mult) * mult
+
     if S > 1:
+        _check_shard_aligned(y, u.m, S)
         blk_u, blk_v = _sharded_layouts(u, v, y, blocked_bm, head_chunk,
                                         pads, S)
     elif blocked_bm:
@@ -220,7 +251,7 @@ def make_device_data(u: PaddedFields, v: PaddedFields, y: PaddedLabels,
 
     def fused(pf: PaddedFields, ident, blk):
         # a fused pass reads its side's blocked stream
-        return tuple(blk is not None and not i and d <= FUSED_TBL_D
+        return tuple(blk is not None and not i and pad_d(d) <= FUSED_TBL_D
                      for i, d in zip(ident, pf.Ds))
 
     meta = ProblemMeta(
@@ -229,16 +260,21 @@ def make_device_data(u: PaddedFields, v: PaddedFields, y: PaddedLabels,
         fused_u=fused(u, ident_u, blk_u), fused_v=fused(v, ident_v, blk_v),
         blocked_bm_u=blocked_bm if blk_u is not None else 0,
         blocked_bm_v=blocked_bm if blk_v is not None else 0,
-        blocked_shards=S)
+        blocked_shards=S, d_multiple=mult)
 
     def t(a, dt=None):
         x = torch.from_numpy(np.ascontiguousarray(a))
         return x.to(device=device, dtype=dt or x.dtype)
 
     def regs(pf: PaddedFields):
+        # pad value 1.0: pad table rows are exactly zero, so any finite
+        # weight adds nothing (jax_solver.py regs)
         if hp.freq:
-            return tuple(t(fr, dtype) for fr in pf.freq)
-        return tuple(torch.ones(d, dtype=dtype, device=device)
+            return tuple(t(np.pad(np.asarray(fr), (0, pad_d(len(fr))
+                                                  - len(fr)),
+                                  constant_values=1.0), dtype)
+                         for fr in pf.freq)
+        return tuple(torch.ones(pad_d(d), dtype=dtype, device=device)
                      for d in pf.Ds)
 
     def xf(pf: PaddedFields, flags, rows=None):
@@ -251,7 +287,8 @@ def make_device_data(u: PaddedFields, v: PaddedFields, y: PaddedLabels,
             idx, val = pf.idx[fi], pf.val[fi]
             if rows is not None:
                 idx, val = idx[rows], val[rows]
-            out.append(feature_list(idx, val, pf.Ds[fi], dtype, device))
+            out.append(feature_list(idx, val, pad_d(pf.Ds[fi]), dtype,
+                                    device))
         return tuple(out)
 
     def colsq(pf: PaddedFields, flags):
@@ -263,7 +300,7 @@ def make_device_data(u: PaddedFields, v: PaddedFields, y: PaddedLabels,
             if not on:
                 out.append(None)
                 continue
-            a = np.zeros(pf.Ds[fi], np.float64)
+            a = np.zeros(pad_d(pf.Ds[fi]), np.float64)
             np.add.at(a, np.asarray(pf.idx[fi]).ravel(),
                       np.asarray(pf.val[fi], np.float64).ravel() ** 2)
             out.append(t(a, dtype))
@@ -350,37 +387,47 @@ def make_device_data(u: PaddedFields, v: PaddedFields, y: PaddedLabels,
     return meta, data
 
 
+def _check_shard_aligned(y: PaddedLabels, m: int, S: int) -> None:
+    """Every entry of rank r's stream slice belongs to one of its users (the
+    slices of ``pad_labels(shard_rows=m // S)``)."""
+    nnz = int(y.w.shape[0])
+    rank = np.arange(nnz) // max(1, nnz // S)
+    if nnz % S or m % S or np.any(np.asarray(y.u) // (m // S) != rank):
+        raise ValueError(
+            f"the stream is not shard-aligned for {S} ranks: build the "
+            f"labels with pad_labels(shard_rows={m // S})")
+
+
 def _sharded_layouts(u: PaddedFields, v: PaddedFields, y: PaddedLabels,
                      blocked_bm: int, head_chunk: int, pads, S: int):
-    """Both sides' blocked layouts for an S-rank data mesh: the u side's
-    over the shard-aligned stream with rank-local ``src`` (``shard_rows``),
-    the v side's flat, its blocks nesting in ranks (jax_solver.py:176-199).
-    A side without one, or with a head tier, raises (ROADMAP A11b)."""
-    if not blocked_bm or u.m % (S * blocked_bm) or v.m % (S * blocked_bm):
-        raise NotImplementedError(
-            f"a data mesh of {S} ranks runs both sides on the blocked "
-            f"layout: blocked_bm ({blocked_bm}) x {S} must divide the user "
-            f"({u.m}) and item ({v.m}) rows; the plain COO passes under a "
-            f"mesh: ROADMAP A11b")
+    """Both sides' blocked layouts for an S-rank data mesh, where they
+    apply (jax_solver.py:164-199): the u side's over the shard-aligned
+    stream with rank-local ``src`` (``shard_rows``), the v side's flat, its
+    blocks nesting in ranks; a head tier's chunk count a multiple of
+    lcm(8, S).  No u layout leaves both sides COO, as the JAX package's
+    ``blocked_shards`` falls back to 1 there; a v side without one is
+    COO."""
+    if not blocked_bm or u.m % (S * blocked_bm):
+        return None, None
+    nch = 8 * S // math.gcd(8, S)
     blk_u = make_blocked_layout(y.u, y.v, u.m, blocked_bm,
                                 max_pad_ratio=_PAD_RATIO,
                                 shard_rows=u.m // S, drop=pads,
-                                head_chunk=head_chunk)
+                                head_chunk=head_chunk, nch_multiple=nch)
+    if blk_u is None or v.m % (S * blocked_bm):
+        return blk_u, None
     blk_v = make_blocked_layout(y.v, y.u, v.m, blocked_bm,
                                 max_pad_ratio=_PAD_RATIO, drop=pads,
-                                head_chunk=head_chunk)
-    for side, b in (("u", blk_u), ("v", blk_v)):
-        if b is None:
-            raise NotImplementedError(
-                f"the {side} side takes no blocked layout under a mesh of "
-                f"{S} ranks (stream not shard-aligned, or skew beyond the "
-                f"pad budget): the plain COO passes under a mesh: ROADMAP "
-                f"A11b")
-        if "hd_row" in b:
-            raise NotImplementedError(
-                f"the {side} side takes the head tier: the head tier under "
-                f"a mesh: ROADMAP A11b")
+                                head_chunk=head_chunk, nch_multiple=nch)
     return blk_u, blk_v
+
+
+def _rows_to(T: Tensor, rows: int) -> Tensor:
+    """``T`` cut or zero-padded to ``rows`` rows (an identity field's table
+    against its row count: the rows past either are zero)."""
+    if T.shape[0] == rows:
+        return T
+    return torch.nn.functional.pad(T, (0, 0, 0, rows - T.shape[0]))
 
 
 def feature_list(idx, val, D: int, dtype: torch.dtype,
@@ -416,17 +463,16 @@ class FFMSolver:
     """
 
     def __init__(self, meta: ProblemMeta, data: Dict[str, Any],
-                 mesh=None):
+                 mesh=None, model_min_rows: Optional[int] = None):
         S = meta.blocked_shards
-        if mesh is not None and getattr(mesh, "size", None) == 1 and S == 1:
+        n_model = getattr(mesh, "n_model", 1)
+        if mesh is not None and mesh.size == 1 and S == 1 and n_model == 1:
             mesh = None  # one rank: the single-device solver
-        if mesh is not None and (getattr(mesh, "size", None) != S or S < 2):
-            raise NotImplementedError(
-                "a mesh runs the shard-aligned layout of its ranks "
-                "(make_device_data(blocked_shards=mesh.size), then "
-                "parallel.shard_data); the JAX package's sharded fallback "
-                "on the flat layout runs the plain COO passes under a mesh: "
-                "ROADMAP A11b")
+        if mesh is not None and mesh.size != S:
+            raise ValueError(
+                f"a mesh of {mesh.size} data ranks runs the shard-aligned "
+                f"data of its ranks: make_device_data(blocked_shards="
+                f"{mesh.size}), then parallel.shard_data")
         if mesh is None and S > 1:
             raise ValueError("blocked_shards > 1 (the shard-aligned layout) "
                              "requires constructing FFMSolver with mesh=")
@@ -442,8 +488,11 @@ class FFMSolver:
         self.device = data["pos_u"].device
         # under a data mesh: this rank's rows of each side (``m_l`` /
         # ``n_l`` from row ``lo_u`` / ``lo_v``); the data is its part
-        # (parallel.shard_data), the tables are replicated
+        # (parallel.shard_data), the tables are replicated, or on a 2-D
+        # mesh those of at least ``model_min_rows`` rows row-sharded on
+        # the model axis
         self.mesh = mesh
+        self.model_min_rows = model_min_rows if n_model > 1 else None
         rank = mesh.rank if mesh is not None else 0
         self.m_l, self.n_l = meta.m // S, meta.n // S
         self.lo_u, self.lo_v = rank * self.m_l, rank * self.n_l
@@ -461,11 +510,10 @@ class FFMSolver:
         self._hd_wq = {s: storage_scale(data[f"blk_{s}_hd_w"],
                                         1.0 - hp.omega)
                        for s in ("u", "v") if f"blk_{s}_hd_w" in data}
-        # (1 - omega) w per stream entry, the weights of a COO side's
-        # Jacobi diagonal positive term (the JAX ``wq``, static; None when
-        # no side is COO)
-        self._coo_wq = (storage_scale(data["pos_w"], 1.0 - hp.omega)
-                        if "coo_u" in data or "coo_v" in data else None)
+        # (1 - omega) w per entry of a COO side's order, the weights of its
+        # Jacobi diagonal positive term (the JAX ``wq``, static)
+        self._coo_wq = {s: storage_scale(data[f"blk_{s}_w"], 1.0 - hp.omega)
+                        for s in ("u", "v") if f"coo_{s}" in data}
 
     # -- collectives (a data mesh; no-ops on one device) ----------------------
 
@@ -486,9 +534,90 @@ class FFMSolver:
             i += t.numel()
         return out
 
+    def _row_sums(self, parts, site: str):
+        """Sums over a side's rows (k-vectors, k x k Grams, scalars), each
+        part given at float64: summed over the mesh in one call, then
+        rounded once to the storage dtype.  After an epoch a gradient is a
+        small difference of such sums over the other side's rows and the
+        positive sums: at float32 their rounding is up to 1e-4 of it, and
+        a mesh, which splits each sum, would round otherwise than one
+        process.  At float64 both round the same value."""
+        return [t.to(self.meta.dtype)
+                for t in self._allreduce_many(parts, site)]
+
     def _gather(self, t: Tensor, site: str) -> Tensor:
         """Every rank's rows of a row-sharded array, in row order."""
         return t if self.mesh is None else self.mesh.all_gather(t, site)
+
+    # -- tables on a model axis (a 2-D mesh) ----------------------------------
+
+    def _rows(self, b: BlockInfo, first: bool) -> int:
+        """Padded row dim of the block's f1 or f2 table."""
+        return self.meta.pad_d(b.d1 if first else b.d2)
+
+    def _sharded(self, rows: int) -> bool:
+        """A table of ``rows`` padded rows lies row-sharded on the model
+        axis."""
+        return model_sharded(rows, self.mesh, self.model_min_rows)
+
+    def full_params(self, params, site: str = "read"):
+        """The whole tables: each model-sharded one gathered over the model
+        group (one all-gather per table), the others as they are."""
+        out = {}
+        for b in self.blocks:
+            out[b.f12] = {}
+            for key, first in (("W", True), ("H", False)):
+                T = params[b.f12][key]
+                dp = self._rows(b, first)
+                if self._sharded(dp) and T.shape[0] != dp:
+                    T = self.mesh.model_all_gather(T, site)
+                out[b.f12][key] = T
+        return out
+
+    def _place_params(self, params):
+        """Tables as a state holds them, on this rank's device: given whole
+        (true or padded dims, zero pad rows appended) or as this rank's
+        model rows; a model-sharded table cut to this rank's rows."""
+        out = {}
+        for b in self.blocks:
+            out[b.f12] = {}
+            for key, first in (("W", True), ("H", False)):
+                T = torch.as_tensor(params[b.f12][key]).to(self.device)
+                dp = self._rows(b, first)
+                part = self._sharded(dp) and T.shape[0] == dp // (
+                    self.mesh.n_model)
+                if not part and T.shape[0] < dp:
+                    T = torch.nn.functional.pad(T, (0, 0, 0, dp - T.shape[0]))
+                if self._sharded(dp) and not part:
+                    T = T[self.mesh.model_rows(dp)].contiguous()
+                out[b.f12][key] = T
+        return out
+
+    def _with_table(self, state, b: BlockInfo, first: bool):
+        """``state`` with the half-solve's table whole (gathered once over
+        the model group when it is model-sharded)."""
+        key = "W" if first else "H"
+        T = state["params"][b.f12][key]
+        dp = self._rows(b, first)
+        if not self._sharded(dp) or T.shape[0] == dp:
+            return state
+        params = dict(state["params"])
+        params[b.f12] = dict(params[b.f12])
+        params[b.f12][key] = self.mesh.model_all_gather(T, "table")
+        return dict(state, params=params)
+
+    def _keep_rows(self, state, b: BlockInfo, first: bool):
+        """``state`` with a model-sharded table cut back to this rank's
+        rows (no collective: every rank holds the whole new table)."""
+        key = "W" if first else "H"
+        dp = self._rows(b, first)
+        if not self._sharded(dp):
+            return state
+        params = dict(state["params"])
+        params[b.f12] = dict(params[b.f12])
+        params[b.f12][key] = params[b.f12][key][
+            self.mesh.model_rows(dp)].contiguous()
+        return dict(state, params=params)
 
     def _lo(self, u_side: bool) -> int:
         """This rank's first row of the u (True) / v (False) side."""
@@ -531,9 +660,7 @@ class FFMSolver:
             return project(idx, val, T)
         _, rows, _ = self._side(b, first)
         if self.mesh is None:
-            if T.shape[0] == rows:
-                return T
-            return torch.nn.functional.pad(T, (0, 0, 0, rows - T.shape[0]))
+            return _rows_to(T, rows)
         lo = self._lo(self._u_field(b, first)[0])
         out = T.new_zeros((rows, T.shape[1]))
         hi = min(lo + rows, T.shape[0])
@@ -546,7 +673,7 @@ class FFMSolver:
         """X^T Z of an identity field: row d receives row d (under a mesh
         this rank's rows, at their place in the table, zero elsewhere)."""
         if self.mesh is None:
-            return Z[:dim]
+            return _rows_to(Z, dim)
         lo = self._lo(self._u_field(b, first)[0])
         out = Z.new_zeros((dim, Z.shape[1]))
         hi = min(lo + Z.shape[0], dim)
@@ -562,10 +689,16 @@ class FFMSolver:
         nothing is masked).  A small-D field's solves scatter inside the
         fused table passes.  Under a mesh each rank scatters its rows and
         the partial tables are all-reduced (``site`` names the call)."""
+        return self._allreduce(self._scat_part(b, first, Z, dim), site)
+
+    def _scat_part(self, b: BlockInfo, first: bool, Z: Tensor, dim: int,
+                   squared: bool = False) -> Tensor:
+        """This rank's part of ``_scat`` (``_scat_sq`` with ``squared``)
+        before the all-reduce."""
         _, _, xf = self._x(b, first)
         if xf is not None:
-            return self._allreduce(scatter(xf, Z), site)
-        return self._allreduce(self._ident_scat(b, first, Z, dim), site)
+            return scatter(xf, Z, squared=squared)
+        return self._ident_scat(b, first, Z, dim)
 
     def _scat_sq(self, b: BlockInfo, first: bool, Z: Tensor,
                  dim: int) -> Tensor:
@@ -573,10 +706,8 @@ class FFMSolver:
         the Jacobi diagonal (jax_solver.py _scat_sq): for an identity field
         X^2 == X, the slice; a wide field scatters through its list's
         squared values (all-reduced under a mesh, as ``_scat``)."""
-        _, _, xf = self._x(b, first)
-        if xf is not None:
-            return self._allreduce(scatter(xf, Z, squared=True), "diag")
-        return self._allreduce(self._ident_scat(b, first, Z, dim), "diag")
+        return self._allreduce(self._scat_part(b, first, Z, dim, True),
+                               "diag")
 
     def _side_colsq(self, b: BlockInfo, first: bool) -> Tensor:
         """Per-feature sum of squared values of a fused field, (D,): the
@@ -622,7 +753,9 @@ class FFMSolver:
     def init(self, generator: torch.Generator) -> Dict[str, Any]:
         """Random block tables + all caches (reference init, ffm.cpp:467-512):
         tables ~ U(-0.1/sqrt(k), 0.1/sqrt(k)).  jax.random bits cannot be
-        reproduced; only the law is the same."""
+        reproduced; only the law is the same.  The draws are of the true
+        dims, so ``d_multiple`` pads them with zero rows without changing
+        them, and every rank of a mesh draws the same tables."""
         meta = self.meta
         k = meta.hp.k
         scale = 0.1 / math.sqrt(k)
@@ -638,22 +771,34 @@ class FFMSolver:
 
     def refresh_caches(self, state: Dict[str, Any]) -> Dict[str, Any]:
         """(Re)build P/Q, the side sums a/b and the slot-order residual carry
-        from the tables: used at init and after loading a checkpoint."""
-        params = state["params"]
+        from the tables: used at init and after loading a checkpoint.  The
+        tables may come whole (true or padded dims) or as this rank's model
+        rows; the state holds them as ``_place_params`` places them."""
+        params = self._place_params(state["params"])
+        whole = self.full_params(params, "refresh")
         P, Q = {}, {}
         for b in self.blocks:
-            P[b.f12] = self._proj(b, True, params[b.f12]["W"])
-            Q[b.f12] = self._proj(b, False, params[b.f12]["H"])
+            P[b.f12] = self._proj(b, True, whole[b.f12]["W"])
+            Q[b.f12] = self._proj(b, False, whole[b.f12]["H"])
         a, b_vec = self._side_sums(P, Q)
         yt = self._pos_scores(P, Q, a, b_vec) - 1.0
         d = self.data
         out = dict(params=params, P=P, Q=Q, a=a, b=b_vec)
         if self.mesh is not None:
-            # a rank's stream slice holds its u slots' entries; the v
-            # carry reads the u carry through the cross-order map
+            # a rank's stream slice holds its u slots' entries (tail and
+            # head); the v carry reads the ranks' u carries through the
+            # cross-order maps
             out["yt_u"] = yt[d["blk_u_src"].long()] * d["blk_u_w"]
-            flat = self._gather(out["yt_u"].reshape(-1), "refresh")
+            flat = out["yt_u"].reshape(-1)
+            if self.hd_u:
+                out["yt_u_hd"] = (yt[d["blk_u_hd_src"].long()]
+                                  * d["blk_u_hd_w"])
+                flat = torch.cat([flat, out["yt_u_hd"].reshape(-1)])
+            flat = self._gather(flat, "refresh")
             out["yt_v"] = flat[d["blk_v_from_u"].long()] * d["blk_v_w"]
+            if self.hd_v:
+                out["yt_v_hd"] = (flat[d["blk_v_hd_from_u"].long()]
+                                  * d["blk_v_hd_w"])
             return out
         for s in ("u", "v"):
             out["yt_" + s] = yt[d[f"blk_{s}_src"].long()] * d[f"blk_{s}_w"]
@@ -706,8 +851,9 @@ class FFMSolver:
         sa = torch.zeros(self.m_l, dtype=meta.dtype, device=self.device)
         sb = torch.zeros(self.n_l, dtype=meta.dtype, device=self.device)
         cross = meta.layout.cross_blocks()
-        sums = self._allreduce_many(
-            [X[blk.f12].sum(dim=0) for blk in cross for X in (Q, P)], "sums")
+        sums = self._row_sums(
+            [X[blk.f12].double().sum(dim=0) for blk in cross for X in (Q, P)],
+            "sums")
         for i, blk in enumerate(cross):
             Pb, Qb = P[blk.f12], Q[blk.f12]
             sa = sa + Pb @ sums[2 * i]
@@ -745,11 +891,11 @@ class FFMSolver:
         return self.data.get("coo_u" if u_side else "coo_v")
 
     def _stream_ids(self, u_side: bool) -> Tuple[Tensor, Tensor]:
-        """(own ids, other side's ids) of the stream's entries, seen from the
-        u (True) or v (False) side."""
-        d = self.data
-        return ((d["pos_u"], d["pos_v"]) if u_side
-                else (d["pos_v"], d["pos_u"]))
+        """(own ids, other side's ids) of the entries of a COO side's order
+        (the stream; under a mesh the rank's part of it: own ids local to
+        the rank's rows, the other side's global), 0 at the pads."""
+        pre = "blk_u_" if u_side else "blk_v_"
+        return self.data[pre + "seg"], self.data[pre + "take"]
 
     def _grad_cross(self, state, b: BlockInfo, first: bool,
                     rows_pre: Tensor, with_diag_pos: bool = False,
@@ -770,7 +916,9 @@ class FFMSolver:
 
         ``rows_hd``: the solve's head stream on a two-tier side, whose
         entries' part is added in table space on a fused field
-        (``_hd_tbl``), else in row space (``head_scatter``)."""
+        (``_hd_tbl``), else in row space (``head_scatter``), before the
+        all-reduce of a mesh.  On a COO side ``rows_pre`` is the other
+        side's gathered cache under a mesh (else None: the state's)."""
         meta, d = self.meta, self.data
         hp = meta.hp
         reg, _, _ = self._side(b, first)
@@ -788,10 +936,11 @@ class FFMSolver:
         cross = meta.layout.cross_blocks()
         # the k-vectors and k x k Grams over the other side's rows: one
         # all-reduce of their partials under a mesh
-        red = self._allreduce_many(
-            [B1.sum(dim=0), B1.T @ oth_vec]
-            + [oth_c[blk.f12].T @ B1 for blk in cross]
-            + ([(B1 * B1).sum(dim=0)]
+        B1d = B1.double()
+        red = self._row_sums(
+            [B1d.sum(dim=0), B1d.T @ oth_vec.double()]
+            + [oth_c[blk.f12].double().T @ B1d for blk in cross]
+            + ([(B1d * B1d).sum(dim=0)]
                if with_diag_pos and self._fused(b, first) else []), "gram")
         oQ, bQ = red[0], red[1]
         gram_T = torch.zeros((num, hp.k), dtype=meta.dtype, device=self.device)
@@ -808,17 +957,17 @@ class FFMSolver:
             res = grad_cross_tbl(xf, rows_pre, d[pre + "own"], c_blk, dense,
                                  bm, runs=d[pre + "runs"], **diag_w)
             Gt, Qt = res if with_diag_pos else (res, None)
-            if self.mesh is not None:
-                if with_diag_pos:
-                    Gt, Qt = self._allreduce_many([Gt, Qt], "grad")
-                else:
-                    Gt = self._allreduce(Gt, "grad")
             if rows_hd is not None:
                 g_hd, q_hd = self._hd_tbl(state, b, first, rows_hd,
                                           with_diag_pos)
                 Gt = Gt + g_hd
                 if with_diag_pos:
                     Qt = Qt + q_hd
+            if self.mesh is not None:
+                if with_diag_pos:
+                    Gt, Qt = self._allreduce_many([Gt, Qt], "grad")
+                else:
+                    Gt = self._allreduce(Gt, "grad")
             if not with_diag_pos:
                 return self._tbl_grad(b, first, T, Gt)
             qtq_d = red[-1]  # (B1 * B1).sum(dim=0); pad rows are zero
@@ -827,13 +976,15 @@ class FFMSolver:
                                  * qtq_d.to(acc)[None, :]) + Qt.to(acc))
             return self._tbl_grad(b, first, T, Gt), ("tbl", tbl_d)
         coo = self._coo(first)
+        Bs = B1 if rows_pre is None else rows_pre  # a COO side's rows
         if coo is None:
             res = pos_scatter_blocked(c_blk, rows_pre, d[pre + "own"], num,
                                       bm, runs=d[pre + "runs"], **diag_w)
         elif with_diag_pos:
-            res = pos_scatter_pair(c_blk, self._coo_wq, B1, coo)
+            res = pos_scatter_pair(c_blk, self._coo_wq["u" if first else "v"],
+                                   Bs, coo)
         else:
-            res = pos_scatter(c_blk, B1, coo)
+            res = pos_scatter(c_blk, Bs, coo)
         zpos, posq = res if with_diag_pos else (res, None)
         if rows_hd is not None:
             hpre = pre + "hd_"
@@ -891,12 +1042,12 @@ class FFMSolver:
         Q1 = state["Q"][b.f12] if first else state["P"][b.f12]
         u_side = b.kind == "uu"
         if u_side:
-            n_other, side, s_cache, other_sum = (
-                meta.n_true, state["a"], sa, state["b"].sum())
+            n_other, side, s_cache, other = (
+                meta.n_true, state["a"], sa, state["b"])
         else:
-            n_other, side, s_cache, other_sum = (
-                meta.m_true, state["b"], sb, state["a"].sum())
-        other_sum = self._allreduce(other_sum, "sums")
+            n_other, side, s_cache, other = (
+                meta.m_true, state["b"], sb, state["a"])
+        other_sum, = self._row_sums([other.double().sum()], "sums")
         pre, num, bm = self._blk(u_side)
         c_blk = self._pos_coeff(state["yt_u" if u_side else "yt_v"]) \
             * d[pre + "w"]
@@ -958,19 +1109,24 @@ class FFMSolver:
         dim = state["params"][b.f12]["W" if first else "H"].shape[0]
         coo = self._coo(first)
         if coo is not None:
-            qtq = B1.T @ B1  # pad rows are zero
+            B1d = B1.double()
+            qtq, = self._row_sums([B1d.T @ B1d], "gram")  # pad rows are zero
             own_ids, oth_ids = self._stream_ids(first)
+            Bs = B1 if rows_pre is None else rows_pre
+            w = d["blk_u_w" if first else "blk_v_w"]
 
             def hv_coo(V: Tensor) -> Tensor:
                 phi = self._proj(b, first, V)
-                pq = pos_dot(phi, own_ids, B1, oth_ids) * d["pos_w"]
-                zp = pos_scatter(storage_scale(pq, 1.0 - hp.omega), B1, coo)
+                pq = pos_dot(phi, own_ids, Bs, oth_ids) * w
+                zp = pos_scatter(storage_scale(pq, 1.0 - hp.omega), Bs, coo)
                 return hp.lam * reg[:, None] * V + self._scat(
-                    b, first, hp.omega * (phi @ qtq) + zp, dim)
+                    b, first, hp.omega * (phi @ qtq) + zp, dim, "hv")
 
             return hv_coo
         pre, num, bm = self._blk(first)
-        dmat = (hp.omega * self._allreduce(B1.T @ B1, "gram")).to(meta.dtype)
+        B1d = B1.double()
+        dmat = (hp.omega * self._row_sums([B1d.T @ B1d], "gram")[0]
+                ).to(meta.dtype)
         own, w_blk, runs = d[pre + "own"], d[pre + "w"], d[pre + "runs"]
         w_scale = 1.0 - hp.omega
         idx, val, xf = self._x(b, first)
@@ -1070,10 +1226,11 @@ class FFMSolver:
                 if coo is None:
                     raise ValueError("a blocked side's diagonal term comes "
                                      "from its gradient pass")
-                term = pos_scatter_pair(self._coo_wq, self._coo_wq, Q1,
-                                        coo)[1]
+                wq = self._coo_wq["u" if first else "v"]
+                term = pos_scatter_pair(wq, wq, Q1, coo)[1]
             # pad rows are zero
-            qtq_d = self._allreduce((Q1 * Q1).sum(dim=0), "gram")
+            Q1d = Q1.double()
+            qtq_d, = self._row_sums([(Q1d * Q1d).sum(dim=0)], "gram")
             rowq = hp.omega * qtq_d[None, :] + term
         else:
             rowq = self._self_dd(b)[:, None] * (Q1 * Q1)
@@ -1176,19 +1333,22 @@ class FFMSolver:
                                       runs=d[pre + "runs"])
             else:
                 own_ids, oth_ids = self._stream_ids(first)
-                other = state["Q" if first else "P"][b.f12]
+                other = (state["Q" if first else "P"][b.f12]
+                         if rows_pre is None else rows_pre)
                 gap = pos_dot(dP, own_ids, other, oth_ids)
             own, oth = ("u", "v") if first else ("v", "u")
             state["yt_" + own] = state["yt_" + own] + gap.reshape(
                 state["yt_" + own].shape) * d[pre + "w"]
-            # the other order's slots read gaps of every rank's slots
-            gap = self._gather(gap, "carry")
+            gap = gap.reshape(-1)
             if rows_hd is not None:
                 gap_hd = head_pq(dP.index_select(0, d[pre + "hd_row"]),
                                  rows_hd)
                 state[f"yt_{own}_hd"] = (state[f"yt_{own}_hd"]
                                          + gap_hd * d[pre + "hd_w"])
                 gap = torch.cat([gap, gap_hd.reshape(-1)])
+            # the other order's slots read gaps of every rank's (tail,
+            # head) slots
+            gap = self._gather(gap, "carry")
             cross = d[f"blk_{oth}_from_{own}"].long()
             state["yt_" + oth] = state["yt_" + oth] \
                 + gap[cross] * d[f"blk_{oth}_w"]
@@ -1206,13 +1366,13 @@ class FFMSolver:
         # own side: da per slot of its row (on a COO side a gather through
         # its ids); other side: the other order's take IS this side's row
         # id in that order (one scalar gather)
+        da_all = self._gather(da, "carry")  # the other order's rows: any rank
         if self._coo(b.kind == "uu") is None:
             exp = expand_rows_blocked(da, d[pre + "own"], bm).reshape(
                 state["yt_" + own].shape)
         else:
             exp = da[d[pre + "seg"].long()] * d[pre + "w"]
         state["yt_" + own] = state["yt_" + own] + exp
-        da_all = self._gather(da, "carry")  # the other order's rows: any rank
         state["yt_" + oth] = state["yt_" + oth] \
             + da_all[d[f"blk_{oth}_take"].long()] * d[f"blk_{oth}_w"]
         # head tiers: da per slot is the chunk's row's on the own side, a
@@ -1222,7 +1382,8 @@ class FFMSolver:
                 0, d[pre + "hd_row"])[:, None] * d[pre + "hd_w"]
         if self._hd_side(oth == "u"):
             state[f"yt_{oth}_hd"] = state[f"yt_{oth}_hd"] \
-                + da[d[f"blk_{oth}_hd_take"].long()] * d[f"blk_{oth}_hd_w"]
+                + da_all[d[f"blk_{oth}_hd_take"].long()] \
+                * d[f"blk_{oth}_hd_w"]
         return state
 
     def grad_and_hv(self, state, b: BlockInfo, first: bool, sa, sb):
@@ -1238,7 +1399,10 @@ class FFMSolver:
         diagonal (None under plain CG), whose scatter term the gradient's
         pass computes from the same read of the stream
         (jax_solver.py:2278-2298).  A COO side gathers no stream: its
-        passes gather B's rows themselves (the stream is then None)."""
+        passes gather B's rows themselves (the stream is then None; under a
+        mesh the other side's cache, gathered once).  A
+        model-sharded table is gathered first (``_with_table``)."""
+        state = self._with_table(state, b, first)
         jac = self.cg_precond == "jacobi"
         if b.kind != "uv":
             res = self._grad_self(state, b, first, sa, sb, want_diag=jac)
@@ -1247,10 +1411,14 @@ class FFMSolver:
                     self._diag_H(state, b, first, term))
         B1 = state["Q"][b.f12] if first else state["P"][b.f12]
         pre = self._blk(first)[0]
-        # the stream's rows are any rank's: gathered once per solve
-        rows_pre = (gather_blocked_rows(self._gather(B1, "rows_pre"),
-                                        self.data[pre + "take"])
-                    if self._coo(first) is None else None)
+        # the stream's rows are any rank's: gathered once per solve (a COO
+        # side's passes read the gathered cache itself)
+        rows_pre = None
+        if self._coo(first) is None:
+            B1 = self._gather(B1, "rows_pre")
+            rows_pre = gather_blocked_rows(B1, self.data[pre + "take"])
+        elif self.mesh is not None:
+            B1 = rows_pre = self._gather(B1, "rows_pre")
         rows_hd = (gather_blocked_rows(B1, self.data[pre + "hd_take"])
                    if self._hd_side(first) else None)
         res = self._grad_cross(state, b, first, rows_pre, with_diag_pos=jac,
@@ -1260,11 +1428,15 @@ class FFMSolver:
                 rows_pre, rows_hd, self._diag_H(state, b, first, term))
 
     def _solve_half(self, state, b: BlockInfo, first: bool, sa, sb):
-        """Gradient, (P)CG and step for one table of a block."""
+        """Gradient, (P)CG and step for one table of a block; a
+        model-sharded table is gathered once before and cut back to this
+        rank's rows after."""
+        state = self._with_table(state, b, first)
         G, hv, rows_pre, rows_hd, D = self.solve_inputs(state, b, first, sa,
                                                         sb)
         S, it = self._cg(hv, G, D)
-        return self._apply_step(state, b, first, S, rows_pre, rows_hd), it
+        state = self._apply_step(state, b, first, S, rows_pre, rows_hd)
+        return self._keep_rows(state, b, first), it
 
     # -- epoch ------------------------------------------------------------------
 
@@ -1327,10 +1499,11 @@ class FFMSolver:
             "objective")
         e2 = tot[0] + 2.0 * red[0] * red[1] + (red[2] * red[3]).sum()
         loss = hp.omega * (e2 - tot[1]) + tot[2]
+        params = self.full_params(state["params"], "objective")
         for b in self.blocks:
             reg1, _, _ = self._side(b, True)
             reg2, _, _ = self._side(b, False)
-            prm = state["params"][b.f12]
+            prm = params[b.f12]
             loss = loss + hp.lam * (reg1[:, None] * prm["W"] ** 2).sum()
             loss = loss + hp.lam * (reg2[:, None] * prm["H"] ** 2).sum()
         return 0.5 * loss

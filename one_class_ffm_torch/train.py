@@ -1,8 +1,10 @@
 """End-to-end trainer of the PyTorch port.
 
-Counterpart of ``one_class_ffm_tpu/train.py``, on one device or on a 1-D
-data mesh of ``torch.distributed`` ranks (``mesh_shape``, one process per
-rank: ``torchrun ... --mesh N --distributed``).  The host-side
+Counterpart of ``one_class_ffm_tpu/train.py``, on one device, on a data
+mesh or on a 2-D ``data x model`` mesh of ``torch.distributed`` ranks
+(``mesh_shape``, one process per rank: ``torchrun ... --mesh N
+--distributed`` or ``--mesh NxM``, tables of at least ``model_min_rows``
+rows row-sharded on the model axis).  The host-side
 pieces are copies of the JAX package's, unchanged, so that the port imports
 nothing of it (``tests/test_torch_copies.py`` holds each copy equal to its
 original): the run configuration (``TrainConfig``), the data pipeline
@@ -40,7 +42,7 @@ from .evalx.torch_eval import Evaluator, make_eval_data
 from .models.blocks import BlockLayout
 from .parallel.distributed import init_distributed
 from .parallel.mesh import resolve_mesh, shard_data, shard_state
-from .solver.convert import params_from_numpy, params_to_numpy
+from .solver.convert import pad_table, params_from_numpy, params_to_numpy
 from .solver.params import HyperParams
 from .solver.torch_solver import FFMSolver, make_device_data
 from .utils.device import resolve_device
@@ -246,13 +248,17 @@ def resolve_dtype(name: str) -> torch.dtype:
 
 
 class Trainer:
-    """Owns the solver + evaluator for one run, on one device or on a 1-D
-    data mesh (``cfg.mesh_shape``; ``cfg.distributed`` joins torchrun's
-    process group first: NCCL with a card per rank, gloo for a CPU run;
-    a group that already exists is used as it is).  Under a mesh each rank
-    builds the full host arrays the same way from the seed and keeps its
-    part (``parallel.shard_data``); the tables are replicated, and rank 0
-    alone writes the model, checkpoint and JSONL files.
+    """Owns the solver + evaluator for one run, on one device or on a mesh
+    (``cfg.mesh_shape``; ``cfg.distributed`` joins torchrun's process group
+    first: NCCL with a card per rank, gloo for a CPU run; a group that
+    already exists is used as it is).  Under a mesh each rank builds the
+    full host arrays the same way from the seed and keeps its part
+    (``parallel.shard_data``, on the shard-aligned stream whatever
+    ``blocked_bm``); the tables are replicated, or on an ``NxM`` mesh those
+    of at least ``cfg.model_min_rows`` rows row-sharded on the model axis
+    (table dims padded to a multiple of M, ``d_multiple``; the files keep
+    true dims), and rank 0 alone writes the model, checkpoint and JSONL
+    files.
     ``head_chunk``: the chunk width of a popularity-skewed side's head tier
     (``make_device_data``)."""
 
@@ -269,14 +275,10 @@ class Trainer:
             init_distributed(
                 backend="gloo" if self.device.type == "cpu" else "nccl")
         self.mesh = resolve_mesh(cfg.mesh_shape, device=self.device)
-        n_data = 1
+        n_data = n_model = 1
         if self.mesh is not None:
             self.device = self.mesh.device
-            n_data = self.mesh.size
-            if n_data > 1 and cfg.blocked_bm <= 0:
-                raise NotImplementedError(
-                    "--mesh with --blocked-bm 0: the plain COO passes under "
-                    "a mesh: ROADMAP A11b")
+            n_data, n_model = self.mesh.size, self.mesh.n_model
             # rows divide n_data * blocked_bm, so that blocks nest in ranks
             cfg = dataclasses.replace(
                 cfg,
@@ -292,7 +294,8 @@ class Trainer:
         self.cfg = cfg
         sharded = n_data > 1
         # rank 0 writes the files of a run on a mesh
-        self.is_writer = self.mesh is None or self.mesh.rank == 0
+        self.is_writer = self.mesh is None or (self.mesh.rank == 0
+                                               and self.mesh.model_rank == 0)
         self.data = data if data is not None else load_problem(cfg)
         d = self.data
         self.dtype = resolve_dtype(cfg.dtype)
@@ -301,10 +304,12 @@ class Trainer:
             dtype=self.dtype, blocked_bm=cfg.blocked_bm,
             head_chunk=head_chunk,
             device="cpu" if sharded else self.device,
-            blocked_shards=max(1, cfg.stream_shards))
+            blocked_shards=max(1, cfg.stream_shards), d_multiple=n_model)
         if sharded:
             dev = shard_data(dev, self.mesh)
-        self.solver = FFMSolver(self.meta, dev, mesh=self.mesh)
+        self.model_min_rows = cfg.model_min_rows if n_model > 1 else None
+        self.solver = FFMSolver(self.meta, dev, mesh=self.mesh,
+                                model_min_rows=self.model_min_rows)
         self.evaluator = None
         if d.uva_pad is not None and d.va_labels:
             emeta, edata = make_eval_data(
@@ -338,10 +343,16 @@ class Trainer:
 
     def _place_state(self, state):
         """A full state (tensors or numpy arrays, on the layout of the full
-        data) cut to this rank's part on a mesh; on one device, as given."""
-        if self.mesh is None or self.mesh.size == 1:
+        data; tables at true or padded dims) cut to this rank's part on a
+        mesh; on one device, as given."""
+        if self.mesh is None:
             return state
-        return shard_state(state, self.mesh)
+        params = {f12: {k: pad_table(v, self.meta.pad_d)
+                        for k, v in blk.items()}
+                  for f12, blk in state["params"].items()}
+        return shard_state(dict(state, params=params), self.mesh,
+                           model_min_rows=self.model_min_rows,
+                           data=self.solver.data)
 
     # -- lifecycle ------------------------------------------------------------
 
@@ -359,7 +370,8 @@ class Trainer:
 
     def _load_params(self, params_np) -> None:
         self.state = self.solver.refresh_caches(
-            {"params": params_from_numpy(params_np, self.device, self.dtype)})
+            {"params": params_from_numpy(params_np, self.device, self.dtype,
+                                         pad_d=self.meta.pad_d)})
 
     def warm_start(self, model_path: str):
         """Initialize from a saved text model (ours or the reference's own
@@ -390,13 +402,14 @@ class Trainer:
         self.epoch_idx = epoch
 
     def save_checkpoint(self):
+        params = self.params_numpy()  # every rank: a model axis gathers
         if not self.is_writer:
             return
         lay = self.data.layout
         layout_doc = dict(fu=lay.fu, fv=lay.fv, Du=list(lay.Du),
                           Dv=list(lay.Dv), self_side=lay.self_side)
-        save_checkpoint(self.cfg.ckpt_dir, self.params_numpy(),
-                        self.epoch_idx, self.cfg, layout=layout_doc)
+        save_checkpoint(self.cfg.ckpt_dir, params, self.epoch_idx, self.cfg,
+                        layout=layout_doc)
 
     def describe(self, log=print):
         """Dataset summary (reference print_data_info, ffm.cpp:296-312)."""
@@ -442,7 +455,7 @@ class Trainer:
                         and self.epoch_idx % self.refresh_every == 0):
                     with self.timer.phase("refresh"):
                         self.state = self.solver.refresh_caches(
-                            {"params": self.state["params"]})
+                            {"params": self.full_params()})
                 if (self.evaluator is not None
                         and self.epoch_idx % cfg.eval_every == 0):
                     with self.timer.phase("validate"):
@@ -454,20 +467,31 @@ class Trainer:
                 if cfg.ckpt_dir and self.epoch_idx % cfg.eval_every == 0:
                     with self.timer.phase("checkpoint"):
                         self.save_checkpoint()
-        if cfg.model_path and self.is_writer:
-            save_text_model(cfg.model_path, self.params_numpy(),
-                            self.data.layout, cfg.k)
+        if cfg.model_path:
+            self.save_model(cfg.model_path)
         if cfg.ckpt_dir:
             self.save_checkpoint()
         if cfg.timing:
             self.timer.report(log)
         return metrics
 
+    def save_model(self, path: str) -> None:
+        """The text model at true dims, written by rank 0 of a mesh (every
+        rank gathers the model-sharded tables first)."""
+        params = self.params_numpy()
+        if self.is_writer:
+            save_text_model(path, params, self.data.layout, self.cfg.k)
+
     def validate(self) -> Dict[str, float]:
         if self.evaluator is None:
             raise RuntimeError("no test set: construct with cfg.test_path")
         st = self.state
-        return self.evaluator.validate(st["params"], st["Q"], st["b"])
+        return self.evaluator.validate(self.full_params(), st["Q"], st["b"])
+
+    def full_params(self):
+        """The whole tables (model-sharded ones gathered over the model
+        group), at padded dims."""
+        return self.solver.full_params(self.state["params"], "read")
 
     def _check_finite(self, metrics: Dict[str, float]):
         """Finiteness and divergence tripwire (the reference trainer's
@@ -532,10 +556,9 @@ class Trainer:
 
     def params_numpy(self):
         """Host copies of the block tables at their true field dims."""
-        dims = {b.f12: (b.d1, b.d2) for b in self.data.layout.all_blocks()}
-        return {f12: {"W": blk["W"][: dims[f12][0]],
-                      "H": blk["H"][: dims[f12][1]]}
-                for f12, blk in params_to_numpy(self.state["params"]).items()}
+        dims = {b.f12: dict(W=b.d1, H=b.d2)
+                for b in self.data.layout.all_blocks()}
+        return params_to_numpy(self.full_params(), dims)
 
     def predict_topk(self, k: int = 10, chunk: int = 1024) -> np.ndarray:
         """Top-k item ids for every test user (cold users ranked by
@@ -548,7 +571,7 @@ class Trainer:
         if self.evaluator is None:
             raise RuntimeError("no test set: construct with cfg.test_path")
         ev = self.evaluator
-        Pva, _ = ev._project_users(self.state["params"])
+        Pva, _ = ev._project_users(self.full_params())
         meta = ev.meta
         Q, bt = self.state["Q"], self.state["b"]
         if ev.shard_by == "items":

@@ -197,13 +197,14 @@ def test_cli_coo_rows_match_jax(mf_set, ffm_set, tmp_path, capsys, tag,
 
 # models without --ns, --cg-precond jacobi (test_torch_jacobi.py),
 # --blocked-bm 0 (test_cli_coo_rows_match_jax), --profile-dir
-# (test_cli_profile_dir_writes_a_trace) and --mesh N --distributed under
-# torchrun (test_torch_multihost.py) run now; a mesh the run's ranks cannot
-# form names the launch that can, and the 2-D mesh waits for ROADMAP A11b
+# (test_cli_profile_dir_writes_a_trace) and --mesh N / NxM --distributed
+# under torchrun (test_torch_multihost.py, test_torch_mesh_2d.py) run now;
+# a mesh the run's ranks cannot form names the launch that can
 # what each refusal must say, by the case's option
 REFUSALS = {
     "--mesh": ("--mesh 2 needs 2 ranks", "torchrun --nproc-per-node 2"),
-    "--distributed": ("2x2", "ROADMAP A11b"),
+    "--distributed": ("--mesh 2x2 needs 4 ranks",
+                      "torchrun --nproc-per-node 4"),
     "orbax": ("orbax", "JAX-only"),
 }
 

@@ -87,38 +87,47 @@ def fingerprint(params):
 WORKER = BUILD + """
 import sys
 from one_class_ffm_torch.parallel.distributed import init_distributed
-from one_class_ffm_torch.parallel.mesh import make_mesh, shard_data
+from one_class_ffm_torch.parallel.mesh import make_mesh, make_mesh2
 from one_class_ffm_torch.parallel.multihost import (make_global,
     make_global_data, make_global_state)
 mode, expected = sys.argv[1], float(sys.argv[2])
 assert init_distributed(backend="gloo")  # torchrun's environment
-mesh = make_mesh(device="cpu")
-assert mesh.size == 4 // 2 * 1 or mesh.size == 2
 meta, data = build(1)
 # the full host state of the same tables, every process the same
 solver1 = FFMSolver(meta, data)
 st = solver1.init(torch.Generator().manual_seed(0))
-if mode == "blk":
-    meta_s, data_s = build(mesh.size)
+if mode == "tp":
+    # a 1x2 data x model mesh: every table of 8 rows or more row-sharded
+    # across the two processes (the web-scale layout), the rows whole
+    mesh = make_mesh2(1, 2, device="cpu")
+    solver = FFMSolver(meta, make_global_data(data, mesh), mesh=mesh,
+                       model_min_rows=8)
+    gstate = make_global_state(st, mesh, model_min_rows=8,
+                               data=solver.data)
+    W = gstate["params"][0]["W"]
+    assert W.shape[0] == st["params"][0]["W"].shape[0] // 2
+    assert torch.equal(make_global(st["params"][0]["W"], mesh, "model"), W)
+    out = solver.full_params(solver.epoch(gstate)["params"])
+else:
+    # blk: the shard-aligned blocked layout; dp: the flat layout (both
+    # sides COO on the shard-aligned stream), each process half the rows
+    mesh = make_mesh(device="cpu")
+    meta_s, data_s = build(mesh.size, bm=4 if mode == "blk" else 0)
     solver = FFMSolver(meta_s, make_global_data(data_s, mesh), mesh=mesh)
-    gstate = make_global_state(st, mesh)
+    if mode == "dp":  # a COO carry is in its own layout's order: refreshed
+        gstate = solver.refresh_caches({"params": st["params"]})
+    else:
+        gstate = make_global_state(st, mesh, data=solver.data)
     assert gstate["a"].shape[0] == meta_s.m // mesh.size
     assert torch.equal(make_global(st["a"], mesh), gstate["a"])
-    out = solver.epoch(gstate)
-    fp = fingerprint(out["params"])
-    print(f"fingerprint={fp!r} expected={expected!r}", flush=True)
-    assert abs(fp - expected) <= 1e-9 * max(1.0, abs(expected)), (fp, expected)
-else:
-    try:
-        if mode == "tp":  # tables row-sharded across the processes
-            make_global_state(st, mesh, model_min_rows=8)
-        else:  # "dp": the flat layout under a mesh (JAX's GSPMD fallback)
-            FFMSolver(meta, data, mesh=mesh)
-    except NotImplementedError as e:
-        assert "ROADMAP A11b" in str(e), e
-    else:
-        raise AssertionError(f"{mode} did not raise")
+    out = solver.epoch(gstate)["params"]
+fp = fingerprint(out)
+print(f"fingerprint={fp!r} expected={expected!r}", flush=True)
+assert abs(fp - expected) <= 1e-9 * max(1.0, abs(expected)), (fp, expected)
 print("MULTIHOST_OK", flush=True)
+# leave as the CLI does: every rank done, then the groups torn down
+torch.distributed.barrier()
+torch.distributed.destroy_process_group()
 """
 
 
@@ -133,11 +142,12 @@ def _single_process_fingerprint() -> float:
 
 @pytest.mark.parametrize("mode", ["dp", "tp", "blk"])
 def test_two_process_distributed_epoch(mode):
-    """blk: two processes joined through torchrun's environment run the
-    shard-aligned epoch, each on its half of the rows, from the same
-    tables as one process: the same tables.  dp (the flat layout under a
-    mesh) and tp (tables row-sharded on a model axis across the processes)
-    wait for ROADMAP A11b and raise naming it."""
+    """Two processes joined through torchrun's environment run one epoch
+    from the same tables as one process and give its tables.  blk: the
+    shard-aligned blocked layout, each process half the rows.  dp: the
+    flat layout under a mesh (both sides COO on the shard-aligned stream,
+    the JAX package's GSPMD fallback). tp: a 1x2 data x model mesh, the
+    tables row-sharded across the processes."""
     expected = _single_process_fingerprint()
     outs = _torchrun(["-c", WORKER, mode, repr(expected)], 2)
     for i, (rc, out, err) in enumerate(outs):
@@ -218,6 +228,21 @@ def test_cli_mesh_under_torchrun_environment(dataset, tmp_path, capsys):
     assert k == 4
 
 
+def test_dryrun_multichip_2d_on_four_cpu_ranks():
+    """At 4 ranks ``dryrun_multichip`` runs the JAX package's 2-D form: the
+    2x2 data x model mesh with ``model_min_rows=8``, every table of this
+    problem row-sharded on the model axis; the same objective on every
+    rank, the top-5's shape."""
+    from one_class_ffm_torch.entry import dryrun_multichip
+
+    outs = dryrun_multichip(4, device="cpu")
+    assert [(o["rank"], o["model_rank"]) for o in outs] == [
+        (0, 0), (0, 1), (1, 0), (1, 1)]
+    assert len({o["objective"] for o in outs}) == 1
+    assert all(o["sharded"] for o in outs)
+    assert outs[0]["top_shape"][1] == 5
+
+
 def test_dryrun_multichip_on_two_cpu_ranks():
     """The counterpart of ``__graft_entry__.dryrun_multichip``: one sharded
     epoch, a sharded evaluation and an item-sharded top-5 through the
@@ -282,12 +307,13 @@ def test_chip_smoke_mesh_phase_rehearsed_on_the_cpu(tmp_path, monkeypatch,
 
     monkeypatch.setattr(chip_smoke, "WORK", str(tmp_path))
     monkeypatch.setattr(chip_smoke, "MESH_CHECK_USERS", 200)
-    spec = dict(n_users=600, n_items=300, rows=512,
+    spec = dict(chip_smoke.MESH_SPEC, n_users=600, n_items=300, rows=512,
                 dims=dict(dims_u=(600, 12), dims_v=(300, 8)))
     report = chip_smoke.new_report()
     got = chip_smoke.mesh_phase(torch.device("cpu"), "cpu", report, spec)
     assert not any(got.values())  # no kernel launches on the CPU
     assert not any(r["max_abs_err"] for r in report.values())
     out = capsys.readouterr().out
-    assert out.count("[mesh ffm] rank 1 epoch 3") == 2  # timing, census
+    assert out.count("[mesh ffm] rank 1 epoch 2") == 2  # timing, census
+    assert "[mesh ffm] rank 0 model file after epoch 2" in out
     assert "validation by items" in out

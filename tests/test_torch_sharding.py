@@ -29,7 +29,12 @@ from one_class_ffm_torch.data.dataset import (
 from one_class_ffm_torch.evalx.torch_eval import Evaluator, make_eval_data
 from one_class_ffm_torch.models.blocks import BlockLayout
 from one_class_ffm_torch.parallel.distributed import spawn
-from one_class_ffm_torch.parallel.mesh import Mesh, resolve_mesh
+from one_class_ffm_torch.parallel.mesh import (
+    Mesh,
+    resolve_mesh,
+    shard_data,
+    shard_state,
+)
 from one_class_ffm_torch.parallel.multihost import make_global_state
 from one_class_ffm_torch.solver import torch_solver
 from one_class_ffm_torch.solver.convert import (
@@ -383,30 +388,76 @@ def test_mesh_epoch_matches_jax_mesh_epoch(two_ranks, case, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# what waits for ROADMAP A11b
+# what ROADMAP A11b added, on one process, and what each path still refuses
 # ---------------------------------------------------------------------------
+
+
+class _Rank:
+    """A rank of a 2-rank data mesh without a process group (placement
+    only: nothing here makes a collective)."""
+
+    def __init__(self, rank, n_model=1, model_rank=0):
+        self.mesh = Mesh(2, rank, "cpu", n_model=n_model,
+                         model_rank=model_rank)
 
 
 def _a11b_cases():
     pb, _, _ = problem("plain", 2)
 
-    def flat_data_under_mesh():
-        meta, data = torch_solver.make_device_data(
+    def data(bm, shards, pb=pb, **kw):
+        return torch_solver.make_device_data(
             pb["u"], pb["v"], pb["y"], pb["layout"], pb["hp"],
-            dtype=torch.float64, blocked_bm=BM, device="cpu")
-        torch_solver.FFMSolver(meta, data, mesh=Mesh(1, 0, "cpu"))
-        # a 2-rank mesh over the flat layout: the JAX sharded fallback
-        fake = type("TwoRanks", (), {"size": 2, "rank": 0})()
-        torch_solver.FFMSolver(meta, data, mesh=fake)
+            dtype=torch.float64, blocked_bm=bm, device="cpu",
+            blocked_shards=shards, **kw)
+
+    def model_axis_mesh():
+        # the 2-D spec forms a mesh of 4 ranks: one process names the launch
+        with pytest.raises(ValueError, match="torchrun --nproc-per-node 4"):
+            resolve_mesh("2x2")
+
+    def model_sharded_state():
+        mesh = Mesh(1, 0, "cpu", n_model=2, model_rank=1)
+        st = {"params": {0: {"W": np.arange(16.0).reshape(8, 2),
+                             "H": np.ones((3, 2))}},
+              "P": {}, "Q": {}, "a": np.zeros(4), "b": np.zeros(4),
+              "yt_u": np.zeros(4), "yt_v": np.zeros(4)}
+        got = make_global_state(st, mesh, model_min_rows=8)["params"][0]
+        assert torch.equal(got["W"], torch.arange(8.0, 16.0).reshape(4, 2))
+        assert got["H"].shape == (3, 2)  # below the threshold: whole
+        st["params"][0]["W"] = np.zeros((9, 2))
+        with pytest.raises(ValueError, match="d_multiple=2"):
+            make_global_state(st, mesh, model_min_rows=8)
+
+    def flat_data_under_mesh():
+        # the flat layout (blocked_bm=0) on the data of 2 ranks: each rank
+        # builds its solver on its part
+        meta, full = data(0, 2)
+        for r in range(2):
+            part = shard_data(full, _Rank(r).mesh)
+            torch_solver.FFMSolver(meta, part, mesh=_Rank(r).mesh)
+        # data laid out for one rank names the layout its ranks need
+        meta1, full1 = data(BM, 1)
+        with pytest.raises(ValueError, match="blocked_shards=2"):
+            torch_solver.FFMSolver(meta1, full1, mesh=_Rank(0).mesh)
 
     def coo_under_mesh():
-        torch_solver.make_device_data(
-            pb["u"], pb["v"], pb["y"], pb["layout"], pb["hp"],
-            dtype=torch.float64, blocked_bm=0, device="cpu",
-            blocked_shards=2)
+        meta, full = data(0, 2)
+        assert (meta.blocked_bm_u, meta.blocked_bm_v) == (0, 0)
+        real = int((pb["y"].w > 0).sum())
+        got = {"u": 0, "v": 0}
+        for r in range(2):
+            part = shard_data(full, _Rank(r).mesh)
+            for s, rows in (("u", pb["u"].m), ("v", pb["v"].m)):
+                # each side's list: the entries of the rank's own rows
+                got[s] += part["coo_" + s].row.numel()
+                assert part["coo_" + s].feat_ptr.numel() - 1 == rows // 2
+        assert got == {"u": real, "v": real}
+        # a stream that is not shard-aligned names pad_labels(shard_rows=)
+        flat = dict(pb, y=host_views(problem("plain", 1)[1], 1)[2])
+        with pytest.raises(ValueError, match="shard_rows="):
+            data(0, 2, pb=flat)
 
     def head_tier_under_mesh():
-        skew, _, _ = problem("plain", 2)
         # four power users beyond the pad budget, head chunks of 8
         rng = np.random.default_rng(0)
         prob, _ = make_problem(rng, m=64, n=40, density=0.05,
@@ -414,14 +465,26 @@ def _a11b_cases():
         prob.pos[:4, :] = True
         u, v, y = host_views(prob, 2)
         lay = BlockLayout.make(prob.layout.Du, prob.layout.Dv, True)
-        torch_solver.make_device_data(
-            u, v, y, lay, skew["hp"], dtype=torch.float64, blocked_bm=BM,
+        meta, full = torch_solver.make_device_data(
+            u, v, y, lay, pb["hp"], dtype=torch.float64, blocked_bm=BM,
             head_chunk=8, device="cpu", blocked_shards=2)
+        rows = []
+        for r in range(2):
+            part = shard_data(full, _Rank(r).mesh)
+            real = (part["blk_u_hd_w"] != 0).any(dim=1)
+            rows += (part["blk_u_hd_row"][real] + r * u.m // 2).tolist()
+        assert sorted(set(rows)) == sorted(
+            full["blk_u_hd_rows"].tolist())
+        # a head carry is cut by the rank's chunks, which its data names
+        with pytest.raises(ValueError, match="pass the rank's data"):
+            shard_state({"params": {}, "P": {}, "Q": {}, "a": np.zeros(2),
+                         "b": np.zeros(2), "yt_u": np.zeros(2),
+                         "yt_v": np.zeros(2), "yt_u_hd": np.zeros((8, 8))},
+                        _Rank(0).mesh)
 
     return {
-        "model_axis_mesh": lambda: resolve_mesh("2x2"),
-        "model_sharded_state": lambda: make_global_state(
-            {"params": {}}, Mesh(1, 0, "cpu"), model_min_rows=8),
+        "model_axis_mesh": model_axis_mesh,
+        "model_sharded_state": model_sharded_state,
         "flat_data_under_mesh": flat_data_under_mesh,
         "coo_under_mesh": coo_under_mesh,
         "head_tier_under_mesh": head_tier_under_mesh,
@@ -432,11 +495,14 @@ def _a11b_cases():
                                   "flat_data_under_mesh", "coo_under_mesh",
                                   "head_tier_under_mesh"])
 def test_a11b_cases_raise(case):
-    """The 2-D data x model mesh, tables row-sharded on a model axis, the
-    plain COO passes and the head tier under a mesh wait for ROADMAP
-    A11b, and say so."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A11b"):
-        _a11b_cases()[case]()
+    """What ROADMAP A11b ported (tables row-sharded on a model axis, the
+    flat layout and the plain COO passes under a mesh, the head tier under
+    a mesh) is placed on each rank without a process group, and each
+    path's remaining refusal (a mesh the ranks cannot form, a large table
+    that does not divide the model axis, data laid out for another rank
+    count, a stream that is not shard-aligned, a head carry without the
+    rank's data) raises, naming its fix."""
+    _a11b_cases()[case]()
 
 
 def test_mesh_spec_must_match_the_ranks():

@@ -268,17 +268,23 @@ def _skewed_problem():
 
 
 # self blocks, feature fields of any width, Jacobi, the head tier, the
-# plain COO positive passes and the shard-aligned layout on a data mesh run
-# now (tests/test_torch_jacobi.py holds Jacobi, tests/test_torch_two_tier.py
+# plain COO positive passes and every layout on a data mesh run now
+# (tests/test_torch_jacobi.py holds Jacobi, tests/test_torch_two_tier.py
 # the head tier, tests/test_torch_coo.py the COO passes,
-# tests/test_torch_sharding.py the mesh); the case holds what still raises:
-# a mesh over the flat layout (the JAX package's sharded fallback)
+# tests/test_torch_sharding.py, test_torch_mesh_head_coo.py and
+# test_torch_mesh_2d.py the meshes); the case holds what still raises: a
+# mesh of 2 data ranks over data laid out for one, which names the layout
+# its ranks need
+class _TwoRanks:
+    size, rank, n_model = 2, 0, 1
+
+
 OUT_OF_SLICE = {
-    "mesh": dict(mesh=object()),
+    "mesh": dict(mesh=_TwoRanks()),
 }
 
 
-ROADMAP_ITEM = {"mesh": "A11b"}
+ERROR = {"mesh": (ValueError, r"blocked_shards=2\), then parallel.shard_data")}
 
 
 @pytest.mark.parametrize("case", sorted(OUT_OF_SLICE))
@@ -286,8 +292,8 @@ def test_out_of_slice_configs_raise(case):
     kw = OUT_OF_SLICE[case]
     prob, params = _skewed_problem() if kw.get("skewed") else mf_problem()
     u, v, y = padded(prob)
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP {ROADMAP_ITEM[case]}"):
+    err, match = ERROR[case]
+    with pytest.raises(err, match=match):
         meta, data = torch_solver.make_device_data(
             u, v, y, prob.layout, prob.hp, dtype=torch.float64,
             blocked_bm=kw.get("blocked_bm", BM), device="cpu")

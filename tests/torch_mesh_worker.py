@@ -25,19 +25,30 @@ F64 = torch.float64
 
 def mesh_epochs(problems, epochs: int = 1):
     """For each named problem (dict of host views u, v, y, layout, hp,
-    params, block rows ``bm``): the rank's solver on its part of the
-    shard-aligned data, refreshed from the tables, ``epochs`` epochs.
-    Returns per problem the tables, CG counts, objectives, this rank's
-    side sums and stream residual, and the collective census of the
-    epochs."""
+    params, block rows ``bm``; optional ``head_chunk``, a mesh spec
+    ``mesh`` such as ``"2x2"``, ``model_min_rows`` and ``d_multiple``): the
+    rank's solver on its part of the shard-aligned data, refreshed from the
+    tables, ``epochs`` epochs.  Returns per problem the whole tables (padded
+    dims), CG counts, objectives, this rank's side sums, carries and stream
+    residual, the census of the epochs, the tables as the rank holds them
+    and its part of the data's head and COO keys."""
+    from one_class_ffm_torch.parallel.mesh import resolve_mesh
+
     torch.set_num_threads(1)
-    mesh = make_mesh(device="cpu")
+    meshes = {}
     out = {}
     for name, pb in problems.items():
+        spec = pb.get("mesh", "auto")
+        if spec not in meshes:  # every rank makes the groups in one order
+            meshes[spec] = resolve_mesh(spec, device="cpu")
+        mesh = meshes[spec]
         meta, data = make_device_data(
             pb["u"], pb["v"], pb["y"], pb["layout"], pb["hp"], dtype=F64,
-            blocked_bm=pb["bm"], device="cpu", blocked_shards=mesh.size)
-        solver = FFMSolver(meta, shard_data(data, mesh), mesh=mesh)
+            blocked_bm=pb["bm"], head_chunk=pb.get("head_chunk", 512),
+            device="cpu", blocked_shards=mesh.size,
+            d_multiple=pb.get("d_multiple", 1))
+        solver = FFMSolver(meta, shard_data(data, mesh), mesh=mesh,
+                           model_min_rows=pb.get("model_min_rows"))
         st = solver.refresh_caches(
             {"params": params_from_numpy(pb["params"], "cpu", F64)})
         obj = [float(solver.objective(st))]
@@ -48,13 +59,19 @@ def mesh_epochs(problems, epochs: int = 1):
             iters.append(it.tolist())
         census = mesh.census.rows()
         obj.append(float(solver.objective(st)))
+        d = solver.data
         out[name] = dict(
-            params=params_to_numpy(st["params"]), iters=iters, obj=obj,
+            params=params_to_numpy(solver.full_params(st["params"])),
+            held=params_to_numpy(st["params"]), iters=iters, obj=obj,
             census=census, a=st["a"].numpy(), b=st["b"].numpy(),
             yt_u=st["yt_u"].numpy(), yt_stream=solver.yt_stream(st).numpy(),
-            pos_u=solver.data["pos_u"].numpy(),
-            pos_v=solver.data["pos_v"].numpy(),
-            rows=(solver.m_l, solver.n_l, mesh.rank, mesh.size))
+            pos_u=d["pos_u"].numpy(), pos_v=d["pos_v"].numpy(),
+            hd=(solver.hd_u, solver.hd_v),
+            coo=tuple(solver._coo(s) is not None for s in (True, False)),
+            hd_rows={s: d[f"blk_{s}_hd_rows"].numpy() for s in "uv"
+                     if f"blk_{s}_hd_rows" in d},
+            rows=(solver.m_l, solver.n_l, mesh.rank, mesh.size),
+            model=(mesh.model_rank, mesh.n_model))
     return out
 
 
