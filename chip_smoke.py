@@ -106,15 +106,19 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
    launched on each rank; rank 0 of ``[mesh ffm]`` and of ``[mesh
    ffm-2d]`` writes the text model after the epochs: the 2x2 mesh's file
    equal to the 2-rank data mesh's (true dims, every value: the model
-   axis only gathers exact copies), each printed against the one
-   process's;
+   axis only gathers exact copies), each within ``MESH_FILE_TOL`` of the
+   one process's;
 11. entry points: ``python -m one_class_ffm_torch`` on small text
    datasets, MF with --ns, FFM without, FM with its user field above the
    cap, and MF with --ns --blocked-bm 0, must exit 0;
    ``python -m one_class_ffm_torch.predict --scores`` on the FFM run's text
    model and checkpoint must exit 0 and print the in-process call's lines;
    MF with --ns under ``--profile-dir`` must exit 0 and leave a trace with
-   CUDA kernel events.
+   CUDA kernel events;
+12. ``[prep]``: the port's KKBox pipeline on tiny raw CSVs, then one epoch
+   on the card on its output (finite metrics); ``[bf16 mf]``: MF --ns at
+   full width, 11 epochs at bf16 and at float32, the AUC of each epoch
+   side by side (finite).
 
 The line before the last is a JSON object with one entry per kernel: its
 launches summed over the eight main paths, the serving path and the mesh
@@ -1858,6 +1862,105 @@ def cli_profile(work: str, env) -> None:
     check(kern, "--profile-dir: no CUDA kernel event in the trace")
 
 
+def write_kkbox_raw(raw_dir: str, n: int = 500, seed: int = 0) -> None:
+    """Tiny raw files of the Kaggle KKBox schema (train.csv, songs.csv,
+    members.csv): 40 listeners, 25 songs, ``n`` plays."""
+    import random
+
+    rng = random.Random(seed)
+    os.makedirs(raw_dir, exist_ok=True)
+    users = [f"u{i}" for i in range(40)]
+    songs = [f"s{i}" for i in range(25)]
+    with open(os.path.join(raw_dir, "train.csv"), "w") as fh:
+        fh.write("msno,song_id,source_system_tab,target\n")
+        for _ in range(n):
+            fh.write(f"{rng.choice(users)},{rng.choice(songs)},lib,"
+                     f"{rng.randint(0, 1)}\n")
+    with open(os.path.join(raw_dir, "songs.csv"), "w") as fh:
+        fh.write("song_id,song_length,genre_ids,artist_name,language\n")
+        for sid in songs:
+            genres = "|".join(str(rng.randint(100, 105))
+                              for _ in range(rng.randint(1, 2)))
+            fh.write(f"{sid},200000,{genres},artist{rng.randint(1, 8)},"
+                     f"{rng.choice([3, 17, 52])}\n")
+    with open(os.path.join(raw_dir, "members.csv"), "w") as fh:
+        fh.write("msno,city,bd,gender,registered_via\n")
+        for u in users:
+            fh.write(f"{u},{rng.randint(1, 5)},0,"
+                     f"{rng.choice(['male', 'female', ''])},"
+                     f"{rng.randint(3, 9)}\n")
+
+
+def prep_phase(device, gpu: str) -> None:
+    """``[prep]``: the port's KKBox pipeline (``prep/kkbox.py``: filter,
+    encode, split) on tiny raw CSVs, then one epoch of the port's Trainer
+    on the card on its FFM output (listeners x top songs)."""
+    from one_class_ffm_torch.prep import kkbox
+    from one_class_ffm_torch.train import TrainConfig, Trainer
+
+    work = os.path.join(WORK, "prep_kkbox")
+    raw, out = os.path.join(work, "raw"), os.path.join(work, "out")
+    write_kkbox_raw(raw)
+    t0 = time.perf_counter()
+    check(kkbox.main(["all", "--raw", raw, "--out", out, "--threshold",
+                      "2"]) == 0, "prep kkbox exited non-zero")
+    prep_s = time.perf_counter() - t0
+    files = sorted(f for f in os.listdir(out) if f.endswith(".ffm"))
+    cfg = TrainConfig(item_path=os.path.join(out, "top_song.ffm"),
+                      train_path=os.path.join(out, "listener.tr.ffm"),
+                      test_path=os.path.join(out, "listener.va.ffm"), k=8,
+                      nr_pass=1, eval_every=1, dtype="float32",
+                      eval_chunk=64, row_multiple=8)
+    tr = Trainer(cfg, device=device)
+    tr.init_state()
+    rows = []
+    metrics = tr.run(log=rows.append)
+    bad = {k: v for k, v in metrics.items() if not math.isfinite(v)}
+    check(metrics and not bad, f"prep: metrics {metrics}")
+    d = tr.data
+    print(f"[prep] kkbox: raw CSVs -> {files} in {prep_s:.2f} s; one epoch "
+          f"on {tr.device} of {d.m_users_true} listeners x "
+          f"{d.n_items_true} songs ({d.nnz_true} positives, fields "
+          f"{list(d.u_pad.Ds)} x {list(d.v_pad.Ds)}): "
+          f"{tr.history[-1]['seconds']:.4f} s, CG "
+          f"{tr.history[-1]['cg_iters']}; row {rows[-1].strip()!r}; "
+          f"auc {metrics['auc']:.4f} [{gpu}]")
+
+
+BF16_EPOCHS = 11
+
+
+def bf16_mf_phase(mf, device, gpu: str) -> None:
+    """``[bf16 mf]``: MF ``--ns`` at full width (200,000 x 20,000, k=32)
+    trained 11 epochs at bf16 storage (``refresh_every`` 10, the bf16
+    default) and at float32 from the same seed, AUC after each epoch side
+    by side (ROADMAP C3: bf16 MF once stayed at AUC 0.500)."""
+    import dataclasses
+
+    import torch
+
+    aucs = {}
+    for dt in ("float32", "bfloat16"):
+        tr = make_trainer(mf, device, dtype=dt, epochs=1)
+        tr.init_state()
+        aucs[dt] = []
+        for ep in range(1, BF16_EPOCHS + 1):
+            tr.cfg = dataclasses.replace(tr.cfg, nr_pass=ep)
+            tr.run(log=lambda *_: None)
+            aucs[dt].append(tr.validate()["auc"])
+        print(f"[bf16 mf] {dt}: refresh_every {tr.refresh_every}, "
+              f"{sum(h['seconds'] for h in tr.history):.3f} s for "
+              f"{BF16_EPOCHS} epochs, objective "
+              f"{float(tr.solver.objective(tr.state)):.6f}")
+        del tr
+        torch.cuda.empty_cache()
+    for ep in range(BF16_EPOCHS):
+        print(f"[bf16 mf] epoch {ep + 1}: AUC bf16 {aucs['bfloat16'][ep]:.4f}"
+              f" f32 {aucs['float32'][ep]:.4f} [{gpu}]")
+    check(all(math.isfinite(a) for v in aucs.values() for a in v),
+          f"bf16 mf: non-finite AUC {aucs}")
+
+
 # ---------------------------------------------------------------------------
 # the meshes: ranks sharing the card over gloo
 # ---------------------------------------------------------------------------
@@ -1868,6 +1971,15 @@ MESH_TOL = 1e-5  # max|delta| / max|ref|, float32: gradient and Hv
 MESH_STEP_TOL = 1e-4  # the step: up to 20 CG iterations on those
 MESH_OBJ_TOL = 1e-3  # relative, the objective after each epoch
 MESH_MODEL_TOL = 0.0  # the 2x2 mesh's model file against the data mesh's
+# a mesh's model file after 2 epochs against one process's, max|d|/max|ref|:
+# at float32 a mesh rounds its row sums otherwise, and CG solves that stop
+# unconverged (the categorical tables at or near the cap of 20) amplify that
+# rounding.  Measured 1.51e-2 on the card (PR 15, and the half-solve trace
+# of ``mesh_accuracy.py trace``); the JAX package's own 2-device mesh parts
+# from its one device by the same order on the CPU
+# (tests/test_torch_mesh_cap.py).  The gate is that distance plus a margin
+# of about 3x for a change of rounding order elsewhere.
+MESH_FILE_TOL = 5e-2
 MESH_CHECK_USERS = 4096  # users whose gathered scores re-rank the top-K
 # the problem of each mesh path: the headline FFM (``mesh_phase`` takes
 # another, e.g. a toy size on the CPU); ``ref_shards``: the stream of the
@@ -2164,8 +2276,9 @@ def mesh_phase(device, gpu: str, report, spec: dict = MESH_SPEC):
     epoch (``MESH_OBJ_TOL``), finite metrics by users and by items, the
     merged top-10 against the gathered scores' bit for bit, the census (in
     CG one all-reduce per Hv, no all-gather), with ``spec["model_file"]``
-    rank 0's model file after the epochs (true dims) printed against the
-    one process's and, with ``spec["model_ref"]``, equal to that path's
+    rank 0's model file after the epochs (true dims) within
+    ``MESH_FILE_TOL`` of the one process's and, with ``spec["model_ref"]``,
+    equal to that path's
     rank-0 file (``MESH_MODEL_TOL``), and on the card each kernel of the
     path held against its plain version on each rank's inputs
     (``mesh_cases``; its error goes into ``report``) and launched on each
@@ -2308,7 +2421,7 @@ def mesh_phase(device, gpu: str, report, spec: dict = MESH_SPEC):
             launches[name] += o["launches"][name]
         if o["model"]:
             _, k_m, p_m = load_text_model(o["model"])
-            refs = [("the one process's", ref_model, None)]
+            refs = [("the one process's", ref_model, MESH_FILE_TOL)]
             if spec.get("model_ref"):
                 refs.append((f"[{spec['model_ref']}] rank 0's",
                              os.path.join(WORK, spec["model_ref"].replace(
@@ -2326,8 +2439,8 @@ def mesh_phase(device, gpu: str, report, spec: dict = MESH_SPEC):
                       f"{spec['epochs']}: k {k_m}, tables (rows, k) "
                       f"{ {key: a for key, (a, _) in dims.items()} }, "
                       f"max|d|/max|ref| against {what} file {err:.3e}")
-                check(tol is None or err <= tol,
-                      f"{tag}: model file off {what} by {err}")
+                check(err <= tol, f"{tag}: model file off {what} by {err} "
+                                  f"(gate {tol})")
     check(all(o["iters"] == outs[0]["iters"] for o in outs),
           f"{tag}: the ranks' CG counts differ")
     check(any(o["model"] for o in outs) == bool(spec.get("model_file")),
@@ -2573,6 +2686,11 @@ def main() -> int:
 
         # 11. the command-line entry points
         cli_phase(device)
+
+        # 12. the raw-data pipeline's output trained on the card, and bf16
+        # MF's AUC beside f32's over 11 epochs
+        prep_phase(device, gpu)
+        bf16_mf_phase(mf, device, gpu)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

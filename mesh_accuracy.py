@@ -19,10 +19,25 @@ rank's rows against one process's and against float64.
 
 Full width (200,000 x 20,000) by default; give a device with a small size
 on the CPU, e.g. ``cpu 40000 4000``.
+
+    python3 mesh_accuracy.py trace [cuda:0|cpu] [n_users n_items]
+
+``trace``: the headline FFM of ``[mesh ffm]`` (one process on the flat
+stream, 2 data ranks on the shard-aligned one, both from the seed's
+tables) stepped half-solve by half-solve through 2 epochs, each run on
+its own.  After each half-solve it prints, per rank, the updated table's
+max|d|/max|ref| against the one process's and the worst over all tables,
+both CG counts, whether each solve stopped at the cap
+(``cg_max_iter``), whether the counts differ (a stop-rule flip) and the
+smallest margin of a stop test ``r2 > cg_eps * g2`` in either run (in
+units of the float32 epsilon: a flip of the rounding decides a test within
+one or two).  Then the objectives and the tables' distance after each
+epoch: where the model file's distance comes from.
 """
 import os
 import pickle
 import sys
+import types
 
 import numpy as np
 import torch
@@ -177,11 +192,194 @@ def run(kind, device, nu, ni):
     return errs
 
 
+# ---------------------------------------------------------------------------
+# trace: one process and the 2-rank mesh, half-solve by half-solve
+# ---------------------------------------------------------------------------
+
+TRACE_EPOCHS = 2
+
+
+def _traced_cg_loop(tests):
+    """``FFMSolver._cg_loop`` under plain CG, which also appends each stop
+    test's (r2, cg_eps * g2) to ``tests``: the same operations in the same
+    order (the loop already reads the test on the host)."""
+    def loop(self, hv, G, D=None):
+        import torch
+
+        assert D is None, "trace: plain CG only"
+        hp = self.meta.hp
+        storage = self.meta.dtype
+        ct = torch.promote_types(G.dtype, torch.float32)
+        Gc = G.to(ct)
+        g2 = (Gc * Gc).sum()
+        S = torch.zeros_like(Gc)
+        R = -Gc
+        V = -Gc
+        r2 = g2
+        rz = g2
+        it = 0
+        one = torch.ones((), dtype=ct, device=Gc.device)
+        zero = torch.zeros((), dtype=ct, device=Gc.device)
+        while True:
+            thr = hp.cg_eps * g2
+            tests.append((float(r2), float(thr)))
+            if not (it < hp.cg_max_iter and bool(r2 > thr)):
+                break
+            Hv = hv(V.to(storage)).to(ct)
+            den = (V * Hv).sum()
+            ok = den > 0
+            alpha = torch.where(ok, rz / torch.where(ok, den, one), zero)
+            S = S + alpha * V
+            R = R - alpha * Hv
+            r2_new = torch.where(ok, (R * R).sum(), zero)
+            rz_safe = torch.where(rz > 0, rz, one)
+            rz_new = r2_new
+            V = R + (rz_new / rz_safe) * V
+            r2, rz = r2_new, rz_new
+            it += 1
+        return S, it
+    return loop
+
+
+def trace_epochs(solver, state, epochs, reference=None):
+    """Step ``epochs`` epochs half-solve by half-solve (``_epoch_impl``'s
+    order, sa/sb once per epoch).  Returns per half-solve its CG count and
+    stop tests, and either the updated table (``reference`` None) or its
+    distance and the worst table's against ``reference``'s tables after the
+    same half-solve; and the objective after each epoch."""
+    import numpy as np
+
+    tests = []
+    solver._cg_loop = types.MethodType(_traced_cg_loop(tests), solver)
+    blocks = solver.meta.layout.epoch_order()
+    tables = {(b.f12, n): None for b in blocks for n in ("W", "H")}
+    dist = dict.fromkeys(tables, 0.0)
+    rows, objectives, h = [], [], 0
+    for ep in range(epochs):
+        sa, sb = solver.sasb(state)
+        for b in blocks:
+            for first in (True, False):
+                tests.clear()
+                state, it = solver._solve_half(state, b, first, sa, sb)
+                key = (b.f12, "W" if first else "H")
+                T = solver.full_params(state["params"])[b.f12][key[1]]
+                T = T.float().cpu().numpy()
+                row = dict(epoch=ep + 1, f12=b.f12, kind=b.kind,
+                           table=key[1], iters=int(it), tests=list(tests))
+                if reference is None:
+                    row["T"] = T
+                else:
+                    dist[key] = rel(T, reference[h]["T"])
+                    row["dist"] = dist[key]
+                    row["worst"] = max(dist.values())
+                rows.append(row)
+                h += 1
+        objectives.append(float(solver.objective(state)))
+    return state, rows, objectives
+
+
+def trace_rank(state_path, ref_path, device, spec):
+    """One rank of ``trace``: the seed's state placed on its part of the
+    2-rank mesh, stepped as the one process was, against its tables."""
+    import torch
+
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    torch.set_num_threads(2)
+    data = cs._mesh_data(spec, 2)
+    trainer = cs.make_trainer(data, device, epochs=TRACE_EPOCHS,
+                              mesh_shape="2", distributed=True)
+    with open(state_path, "rb") as fh:
+        state = trainer._place_state(pickle.load(fh))
+    with open(ref_path, "rb") as fh:
+        reference = pickle.load(fh)
+    _, rows, objectives = trace_epochs(trainer.solver, state, TRACE_EPOCHS,
+                                       reference)
+    return dict(rank=trainer.mesh.rank, rows=rows, objectives=objectives)
+
+
+def _min_margin(tests):
+    """The smallest |r2 - cg_eps*g2| / (cg_eps*g2) over a solve's stop
+    tests, in float32 epsilons."""
+    eps = 2.0 ** -23
+    return min((abs(r2 - thr) / thr / eps for r2, thr in tests if thr > 0),
+               default=float("inf"))
+
+
+def trace(device, nu, ni):
+    """Print the half-solve trace of the 2-rank data mesh against one
+    process (see the module docstring); returns the rows."""
+    import torch
+
+    from one_class_ffm_torch.parallel.distributed import spawn
+    from one_class_ffm_torch.parallel.mesh import host_arrays
+
+    spec = dict(cs.MESH_SPEC, tag="trace", n_users=nu, n_items=ni,
+                dims=(cs.FFM_DIMS if nu == cs.N_USERS
+                      else dict(dims_u=(nu, 1000), dims_v=(ni, 500))))
+    work = os.path.join(cs.WORK, "accuracy_trace")
+    os.makedirs(work, exist_ok=True)
+    ref = cs.make_trainer(cs._mesh_data(spec, spec["ref_shards"]),
+                          torch.device(device), epochs=TRACE_EPOCHS)
+    state0 = ref.init_state()
+    state_path = os.path.join(work, "state0.pkl")
+    with open(state_path, "wb") as fh:
+        pickle.dump(host_arrays(state0), fh, protocol=4)
+    # the traced loop against the solver's own: the same epochs, bit for bit
+    plain = state0
+    for _ in range(TRACE_EPOCHS):
+        plain, _ = ref.solver.epoch_stats(plain)
+    plain = {f12: {n: t.float().cpu().numpy() for n, t in blk.items()}
+             for f12, blk in ref.solver.full_params(plain["params"]).items()}
+    final, rows, objectives = trace_epochs(ref.solver, state0, TRACE_EPOCHS)
+    same = all(np.array_equal(t.float().cpu().numpy(), plain[f12][n])
+               for f12, blk in ref.solver.full_params(
+                   final["params"]).items() for n, t in blk.items())
+    ref_path = os.path.join(work, "one_process.pkl")
+    with open(ref_path, "wb") as fh:
+        pickle.dump([dict(T=r["T"]) for r in rows], fh, protocol=4)
+    outs = spawn("mesh_accuracy:trace_rank", 2,
+                 args=(state_path, ref_path, device, spec), backend="gloo",
+                 workdir=work, timeout=1200)
+    cap = ref.solver.meta.hp.cg_max_iter
+    print(f"== trace {nu}x{ni} on {device}: one process (flat stream) vs 2 "
+          f"data ranks (shard-aligned), from the seed's tables; the traced "
+          f"CG loop gives the solver's own tables: {same}")
+    print("trace  h ep block kind tbl   CG one / ranks   cap   flip "
+          "margin(eps32) one / ranks   table dist / worst per rank")
+    for h, r in enumerate(rows):
+        got = [o["rows"][h] for o in outs]
+        its = [g["iters"] for g in got]
+        capped = (r["iters"] >= cap, [i >= cap for i in its])
+        flip = any(i != r["iters"] for i in its)
+        margins = " ".join(f"{_min_margin(g['tests']):.3g}" for g in got)
+        dists = " ".join(f"{g['dist']:.3e} / {g['worst']:.3e}" for g in got)
+        print(f"trace {h:2d} {r['epoch']:2d} {str(r['f12']):>7s} "
+              f"{r['kind']:4s} {r['table']:3s} {r['iters']:2d} / {its} "
+              f"{capped[0]!s:5s}/{capped[1]} {flip!s:5s} "
+              f"{_min_margin(r['tests']):.3g} / {margins}   {dists}")
+    for ep in range(TRACE_EPOCHS):
+        worst = [max(g["worst"] for g in o["rows"] if g["epoch"] == ep + 1)
+                 for o in outs]
+        print(f"trace epoch {ep + 1}: objective one process "
+              f"{objectives[ep]:.6f}, ranks "
+              f"{[o['objectives'][ep] for o in outs]}; worst table "
+              f"distance per rank {[f'{w:.3e}' for w in worst]}")
+    sys.stdout.flush()
+    return rows, outs
+
+
 if __name__ == "__main__":
-    dev = sys.argv[1] if len(sys.argv) > 1 else "cuda:0"
-    nu, ni = (int(sys.argv[2]), int(sys.argv[3])) if len(sys.argv) > 3 \
+    args = sys.argv[1:]
+    mode = args.pop(0) if args and args[0] == "trace" else "accuracy"
+    dev = args[0] if args else "cuda:0"
+    nu, ni = (int(args[1]), int(args[2])) if len(args) > 2 \
         else (cs.N_USERS, cs.N_ITEMS)
     if dev.startswith("cuda"):
         print("[device]", cs.gpu_line())
-    for kind in ("coo", "blocked"):
-        run(kind, dev, nu, ni)
+    if mode == "trace":
+        trace(dev, nu, ni)
+    else:
+        for kind in ("coo", "blocked"):
+            run(kind, dev, nu, ni)

@@ -36,7 +36,9 @@ from one_class_ffm_torch.utils import profiling as torch_profiling
 
 COPIED_MODULES = ("data", "data.dataset", "data.io", "data.native_io",
                   "data.synth", "models.blocks", "solver.params",
-                  "solver.oracle", "evalx.numpy_metrics", "logtools")
+                  "solver.oracle", "evalx.numpy_metrics", "logtools",
+                  "prep", "prep.split", "prep.encode", "prep.kdd12",
+                  "prep.kkbox", "prep.outbrain")
 
 
 def _tree(path: str) -> ast.Module:
@@ -330,3 +332,113 @@ def test_phase_timer_matches():
         assert sorted(timer.summary()) == ["a", "b"]
         assert timer.summary()["b"] == {"seconds": 2.0, "calls": 1}
         assert len(lines) == 2
+
+
+# ---------------------------------------------------------------------------
+# prep/: the raw-data pipelines, run on tests/test_prep.py's raw CSVs
+# ---------------------------------------------------------------------------
+
+
+def _prep_raw(name: str, tmp_path):
+    """(raw argument of the pipeline, its extra options): test_prep.py's
+    miniature raw files of the Kaggle schema."""
+    import test_prep
+
+    if name == "kdd12":
+        raw = str(tmp_path / "training.csv")
+        test_prep.write_kdd12_raw(raw)
+        return raw, ["--threshold", "2"]
+    raw = str(tmp_path / "raw")
+    getattr(test_prep, f"write_{name}_raw")(raw)
+    return raw, ["--threshold", "3" if name == "outbrain" else "2"]
+
+
+def _tree_bytes(root: str):
+    out = {}
+    for base, _, files in os.walk(root):
+        for f in files:
+            path = os.path.join(base, f)
+            with open(path, "rb") as fh:
+                out[os.path.relpath(path, root)] = fh.read()
+    return out
+
+
+@pytest.mark.parametrize("name", ["kdd12", "kkbox", "outbrain"])
+def test_prep_pipeline_outputs_match(name, tmp_path):
+    """Each pipeline of the port's prep/ writes the original's files, byte
+    for byte, from the same raw CSVs."""
+    raw, opts = _prep_raw(name, tmp_path)
+    outs = []
+    for pkg in ("one_class_ffm_torch", "one_class_ffm_tpu"):
+        mod = importlib.import_module(f"{pkg}.prep.{name}")
+        out = str(tmp_path / pkg)
+        assert mod.main(["all", "--raw", raw, "--out", out, *opts]) == 0
+        outs.append(_tree_bytes(out))
+    got, ref = outs
+    assert sorted(got) == sorted(ref)
+    assert len(ref) > 5
+    for rel, data in ref.items():
+        assert got[rel] == data, rel
+
+
+@pytest.mark.parametrize("case", ["split", "subsample", "geo_handler"])
+def test_prep_helpers_match(case, tmp_path):
+    """The deterministic split, the subsample and the geo handler of the
+    port's copies give the originals' results."""
+    outs = []
+    for pkg in ("one_class_ffm_torch", "one_class_ffm_tpu"):
+        split = importlib.import_module(f"{pkg}.prep.split")
+        encode = importlib.import_module(f"{pkg}.prep.encode")
+        d = tmp_path / pkg
+        d.mkdir()
+        p = d / "x.ffm"
+        p.write_text("".join(f"{i} 0:{i}:1\n" for i in range(200)))
+        if case == "split":
+            paths = split.split_file(str(p), seed=0)
+            again = split.split_file(str(p), seed=0)
+            assert again == paths
+            outs.append([open(q).read() for q in paths])
+        elif case == "subsample":
+            outs.append(open(split.subsample(str(p))).read())
+        else:
+            sp = encode.FeatureSpace(1)
+            outs.append([geo_ids for v in ("US>CA>803", "US>CA", "US>803",
+                                           "US", "803", "US", "GB>ENG>1")
+                         for geo_ids in [encode.geo_handler(sp, 0, v)]])
+    got, ref = outs
+    assert got == ref
+    if case == "split":
+        assert sum(txt.count("\n") for txt in got) == 200
+
+
+def test_port_trains_on_its_prep_output(tmp_path):
+    """The whole chain on the port: raw csv -> the port's prep -> the
+    port's Trainer (tests/test_prep.py:139), its log rows those of the JAX
+    Trainer on the same files from the same model."""
+    import test_prep
+    from one_class_ffm_torch.prep import kdd12
+
+    raw = str(tmp_path / "training.csv")
+    test_prep.write_kdd12_raw(raw, n=600)
+    out = str(tmp_path / "out")
+    assert kdd12.main(["all", "--raw", raw, "--out", out,
+                       "--threshold", "1"]) == 0
+    kw = dict(item_path=os.path.join(out, "ad.ffm"),
+              train_path=os.path.join(out, "user.tr.ffm"),
+              test_path=os.path.join(out, "user.va.ffm"), k=3, nr_pass=2,
+              eval_every=2, dtype="float64", eval_chunk=32)
+    init = jax_train.Trainer(jax_train.TrainConfig(**kw))
+    init.init_state()
+    model = str(tmp_path / "init.txt")
+    jax_train.save_text_model(model, init.params_numpy(), init.data.layout,
+                              3)
+    rows = []
+    for mod, extra in ((torch_train, dict(device="cpu")), (jax_train, {})):
+        tr = mod.Trainer(mod.TrainConfig(init_model=model, **kw), **extra)
+        tr.init_state()
+        got = []
+        tr.run(log=got.append)
+        rows.append(got)
+        m = tr.validate()
+        assert 0.0 <= m["auc"] <= 1.0
+    assert rows[0] == rows[1]

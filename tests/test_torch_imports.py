@@ -55,7 +55,9 @@ def test_jax_package_modules_the_port_uses_import_without_jax():
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert len(names) >= 20, names\n"
         "for n in ('parallel', 'parallel.mesh', 'parallel.distributed',\n"
-        "          'parallel.multihost', 'evalx.sharded_topk'):\n"
+        "          'parallel.multihost', 'evalx.sharded_topk', 'prep',\n"
+        "          'prep.split', 'prep.encode', 'prep.kdd12', 'prep.kkbox',\n"
+        "          'prep.outbrain'):\n"
         "    assert 'one_class_ffm_torch.' + n in names, n\n")
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
@@ -260,3 +262,25 @@ def chip_smoke_spec():
     from one_class_ffm_torch.data.synth import SynthSpec
 
     return SynthSpec(n_users=90, n_items=30, avg_pos=5.0, seed=3)
+
+
+def test_chip_smoke_prep_and_bf16_mf_rehearsal_on_cpu(tmp_path, monkeypatch,
+                                                      capsys):
+    """The smoke script's ``[prep]`` phase (the port's KKBox pipeline on
+    tiny raw CSVs, one epoch on its output) and ``[bf16 mf]`` phase (bf16
+    beside float32, AUC per epoch) on the CPU at toy size."""
+    sys.path.insert(0, ROOT)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(ROOT)
+    monkeypatch.setattr(chip_smoke, "WORK", str(tmp_path))
+    monkeypatch.setattr(chip_smoke, "BF16_EPOCHS", 2)
+    chip_smoke.prep_phase(torch.device("cpu"), "cpu")
+    mf = chip_smoke.build_data(600, 120, 5.0, seed=1)
+    chip_smoke.bf16_mf_phase(mf, torch.device("cpu"), "cpu")
+    out = capsys.readouterr().out
+    assert "[prep] kkbox: raw CSVs -> ['listener.ffm'" in out
+    assert (tmp_path / "prep_kkbox" / "out" / "top_song.ffm").exists()
+    assert "[bf16 mf] epoch 2: AUC bf16 " in out
+    assert "refresh_every 10" in out and "refresh_every 0" in out
