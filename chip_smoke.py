@@ -31,10 +31,13 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
    item popularity zipf 1.0, whose v side takes the two-tier layout: its
    tail, where the power items own no slots), timed apart from the rest;
    then the COO passes (``pos_scatter``, ``pos_scatter_pair``,
-   ``pos_seg_sum``: the X^T stage's kernel over a side's list of the
-   positive stream) on the FFM with both sides COO (``blocked_bm=0``, both
-   sides) and on the skewed FFM without the head tier under Jacobi (its v
-   side COO), with ``Tensor.index_add_`` as their library yardstick.
+   ``pos_seg_sum``, the fused Hv ``pos_hv_coo``: one kernel over a side's
+   list of the positive stream) and ``pos_dot`` (the step's gaps over the
+   stream) on the FFM with both sides COO (``blocked_bm=0``, both sides)
+   and on the skewed FFM without the head tier under Jacobi (its v side
+   COO), with ``Tensor.index_add_`` as the list passes' library yardstick
+   (none for the fused Hv and ``pos_dot``: the Hv's line gives its two-call
+   form's time instead), timed at float32 and bfloat16.
    Before them, ``[data]`` lines give the static plans the redesigned
    kernels read: each stream side's row runs (mean and longest), each COO
    side's list of the stream and each feature-major list's single-chunk,
@@ -67,10 +70,13 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
    B1-B8 must have launched, one epoch run twice from one state must give
    the same bits, and each head op's per-call time on its v side is
    printed; then the FFM with both sides COO (``blocked_bm=0``, plain CG:
-   the COO passes, B8 and the general scatter must have launched, no
-   blocked or fused kernel) and the skewed FFM with ``head_chunk=0`` under
-   Jacobi (v COO: the three COO passes; u blocked: its blocked and fused
-   Jacobi kernels), each also run twice from one state;
+   ``pos_scatter``, ``pos_seg_sum``, ``pos_hv_coo``, ``pos_dot``, B8 and
+   the general scatter must have launched, no blocked or fused kernel) and
+   the skewed FFM with ``head_chunk=0`` under Jacobi (v COO: the pair, the
+   width-1 sums, the fused Hv and ``pos_dot``; u blocked: its blocked and
+   fused Jacobi kernels), each also run twice from one state.  Every main
+   path refreshes its residual through ``pos_dot`` (the FFM's must have
+   launched it);
 8. serving: the headline FFM of phase 6 saved as a text model and a
    checkpoint, its items' and its 111,963 test users' feature rows written
    to files; ``predict_topk_from_model`` ranks every test user over the
@@ -134,6 +140,7 @@ package.
 from __future__ import annotations
 
 import contextlib
+import inspect
 import json
 import math
 import os
@@ -141,6 +148,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
@@ -165,12 +173,16 @@ REPLACES = {
     "grad_self_tbl_diag": f"{_JAX_OPS}:1900",
     "pos_hv_packed": "scripts/hv_pack_bench.py:84",
     "pos_hv_blocked_g": "scripts/hv_pack_bench.py:150",
-    # the plain COO positive passes (XLA ops there, ported as the X^T
-    # stage's kernel for determinism): pos_scatter, pos_scatter_pair and
-    # the self blocks' segment_sum of the stream's coefficients
+    # the positive passes of a COO side (XLA ops there, ported as one
+    # kernel over the side's list for determinism): pos_scatter,
+    # pos_scatter_pair, the self blocks' segment_sum of the stream's
+    # coefficients and the two-call Hv (pos_dot, then pos_scatter of
+    # (1 - omega) pq); the stream's gather-and-dot pos_dot
     "pos_scatter": f"{_JAX_OPS}:230",
     "pos_scatter_pair": f"{_JAX_OPS}:264",
     "pos_seg_sum": "one_class_ffm_tpu/solver/jax_solver.py:1215",
+    "pos_hv_coo": "one_class_ffm_tpu/solver/jax_solver.py:1900",
+    "pos_dot": f"{_JAX_OPS}:215",
 }
 BLOCKED = ("pos_hv_blocked", "pos_scatter_blocked", "pos_gap_blocked")
 TABLE = ("pos_hv_tbl", "grad_cross_tbl", "hv_self_tbl", "grad_self_tbl")
@@ -178,7 +190,8 @@ WIDE = ("project", "scatter")
 DIAG = ("pos_scatter_blocked_diag", "grad_cross_tbl_diag",
         "grad_self_tbl_diag")
 VARIANTS = ("pos_hv_packed", "pos_hv_blocked_g")
-COO = ("pos_scatter", "pos_scatter_pair", "pos_seg_sum")
+COO = ("pos_scatter", "pos_scatter_pair", "pos_seg_sum", "pos_hv_coo")
+DOT = ("pos_dot",)
 _CSRC = "one_class_ffm_torch/csrc/"
 # (B5's row stage runs on B2's body in blocked_ops.cu, its X^T stage in
 # table_ops.cu)
@@ -188,6 +201,7 @@ SOURCE = {name: _CSRC + (
                                            "grad_cross_tbl_diag")
     else "project_ops.cu" if name == "project"
     else "hv_variants.cu" if name in VARIANTS
+    else "coo_ops.cu" if name in COO + DOT
     else "table_ops.cu") for name in REPLACES}
 BOUND = {"float32": 1e-5, "bfloat16": 5e-3}  # max-rel, scripts/kt_debug.py
 # the H100 SXM's published peaks (NVIDIA's H100 datasheet): device memory
@@ -505,21 +519,13 @@ def work(name: str, args, out, kw=None):
     entries these inputs hold (valid slots, nonzero X entries), not of
     padding.  A Jacobi variant adds its second payload (rows^2 scaled and
     summed per slot, or dd Q1 Q1 per row) and its X^2 pass.  A COO pass
-    reads its list of the stream, the coefficients and the table whole
-    (the rows its entries gather mostly from L2: not counted again), the
-    scalar sum its list without the other ids."""
+    and ``pos_dot``: ``coo_work``."""
     import torch
 
+    if name in COO + DOT:
+        return coo_work(name, args, out)
     diag = name.endswith("_diag")
     nbytes = (sum(_nbytes(a, squared=diag) for a in args) + _nbytes(out))
-    if name in COO:
-        coo = args[-1]
-        nnz = coo.row.numel()
-        if name == "pos_seg_sum":
-            return nbytes - _nbytes(coo.row), nnz
-        k = args[-2].shape[1]
-        # c B and its add; with the pair also wq B, its product by B, add
-        return nbytes, (5 if name == "pos_scatter_pair" else 2) * k * nnz
     runs = (kw or {}).get("runs")
     if runs is not None:  # the kernel reads the runs, not the owners
         nbytes += _nbytes(runs) - _nbytes(args[OWN_ARG[name]])
@@ -591,6 +597,49 @@ def work(name: str, args, out, kw=None):
     return nbytes, (int((own < bm).sum()) + Q1.shape[0] * (k + 1) + xt_ops)
 
 
+def _named_rows(T, ids) -> int:
+    """Bytes of the rows of ``T`` that ``ids`` name (ids clamped into
+    range, as the kernels clamp them)."""
+    import torch
+
+    used = torch.unique(ids.long().clamp(0, T.shape[0] - 1)).numel()
+    return used * T.shape[1] * T.element_size()
+
+
+def coo_work(name: str, args, out):
+    """(bytes, operations) of a COO pass or ``pos_dot`` on these inputs:
+    each array it reads once (of its list the entries' arrays it reads, the
+    chunk arrays and plan; the coefficients whole; of the gathered table,
+    and of ``pos_dot``'s two, the rows the ids name) and its output once;
+    per entry the products and sums (a k-long dot 2k, a scaled row and its
+    add 2k, the pair's second payload 3k more)."""
+    if name == "pos_dot":
+        A, u, B, v = args[:4]
+        return (_nbytes(u) + _nbytes(v) + _nbytes(out) + _named_rows(A, u)
+                + _named_rows(B, v)), 2 * A.shape[1] * u.numel()
+    coo = next(a for a in args if hasattr(a, "feat_ptr"))
+    nnz = coo.row.numel()
+    plan = sum(_nbytes(t) for t in (coo.chunk_ptr, coo.feat_ptr,
+                                    coo.combine, coo.chunk_dst,
+                                    coo.slot_feat))
+    if name == "pos_seg_sum":
+        c = args[0]
+        return plan + _nbytes(coo.pos) + _nbytes(c) + _nbytes(out), nnz
+    B = args[1]
+    k = B.shape[1]
+    nbytes = plan + _nbytes(coo.row) + _named_rows(B, coo.row) + _nbytes(out)
+    if name == "pos_hv_coo":  # phi, the weights; chunk rows
+        phi = args[0]
+        nbytes += _nbytes(phi) + _nbytes(coo.val) + (coo.chunk_ptr.numel()
+                                                     - 1) * 4
+        return nbytes, (4 * k + 2) * nnz
+    c = args[0]
+    nbytes += _nbytes(coo.pos) + _nbytes(c)
+    if name == "pos_scatter_pair":
+        return nbytes + _nbytes(coo.val), 5 * k * nnz
+    return nbytes, 2 * k * nnz
+
+
 def sector_floor_bytes(args, nbytes: int) -> int:
     """B9's bytes (``work``) with each slot's weight counted as the 32-byte
     sector that holds it, not as the weight alone: the packed weights of two
@@ -615,14 +664,17 @@ def library_call(name: str, args):
     weighted sum of embedding rows for B8, a sparse product for the
     blocked gradient scatter and the general scatter, ``Tensor.index_add_``
     of the scaled gathered rows (float atomics: not deterministic) for the
-    COO passes.  Index conversion and the sparse matrix's structure are
-    built here, outside the timing; returns the call or None."""
+    COO passes, cuSPARSE's sampled product (SDDMM) for ``pos_dot``.  Index
+    conversion and the sparse matrix's structure are built here, outside
+    the timing; returns the call or None."""
     import warnings
 
     import torch
 
+    if name == "pos_hv_coo":  # no one call computes it
+        return None
     if name in COO:
-        coo = args[-1]
+        coo = next(a for a in args if hasattr(a, "feat_ptr"))
         d = coo.feat_ptr.numel() - 1
         per_row = (coo.chunk_ptr.long()[coo.feat_ptr.long()[1:]]
                    - coo.chunk_ptr.long()[coo.feat_ptr.long()[:-1]])
@@ -632,23 +684,42 @@ def library_call(name: str, args):
         if name == "pos_seg_sum":
             c = args[0]
             return lambda: c.new_zeros(d).index_add_(0, seg, c[pos])
-        c, B = args[0], args[-2]
+        c, B = args[0], args[1]
         k = B.shape[1]
         if name == "pos_scatter":
             return lambda: B.new_zeros((d, k)).index_add_(
                 0, seg, c[pos][:, None] * B[take])
-        wq = args[1]
+        from one_class_ffm_torch.ops.sparse_ops import storage_scale
+
+        wq = storage_scale(coo.val, args[3])  # list order
 
         def pair():
             rows = B[take]  # one gather for both payloads
             return (B.new_zeros((d, k)).index_add_(0, seg,
                                                    c[pos][:, None] * rows),
                     B.new_zeros((d, k)).index_add_(
-                        0, seg, (wq[pos][:, None] * rows) * rows))
+                        0, seg, (wq[:, None] * rows) * rows))
         return pair
 
     # the sparse tensors' constructors warn that CSR support is in beta
     warnings.filterwarnings("ignore", message="Sparse")
+    if name == "pos_dot":
+        # out = (A @ B^T) at the stream's pairs, a CSR pattern of the
+        # stream's real entries (the pads' ghost ids, past the tables,
+        # dropped), its columns sorted within a row; float32 only
+        A, u, B, v = args[:4]
+        if A.dtype != torch.float32:
+            return None
+        na, nb = A.shape[0], B.shape[0]
+        keep = (u >= 0) & (u < na) & (v >= 0) & (v < nb)
+        key = torch.sort(u[keep].long() * nb + v[keep].long()).values
+        crow = torch.searchsorted(key, torch.arange(
+            na + 1, device=key.device) * nb)
+        S = torch.sparse_csr_tensor(crow, key % nb,
+                                    torch.ones_like(key, dtype=A.dtype),
+                                    size=(na, nb))
+        Bt = B.t()
+        return lambda: torch.sparse.sampled_addmm(S, A, Bt, beta=0.0)
     if name == "project":
         idx, val, W = args
         idx_l = idx.long()
@@ -757,6 +828,28 @@ def time_ms(fn, reps: int = 10, rounds: int = 5,
     return statistics.median(out)
 
 
+def device_ms(fn, reps: int = 20) -> float:
+    """Mean device time per call of ``fn``: the summed durations of the
+    device operations its ``reps`` calls run, by torch.profiler.  A call
+    whose wrapper takes longer on the host than its kernel on the card is
+    timed by ``time_ms`` at the host's launch rate; this is the card's own
+    share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.end - e.time_range.start for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               ) / 1e3 / reps
+
+
 def new_report():
     return {name: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, nbytes=0,
                        ops=0, library_ms=None)
@@ -774,7 +867,9 @@ def compare(name: str, side: str, dt_name: str, args, kw, report, gpu: str,
     diagonal's argument): two launches bit-identical, max-rel within the
     bound; ``same_as``: a tensor the kernel must reproduce bit for bit (B1's
     output, for its variants).  At float32 (where ``timed``) also the
-    kernel, plain and library times and the work's bound."""
+    kernel, plain and library times and the work's bound, which the report
+    sums; a COO pass and ``pos_dot`` are timed at bfloat16 too (printed,
+    not summed), and the fused Hv beside its two-call form."""
     import torch
 
     from one_class_ffm_torch.ops import kernels
@@ -813,22 +908,25 @@ def compare(name: str, side: str, dt_name: str, args, kw, report, gpu: str,
         b1_equal = torch.equal(_outputs(got)[0], same_as)
         line += f" B1-bits {b1_equal}"
         check(b1_equal, f"{name} {side} {dt_name}: not B1's bits")
-    if dt_name == "float32" and timed:
+    if timed and (dt_name == "float32" or name in COO + DOT):
         ms = time_ms(lambda: kern(*args, **kw))
         pms = time_ms(lambda: plain(*args, **pkw))
         nbytes, nops = work(name, args, got, kw)
         bms, by = bound_of(nbytes, nops)
         lib = library_call(name, args)
         lms = time_ms(lib) if lib is not None else None
-        r["ms"] += ms
-        r["plain_ms"] += pms
-        r["nbytes"] += nbytes
-        r["ops"] += nops
-        if lms is not None:
-            r["library_ms"] = (r["library_ms"] or 0.0) + lms
+        if dt_name == "float32":
+            r["ms"] += ms
+            r["plain_ms"] += pms
+            r["nbytes"] += nbytes
+            r["ops"] += nops
+            if lms is not None:
+                r["library_ms"] = (r["library_ms"] or 0.0) + lms
         line += (f"  kernel {ms:.4f} ms  plain {pms:.4f} ms  library "
                  f"{'none' if lms is None else f'{lms:.4f} ms'}  bound "
                  f"{bms:.4f} ms by {by} ({nbytes} B, {nops} ops)")
+        if name == "pos_hv_coo":
+            line += f"  two-call form {time_ms(two_call_hv(*args)):.4f} ms"
         if name == "pos_hv_packed":
             fms, _ = bound_of(sector_floor_bytes(args, nbytes), nops)
             line += f"  sector floor {fms:.4f} ms"
@@ -838,6 +936,29 @@ def compare(name: str, side: str, dt_name: str, args, kw, report, gpu: str,
     print(line)
     check(rel <= BOUND[dt_name],
           f"{name} {side} {dt_name}: max-rel {rel:.3e} > {BOUND[dt_name]:g}")
+
+
+def two_call_hv(phi, B, coo, w_scale):
+    """The fused Hv's function as the two calls it replaces, on this tree's
+    kernels: ``pos_dot`` over the list's entries times their weights, the
+    (1 - omega) scaling, then ``pos_scatter`` reading the coefficients in
+    list order (the list's stream positions made the identity)."""
+    import torch
+
+    from one_class_ffm_torch.ops import sparse_ops as ops
+
+    fptr = coo.feat_ptr.long()
+    counts = coo.chunk_ptr.long()[fptr[1:]] - coo.chunk_ptr.long()[fptr[:-1]]
+    own = torch.repeat_interleave(
+        torch.arange(fptr.numel() - 1, device=B.device,
+                     dtype=torch.int32), counts)
+    ident = coo._replace(pos=torch.arange(coo.row.numel(), device=B.device,
+                                          dtype=torch.int32))
+
+    def call():
+        pq = ops.pos_dot(phi, own, B, coo.row) * coo.val
+        return ops.pos_scatter(ops.storage_scale(pq, w_scale), B, ident)
+    return call
 
 
 # the table passes whose [kernels] line gives their X^T stage's time alone
@@ -1074,8 +1195,8 @@ def mesh_cases(trainer, kind: str = "blocked"):
     local ``src``) and ``ffm_cases`` (B4-B8 and the X^T stage); ``skew``:
     ``skew_cases`` (B1-B7 on the tails, B8 and the X^T stage on the head
     rows of the rank's own power items); ``coo``: ``coo_cases`` (the X^T
-    stage's coefficient sources over the rank's lists of the entries of
-    its own rows)."""
+    list passes and pos_dot over the rank's lists of the entries of its
+    own rows)."""
     if kind == "skew":
         return skew_cases(trainer)
     if kind == "coo":
@@ -1096,14 +1217,15 @@ def coo_sides(solver) -> str:
 def coo_cases(trainer):
     """The FFM with both sides COO (blocked_bm=0, plain CG): the
     categorical fields' cross block on both sides (the gradient's
-    ``pos_scatter`` over the solve's list, gathering the other side's
-    cache; off the fused passes, B8 projects and the X^T stage scatters
-    through the field's list, D=1000 over the u rows, D=500 over the v
-    rows) and each categorical self block (``pos_seg_sum``)."""
+    ``pos_scatter`` and the Hv's ``pos_hv_coo`` over the solve's list,
+    gathering the other side's cache, the step's gaps by ``pos_dot`` over
+    the stream; off the fused passes, B8 projects and the X^T stage
+    scatters through the field's list, D=1000 over the u rows, D=500 over
+    the v rows) and each categorical self block (``pos_seg_sum``)."""
     lay = trainer.solver.meta.layout
     blocks = {(b.f1, b.f2): b for b in lay.all_blocks()}
     fu = lay.fu
-    cross = ("pos_scatter",) + WIDE
+    cross = ("pos_scatter", "pos_hv_coo", "pos_dot") + WIDE
     return [(cross, blocks[(1, fu + 1)], True, "u"),
             (cross, blocks[(1, fu + 1)], False, "v"),
             (("pos_seg_sum",), blocks[(1, 1)], True, "u"),
@@ -1113,16 +1235,16 @@ def coo_cases(trainer):
 def skew_coo_cases(trainer):
     """The skewed FFM under Jacobi with its v side COO (head_chunk=0): the
     categorical cross block's v solve (the gradient's and diagonal's
-    ``pos_scatter_pair``, the Hv's ``pos_scatter`` of (1-w) pq) and the v
-    self block (``pos_seg_sum``), on a list whose power items span
-    hundreds of chunks.  Off the fused passes, the cross solve projects
-    (B8) and scatters (the X^T stage) through the skewed data's field
-    list, through X^2 for the diagonal."""
+    ``pos_scatter_pair``, the Hv's ``pos_hv_coo``, the gaps' ``pos_dot``)
+    and the v self block (``pos_seg_sum``), on a list whose power items
+    span hundreds of chunks.  Off the fused passes, the cross solve
+    projects (B8) and scatters (the X^T stage) through the skewed data's
+    field list, through X^2 for the diagonal."""
     lay = trainer.solver.meta.layout
     blocks = {(b.f1, b.f2): b for b in lay.all_blocks()}
     fu = lay.fu
-    return [(("pos_scatter_pair", "pos_scatter") + WIDE, blocks[(1, fu + 1)],
-             False, "v"),
+    return [(("pos_scatter_pair", "pos_hv_coo", "pos_dot") + WIDE,
+             blocks[(1, fu + 1)], False, "v"),
             (("pos_seg_sum",), blocks[(fu + 1, fu + 1)], True, "v")]
 
 
@@ -2005,7 +2127,8 @@ MESH_PATHS = {
 }
 MESH_KERNELS = {"blocked": BLOCKED + TABLE + ("project",),
                 "skew": BLOCKED + TABLE + ("project",),
-                "coo": ("pos_scatter", "pos_seg_sum") + WIDE}
+                "coo": ("pos_scatter", "pos_seg_sum", "pos_hv_coo")
+                + DOT + WIDE}
 
 
 def reshard(data, rows: int, shards: int):
@@ -2613,7 +2736,8 @@ def main() -> int:
         results = {}
         for tag, trainer, names in (
                 ("mf", mf_trainer, BLOCKED + ("project",)),
-                ("ffm", ffm_trainer, BLOCKED + TABLE + ("project",)),
+                # pos_dot: the residual refresh (init_state)
+                ("ffm", ffm_trainer, BLOCKED + TABLE + ("project",) + DOT),
                 ("fm", fm_trainer, BLOCKED + WIDE),
                 ("ffm-jacobi", ffm_jac, jac_blocked + (
                     "pos_hv_tbl", "hv_self_tbl", "grad_cross_tbl_diag",
@@ -2622,9 +2746,12 @@ def main() -> int:
                 ("ffm-skew", skew_trainer, BLOCKED + TABLE + ("project",)),
                 # both sides COO: every field off the fused passes
                 ("ffm-coo", coo_trainer,
-                 ("pos_scatter", "pos_seg_sum") + WIDE),
-                # v COO under Jacobi, u blocked (its fused field too)
-                ("ffm-skew-coo", skew_coo, COO + WIDE + jac_blocked + (
+                 ("pos_scatter", "pos_seg_sum", "pos_hv_coo") + DOT + WIDE),
+                # v COO under Jacobi, u blocked (its fused field too); the
+                # gradient's pair in place of pos_scatter
+                ("ffm-skew-coo", skew_coo, (
+                    "pos_scatter_pair", "pos_seg_sum", "pos_hv_coo") + DOT
+                 + WIDE + jac_blocked + (
                     "pos_hv_tbl", "hv_self_tbl", "grad_cross_tbl_diag",
                     "grad_self_tbl_diag"))):
             if tag.endswith("coo"):
@@ -2712,5 +2839,257 @@ def main() -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# python3 chip_smoke.py coo-bench ROOT [ROOT ...]: the COO passes, pos_dot
+# and the X^T stage of two trees on one card
+# ---------------------------------------------------------------------------
+
+
+def _coo_bench_calls(ops, phi, B, coo, c, w, own, oth, w_scale: float):
+    """(label, call) of each COO pass of a tree, on one side's inputs: this
+    tree's kernels, or a parent's (no ``pos_hv_coo``: the Hv's two-call
+    form, the pair with its weights in stream order, the plain torch
+    ``pos_dot``); where the tree's width-1 sums take a plan, both plans."""
+    extra = []
+    if hasattr(ops, "pos_hv_coo"):
+        hv = ("hv pos_hv_coo", lambda: ops.pos_hv_coo(phi, B, coo, w_scale))
+        pair = lambda: ops.pos_scatter_pair(c, B, coo, w_scale)  # noqa: E731
+        from one_class_ffm_torch.ops import kernels
+        if "lanes" in inspect.signature(kernels.pos_seg_sum).parameters:
+            extra = [(f"pos_seg_sum lanes {n}",
+                      lambda n=n: kernels.pos_seg_sum(c, coo, lanes=n))
+                     for n in (1, 8)]
+    else:
+        wq = ops.storage_scale(w, w_scale)
+        hv = ("hv pos_dot+pos_scatter", lambda: ops.pos_scatter(
+            ops.storage_scale(ops.pos_dot(phi, own, B, oth) * w, w_scale), B,
+            coo))
+        pair = lambda: ops.pos_scatter_pair(c, wq, B, coo)  # noqa: E731
+    return [("pos_scatter", lambda: ops.pos_scatter(c, B, coo)), hv,
+            ("pos_scatter_pair", pair),
+            ("pos_seg_sum", lambda: ops.pos_seg_sum(c, coo))] + extra + [
+            ("pos_dot gaps", lambda: ops.pos_dot(phi, own, B, oth))]
+
+
+def _torch_order(solver):
+    """Put back, in this process's solver module, the COO Hv's two calls and
+    ``pos_dot`` as plain torch with torch's own sum over k (the form before
+    ``pos_dot`` became a kernel in ``_lane_dot``'s order), on this tree's
+    other kernels: the same arithmetic as that tree, but for this tree's
+    changes that claim the same bits."""
+    import torch
+
+    from one_class_ffm_torch.ops import sparse_ops as ops
+    from one_class_ffm_torch.solver import torch_solver
+
+    def pos_dot(A, u_ids, B, v_ids, max_chunk=1 << 21):
+        u = u_ids.long().clamp(max=A.shape[0] - 1)
+        v = v_ids.long().clamp(max=B.shape[0] - 1)
+        parts = [(A[uc] * B[vc]).sum(dim=1)
+                 for uc, vc in zip(u.split(max_chunk), v.split(max_chunk))]
+        return torch.cat(parts) if parts else A.new_zeros(0)
+
+    def pos_hv_coo(phi, B, coo, w_scale):
+        first = coo is solver._coo(True)
+        own, oth = solver._stream_ids(first)
+        w = solver.data["blk_u_w" if first else "blk_v_w"]
+        return ops.pos_scatter(ops.storage_scale(
+            pos_dot(phi, own, B, oth) * w, w_scale), B, coo)
+
+    torch_solver.pos_dot, torch_solver.pos_hv_coo = pos_dot, pos_hv_coo
+
+
+def _trace_stop_tests(tr):
+    """Replace the trainer's CG loop with ``mesh_accuracy``'s traced copy
+    (the same operations in the same order, plain CG); returns the list
+    that gets one list of (r2, cg_eps * g2) stop tests per solve."""
+    from mesh_accuracy import _traced_cg_loop
+
+    solves = []
+
+    def loop(self, hv, G, D=None):
+        solves.append([])
+        return _traced_cg_loop(solves[-1])(self, hv, G, D)
+    tr.solver._cg_loop = types.MethodType(loop, tr.solver)
+    return solves
+
+
+def _trace_coo_path(tr, label: str, torch_order: bool, gpu: str) -> None:
+    """Train the both-COO path 3 epochs with its CG stop tests traced (with
+    ``torch_order``, on ``_torch_order``'s calls); print each solve's
+    r2 / (cg_eps g2) at every test, the counts and the objectives."""
+    if torch_order:
+        _torch_order(tr.solver)
+    solves = _trace_stop_tests(tr)
+    res = train_and_validate(tr, epochs=3)
+    per_epoch = len(res["iters"][0])
+    for h, tests in enumerate(solves):
+        ratios = " ".join(f"{r2 / thr:.9g}" if thr > 0 else "inf"
+                          for r2, thr in tests)
+        print(f"[coo trace] {label} epoch {h // per_epoch + 1} solve "
+              f"{h % per_epoch + 1} CG {len(tests) - 1}: r2/(eps g2) "
+              f"{ratios}", flush=True)
+    for i, its in enumerate(res["iters"]):
+        print(f"[coo trace] {label} epoch {i + 1}: CG iterations per solve "
+              f"{its}, objective {res['objectives'][i + 1]!r} [{gpu}]",
+              flush=True)
+
+
+def coo_bench_one(root: str, cache: str) -> None:
+    """Time one tree's COO passes (on the FFM with both sides COO, both
+    sides, and the skewed FFM's v side under Jacobi), at float32 and
+    bfloat16, on arguments built from a fresh init; train each of the two
+    paths 3 epochs (seconds, CG counts, objectives) and profile one more
+    epoch; train the both-COO path 3 epochs more with its CG stop tests
+    traced (each solve's r2 / (cg_eps g2) at every test); then time the
+    refresh's ``pos_dot`` (and cuSPARSE's sampled product of the same
+    function) and the X^T stage (the general scatter's source and B6/B7's
+    scaled source over the headline FFM's categorical lists, and the
+    general scatter over FM's wide fields, float32); each pass's time is
+    printed with its device time (``device_ms``).
+    ``torch-order:ROOT``: only the traced both-COO epochs, on ROOT with
+    ``_torch_order``; ``passes:ROOT``: the passes' and the X^T stage's
+    times alone.  The data is cached in ``cache`` by the first run."""
+    import pickle
+
+    import torch
+
+    mode, _, path = root.rpartition(":")
+    torch_order, passes = mode == "torch-order", mode == "passes"
+    root = path
+    sys.path.insert(0, os.path.abspath(root))
+    from one_class_ffm_torch.ops import kernels
+    from one_class_ffm_torch.ops import sparse_ops as ops
+
+    device = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gpu = gpu_line()
+    kernels.load()
+    if os.path.exists(cache):
+        with open(cache, "rb") as fh:
+            ffm, skew, fm = pickle.load(fh)
+    else:
+        ffm = build_data(N_USERS, N_ITEMS, 5.0, seed=0, self_side=True,
+                         **FFM_DIMS)
+        skew = build_data(N_USERS, N_ITEMS, 5.0, seed=0, self_side=True,
+                          pop_skew=1.0, **FFM_DIMS)
+        fm = build_data(N_USERS, N_ITEMS, 5.0, seed=0, self_side=True,
+                        fm=True, **FFM_DIMS)
+        os.makedirs(os.path.dirname(cache), exist_ok=True)
+        with open(cache, "wb") as fh:
+            pickle.dump((ffm, skew, fm), fh, protocol=4)
+    label = (f"{mode} " if mode else "") + os.path.abspath(root)
+    paths = (("FFM coo", make_trainer(ffm, device, blocked_bm=0),
+              (True, False)),
+             ("FFM skew-coo", make_trainer(skew, device, cg_precond="jacobi",
+                                           head_chunk=0), (False,)))
+    for tag, tr, sides in paths if not torch_order else ():
+        solver, state = tr.solver, tr.init_state()
+        lay = solver.meta.layout
+        b = {(x.f1, x.f2): x for x in lay.all_blocks()}[(1, lay.fu + 1)]
+        for first in sides:
+            s = "u" if first else "v"
+            coo = solver._coo(first)
+            B = state["Q" if first else "P"][b.f12]
+            w = solver.data[f"blk_{s}_w"]
+            c = solver._pos_coeff(state["yt_" + s]) * w
+            own, oth = solver._stream_ids(first)
+            gen = torch.Generator(device).manual_seed(0)
+            phi = torch.randn((coo.feat_ptr.numel() - 1, B.shape[1]),
+                              device=device, generator=gen)
+            cp = coo.chunk_ptr.long()
+            n = cp[1:] - cp[:-1]
+            print(f"[coo bench] {label} {tag} {s} list: {n.numel()} chunks, "
+                  f"{int(n.sum())} entries, mean {n.float().mean():.2f}, "
+                  f"entry-weighted mean {float((n * n).sum() / n.sum()):.2f}"
+                  f", longest {int(n.max())}", flush=True)
+            for dt in (torch.float32, torch.bfloat16):
+                lst = coo if coo.val is None else coo._replace(
+                    val=coo.val.to(dt))
+                for name, fn in _coo_bench_calls(
+                        ops, phi.to(dt), B.to(dt), lst, c.to(dt), w.to(dt),
+                        own, oth, 1.0 - solver.meta.hp.omega):
+                    print(f"[coo bench] {label} {tag} {s} {dt} {name:24s} "
+                          f"{time_ms(fn):.4f} ms (device {device_ms(fn):.4f}"
+                          f" ms) [{gpu}]", flush=True)
+            lib = library_call("pos_dot", (phi, own, B, oth))
+            print(f"[coo bench] {label} {tag} {s} pos_dot gaps' sampled "
+                  f"product (cuSPARSE SDDMM) {time_ms(lib):.4f} ms [{gpu}]",
+                  flush=True)
+        if passes:
+            continue
+        # the path itself: 3 epochs as the main path trains them, then one
+        # profiled epoch
+        res = train_and_validate(tr, epochs=3)
+        for i, (sec, its) in enumerate(zip(res["seconds"], res["iters"])):
+            print(f"[coo bench] {label} {tag} epoch {i + 1}: {sec:.4f} s, "
+                  f"CG iterations per solve {its}, objective "
+                  f"{res['objectives'][i + 1]:.6f} [{gpu}]", flush=True)
+        profile_epoch(f"coo bench {tag}", tr, gpu)
+    if not passes:  # the both-COO path's stop tests, 3 epochs from init
+        _trace_coo_path(make_trainer(ffm, device, blocked_bm=0), label,
+                        torch_order, gpu)
+    if torch_order:
+        return
+    blk = make_trainer(ffm, device)
+    solver, state = blk.solver, blk.init_state()
+    lay = solver.meta.layout
+    cross = lay.cross_blocks()[0]
+    u, v = solver.data["pos_u"], solver.data["pos_v"]
+    u, v = u.to(torch.int32), v.to(torch.int32)
+    P, Q = state["P"][cross.f12], state["Q"][cross.f12]
+    fn = lambda: ops.pos_dot(P, u, Q, v)  # noqa: E731
+    lms = time_ms(library_call("pos_dot", (P, u, Q, v)))
+    print(f"[coo bench] {label} FFM refresh pos_dot {time_ms(fn):.4f} ms "
+          f"(device {device_ms(fn):.4f} ms), sampled product (cuSPARSE "
+          f"SDDMM) {lms:.4f} ms [{gpu}]", flush=True)
+    lib = kernels.load()
+    b = {(x.f1, x.f2): x for x in lay.all_blocks()}[(1, lay.fu + 1)]
+    for first in (True, False):
+        xt = solver._x(b, first)[2]
+        rows = xt.n_rows
+        gen = torch.Generator(device).manual_seed(1)
+        pay = torch.randn((rows, 32), device=device, generator=gen)
+        scale = torch.randn((rows,), device=device, generator=gen)
+        for name, fn in (
+                ("X^T payload", lambda: kernels._xt_scatter(lib, pay, xt,
+                                                            "scatter")),
+                ("X^T scaled", lambda: kernels._xt_scatter(
+                    lib, pay, xt, "scatter", scale=scale))):
+            print(f"[coo bench] {label} FFM {'u' if first else 'v'} field "
+                  f"{name:12s} {time_ms(fn):.4f} ms (device "
+                  f"{device_ms(fn):.4f} ms) [{gpu}]", flush=True)
+    # the general scatter over FM's wide fields (201,000 / 20,500 features)
+    fm_solver = make_trainer(fm, device).solver
+    b = fm_solver.meta.layout.cross_blocks()[0]
+    for first in (True, False):
+        xt = fm_solver._x(b, first)[2]
+        gen = torch.Generator(device).manual_seed(2)
+        pay = torch.randn((xt.n_rows, 32), device=device, generator=gen)
+        fn = lambda: kernels._xt_scatter(lib, pay, xt, "scatter")  # noqa
+        print(f"[coo bench] {label} FM {'u' if first else 'v'} general "
+              f"scatter {time_ms(fn):.4f} ms (device {device_ms(fn):.4f} "
+              f"ms) [{gpu}]", flush=True)
+
+
+def coo_bench(roots) -> int:
+    """Each tree in its own process, in the order given (e.g. parent,
+    this tree, this tree, parent; ``torch-order:ROOT`` for
+    ``_torch_order``'s traced epochs on ROOT), on the data the first one
+    builds."""
+    cache = os.path.join(WORK, "coo_bench_data.pkl")
+    for root in roots:
+        rc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                             "coo-bench-one", root, cache]).returncode
+        if rc:
+            return rc
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["coo-bench"]:
+        sys.exit(coo_bench(sys.argv[2:]))
+    if sys.argv[1:2] == ["coo-bench-one"]:
+        coo_bench_one(*sys.argv[2:4])
+        sys.exit(0)
     sys.exit(main())

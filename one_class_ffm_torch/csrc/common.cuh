@@ -1,9 +1,10 @@
 // Helpers shared by the port's kernels (blocked_ops.cu, table_ops.cu,
-// project_ops.cu and hv_variants.cu): storage-dtype conversion, the warp
-// sum, the grid of a warp-per-item loop, the dtype dispatch of a launch, the
-// rows of a width fixed at compile time (vector loads and stores, and the
-// dispatch over width plans) that the X^T stage, B2, B5's row stage and the
-// blocked Hv use, the shared-memory stages that bulk asynchronous copies
+// project_ops.cu, hv_variants.cu and coo_ops.cu): storage-dtype
+// conversion, the warp sum, the grids of warp- and group-per-item loops,
+// the dtype dispatch of a launch, the rows of a width fixed at compile time
+// (vector loads and stores, f32 rows read through L2, and the dispatch over
+// width plans) that the X^T stage, B2, B5's row stage, the blocked Hv and
+// the COO passes use, the shared-memory stages that bulk asynchronous copies
 // fill (B2 and B5's row stage, and the stage loop over a CTA's span of the
 // stream, HvSpan, that B1, B3, B4's row stage, B9 and B10 run: B10 one ring
 // across its G blocks, B9 from the lane-packed stream through its own
@@ -11,7 +12,8 @@
 // rows on a width plan (B1, B4's row stage and B9, and its end, hv_finish,
 // that B10 shares), and the projection phi = X V of a row by a group of
 // lanes with the loop that walks a group's rows (B8, B6's row stage; B4's
-// stage 1).
+// stage 1), and the end of a chunk of a chunked list (chunk_finish: the X^T
+// stage's and the COO passes').
 // Every product and sum is rounded on its own (__fmul_rn / __fadd_rn: no
 // fused multiply-add) in a fixed order, which the plain PyTorch versions in
 // ops/sparse_ops.py follow bit for bit.
@@ -137,6 +139,31 @@ __device__ __forceinline__ void store_f32(float* p, const float (&f)[VE]) {
       *reinterpret_cast<float4*>(p + i) =
           make_float4(f[i], f[i + 1], f[i + 2], f[i + 3]);
   }
+}
+
+// VE f32 values from device memory through L2 (cache-global: rows another
+// SM wrote during this launch are never read from a stale L1 line)
+template <int VE>
+__device__ __forceinline__ void load_f32_cg(const float* p, float (&f)[VE]) {
+  if constexpr (VE == 1) {
+    f[0] = __ldcg(p);
+  } else {
+#pragma unroll
+    for (int i = 0; i < VE; i += 4) {
+      const float4 x = __ldcg(reinterpret_cast<const float4*>(p + i));
+      f[i] = x.x;
+      f[i + 1] = x.y;
+      f[i + 2] = x.z;
+      f[i + 3] = x.w;
+    }
+  }
+}
+
+// grid of a group-per-item grid-stride loop over n items
+inline unsigned group_grid(long long n, int G) {
+  const long long per_cta = kWarps * 32 / G;
+  const long long want = (n + per_cta - 1) / per_cta;
+  return (unsigned)(want < (1 << 20) ? (want > 0 ? want : 1) : (1 << 20));
 }
 
 // Entries gathered per batch: their loads are all issued before the first
@@ -1058,6 +1085,120 @@ inline unsigned proj_grid(long long n_rows, int G, long long resident) {
   const long long per_cta = kProjThreads / G;
   const long long want = (n_rows + per_cta - 1) / per_cta;
   return (unsigned)(want < resident ? (want > 0 ? want : 1) : resident);
+}
+
+// ---------------------------------------------------------------------------
+// The end of a chunk of a chunked list, shared by the X^T stage
+// (table_ops.cu xt_body, over a field's feature-major list) and
+// coo_list_kernel (coo_ops.cu, over a COO side's destination-major list of
+// the positive stream), where a group of G lanes sums each chunk.  A chunk
+// of a single-chunk feature writes its sums straight to the feature's row
+// (the two-stage order adds them to 0.f, which gives the same bits: a sum
+// starts at +0 and so is never -0).  A chunk of a feature with several
+// writes its f32 partial row, and the group that finishes the feature's
+// last chunk (in time: a ticket per feature, counted after a memory fence,
+// as in CUDA's threadFenceReduction sample) adds the feature's partial rows
+// in chunk order and resets the ticket for the next launch:
+//   out[f] = 0 + partial[p0] + partial[p0 + 1] + ...                 (f32)
+// No float atomics: the same bits on every run.  The partial rows, which
+// other SMs write during a launch, are read through L2.
+// ---------------------------------------------------------------------------
+
+// a list's chunks and combine plan (ops/layout.py xt_plan) and the launch's
+// scratch: NOUT * k floats per partial row (chunk_dst >= 0), one ticket per
+// feature, zero before and after each launch
+struct ChunkPlan {
+  const int *chunk_ptr, *chunk_dst;
+  int n_chunks;
+  const int *feat_ptr, *combine;
+  int n_combine;
+  const int* slot_feat;
+  int* ticket;
+  float* partial;
+};
+
+template <int NOUT, int NV, int VE>
+__device__ __forceinline__ void zero_sums(float (&acc)[NOUT][NV][VE]) {
+#pragma unroll
+  for (int o = 0; o < NOUT; ++o)
+#pragma unroll
+    for (int v = 0; v < NV; ++v)
+#pragma unroll
+      for (int i = 0; i < VE; ++i) acc[o][v][i] = 0.f;
+}
+
+// Ends chunk `ch` (chunk_dst code `dst`) with its NOUT sums `acc`: a
+// single-chunk feature's row, or the chunk's partial row and, for the
+// group that draws the feature's last ticket, the feature's row from its
+// partial rows in chunk order.  body.store(f, sums) writes feature f's
+// row.
+template <int G, int NV, int VE, int NOUT, class Body>
+__device__ __forceinline__ void chunk_finish(const ChunkPlan& p, int ch,
+                                             int dst,
+                                             const float (&acc)[NOUT][NV][VE],
+                                             int k, int lane, unsigned gmask,
+                                             const Body& body) {
+  constexpr int DC = 4;  // partial rows per batch of the finishing adds
+  if (dst < 0) {
+    body.store(-1 - dst, acc);
+    return;
+  }
+  float* pp = p.partial + (int64_t)dst * NOUT * k;
+#pragma unroll
+  for (int o = 0; o < NOUT; ++o)
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const int c0 = (v * G + lane) * VE;
+      if (c0 < k) store_f32<VE>(pp + o * k + c0, acc[o][v]);
+    }
+  __threadfence();
+  __syncwarp(gmask);
+  int f = 0, last = 0;
+  if (lane == 0) {
+    f = p.slot_feat[dst];
+    last = atomicAdd(p.ticket + f, 1) ==
+           p.feat_ptr[f + 1] - p.feat_ptr[f] - 1;
+  }
+  last = __shfl_sync(gmask, last, 0, G);
+  if (!last) return;
+  f = __shfl_sync(gmask, f, 0, G);
+  __threadfence();
+  const int c_first = p.feat_ptr[f];
+  const int n = p.feat_ptr[f + 1] - c_first;
+  const float* p0 = p.partial + (int64_t)(dst - (ch - c_first)) * NOUT * k;
+  float sum[NOUT][NV][VE];
+  zero_sums(sum);
+  for (int b0 = 0; b0 < n; b0 += DC) {
+    float q[DC][NOUT][NV][VE];
+#pragma unroll
+    for (int j = 0; j < DC; ++j)
+      if (b0 + j < n) {
+#pragma unroll
+        for (int o = 0; o < NOUT; ++o)
+#pragma unroll
+          for (int v = 0; v < NV; ++v) {
+            const int c0 = (v * G + lane) * VE;
+            if (c0 < k)
+              load_f32_cg<VE>(p0 + ((int64_t)(b0 + j) * NOUT + o) * k + c0,
+                              q[j][o][v]);
+          }
+      }
+#pragma unroll
+    for (int j = 0; j < DC; ++j)
+      if (b0 + j < n) {
+#pragma unroll
+        for (int o = 0; o < NOUT; ++o)
+#pragma unroll
+          for (int v = 0; v < NV; ++v) {
+            if ((v * G + lane) * VE >= k) continue;
+#pragma unroll
+            for (int i = 0; i < VE; ++i)
+              sum[o][v][i] = __fadd_rn(sum[o][v][i], q[j][o][v][i]);
+          }
+      }
+  }
+  body.store(f, sum);
+  if (lane == 0) p.ticket[f] = 0;  // ready for the next launch
 }
 
 }  // namespace ocffm

@@ -267,24 +267,6 @@ grad_self_scale_kernel(const T* __restrict__ zdense,
   zb[row] = from_f<T>(__fadd_rn(to_f(zdense[row]), z));
 }
 
-// VE f32 values from device memory through L2 (cache-global: rows another
-// SM wrote during this launch are never read from a stale L1 line)
-template <int VE>
-__device__ __forceinline__ void load_f32_cg(const float* p, float (&f)[VE]) {
-  if constexpr (VE == 1) {
-    f[0] = __ldcg(p);
-  } else {
-#pragma unroll
-    for (int i = 0; i < VE; i += 4) {
-      const float4 x = __ldcg(reinterpret_cast<const float4*>(p + i));
-      f[i] = x.x;
-      f[i + 1] = x.y;
-      f[i + 2] = x.z;
-      f[i + 3] = x.w;
-    }
-  }
-}
-
 // Stage 2, shared by the four passes and the general scatter: one launch,
 // one group of G lanes per chunk (grid-stride), the chunk's entries
 // gathered in batches of D payload rows whose loads are all in flight
@@ -298,37 +280,11 @@ __device__ __forceinline__ void load_f32_cg(const float* p, float (&f)[VE]) {
 // * payload[row]) * payload[row]) (kScaledSq, xt_scaled_sq_kernel: B7's
 // Jacobi payload with scale = dd, payload = Q1, through X^2).  Each is
 // formed per gathered entry with the roundings of the payload row a row
-// stage would have stored, so the same bits.
-// The plain COO positive passes of a side without a blocked layout
-// (replacing the JAX package's XLA ops pos_scatter, pos_scatter_pair and
-// the self blocks' segment_sum, one_class_ffm_tpu/ops/sparse_ops.py:230,
-// :264, one_class_ffm_tpu/solver/jax_solver.py:1215) run this body over
-// the side's destination-major list of the positive stream
-// (ops/layout.py coo_list: a "feature" is a row of the segment side, an
-// entry a positive; `xf_row` holds the other side's id, `xf_pos` the
-// entry's stream position).  The entry's value is then a coefficient read
-// at its stream position, coef[pos], in place of X's value, and its term is
-// rounded to storage as the JAX ops form the payload at storage dtype:
-//   sum = 0 + storage(c[pos_s] * B[row_s]) + ...      (kCoef: pos_scatter)
-//   sum = 0 + storage(storage(wq[pos_s] * B[row_s]) * B[row_s]) + ...
-//                                      (kCoefSq: pos_scatter_pair's second)
-//   sum = 0 + c[pos_s] + ...       (kCoefSum, k = 1, a lane per chunk: the
-//                                              self blocks' per-row sums)
-// with B's rows gathered in the kernel, as XLA fuses the gather into its
-// segment reduction: the (nnz, k) payload is never written.  A power row
-// (a popular item's 35k positives) is cut into chunks like a heavy
-// feature.  Bound on the H100: the list, c and the output are read or
-// written once (~42 MB per side at 200k x 20k, k = 32 f32); the gathered
-// rows, 128 B per entry (~113 MB, mostly served by L2: Q1 is 2.6 MB), are
-// the traffic that sets its time, as for the general scatter.
-// A chunk of a single-chunk feature f writes `sum` straight to out[f] (the
-// two-stage order adds it to 0.f, which gives the same bits: the sum starts
-// at +0 and so is never -0).  A chunk of a feature with several writes its
-// partial row, and the group that finishes the feature's last chunk (in
-// time: a ticket per feature, counted after a memory fence, as in CUDA's
-// threadFenceReduction sample) adds the feature's partial rows in chunk
-// order and resets the ticket for the next launch:
-//   out[f] = 0 + partial[p0] + partial[p0 + 1] + ...                 (f32)
+// stage would have stored, so the same bits.  The chunk ends in
+// common.cuh chunk_finish (a multi-chunk feature's partial rows added in
+// chunk order), as coo_list_kernel's do; the grid-stride loop and the
+// batches stay here: on coo_list_kernel's (coo_ops.cu list_pass,
+// gather_rows) B6's and B7's scaled source ran 1.6-1.9x slower on the H100.
 // The items after the chunks give the features with no entries a zero row.
 // D is half of B2's batch (4 rows at k = 32 f32), the finishing adds take 4
 // partial rows per batch, and the kernel is held to 3 CTAs per SM (at most
@@ -336,27 +292,29 @@ __device__ __forceinline__ void load_f32_cg(const float* p, float (&f)[VE]) {
 // fastest of the batch depths (4, 8, 16) and CTA counts per SM (1 to 4)
 // tried; holding the (row, val) pairs across the group's lanes and
 // shuffling them out per entry was slower than any of them.
-enum XtSource { kPayload, kScaled, kScaledSq, kCoef, kCoefSq, kCoefSum };
+enum XtSource { kPayload, kScaled, kScaledSq };
 
-// an entry's value: X's (xf_val[e]), or the coefficient at the entry's
-// stream position (coef[xf_pos[e]]) in a list of the positive stream
-template <typename T, XtSource kSrc>
-__device__ __forceinline__ float entry_val(const T* __restrict__ xf_val,
-                                           const T* __restrict__ coef,
-                                           const int* __restrict__ xf_pos,
-                                           int e) {
-  if constexpr (kSrc >= kCoef) {
-    return to_f(coef[xf_pos[e]]);
-  } else {
-    return to_f(xf_val[e]);
+// chunk_finish's body for the X^T stage: a feature's row stored at f32
+template <int G, int NV, int VE>
+struct XtOut {
+  float* out;
+  int k;
+  __device__ __forceinline__ void store(int f,
+                                        const float (&sum)[1][NV][VE]) const {
+    const int lane = threadIdx.x % G;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const int c0 = (v * G + lane) * VE;
+      if (c0 < k) store_f32<VE>(out + (int64_t)f * k + c0, sum[0][v]);
+    }
   }
-}
+};
 
 template <typename T, int G, int NV, int VE, XtSource kSrc>
 __device__ __forceinline__ void xt_body(
     const T* __restrict__ payload, const T* __restrict__ scale,
     const int* __restrict__ xf_row, const T* __restrict__ xf_val,
-    const int* __restrict__ xf_pos, const int* __restrict__ chunk_ptr,
+    const int* __restrict__ chunk_ptr,
     const int* __restrict__ chunk_dst, int n_chunks,
     const int* __restrict__ feat_ptr,
     const int* __restrict__ combine, int n_combine,
@@ -366,14 +324,16 @@ __device__ __forceinline__ void xt_body(
   constexpr int D0 = batch_depth<T, NV, VE>() > 4
                          ? batch_depth<T, NV, VE>() / 2
                          : 2;
-  // kScaledSq and kCoefSq keep each loaded value beside its scaled
-  // product: half the batch where a lane's values outnumber four (bf16, or
-  // NV > 1), so that it fits the 85 registers without a stack
-  constexpr bool kSq = kSrc == kScaledSq || kSrc == kCoefSq;
+  // kScaledSq keeps each loaded value beside its scaled product: half the
+  // batch where a lane's values outnumber four (bf16, or NV > 1), so that
+  // it fits the 85 registers without a stack
+  constexpr bool kSq = kSrc == kScaledSq;
   constexpr int D = kSq && VE * NV > 4 ? D0 / 2 : D0;
   // the per-row scale of kScaled / kScaledSq, read at the payload row
   constexpr bool kRowScale = kSrc == kScaled || kSrc == kScaledSq;
-  constexpr int DC = 4;  // partial rows per batch of the finishing adds
+  const ChunkPlan plan{chunk_ptr, chunk_dst, n_chunks, feat_ptr, combine,
+                       n_combine, slot_feat, ticket, partial};
+  const XtOut<G, NV, VE> out_rows{out, k};
   const int lane = threadIdx.x % G;
   // the group's lanes (a warp's groups may run chunks of other lengths)
   const unsigned gmask =
@@ -382,18 +342,18 @@ __device__ __forceinline__ void xt_body(
   const int n_groups = gridDim.x * kGroups;
   for (int it = blockIdx.x * kGroups + threadIdx.x / G;
        it < n_chunks + n_combine; it += n_groups) {
-    float acc[NV][VE];
+    float acc[1][NV][VE];
 #pragma unroll
     for (int v = 0; v < NV; ++v)
 #pragma unroll
-      for (int i = 0; i < VE; ++i) acc[v][i] = 0.f;
+      for (int i = 0; i < VE; ++i) acc[0][v][i] = 0.f;
     if (it >= n_chunks) {  // a featureless feature's zero row
       const int f = combine[it - n_chunks];
       if (feat_ptr[f + 1] == feat_ptr[f]) {
 #pragma unroll
         for (int v = 0; v < NV; ++v) {
           const int c0 = (v * G + lane) * VE;
-          if (c0 < k) store_f32<VE>(out + (int64_t)f * k + c0, acc[v]);
+          if (c0 < k) store_f32<VE>(out + (int64_t)f * k + c0, acc[0][v]);
         }
       }
       continue;
@@ -405,15 +365,15 @@ __device__ __forceinline__ void xt_body(
 #pragma unroll
     for (int j = 0; j < D; ++j)
       if (s + j < e) {
-        if constexpr (kSrc != kCoefSum) row_c[j] = xf_row[s + j];
-        val_c[j] = entry_val<T, kSrc>(xf_val, scale, xf_pos, s + j);
+        row_c[j] = xf_row[s + j];
+        val_c[j] = to_f(xf_val[s + j]);
       }
     for (int b0 = s; b0 < e; b0 += D) {
       RawVec<T, VE> raw[D][NV];
       float sc[D];
 #pragma unroll
       for (int j = 0; j < D; ++j)
-        if (kSrc != kCoefSum && b0 + j < e) {
+        if (b0 + j < e) {
           const T* pr = payload + (int64_t)row_c[j] * k;
           if constexpr (kRowScale) sc[j] = to_f(scale[row_c[j]]);
 #pragma unroll
@@ -427,16 +387,12 @@ __device__ __forceinline__ void xt_body(
 #pragma unroll
       for (int j = 0; j < D; ++j)
         if (b0 + D + j < e) {
-          if constexpr (kSrc != kCoefSum) row_n[j] = xf_row[b0 + D + j];
-          val_n[j] = entry_val<T, kSrc>(xf_val, scale, xf_pos, b0 + D + j);
+          row_n[j] = xf_row[b0 + D + j];
+          val_n[j] = to_f(xf_val[b0 + D + j]);
         }
 #pragma unroll
       for (int j = 0; j < D; ++j)
         if (b0 + j < e) {
-          if constexpr (kSrc == kCoefSum) {  // k = 1, a lane per chunk
-            acc[0][0] = __fadd_rn(acc[0][0], val_c[j]);
-            continue;
-          }
 #pragma unroll
           for (int v = 0; v < NV; ++v) {
             if ((v * G + lane) * VE >= k) continue;
@@ -451,23 +407,9 @@ __device__ __forceinline__ void xt_body(
               for (int i = 0; i < VE; ++i)
                 f[i] = rnd<T>(__fmul_rn(rnd<T>(__fmul_rn(sc[j], f[i])), f[i]));
             }
-            if constexpr (kSrc == kCoef) {
 #pragma unroll
-              for (int i = 0; i < VE; ++i)
-                acc[v][i] = __fadd_rn(acc[v][i],
-                                      rnd<T>(__fmul_rn(val_c[j], f[i])));
-            } else if constexpr (kSrc == kCoefSq) {
-#pragma unroll
-              for (int i = 0; i < VE; ++i)
-                acc[v][i] = __fadd_rn(
-                    acc[v][i],
-                    rnd<T>(__fmul_rn(rnd<T>(__fmul_rn(val_c[j], f[i])),
-                                     f[i])));
-            } else {
-#pragma unroll
-              for (int i = 0; i < VE; ++i)
-                acc[v][i] = __fadd_rn(acc[v][i], __fmul_rn(val_c[j], f[i]));
-            }
+            for (int i = 0; i < VE; ++i)
+              acc[0][v][i] = __fadd_rn(acc[0][v][i], __fmul_rn(val_c[j], f[i]));
           }
         }
 #pragma unroll
@@ -476,77 +418,21 @@ __device__ __forceinline__ void xt_body(
         val_c[j] = val_n[j];
       }
     }
-    float* o = dst < 0 ? out + (int64_t)(-1 - dst) * k
-                       : partial + (int64_t)dst * k;
-#pragma unroll
-    for (int v = 0; v < NV; ++v) {
-      const int c0 = (v * G + lane) * VE;
-      if (c0 < k) store_f32<VE>(o + c0, acc[v]);
-    }
-    if (dst < 0) continue;
-    // a chunk of a feature with several: its partial row is written; the
-    // group that draws the feature's last ticket adds them all
-    __threadfence();
-    __syncwarp(gmask);
-    int f = 0, last = 0;
-    if (lane == 0) {
-      f = slot_feat[dst];
-      last = atomicAdd(ticket + f, 1) == feat_ptr[f + 1] - feat_ptr[f] - 1;
-    }
-    last = __shfl_sync(gmask, last, 0, G);
-    if (!last) continue;
-    f = __shfl_sync(gmask, f, 0, G);
-    __threadfence();
-    const int c_first = feat_ptr[f], n = feat_ptr[f + 1] - c_first;
-    const float* p0 = partial + (int64_t)(dst - (ch - c_first)) * k;
-#pragma unroll
-    for (int v = 0; v < NV; ++v)
-#pragma unroll
-      for (int i = 0; i < VE; ++i) acc[v][i] = 0.f;
-    for (int b0 = 0; b0 < n; b0 += DC) {
-      float p[DC][NV][VE];
-#pragma unroll
-      for (int j = 0; j < DC; ++j)
-        if (b0 + j < n) {
-#pragma unroll
-          for (int v = 0; v < NV; ++v) {
-            const int c0 = (v * G + lane) * VE;
-            if (c0 < k) load_f32_cg<VE>(p0 + (int64_t)(b0 + j) * k + c0,
-                                        p[j][v]);
-          }
-        }
-#pragma unroll
-      for (int j = 0; j < DC; ++j)
-        if (b0 + j < n) {
-#pragma unroll
-          for (int v = 0; v < NV; ++v) {
-            if ((v * G + lane) * VE >= k) continue;
-#pragma unroll
-            for (int i = 0; i < VE; ++i)
-              acc[v][i] = __fadd_rn(acc[v][i], p[j][v][i]);
-          }
-        }
-    }
-#pragma unroll
-    for (int v = 0; v < NV; ++v) {
-      const int c0 = (v * G + lane) * VE;
-      if (c0 < k) store_f32<VE>(out + (int64_t)f * k + c0, acc[v]);
-    }
-    if (lane == 0) ticket[f] = 0;  // ready for the next launch
+    chunk_finish<G, NV, VE, 1>(plan, ch, dst, acc, k, lane, gmask, out_rows);
   }
 }
 
 #define OCFFM_XT_PARAMS                                                    \
   const T *__restrict__ payload, const T *__restrict__ scale,              \
       const int *__restrict__ xf_row, const T *__restrict__ xf_val,        \
-      const int *__restrict__ xf_pos, const int *__restrict__ chunk_ptr,   \
+      const int *__restrict__ chunk_ptr,                                   \
       const int *__restrict__ chunk_dst, int n_chunks,                     \
       const int *__restrict__ feat_ptr,                                    \
       const int *__restrict__ combine, int n_combine,                      \
       const int *__restrict__ slot_feat, int *__restrict__ ticket,         \
       float *__restrict__ partial, float *__restrict__ out, int k
 #define OCFFM_XT_ARGS                                                     \
-  payload, scale, xf_row, xf_val, xf_pos, chunk_ptr, chunk_dst, n_chunks, \
+  payload, scale, xf_row, xf_val, chunk_ptr, chunk_dst, n_chunks,         \
       feat_ptr, combine, n_combine, slot_feat, ticket, partial, out, k
 
 template <typename T, int G, int NV, int VE>
@@ -566,37 +452,12 @@ xt_scaled_sq_kernel(OCFFM_XT_PARAMS) {
   xt_body<T, G, NV, VE, kScaledSq>(OCFFM_XT_ARGS);
 }
 
-template <typename T, int G, int NV, int VE>
-__global__ void __launch_bounds__(kWarps * 32, 3)
-xt_coef_kernel(OCFFM_XT_PARAMS) {
-  xt_body<T, G, NV, VE, kCoef>(OCFFM_XT_ARGS);
-}
-
-template <typename T, int G, int NV, int VE>
-__global__ void __launch_bounds__(kWarps * 32, 3)
-xt_coef_sq_kernel(OCFFM_XT_PARAMS) {
-  xt_body<T, G, NV, VE, kCoefSq>(OCFFM_XT_ARGS);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kWarps * 32, 3)
-xt_coef_sum_kernel(OCFFM_XT_PARAMS) {
-  xt_body<T, 1, 1, 1, kCoefSum>(OCFFM_XT_ARGS);
-}
-
-// grid of a group-per-item grid-stride loop over n items
-inline unsigned group_grid(long long n, int G) {
-  const long long per_cta = kWarps * 32 / G;
-  const long long want = (n + per_cta - 1) / per_cta;
-  return (unsigned)(want < (1 << 20) ? (want > 0 ? want : 1) : (1 << 20));
-}
-
 template <typename T>
 struct XtLaunch {
   const T *payload, *scale;
   const int* xf_row;
   const T* xf_val;
-  const int *xf_pos, *chunk_ptr, *chunk_dst;
+  const int *chunk_ptr, *chunk_dst;
   int n_chunks;
   const int *feat_ptr, *combine;
   int n_combine;
@@ -606,39 +467,23 @@ struct XtLaunch {
   int k;
   XtSource src;
   cudaStream_t st;
-  // <1, 1, 1>: the scalar sums' plan (a lane per chunk), which by_width
-  // never picks; the other plans serve the five row-gathering sources
   template <int G, int NV, int VE>
   int run() const {
     const unsigned grid = group_grid((long long)n_chunks + n_combine, G);
-    if constexpr (G == 1 && NV == 1 && VE == 1) {
-      if (src != kCoefSum) return (int)cudaErrorInvalidValue;
-      xt_coef_sum_kernel<T><<<grid, kWarps * 32, 0, st>>>(OCFFM_XT_ARGS);
-    } else {
-      switch (src) {
-        case kPayload:
-          xt_kernel<T, G, NV, VE><<<grid, kWarps * 32, 0, st>>>(
-              OCFFM_XT_ARGS);
-          break;
-        case kScaled:
-          xt_scaled_kernel<T, G, NV, VE><<<grid, kWarps * 32, 0, st>>>(
-              OCFFM_XT_ARGS);
-          break;
-        case kScaledSq:
-          xt_scaled_sq_kernel<T, G, NV, VE><<<grid, kWarps * 32, 0, st>>>(
-              OCFFM_XT_ARGS);
-          break;
-        case kCoef:
-          xt_coef_kernel<T, G, NV, VE><<<grid, kWarps * 32, 0, st>>>(
-              OCFFM_XT_ARGS);
-          break;
-        case kCoefSq:
-          xt_coef_sq_kernel<T, G, NV, VE><<<grid, kWarps * 32, 0, st>>>(
-              OCFFM_XT_ARGS);
-          break;
-        default:
-          return (int)cudaErrorInvalidValue;
-      }
+    switch (src) {
+      case kPayload:
+        xt_kernel<T, G, NV, VE><<<grid, kWarps * 32, 0, st>>>(OCFFM_XT_ARGS);
+        break;
+      case kScaled:
+        xt_scaled_kernel<T, G, NV, VE><<<grid, kWarps * 32, 0, st>>>(
+            OCFFM_XT_ARGS);
+        break;
+      case kScaledSq:
+        xt_scaled_sq_kernel<T, G, NV, VE><<<grid, kWarps * 32, 0, st>>>(
+            OCFFM_XT_ARGS);
+        break;
+      default:
+        return (int)cudaErrorInvalidValue;
     }
     return (int)cudaGetLastError();
   }
@@ -692,40 +537,29 @@ int ocffm_grad_self_tbl_rows(int dtype, const void* zdense, const void* runs,
 // out (d, k) f32 = X^T payload through the feature-major list and its plan
 // (combine, chunk_dst, slot_feat); source 0: the payload rows; 1 (B6, B7)
 // storage(scale[row] * payload[row]) per entry; 2 (B7's Jacobi payload)
-// storage(storage(scale[row] * payload[row]) * payload[row]).  Through a
-// destination-major list of the positive stream (xf_pos, no xf_val), with
-// scale = the coefficients per stream entry and payload = the gathered
-// table B: 3 storage(scale[pos] * B[row]); 4 storage(storage(scale[pos] *
-// B[row]) * B[row]); 5 (k = 1, no payload) scale[pos].  `partial` holds a
-// row of k floats for each chunk whose chunk_dst is >= 0; `ticket` holds
-// one int per feature, zero before and after each launch.
+// storage(storage(scale[row] * payload[row]) * payload[row]).  `partial`
+// holds a row of k floats for each chunk whose chunk_dst is >= 0; `ticket`
+// holds one int per feature, zero before and after each launch.
 int ocffm_xt_scatter(int dtype, const void* payload, const void* scale,
                      int source, const void* xf_row, const void* xf_val,
-                     const void* xf_pos, const void* chunk_ptr,
-                     const void* chunk_dst, int n_chunks, const void* feat_ptr,
-                     const void* combine, int n_combine,
-                     const void* slot_feat, void* ticket, int k,
-                     void* partial, void* out, void* stream) {
+                     const void* chunk_ptr, const void* chunk_dst,
+                     int n_chunks, const void* feat_ptr, const void* combine,
+                     int n_combine, const void* slot_feat, void* ticket,
+                     int k, void* partial, void* out, void* stream) {
   if (n_chunks + n_combine == 0) return 0;
-  const bool coef = source >= kCoef;
-  if (source < kPayload || source > kCoefSum ||
-      (source != kPayload && scale == nullptr) ||
-      (coef ? xf_pos == nullptr : xf_val == nullptr) ||
-      (source == kCoefSum ? k != 1 : payload == nullptr))
+  if (source < kPayload || source > kScaledSq ||
+      (source != kPayload && scale == nullptr) || xf_val == nullptr ||
+      payload == nullptr)
     return (int)cudaErrorInvalidValue;
   const void* ptrs[] = {payload, out, partial};
   const bool vec = vec_ok(k, dtype == kF32 ? 4 : 2, ptrs, 3);
   cudaStream_t st = (cudaStream_t)stream;
-  OCFFM_BY_DTYPE(dtype, {
-    const XtLaunch<T> l{
-        (const T*)payload, (const T*)scale, (const int*)xf_row,
-        (const T*)xf_val, (const int*)xf_pos, (const int*)chunk_ptr,
-        (const int*)chunk_dst, n_chunks, (const int*)feat_ptr,
-        (const int*)combine, n_combine, (const int*)slot_feat, (int*)ticket,
-        (float*)partial, (float*)out, k, (XtSource)source, st};
-    return source == kCoefSum ? l.run<1, 1, 1>()
-                              : by_width<T>(k, vec, l);
-  });
+  OCFFM_BY_DTYPE(dtype, return by_width<T>(k, vec, XtLaunch<T>{
+      (const T*)payload, (const T*)scale, (const int*)xf_row,
+      (const T*)xf_val, (const int*)chunk_ptr, (const int*)chunk_dst,
+      n_chunks, (const int*)feat_ptr, (const int*)combine, n_combine,
+      (const int*)slot_feat, (int*)ticket, (float*)partial, (float*)out, k,
+      (XtSource)source, st}));
 }
 
 }  // extern "C"

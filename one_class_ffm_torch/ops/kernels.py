@@ -30,11 +30,12 @@ from typing import Dict, Optional
 
 import torch
 
-from .layout import FeatureMajor, xt_plan
+from .layout import FeatureMajor, seg_sum_lanes, xt_plan
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / name for name in (
-    "blocked_ops.cu", "table_ops.cu", "project_ops.cu", "hv_variants.cu"))
+    "blocked_ops.cu", "table_ops.cu", "project_ops.cu", "hv_variants.cu",
+    "coo_ops.cu"))
 HEADERS = (_PKG / "csrc" / "common.cuh",)
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -46,16 +47,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # field (B8), the general scatter X^T Z of a wide field (the X^T stage on
 # its own, through X or X^2), the three gradient passes with the Jacobi
 # diagonal's second output, the two Hv variants of hv_pack_bench (B9,
-# B10), and the plain COO positive passes of a side without a blocked
-# layout (the X^T stage over the side's list of the positive stream: the
-# gradient's and Hv's scatter, with the Jacobi payload in a second launch,
-# and the self blocks' per-row sums)
+# B10), the positive passes of a side without a blocked layout (one pass
+# over the side's list of the positive stream, coo_ops.cu: the gradient's
+# scatter, with the Jacobi payload from the same read or that payload
+# alone, the self blocks' per-row sums, and the fused cross Hv), and the
+# stream's gather-and-dot pos_dot (the residual refresh, a COO side's gaps)
 KERNELS = ("pos_hv_blocked", "pos_scatter_blocked", "pos_gap_blocked",
            "pos_hv_tbl", "grad_cross_tbl", "hv_self_tbl", "grad_self_tbl",
            "project", "scatter", "pos_scatter_blocked_diag",
            "grad_cross_tbl_diag", "grad_self_tbl_diag", "pos_hv_packed",
            "pos_hv_blocked_g", "pos_scatter", "pos_scatter_pair",
-           "pos_seg_sum")
+           "pos_seg_sum", "pos_hv_coo", "pos_dot")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # Launches per kernel since the last reset: a run reads them to show that
@@ -159,17 +161,23 @@ def load() -> ctypes.CDLL:
     lib.ocffm_grad_self_tbl_rows.argtypes = [
         i32, vp, vp, vp, vp, i64, i32, i32, vp]
     lib.ocffm_xt_scatter.argtypes = [
-        i32, vp, vp, i32, vp, vp, vp, vp, vp, i32, vp, vp, i32, vp, vp, i32,
-        vp, vp, vp]
+        i32, vp, vp, i32, vp, vp, vp, vp, i32, vp, vp, i32, vp, vp, i32, vp,
+        vp, vp]
     lib.ocffm_project.argtypes = [i32, vp, vp, vp, vp, i64, i32, i32, i32, vp]
     lib.ocffm_pos_hv_packed.argtypes = [
         i32, vp, vp, vp, vp, vp, vp, i64, i32, i32, f32, vp]
     lib.ocffm_pos_hv_blocked_g.argtypes = [
         i32, vp, vp, vp, vp, vp, vp, i64, i32, i32, i32, i32, f32, vp]
+    lib.ocffm_coo_list.argtypes = [
+        i32, i32, vp, vp, vp, vp, vp, vp, f32, vp, vp, vp, i32, vp, vp, i32,
+        vp, vp, vp, vp, vp, i32, i32, vp]
+    lib.ocffm_pos_dot.argtypes = [i32, vp, vp, i32, vp, vp, i32, vp, i64, i32,
+                                  vp]
     for fn in (lib.ocffm_pos_hv_tbl_rows, lib.ocffm_grad_cross_tbl_rows,
                lib.ocffm_hv_self_tbl_rows, lib.ocffm_grad_self_tbl_rows,
                lib.ocffm_xt_scatter, lib.ocffm_project,
-               lib.ocffm_pos_hv_packed, lib.ocffm_pos_hv_blocked_g):
+               lib.ocffm_pos_hv_packed, lib.ocffm_pos_hv_blocked_g,
+               lib.ocffm_coo_list, lib.ocffm_pos_dot):
         fn.restype = i32
     _lib = lib
     _max_k = lib.ocffm_max_k()
@@ -381,12 +389,12 @@ def _table(V, xt: FeatureMajor, dt, k: int, dev, name: str) -> int:
 
 
 class _XtPlan:
-    """A feature-major list as one launch of the X^T kernel reads it: the
-    device pointers of its arrays and plan (its values, or for a list of
-    the positive stream its stream positions, the other NULL), its sizes,
-    and the launch's scratch: tickets (one int per feature, zero between
-    launches) and partial rows per width k.  The scratch is shared by the
-    list's launches, which run in order on the one stream of a solve."""
+    """A feature-major list as one launch of the X^T kernel (or, for a list
+    of the positive stream, of coo_list_kernel) reads it: the device
+    pointers of its arrays and plan, its sizes, and the launch's scratch:
+    tickets (one int per feature, zero between launches) and partial rows
+    per width.  The scratch is shared by the list's launches, which run in
+    order on the one stream of a solve."""
 
     def __init__(self, xt: FeatureMajor, vals, plan, dev):
         combine, chunk_dst, slot_feat = plan
@@ -399,8 +407,8 @@ class _XtPlan:
         self.n_partial = self.n_chunks - (self.d - self.n_combine)
         self.tickets = torch.zeros(self.d, dtype=torch.int32, device=dev)
         self.ptrs = tuple(_ptr(t) for t in (
-            xt.row, vals, xt.pos, xt.chunk_ptr, chunk_dst, xt.feat_ptr,
-            combine, slot_feat, self.tickets))
+            xt.row, vals, xt.chunk_ptr, chunk_dst, xt.feat_ptr, combine,
+            slot_feat, self.tickets))
         self._partial: Dict[int, torch.Tensor] = {}
 
     def partial(self, k: int) -> torch.Tensor:
@@ -445,9 +453,9 @@ def _xt_inputs(xt: FeatureMajor, dt, dev, squared: bool,
     return _plan_of(key, xt, vals, plan, dev)
 
 
-def _plan_of(key, xt: FeatureMajor, vals, plan, dev) -> _XtPlan:
+def _plan_of(key, xt: FeatureMajor, vals, plan, dev, cls=None) -> _XtPlan:
     """Checks a list's index arrays and plan; caches and returns its
-    launch inputs."""
+    launch inputs (a ``cls``, by default ``_XtPlan``)."""
     nnz, n_chunks, d = xt.row.numel(), xt.chunk_ptr.numel() - 1, \
         xt.feat_ptr.numel() - 1
     combine, chunk_dst, slot_feat = plan
@@ -456,7 +464,7 @@ def _plan_of(key, xt: FeatureMajor, vals, plan, dev) -> _XtPlan:
     _check("xt.feat_ptr", xt.feat_ptr, torch.int32, (d + 1,), dev)
     _check("xt.chunk_dst", chunk_dst, torch.int32, (n_chunks,), dev)
     _check("xt.combine", combine, torch.int32, (combine.numel(),), dev)
-    out = _XtPlan(xt, vals, plan, dev)
+    out = (cls or _XtPlan)(xt, vals, plan, dev)
     _check("xt.slot_feat", slot_feat, torch.int32, (out.n_partial,), dev)
     if len(_xt_checked) >= 64:
         _xt_checked.clear()
@@ -493,11 +501,11 @@ def _xt_launch(lib, p: _XtPlan, payload, scale, source: int, k: int, dt,
     """One launch of the X^T kernel over a checked list: the (d, k) float32
     sums of the entries' terms of ``source`` (table_ops.cu
     ocffm_xt_scatter)."""
-    row, vals, pos, chunk_ptr, chunk_dst, feat_ptr, combine, slot_feat, \
+    row, vals, chunk_ptr, chunk_dst, feat_ptr, combine, slot_feat, \
         tickets = p.ptrs
     out = torch.empty((p.d, k), dtype=torch.float32, device=dev)
     err = lib.ocffm_xt_scatter(
-        _DTYPE_CODE[dt], _ptr(payload), _ptr(scale), source, row, vals, pos,
+        _DTYPE_CODE[dt], _ptr(payload), _ptr(scale), source, row, vals,
         chunk_ptr, chunk_dst, p.n_chunks, feat_ptr, combine, p.n_combine,
         slot_feat, tickets, k, p.partial(k).data_ptr(), out.data_ptr(),
         _stream(dev))
@@ -711,97 +719,196 @@ def scatter(xt: FeatureMajor, Z, squared: bool = False) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# the plain COO positive passes: the X^T stage over a side's list of the
-# positive stream, a coefficient per stream entry
+# the positive passes of a COO side: one pass over its list of the positive
+# stream (coo_ops.cu coo_list_kernel), and the stream's gather-and-dot
 # ---------------------------------------------------------------------------
 
-# the kernel's sources of an entry's term (table_ops.cu XtSource)
-_COEF, _COEF_SQ, _COEF_SUM = 3, 4, 5
+# the kernel's sources (coo_ops.cu CooSrc)
+_COEF, _PAIR, _SQ, _HV, _SUM = range(5)
 
 
-def _coo_inputs(coo: FeatureMajor, c: torch.Tensor, name: str) -> _XtPlan:
-    """The launch inputs of a destination-major list of the positive stream
-    (``layout.coo_list``), checked once per list (its stream positions and
-    other ids against the coefficients' and the table's lengths: one read
-    of their largest values, then cached); ``c`` the coefficients (nnz,)."""
-    if c.device.type != "cuda":
-        raise ValueError(f"c must be a CUDA tensor, got {c.device}")
-    if c.dtype not in _DTYPE_CODE:
-        raise TypeError(f"kernels take float32 or bfloat16, got {c.dtype}")
-    if c.dim() != 1 or not c.is_contiguous():
-        raise ValueError(f"c must be a contiguous (nnz,) vector, got "
-                         f"{tuple(c.shape)}")
+class _CooPlan(_XtPlan):
+    """A COO side's list (``layout.coo_list``) as coo_list_kernel reads it:
+    the X^T plan's arrays and scratch, the entries' stream positions and
+    weights in list order (``val``, where the list has them), each
+    chunk's row, and the lanes a chunk of its width-1 sums
+    (``layout.seg_sum_lanes``)."""
+
+    def __init__(self, coo: FeatureMajor, vals, plan, dev):
+        super().__init__(coo, vals, plan, dev)
+        counts = (coo.feat_ptr[1:] - coo.feat_ptr[:-1]).long()
+        self.chunk_row = torch.repeat_interleave(
+            torch.arange(self.d, device=dev, dtype=torch.int32), counts)
+        self.sum_lanes = seg_sum_lanes(coo.chunk_ptr.cpu())
+        self.coo_ptrs = tuple(_ptr(t) for t in (coo.row, coo.pos, coo.val))
+
+
+def _coo_plan(coo: FeatureMajor, dt, dev, n_stream: Optional[int],
+              name: str) -> _CooPlan:
+    """The launch inputs of a destination-major list of the positive stream,
+    checked once per list: its stream positions (against the stream's
+    length ``n_stream`` where the pass reads coefficients at them) and
+    other ids (against the table's rows) by one read of their extremes,
+    its weights (``val``) at storage dtype ``dt`` where it has them."""
     if coo.pos is None:
         raise ValueError(f"{name}: not a list of the positive stream (no "
                          "stream positions)")
-    dev = c.device
-    key = (id(coo), "coo", dev, c.numel())
+    key = (id(coo), "coo", dt, dev, n_stream)
     hit = _xt_checked.get(key)
     if hit is not None and hit.xt is coo:
         return hit
+    nnz = coo.row.numel()
+    _check("coo.pos", coo.pos, torch.int32, (nnz,), dev)
+    if coo.val is not None:
+        _check("coo.val", coo.val, dt, (nnz,), dev)
+    if nnz:
+        ids = torch.stack([coo.pos.max(), coo.row.max(), coo.pos.min(),
+                           coo.row.min()]).tolist()
+        if min(ids[2:]) < 0 or ids[1] >= coo.n_rows or (
+                n_stream is not None and ids[0] >= n_stream):
+            raise ValueError(f"{name}: the list's stream positions or other "
+                             f"ids are outside [0, {n_stream}) / "
+                             f"[0, {coo.n_rows})")
     plan = (coo.combine, coo.chunk_dst, coo.slot_feat)
     if any(a is None for a in plan):
         plan = tuple(torch.from_numpy(a).to(dev) for a in
                      xt_plan(coo.feat_ptr.cpu().numpy()))
-    _check("coo.pos", coo.pos, torch.int32, (coo.row.numel(),), dev)
-    if coo.row.numel():
-        hi = torch.stack([coo.pos.max(), coo.row.max()]).tolist()
-        lo = torch.stack([coo.pos.min(), coo.row.min()]).tolist()
-        if min(lo) < 0 or hi[0] >= c.numel() or hi[1] >= coo.n_rows:
-            raise ValueError(f"{name}: the list's stream positions or other "
-                             f"ids are outside [0, {c.numel()}) / "
-                             f"[0, {coo.n_rows})")
-    return _plan_of(key, coo, None, plan, dev)
+    return _plan_of(key, coo, coo.val, plan, dev, _CooPlan)
 
 
-def _coo_table(B: torch.Tensor, coo: FeatureMajor, c: torch.Tensor,
-               name: str):
-    """Checks the gathered table (n_rows, k) and the coefficients' dtype;
-    returns (lib, k)."""
-    lib, k = _table_dtype("B", B)
+def _storage(x: float, dt) -> float:
+    """x rounded to storage dtype on the host (``sparse_ops.storage_scale``'s
+    scalar): exact as the kernel's float argument."""
+    return torch.tensor(x, dtype=dt).item()
+
+
+def _coo_launch(source: int, coo: FeatureMajor, dt, dev, k: int, name: str,
+                c=None, B=None, phi=None, scale: float = 1.0,
+                lanes: Optional[int] = None):
+    """One launch of coo_list_kernel; returns (out0, out1) at storage dtype,
+    each (rows, k) or None where the source writes none.  ``lanes``: the
+    width-1 sums' lanes a chunk, by default the list's own."""
+    if source in (_PAIR, _SQ, _HV) and coo.val is None:
+        raise ValueError(f"{name}: the list carries no weights (val: the "
+                         "stream's w in list order)")
+    p = _coo_plan(coo, dt, dev, None if c is None else c.numel(), name)
+    lib = load()
+    row, pos, w = p.coo_ptrs
+    _, _, chunk_ptr, chunk_dst, feat_ptr, combine, slot_feat, tickets = \
+        p.ptrs
+    out0 = (None if source == _SQ
+            else torch.empty((p.d, k), dtype=dt, device=dev))
+    out1 = (torch.empty((p.d, k), dtype=dt, device=dev)
+            if source in (_PAIR, _SQ) else None)
+    err = lib.ocffm_coo_list(
+        _DTYPE_CODE[dt], source, row, pos, w, _ptr(c), _ptr(B), _ptr(phi),
+        _storage(scale, dt), chunk_ptr, chunk_dst, p.chunk_row.data_ptr(),
+        p.n_chunks, feat_ptr, combine, p.n_combine, slot_feat, tickets,
+        p.partial((2 if source == _PAIR else 1) * k).data_ptr(), _ptr(out0),
+        _ptr(out1), k, p.sum_lanes if lanes is None else lanes, _stream(dev))
+    _raise_on(err, name)
+    return out0, out1
+
+
+def _coo_table(B: torch.Tensor, coo: FeatureMajor, name: str):
+    """Checks the gathered table (n_rows, k); returns k."""
+    _, k = _table_dtype("B", B)
     if B.shape[0] != coo.n_rows:
         raise ValueError(f"{name}: the list gathers from {coo.n_rows} rows, "
                          f"B has {B.shape[0]}")
-    _check("c", c, B.dtype, (c.numel(),), B.device)
-    return lib, k
+    return k
+
+
+def _coefs(c: torch.Tensor, dt, dev) -> None:
+    """Checks the (stream,) coefficients."""
+    if c.device != dev:
+        raise ValueError(f"c is on {c.device}, expected {dev}")
+    if c.dtype != dt:
+        raise TypeError(f"c has dtype {c.dtype}, expected {dt}")
+    if c.dim() != 1 or not c.is_contiguous():
+        raise ValueError(f"c must be a contiguous (nnz,) vector, got "
+                         f"{tuple(c.shape)}")
 
 
 def pos_scatter(c, B, coo: FeatureMajor) -> torch.Tensor:
     """(rows, k) storage: per row of the list, the sum at f32 of
-    storage(c[pos] * B[row]) over its entries, cast once (the X^T stage's
-    coefficient source)."""
-    lib, k = _coo_table(B, coo, c, "pos_scatter")
-    p = _coo_inputs(coo, c, "pos_scatter")
-    out = _xt_launch(lib, p, B, c, _COEF, k, B.dtype, B.device,
-                     "pos_scatter")
+    storage(c[pos] * B[row]) over its entries, rounded once."""
+    k = _coo_table(B, coo, "pos_scatter")
+    _coefs(c, B.dtype, B.device)
+    out, _ = _coo_launch(_COEF, coo, B.dtype, B.device, k, "pos_scatter",
+                         c=c, B=B)
     _launches["pos_scatter"] += 1
-    return out.to(B.dtype)
+    return out
 
 
-def pos_scatter_pair(c, wq, B, coo: FeatureMajor):
+def pos_scatter_pair(c, B, coo: FeatureMajor, wq_scale: float = 1.0):
     """(zpos, posq): ``pos_scatter`` of c, and the Jacobi diagonal's
-    positive term, the sums of storage(storage(wq[pos] * B[row]) * B[row]),
-    in a second launch over the same list."""
-    lib, k = _coo_table(B, coo, c, "pos_scatter_pair")
-    _check("wq", wq, B.dtype, (c.numel(),), B.device)
-    p = _coo_inputs(coo, c, "pos_scatter_pair")
-    outs = [_xt_launch(lib, p, B, coef, src, k, B.dtype, B.device,
-                       "pos_scatter_pair")
-            for coef, src in ((c, _COEF), (wq, _COEF_SQ))]
+    positive term, the sums of storage(storage(wq * B[row]) * B[row]) with
+    wq = storage(w * storage(wq_scale)) from the list's weights, both from
+    one read of each row.  With ``c`` None the second alone, (None, posq):
+    the pair's squared-only form."""
+    k = _coo_table(B, coo, "pos_scatter_pair")
+    if c is None:
+        _, posq = _coo_launch(_SQ, coo, B.dtype, B.device, k,
+                              "pos_scatter_pair", B=B, scale=wq_scale)
+        _launches["pos_scatter_pair"] += 1
+        return None, posq
+    _coefs(c, B.dtype, B.device)
+    out = _coo_launch(_PAIR, coo, B.dtype, B.device, k, "pos_scatter_pair",
+                      c=c, B=B, scale=wq_scale)
     _launches["pos_scatter_pair"] += 1
-    return tuple(o.to(B.dtype) for o in outs)
+    return out
 
 
-def pos_seg_sum(c, coo: FeatureMajor) -> torch.Tensor:
+def pos_seg_sum(c, coo: FeatureMajor,
+                lanes: Optional[int] = None) -> torch.Tensor:
     """(rows,) storage: per row of the list, the sum at f32 of c[pos] over
-    its entries, cast once (the coefficient source at width 1, a lane per
-    chunk)."""
-    lib = load()
-    p = _coo_inputs(coo, c, "pos_seg_sum")
-    out = _xt_launch(lib, p, None, c, _COEF_SUM, 1, c.dtype, c.device,
-                     "pos_seg_sum")[:, 0]
+    its entries in the order of ``lanes`` (1 or 8) lanes a chunk, by default
+    the list's own (``sparse_ops.pos_seg_sum_plain``), rounded once."""
+    if c.device.type != "cuda":
+        raise ValueError(f"c must be a CUDA tensor, got {c.device}")
+    if c.dtype not in _DTYPE_CODE:
+        raise TypeError(f"kernels take float32 or bfloat16, got {c.dtype}")
+    _coefs(c, c.dtype, c.device)
+    out, _ = _coo_launch(_SUM, coo, c.dtype, c.device, 1, "pos_seg_sum",
+                         c=c, lanes=lanes)
     _launches["pos_seg_sum"] += 1
-    return out.to(c.dtype)
+    return out[:, 0]
+
+
+def pos_hv_coo(phi, B, coo: FeatureMajor, w_scale: float = 1.0):
+    """(rows, k) storage: the cross Hv's positive term of a COO side in one
+    pass, per row s of the list the sum at f32 of storage(cv * B[row]) with
+    cv = storage(storage(storage(dot(phi[s], B[row])) * w) * storage(
+    w_scale)), w the list's weights; the dot in ``pos_dot``'s order."""
+    k = _coo_table(B, coo, "pos_hv_coo")
+    d = coo.feat_ptr.numel() - 1
+    _check("phi", phi, B.dtype, (d, k), B.device)
+    out, _ = _coo_launch(_HV, coo, B.dtype, B.device, k, "pos_hv_coo", B=B,
+                         phi=phi, scale=w_scale)
+    _launches["pos_hv_coo"] += 1
+    return out
+
+
+def pos_dot(A, u_ids, B, v_ids) -> torch.Tensor:
+    """(n,) storage: out[t] = dot(A[u_ids[t]], B[v_ids[t]]) in _lane_dot's
+    order, products at storage, ids (int32) clamped into range."""
+    _, k = _table_dtype("A", A)
+    dev, dt = A.device, A.dtype
+    _check("B", B, dt, (B.shape[0], k), dev)
+    n = u_ids.numel()
+    _check("u_ids", u_ids, torch.int32, (n,), dev)
+    _check("v_ids", v_ids, torch.int32, (n,), dev)
+    if A.shape[0] == 0 or B.shape[0] == 0:
+        raise ValueError("pos_dot gathers from an empty table")
+    out = torch.empty((n,), dtype=dt, device=dev)
+    err = load().ocffm_pos_dot(
+        _DTYPE_CODE[dt], A.data_ptr(), u_ids.data_ptr(), A.shape[0],
+        B.data_ptr(), v_ids.data_ptr(), B.shape[0], out.data_ptr(), n, k,
+        _stream(dev))
+    _raise_on(err, "pos_dot")
+    _launches["pos_dot"] += 1
+    return out
 
 
 # ---------------------------------------------------------------------------

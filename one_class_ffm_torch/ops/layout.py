@@ -267,8 +267,10 @@ class FeatureMajor(NamedTuple):
     ``combine``/``chunk_dst``/``slot_feat`` or None: the X^T kernel's plan
     (``xt_plan``), derived from ``feat_ptr``.  ``pos`` (nnz,) or None: in a
     destination-major list of the positive stream (``coo_list``), each
-    entry's stream position, where its coefficient is read; ``val`` is None
-    there."""
+    entry's stream position, where its coefficient is read; ``val`` is
+    there None or each entry's static stream weight w in list order (the
+    solver's device data fills it: the COO passes read it in place of
+    w[pos])."""
 
     row: Any
     val: Any
@@ -374,6 +376,27 @@ def coo_list(seg_ids, take_ids, keep, num_seg: int, num_take: int,
                         feat_ptr=feat_ptr.astype(np.int32), n_rows=num_take,
                         combine=combine, chunk_dst=chunk_dst,
                         slot_feat=slot_feat, pos=pos.astype(np.int32))
+
+
+# the entry-weighted mean chunk length from which a list's width-1 sums
+# take 8 lanes a chunk (``seg_sum_lanes``)
+SEG_SUM_WIDE = 64
+
+
+def seg_sum_lanes(chunk_ptr) -> int:
+    """Lanes per chunk of a COO list's width-1 sums (``pos_seg_sum``: 1 or
+    8; the kernel and its plain version add in that order).  One lane walks
+    a short chunk (a user's few positives, a uniform catalog's item) faster
+    than 8 lanes and their butterfly; where most entries sit in long chunks
+    (a skewed catalog's power items, cut at ``XT_CHUNK``) one lane's walk
+    holds its warp, and 8 lanes share it.  The measure is the mean length
+    of the chunk an entry sits in, sum(len^2) / sum(len)."""
+    cp = np.asarray(chunk_ptr, np.int64)
+    n = np.diff(cp)
+    total = int(n.sum())
+    if total == 0:
+        return 1
+    return 8 if int((n * n).sum()) >= SEG_SUM_WIDE * total else 1
 
 
 def row_runs(own: np.ndarray, block_rows: int) -> np.ndarray:

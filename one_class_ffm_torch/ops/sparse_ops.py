@@ -21,12 +21,15 @@ the lane-packed ``pos_hv_packed`` (B9) and ``pos_hv_blocked_g`` with G
 blocks per CTA (B10), compute B1's function and serve ``hv_pack_bench``.
 The head ops of a two-tier layout (``head_*``) are plain torch on every
 device, as their JAX counterparts are XLA ops; the fused terms among them
-run B8 and the X^T stage.  The plain COO positive passes of a side without
-a blocked layout (``pos_scatter``, ``pos_scatter_pair``, ``pos_seg_sum``)
-sum through the side's destination-major list of the stream, on the card
-by the X^T stage's kernel with a coefficient per stream entry.  The
-dispatching function takes the plain version only because its tensors lie
-on the CPU; on a CUDA tensor it launches the kernel or raises.
+run B8 and the X^T stage.  The positive passes of a side without a
+blocked layout (``pos_scatter``, ``pos_scatter_pair`` and its squared-only
+form ``pos_scatter_sq``, ``pos_seg_sum``, and the fused cross Hv
+``pos_hv_coo``) sum through the side's destination-major list of the
+stream, on the card by one kernel with five sources; ``pos_dot``, the
+stream's gather-and-dot (the residual refresh, a COO side's gaps), has a
+kernel of its own.  The dispatching function takes the plain version only
+because its tensors lie on the CPU; on a CUDA tensor it launches the kernel
+or raises.
 Storage is float32 or bfloat16 (float64 on the CPU), sums run at a
 float32 floor, and the plain versions round where the kernels round: pq
 to storage, the output to storage, and for the table passes phi = X V
@@ -49,7 +52,7 @@ from __future__ import annotations
 import torch
 
 from . import kernels
-from .layout import FeatureMajor
+from .layout import FeatureMajor, seg_sum_lanes
 
 _NNZ_CHUNK = 1 << 21
 
@@ -70,20 +73,45 @@ def _plain_device(t: torch.Tensor) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# plain tensor ops (no kernel of their own)
+# the stream's gather-and-dot, and plain tensor ops (no kernel of their own)
 # ---------------------------------------------------------------------------
+
+
+def pos_dot_plain(A: torch.Tensor, u_ids: torch.Tensor, B: torch.Tensor,
+                  v_ids: torch.Tensor,
+                  max_chunk: int = _NNZ_CHUNK) -> torch.Tensor:
+    """out[t] = storage(<A[u_ids[t]], B[v_ids[t]]>) over the COO stream, in
+    bounded chunks: products at storage, summed at the accumulation type
+    (``_dot_sum``), rounded once (the JAX ``pos_dot``, sparse_ops.py:215,
+    an XLA gather-and-sum there).  Ids are clamped into range as XLA clamps
+    its gathers: the pad entries' ghost ids may equal the row count (their
+    weight is 0)."""
+    acc = acc_dtype(A.dtype)
+    u = u_ids.long().clamp(0, A.shape[0] - 1)
+    v = v_ids.long().clamp(0, B.shape[0] - 1)
+    parts = [_dot_sum((A[uc] * B[vc]).to(acc)).to(A.dtype)
+             for uc, vc in zip(u.split(max_chunk), v.split(max_chunk))]
+    return torch.cat(parts) if parts else A.new_zeros(0)
+
+
+def _dot_sum(p: torch.Tensor) -> torch.Tensor:
+    """The sum over the last axis of ``pos_dot``'s products: at float32 (the
+    floor of float32 and bfloat16 storage) in the kernel's order,
+    ``_lane_sum``; at float64, which runs only on the CPU, where no kernel
+    runs and the tests hold the port to the JAX package and the oracle at
+    rtol down to 1e-12, torch's own sum, as the JAX ``pos_dot`` takes
+    XLA's."""
+    return p.sum(dim=-1) if p.dtype == torch.float64 else _lane_sum(p)
 
 
 def pos_dot(A: torch.Tensor, u_ids: torch.Tensor, B: torch.Tensor,
             v_ids: torch.Tensor, max_chunk: int = _NNZ_CHUNK) -> torch.Tensor:
-    """out[t] = <A[u_ids[t]], B[v_ids[t]]> over the COO stream, in bounded
-    chunks.  Ids are clamped into range as XLA clamps its gathers: the pad
-    entries' ghost ids may equal the row count (their weight is 0)."""
-    u = u_ids.long().clamp(max=A.shape[0] - 1)
-    v = v_ids.long().clamp(max=B.shape[0] - 1)
-    parts = [(A[uc] * B[vc]).sum(dim=1)
-             for uc, vc in zip(u.split(max_chunk), v.split(max_chunk))]
-    return torch.cat(parts) if parts else A.new_zeros(0)
+    """The residual refresh's and a COO side's gaps' gather-and-dot
+    (``pos_dot_plain``, in chunks of ``max_chunk``), its kernel on a CUDA
+    tensor (int32 ids; it writes no gathered rows, so takes no chunks)."""
+    if _plain_device(A):
+        return pos_dot_plain(A, u_ids, B, v_ids, max_chunk)
+    return kernels.pos_dot(A, u_ids, B, v_ids)
 
 
 def gather_blocked_rows(B: torch.Tensor, take: torch.Tensor) -> torch.Tensor:
@@ -107,20 +135,29 @@ def _slot_rows(own: torch.Tensor, block_rows: int):
 _LANES = 32  # the kernels' warp width: a dot is 32 lane sums
 
 
-def _lane_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """sum(a * b, -1) in the kernels' order: lane l sums the products
-    l, l+32, l+64, ... in turn, then an xor butterfly folds the 32 lanes."""
-    k = a.shape[-1]
-    per_lane = -(-k // _LANES)
-    p = torch.nn.functional.pad(a * b, (0, per_lane * _LANES - k))
-    p = p.reshape(*p.shape[:-1], per_lane, _LANES)
+def _lane_sum(p: torch.Tensor, lanes: int = _LANES) -> torch.Tensor:
+    """sum(p, -1) in the kernels' order: lane l of ``lanes`` sums the values
+    l, l + lanes, l + 2 lanes, ... in turn (past the end: +0), then an xor
+    butterfly folds the lanes."""
+    n = p.shape[-1]
+    per_lane = max(1, -(-n // lanes))
+    p = torch.nn.functional.pad(p, (0, per_lane * lanes - n))
+    p = p.reshape(*p.shape[:-1], per_lane, lanes)
     lane = p[..., 0, :]
     for j in range(1, per_lane):
         lane = lane + p[..., j, :]
-    ids = torch.arange(_LANES, device=a.device)
-    for off in (16, 8, 4, 2, 1):
+    ids = torch.arange(lanes, device=p.device)
+    off = lanes // 2
+    while off:
         lane = lane + lane[..., ids ^ off]
+        off //= 2
     return lane[..., 0]
+
+
+def _lane_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """sum(a * b, -1) in the kernels' order: lane l sums the products
+    l, l+32, l+64, ... in turn, then an xor butterfly folds the 32 lanes."""
+    return _lane_sum(a * b)
 
 
 def _row_runs(own: torch.Tensor, block_rows: int):
@@ -545,95 +582,161 @@ def grad_self_tbl(xt, Q1, zdense, own, c_blk, block_rows: int, dd=None,
 
 
 # ---------------------------------------------------------------------------
-# the plain COO positive passes of a side without a blocked layout
+# the positive passes of a side without a blocked layout (a COO side)
 # ---------------------------------------------------------------------------
 #
 # Counterparts of the JAX package's ``pos_scatter`` and ``pos_scatter_pair``
-# (sparse_ops.py:230, :264) and of the self blocks' scalar
-# ``jax.ops.segment_sum`` of the stream's coefficients (jax_solver.py:1215),
-# XLA segment sums there.  Here each sums its rows' entries through the
-# side's destination-major list of the positive stream (``layout.coo_list``:
-# pads and ghost ids dropped, a row's entries in stream order, power rows
-# cut into chunks), at the float32 floor in the X^T stage's order, and
-# rounds once to storage; the per-entry product is rounded to storage first,
-# as the JAX ops form ``w[:, None] * B[take]`` at storage dtype.  On a CUDA
-# tensor they run the X^T stage's kernel with the coefficient read at the
-# entry's stream position and the table row gathered in the kernel (the
-# (nnz, k) payload is never written), no float atomics: the same bits on
-# every run, and the plain versions' bits.  At float32 only the order of
-# the sums differs from the JAX ops; at bfloat16 the JAX ops add at
-# storage, these once at the end.  ``pos_dot`` above is their gather-and-dot
-# counterpart, plain torch as it is an XLA gather there.
+# (sparse_ops.py:230, :264), of the self blocks' scalar
+# ``jax.ops.segment_sum`` of the stream's coefficients (jax_solver.py:1215)
+# and of its COO Hv, ``pos_dot`` then ``pos_scatter`` of (1 - omega) pq
+# (jax_solver.py:1900-1901), XLA ops there.  Here each sums its rows'
+# entries through the side's destination-major list of the positive stream
+# (``layout.coo_list``: pads and ghost ids dropped, a row's entries in
+# stream order, power rows cut into chunks; ``val`` the stream's weight w
+# of each entry in list order, permuted once when the list is built), at
+# the float32 floor in the X^T stage's order, and rounds once to storage;
+# the per-entry product is rounded to storage first, as the JAX ops form
+# ``w[:, None] * B[take]`` at storage dtype.  The width-1 sums add a
+# chunk's entries in 1 or 8 lanes (``_lane_sum``; ``layout.seg_sum_lanes``
+# picks from the list's chunk lengths).  On a CUDA tensor each is
+# one launch of coo_list_kernel (coo_ops.cu), which gathers B's rows itself
+# (the (nnz, k) payload is never written), with no float atomics: the same
+# bits on every run, and the plain versions' bits.  At float32 only the
+# order of the sums differs from the JAX ops; at bfloat16 the JAX ops add
+# at storage, these once at the end.
 
-
-def _coo_check(coo: FeatureMajor, c: torch.Tensor, B=None) -> None:
+def _coo_check(coo: FeatureMajor, B=None, weights: bool = False) -> None:
     if coo.pos is None:
         raise ValueError("not a destination-major list of the positive "
                          "stream (it holds no stream positions)")
     if B is not None and B.shape[0] != coo.n_rows:
         raise ValueError(f"the list gathers from {coo.n_rows} rows, the "
                          f"table has {B.shape[0]}")
+    if weights and coo.val is None:
+        raise ValueError("the list carries no weights (val: the stream's w "
+                         "in list order)")
 
 
-def _coo_terms(c: torch.Tensor, B: torch.Tensor, coo: FeatureMajor,
-               squared: bool):
-    """terms(e) of ``_list_sums``: storage(c[pos] B[row]) per entry, or with
-    ``squared`` storage(storage(c[pos] B[row]) B[row]), at the accumulation
-    type."""
+def _coo_terms(coef, B: torch.Tensor, coo: FeatureMajor, squared: bool):
+    """terms(e) of ``_list_sums``: storage(coef(e) B[row]) per entry, or with
+    ``squared`` storage(storage(coef(e) B[row]) B[row]), at the accumulation
+    type; ``coef(e)`` the entries' scalars at storage dtype."""
     dt, acc = B.dtype, acc_dtype(B.dtype)
 
     def terms(e):
         rows = B[coo.row[e].long()].to(acc)
-        t = (c[coo.pos[e].long()].to(acc)[:, None] * rows).to(dt)
+        t = (coef(e).to(acc)[:, None] * rows).to(dt)
         if squared:
             t = (t.to(acc) * rows).to(dt)
         return t.to(acc)
     return terms
 
 
+def _coo_sums(coef, B, coo: FeatureMajor, squared: bool = False):
+    """(rows, k) storage: ``_list_sums`` of ``_coo_terms``, rounded once."""
+    return _list_sums(coo, _coo_terms(coef, B, coo, squared), B.shape[1],
+                      acc_dtype(B.dtype), B.device).to(B.dtype)
+
+
 def pos_scatter_plain(c, B, coo: FeatureMajor) -> torch.Tensor:
     """out[s] = storage(sum over row s's entries t of storage(c[t]
     B[take_t])), (rows, k)."""
-    _coo_check(coo, c, B)
-    acc = acc_dtype(B.dtype)
-    return _list_sums(coo, _coo_terms(c, B, coo, False), B.shape[1], acc,
-                      B.device).to(B.dtype)
+    _coo_check(coo, B)
+    return _coo_sums(lambda e: c[coo.pos[e].long()], B, coo)
 
 
-def pos_scatter_pair_plain(c, wq, B, coo: FeatureMajor):
-    """(zpos, posq): ``pos_scatter_plain`` of c, and the Jacobi diagonal's
-    positive term posq[s] = storage(sum_t storage(storage(wq[t] B[take_t])
-    B[take_t])), the roundings of the JAX ``wb * rows * rows``."""
-    acc = acc_dtype(B.dtype)
-    posq = _list_sums(coo, _coo_terms(wq, B, coo, True), B.shape[1], acc,
-                      B.device).to(B.dtype)
-    return pos_scatter_plain(c, B, coo), posq
+def pos_scatter_sq_plain(B, coo: FeatureMajor, wq_scale: float = 1.0):
+    """The Jacobi diagonal's positive term posq[s] = storage(sum_t
+    storage(storage(wq_t B[take_t]) B[take_t])), wq = storage(w *
+    storage(wq_scale)) from the list's weights (the JAX ``wb * rows *
+    rows``, wb = (1 - omega) w)."""
+    _coo_check(coo, B, weights=True)
+    wq = storage_scale(coo.val, wq_scale)
+    return _coo_sums(lambda e: wq[e], B, coo, squared=True)
 
 
-def pos_seg_sum_plain(c, coo: FeatureMajor) -> torch.Tensor:
+def pos_scatter_pair_plain(c, B, coo: FeatureMajor, wq_scale: float = 1.0):
+    """(zpos, posq): ``pos_scatter_plain`` of c and
+    ``pos_scatter_sq_plain``; with ``c`` None (None, posq)."""
+    posq = pos_scatter_sq_plain(B, coo, wq_scale)
+    return (None if c is None else pos_scatter_plain(c, B, coo)), posq
+
+
+def pos_seg_sum_plain(c, coo: FeatureMajor,
+                      lanes: int | None = None) -> torch.Tensor:
     """out[s] = storage(sum over row s's entries t of c[t]), (rows,): the
-    self blocks' per-row sums of the stream's coefficients."""
-    _coo_check(coo, c)
+    self blocks' per-row sums of the stream's coefficients.  A chunk's
+    entries are added in ``_lane_sum``'s order on ``lanes`` lanes (by
+    default the list's own, ``layout.seg_sum_lanes``: 1 or 8), then a row's
+    chunk sums in chunk order."""
+    _coo_check(coo)
+    if lanes is None:
+        lanes = seg_sum_lanes(coo.chunk_ptr.cpu())
     acc = acc_dtype(c.dtype)
-    return _list_sums(coo, lambda e: c[coo.pos[e].long()].to(acc)[:, None],
-                      1, acc, c.device)[:, 0].to(c.dtype)
+    cptr, fptr = coo.chunk_ptr.long(), coo.feat_ptr.long()
+    start, length = cptr[:-1], cptr[1:] - cptr[:-1]
+    n_chunks, d = length.numel(), fptr.numel() - 1
+    if n_chunks == 0:
+        return c.new_zeros(d)
+    width = -(-int(length.max()) // lanes) * lanes
+    j = torch.arange(width, device=c.device)
+    e = (start[:, None] + j[None, :]).clamp(max=max(coo.pos.numel() - 1, 0))
+    vals = torch.where(j[None, :] < length[:, None],
+                       c[coo.pos[e].long()].to(acc), 0)
+    part = _lane_sum(vals, lanes)[:, None]
+    out = torch.zeros((d, 1), dtype=acc, device=c.device)
+    start, length = fptr[:-1], fptr[1:] - fptr[:-1]
+    for k in range(int(length.max()) if d else 0):
+        ch = (start + k).clamp(max=n_chunks - 1)
+        out = out + torch.where((length > k)[:, None], part[ch], 0)
+    return out[:, 0].to(c.dtype)
+
+
+def pos_hv_coo_plain(phi, B, coo: FeatureMajor, w_scale: float = 1.0):
+    """The cross Hv's positive term of a COO side in one pass: out[s] =
+    storage(sum over row s's entries t of storage(cv_t B[take_t])), cv_t =
+    storage(storage(storage(<phi[s], B[take_t]>) w_t) storage(w_scale)),
+    the dot ``pos_dot``'s, w the list's weights.  The same function and
+    bits as ``pos_scatter(storage_scale(pos_dot(phi, own, B, other) * w,
+    w_scale), B, coo)`` over the stream (the JAX two-call form)."""
+    _coo_check(coo, B, weights=True)
+    dt, acc = B.dtype, acc_dtype(B.dtype)
+    fptr = coo.feat_ptr.long()
+    counts = coo.chunk_ptr.long()[fptr[1:]] - coo.chunk_ptr.long()[fptr[:-1]]
+    seg = torch.repeat_interleave(
+        torch.arange(fptr.numel() - 1, device=B.device), counts)
+    scale = torch.tensor(w_scale, dtype=dt).item()
+
+    def coef(e):
+        rows = B[coo.row[e].long()]
+        dot = _dot_sum((phi[seg[e]] * rows).to(acc)).to(dt)
+        return (dot * coo.val[e]) * scale
+    return _coo_sums(coef, B, coo)
 
 
 def pos_scatter(c, B, coo: FeatureMajor) -> torch.Tensor:
-    """The gradient's (and the Hv's) positive scatter of a COO side:
+    """The gradient's positive scatter of a COO side:
     ``pos_scatter_plain``'s function, its kernel on a CUDA tensor."""
     if _plain_device(B):
         return pos_scatter_plain(c, B, coo)
     return kernels.pos_scatter(c, B, coo)
 
 
-def pos_scatter_pair(c, wq, B, coo: FeatureMajor):
+def pos_scatter_pair(c, B, coo: FeatureMajor, wq_scale: float = 1.0):
     """The gradient's positive scatter and the Jacobi diagonal's positive
-    term of a COO side (``pos_scatter_pair_plain``), two launches of the
-    kernel on a CUDA tensor."""
+    term of a COO side (``pos_scatter_pair_plain``), one launch of the
+    kernel on a CUDA tensor, both from one read of each row."""
     if _plain_device(B):
-        return pos_scatter_pair_plain(c, wq, B, coo)
-    return kernels.pos_scatter_pair(c, wq, B, coo)
+        return pos_scatter_pair_plain(c, B, coo, wq_scale)
+    return kernels.pos_scatter_pair(c, B, coo, wq_scale)
+
+
+def pos_scatter_sq(B, coo: FeatureMajor, wq_scale: float = 1.0):
+    """The Jacobi diagonal's positive term alone (``pos_scatter_sq_plain``):
+    on a CUDA tensor the pair's kernel in its squared-only form."""
+    if _plain_device(B):
+        return pos_scatter_sq_plain(B, coo, wq_scale)
+    return kernels.pos_scatter_pair(None, B, coo, wq_scale)[1]
 
 
 def pos_seg_sum(c, coo: FeatureMajor) -> torch.Tensor:
@@ -642,6 +745,14 @@ def pos_seg_sum(c, coo: FeatureMajor) -> torch.Tensor:
     if _plain_device(c):
         return pos_seg_sum_plain(c, coo)
     return kernels.pos_seg_sum(c, coo)
+
+
+def pos_hv_coo(phi, B, coo: FeatureMajor, w_scale: float = 1.0):
+    """The cross Hv's positive term of a COO side (``pos_hv_coo_plain``),
+    one launch of the kernel on a CUDA tensor."""
+    if _plain_device(B):
+        return pos_hv_coo_plain(phi, B, coo, w_scale)
+    return kernels.pos_hv_coo(phi, B, coo, w_scale)
 
 
 # ---------------------------------------------------------------------------

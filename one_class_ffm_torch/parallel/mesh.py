@@ -433,7 +433,8 @@ def shard_data(data: Dict[str, Any], mesh: Mesh) -> Dict[str, Any]:
 def _coo_part(data, out, s: str, od: _Order, mesh: Mesh, dev) -> None:
     """A COO side's keys on a rank, in its order there (``_Order``): own ids
     local to the rank's rows, the other side's global (the passes read its
-    gathered cache), the weights, and the side's list of those entries."""
+    gathered cache), the weights, and the side's list of those entries
+    (with their weights in list order)."""
     from ..ops.layout import FeatureMajor, coo_list
 
     pre = f"blk_{s}_"
@@ -473,10 +474,11 @@ def _coo_part(data, out, s: str, od: _Order, mesh: Mesh, dev) -> None:
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
     out["coo_" + s] = FeatureMajor(
-        row=t(lst.row), val=None, chunk_ptr=t(lst.chunk_ptr),
-        feat_ptr=t(lst.feat_ptr), n_rows=lst.n_rows,
-        combine=t(lst.combine), chunk_dst=t(lst.chunk_dst),
-        slot_feat=t(lst.slot_feat), pos=t(lst.pos))
+        row=t(lst.row), val=w[torch.from_numpy(lst.pos).long()].to(dev),
+        chunk_ptr=t(lst.chunk_ptr), feat_ptr=t(lst.feat_ptr),
+        n_rows=lst.n_rows, combine=t(lst.combine),
+        chunk_dst=t(lst.chunk_dst), slot_feat=t(lst.slot_feat),
+        pos=t(lst.pos))
 
 
 def _head_part(data, out, s: str, od: _Order, rank: int, lo: int, L: int,

@@ -90,10 +90,12 @@ from ..ops.sparse_ops import (
     pos_dot,
     pos_gap_blocked,
     pos_hv_blocked,
+    pos_hv_coo,
     pos_hv_tbl,
     pos_scatter,
     pos_scatter_blocked,
     pos_scatter_pair,
+    pos_scatter_sq,
     pos_seg_sum,
     project,
     scatter,
@@ -337,11 +339,14 @@ def make_device_data(u: PaddedFields, v: PaddedFields, y: PaddedLabels,
         data[pre + "take"] = t(np.where(pads, 0, take).astype(np.int32))
         data[pre + "seg"] = t(np.where(pads, 0, seg).astype(np.int32))
         lst = coo_list(seg, take, ~pads, rows, rows_o)
+        # the weights in list order, read there by the COO passes (static:
+        # permuted once)
         data["coo_" + s] = FeatureMajor(
-            row=t(lst.row), val=None, chunk_ptr=t(lst.chunk_ptr),
-            feat_ptr=t(lst.feat_ptr), n_rows=lst.n_rows,
-            combine=t(lst.combine), chunk_dst=t(lst.chunk_dst),
-            slot_feat=t(lst.slot_feat), pos=t(lst.pos))
+            row=t(lst.row), val=t(y.w[lst.pos], dtype),
+            chunk_ptr=t(lst.chunk_ptr), feat_ptr=t(lst.feat_ptr),
+            n_rows=lst.n_rows, combine=t(lst.combine),
+            chunk_dst=t(lst.chunk_dst), slot_feat=t(lst.slot_feat),
+            pos=t(lst.pos))
     for pre, b in (("blk_u_", blk_u), ("blk_v_", blk_v)):
         if b is None:
             continue
@@ -510,10 +515,10 @@ class FFMSolver:
         self._hd_wq = {s: storage_scale(data[f"blk_{s}_hd_w"],
                                         1.0 - hp.omega)
                        for s in ("u", "v") if f"blk_{s}_hd_w" in data}
-        # (1 - omega) w per entry of a COO side's order, the weights of its
-        # Jacobi diagonal positive term (the JAX ``wq``, static)
-        self._coo_wq = {s: storage_scale(data[f"blk_{s}_w"], 1.0 - hp.omega)
-                        for s in ("u", "v") if f"coo_{s}" in data}
+        # the stream's ids for the residual refresh's pos_dot: users local
+        # to this rank's rows (int32, as its kernel reads them)
+        self._pos_ids = ((data["pos_u"] - self.lo_u).to(torch.int32),
+                         data["pos_v"].to(torch.int32))
 
     # -- collectives (a data mesh; no-ops on one device) ----------------------
 
@@ -832,14 +837,14 @@ class FFMSolver:
         """yhat at every positive pair (init_y_tilde, ffm.cpp:388-403).
         Under a mesh: at this rank's stream slice, whose users are its own
         rows; the items' side sums and caches are gathered."""
-        d = self.data
-        u, v = d["pos_u"].long() - self.lo_u, d["pos_v"].long()
+        u, v = self._pos_ids
         cross = self.meta.layout.cross_blocks()
         if self.mesh is not None:
             b_vec = self._gather(b_vec, "refresh")
             Q = {blk.f12: self._gather(Q[blk.f12], "refresh")
                  for blk in cross}
-        z = a[u.clamp(max=a.shape[0] - 1)] + b_vec[v.clamp(max=b_vec.shape[0] - 1)]
+        z = (a[u.long().clamp(max=a.shape[0] - 1)]
+             + b_vec[v.long().clamp(max=b_vec.shape[0] - 1)])
         for blk in cross:
             z = z + pos_dot(P[blk.f12], u, Q[blk.f12], v)
         return z
@@ -981,8 +986,7 @@ class FFMSolver:
             res = pos_scatter_blocked(c_blk, rows_pre, d[pre + "own"], num,
                                       bm, runs=d[pre + "runs"], **diag_w)
         elif with_diag_pos:
-            res = pos_scatter_pair(c_blk, self._coo_wq["u" if first else "v"],
-                                   Bs, coo)
+            res = pos_scatter_pair(c_blk, Bs, coo, 1.0 - hp.omega)
         else:
             res = pos_scatter(c_blk, Bs, coo)
         zpos, posq = res if with_diag_pos else (res, None)
@@ -1099,9 +1103,10 @@ class FFMSolver:
         With ``rows_hd`` (a two-tier side's head stream) the head entries'
         part is added: in table space on a fused field (``_hd_hv_tbl``),
         else in row space before the scatter (``head_hv``).  A COO side
-        runs the JAX package's two-call form (jax_solver.py:1894-1903):
-        ``pos_dot`` times w, then ``pos_scatter`` of (1-w) pq, the omega
-        term a matmul beside them."""
+        runs the JAX package's two-call form (jax_solver.py:1894-1903),
+        ``pos_dot`` times w, then ``pos_scatter`` of (1-w) pq, as one pass
+        over its list (``pos_hv_coo``: the same function and roundings), the
+        omega term a matmul beside it."""
         meta, d = self.meta, self.data
         hp = meta.hp
         reg, _, _ = self._side(b, first)
@@ -1111,14 +1116,11 @@ class FFMSolver:
         if coo is not None:
             B1d = B1.double()
             qtq, = self._row_sums([B1d.T @ B1d], "gram")  # pad rows are zero
-            own_ids, oth_ids = self._stream_ids(first)
             Bs = B1 if rows_pre is None else rows_pre
-            w = d["blk_u_w" if first else "blk_v_w"]
 
             def hv_coo(V: Tensor) -> Tensor:
                 phi = self._proj(b, first, V)
-                pq = pos_dot(phi, own_ids, Bs, oth_ids) * w
-                zp = pos_scatter(storage_scale(pq, 1.0 - hp.omega), Bs, coo)
+                zp = pos_hv_coo(phi, Bs, coo, 1.0 - hp.omega)
                 return hp.lam * reg[:, None] * V + self._scat(
                     b, first, hp.omega * (phi @ qtq) + zp, dim, "hv")
 
@@ -1208,8 +1210,8 @@ class FFMSolver:
         scatter term) from a fused pass, or a cross solve's row-space posq;
         None for a self block off the fused path, whose term is scattered
         here, and for a cross block of a COO side, whose posq is summed here
-        by the gradient pass's own formula (``pos_scatter_pair``'s second
-        output; jax_solver.py:1946-1951).
+        by the gradient pass's own formula (``pos_scatter_sq``, the pair's
+        squared-only form; jax_solver.py:1946-1951).
         Clamped at 1e-12, so that a pad table row (D == 0, R == 0) gives
         R / D == 0, not NaN (jax_solver.py:1918-1961)."""
         if self.cg_precond != "jacobi":
@@ -1226,8 +1228,7 @@ class FFMSolver:
                 if coo is None:
                     raise ValueError("a blocked side's diagonal term comes "
                                      "from its gradient pass")
-                wq = self._coo_wq["u" if first else "v"]
-                term = pos_scatter_pair(wq, wq, Q1, coo)[1]
+                term = pos_scatter_sq(Q1, coo, 1.0 - hp.omega)
             # pad rows are zero
             Q1d = Q1.double()
             qtq_d, = self._row_sums([(Q1d * Q1d).sum(dim=0)], "gram")

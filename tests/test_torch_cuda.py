@@ -1031,15 +1031,16 @@ def test_two_tier_solver_on_the_card_matches_the_cpu(device, cg_precond):
 
 
 # ---------------------------------------------------------------------------
-# the plain COO positive passes on the card
+# the COO positive passes and pos_dot on the card
 # ---------------------------------------------------------------------------
 
 
 def _coo_stream(device, dtype, k, sorted_seg, chunk):
     """A stream of 700 rows x 300 other rows: a power row with 3,000
     entries (24 chunks of the default 128, 375 of 8), rows without
-    entries, 50 pad entries with ghost ids; the coefficients, a weight per
-    entry and the table on the card."""
+    entries, 50 pad entries with ghost ids; the list (its weights in list
+    order), the coefficients, the weights in stream order and the table on
+    the card."""
     from one_class_ffm_torch.ops.layout import coo_list
 
     rng = np.random.default_rng(7)
@@ -1063,9 +1064,25 @@ def _coo_stream(device, dtype, k, sorted_seg, chunk):
     def T(a):
         return torch.as_tensor(a).to(device=device, dtype=dtype).contiguous()
 
-    return (coo, T(rng.normal(size=w.size) * w),
-            T(rng.uniform(0.5, 1.5, size=w.size) * w),
+    wq = T(rng.uniform(0.5, 1.5, size=w.size) * w)
+    return (coo._replace(val=wq[coo.pos.long()]),
+            T(rng.normal(size=w.size) * w), wq,
             T(rng.normal(size=(n_other, k))))
+
+
+def _coo_calls(coo, c, B, phi):
+    """Each COO kernel's outputs on one list (the pair, the squared-only
+    form, the width-1 sums in the list's own plan and in both, the fused Hv
+    at the scales of omega = 0.1)."""
+    return {
+        "pos_scatter": (kernels.pos_scatter(c, B, coo),),
+        "pos_scatter_pair": kernels.pos_scatter_pair(c, B, coo, 0.9),
+        "pos_scatter_sq": kernels.pos_scatter_pair(None, B, coo, 0.9)[1:],
+        "pos_seg_sum": (kernels.pos_seg_sum(c, coo),),
+        "pos_seg_sum 1": (kernels.pos_seg_sum(c, coo, lanes=1),),
+        "pos_seg_sum 8": (kernels.pos_seg_sum(c, coo, lanes=8),),
+        "pos_hv_coo": (kernels.pos_hv_coo(phi, B, coo, 0.9),),
+    }
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1073,29 +1090,33 @@ def _coo_stream(device, dtype, k, sorted_seg, chunk):
 @pytest.mark.parametrize("sorted_seg", [True, False])
 @pytest.mark.parametrize("chunk", [8, 128])
 def test_coo_kernels_match_plain_bits(device, dtype, k, sorted_seg, chunk):
-    """The X^T stage's coefficient sources bit-equal to the plain versions:
-    ``pos_scatter``, both outputs of ``pos_scatter_pair`` (two launches)
-    and the width-1 ``pos_seg_sum``; a repeat gives the same bits; a power
-    row spanning hundreds of chunks is finished in chunk order; each
-    wrapper counts one launch."""
+    """The list pass's sources bit-equal to the plain versions:
+    ``pos_scatter``, both outputs of ``pos_scatter_pair`` (one launch) and
+    its squared-only form, the width-1 ``pos_seg_sum`` (its list's plan, a
+    lane and 8 lanes a chunk) and the fused Hv
+    ``pos_hv_coo``; a repeat gives the same bits; a power row spanning
+    hundreds of chunks is finished in chunk order; each wrapper counts one
+    launch per call."""
     coo, c, wq, B = _coo_stream(device, dtype, k, sorted_seg, chunk)
+    phi = torch.randn((coo.feat_ptr.numel() - 1, k), device=device,
+                      generator=torch.Generator(device).manual_seed(3)
+                      ).to(dtype)
     kernels.reset_launch_counts()
-    got = {
-        "pos_scatter": (kernels.pos_scatter(c, B, coo),),
-        "pos_scatter_pair": kernels.pos_scatter_pair(c, wq, B, coo),
-        "pos_seg_sum": (kernels.pos_seg_sum(c, coo),),
-    }
+    got = _coo_calls(coo, c, B, phi)
     counts = kernels.launch_counts()
-    assert all(counts[name] == 1 for name in got), counts
-    again = {
-        "pos_scatter": (kernels.pos_scatter(c, B, coo),),
-        "pos_scatter_pair": kernels.pos_scatter_pair(c, wq, B, coo),
-        "pos_seg_sum": (kernels.pos_seg_sum(c, coo),),
-    }
+    assert counts["pos_scatter_pair"] == 2, counts
+    assert counts["pos_seg_sum"] == 3, counts
+    assert all(counts[name] == 1 for name in ("pos_scatter",
+                                              "pos_hv_coo")), counts
+    again = _coo_calls(coo, c, B, phi)
     ref = {
         "pos_scatter": (ops.pos_scatter_plain(c, B, coo),),
-        "pos_scatter_pair": ops.pos_scatter_pair_plain(c, wq, B, coo),
+        "pos_scatter_pair": ops.pos_scatter_pair_plain(c, B, coo, 0.9),
+        "pos_scatter_sq": (ops.pos_scatter_sq_plain(B, coo, 0.9),),
         "pos_seg_sum": (ops.pos_seg_sum_plain(c, coo),),
+        "pos_seg_sum 1": (ops.pos_seg_sum_plain(c, coo, lanes=1),),
+        "pos_seg_sum 8": (ops.pos_seg_sum_plain(c, coo, lanes=8),),
+        "pos_hv_coo": (ops.pos_hv_coo_plain(phi, B, coo, 0.9),),
     }
     for name in got:
         for g, g2, r in zip(got[name], again[name], ref[name]):
@@ -1104,12 +1125,39 @@ def test_coo_kernels_match_plain_bits(device, dtype, k, sorted_seg, chunk):
             assert torch.equal(_bits(g), _bits(r)), name
     assert got["pos_seg_sum"][0][5] != 0  # the power row
     assert torch.equal(got["pos_scatter_pair"][0], got["pos_scatter"][0])
+    assert torch.equal(got["pos_scatter_pair"][1], got["pos_scatter_sq"][0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [4, 8, 12, 32, 40, 256])
+def test_pos_dot_matches_plain_bits(device, dtype, k):
+    """``pos_dot`` bit-equal to its plain version (ghost ids clamped, n not
+    a multiple of a group's entries), on repeat; one launch per call."""
+    rng = np.random.default_rng(9)
+    A = torch.as_tensor(rng.normal(size=(700, k))).to(device, dtype)
+    B = torch.as_tensor(rng.normal(size=(300, k))).to(device, dtype)
+    n = 5003
+    u = rng.integers(0, 700, size=n).astype(np.int32)
+    v = rng.integers(0, 300, size=n).astype(np.int32)
+    u[-7:], v[-5:] = 700, 300
+    u, v = torch.as_tensor(u, device=device), torch.as_tensor(v,
+                                                              device=device)
+    kernels.reset_launch_counts()
+    got = kernels.pos_dot(A, u, B, v)
+    assert kernels.launch_counts()["pos_dot"] == 1
+    again = ops.pos_dot(A, u, B, v)
+    ref = ops.pos_dot_plain(A, u, B, v)
+    assert got.dtype == dtype and got.shape == (n,)
+    assert torch.equal(_bits(got), _bits(again))
+    assert torch.equal(_bits(got), _bits(ref))
+    with pytest.raises(TypeError):  # int32 ids only
+        kernels.pos_dot(A, u.long(), B, v)
 
 
 def test_coo_wrappers_reject_bad_inputs(device):
     """A list of a field's X, a table of the wrong height, coefficients of
-    another dtype or too short for the list's stream positions are refused
-    before a launch."""
+    another dtype or too short for the list's stream positions, a list
+    without weights for a weighted source are refused before a launch."""
     coo, c, wq, B = _coo_stream(device, torch.float32, 8, True, 128)
     with pytest.raises(ValueError, match="gathers from"):
         kernels.pos_scatter(c, B[:-1], coo)
@@ -1119,6 +1167,8 @@ def test_coo_wrappers_reject_bad_inputs(device):
         kernels.pos_seg_sum(c[:100], coo)
     with pytest.raises(ValueError, match="not a list of the positive"):
         kernels.pos_scatter(c, B, coo._replace(pos=None))
+    with pytest.raises(ValueError, match="no weights"):
+        kernels.pos_scatter_pair(c, B, coo._replace(val=None), 0.9)
 
 
 def _coo_solvers(device, cg_precond="none", blocked_bm=0):
@@ -1178,8 +1228,10 @@ def test_coo_solver_on_the_card_matches_the_cpu(device, cg_precond,
     kernels.reset_launch_counts()
     g1, it1 = gpu.epoch_stats(gst)
     counts = kernels.launch_counts()
-    assert counts["pos_scatter"] > 0 and counts["pos_seg_sum"] > 0
+    assert counts["pos_hv_coo"] > 0 and counts["pos_seg_sum"] > 0
+    assert counts["pos_dot"] > 0  # the COO gaps
     assert (counts["pos_scatter_pair"] > 0) == (cg_precond == "jacobi")
+    assert (counts["pos_scatter"] > 0) == (cg_precond != "jacobi")
     g2, it2 = gpu.epoch_stats(gst)
     assert torch.equal(it1, it2)
     for key in ("yt_u", "yt_v", "a", "b"):
