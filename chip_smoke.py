@@ -2052,18 +2052,21 @@ def prep_phase(device, gpu: str) -> None:
 BF16_EPOCHS = 11
 
 
-def bf16_mf_phase(mf, device, gpu: str) -> None:
+def bf16_mf_phase(mf, device, gpu: str, nan_guard: bool = True) -> None:
     """``[bf16 mf]``: MF ``--ns`` at full width (200,000 x 20,000, k=32)
     trained 11 epochs at bf16 storage (``refresh_every`` 10, the bf16
     default) and at float32 from the same seed, AUC after each epoch side
-    by side (ROADMAP C3: bf16 MF once stayed at AUC 0.500)."""
+    by side (ROADMAP C3: bf16 MF stays at AUC ~0.50 from 30,000 users on
+    the card, as the JAX package's own bf16 does from 40,000 on the CPU).
+    ``nan_guard`` False: train on past the divergence tripwire."""
     import dataclasses
 
     import torch
 
     aucs = {}
     for dt in ("float32", "bfloat16"):
-        tr = make_trainer(mf, device, dtype=dt, epochs=1)
+        tr = make_trainer(mf, device, dtype=dt, epochs=1,
+                          nan_guard=nan_guard)
         tr.init_state()
         aucs[dt] = []
         for ep in range(1, BF16_EPOCHS + 1):
@@ -2111,7 +2114,9 @@ MESH_CHECK_USERS = 4096  # users whose gathered scores re-rank the top-K
 # every rank's epochs must launch; ``trainer``: the Trainer's options;
 # ``v_picks``: the cross blocks' v halves among the half-solves;
 # ``model_file``: rank 0 writes the model after the epochs;
-# ``model_ref``: the tag of the path whose rank-0 file it must equal
+# ``model_ref``: the tag of the path whose rank-0 file it must equal;
+# ``ckpt``: a sharded checkpoint after epoch 1, resumed to epoch 2
+# (``ckpt_save`` / ``ckpt_resume``)
 MESH_SPEC = dict(tag="mesh ffm", n_users=N_USERS, n_items=N_ITEMS,
                  dims=FFM_DIMS, rows=MESH_ROWS, mesh="2", ranks=2,
                  epochs=2, ref_shards=1, kernels="blocked", trainer={},
@@ -2123,7 +2128,7 @@ MESH_PATHS = {
                 trainer=dict(blocked_bm=0), v_picks=True, model_file=False),
     "2d": dict(MESH_SPEC, tag="mesh ffm-2d", mesh="2x2", ranks=4,
                ref_shards=2, model_ref="mesh ffm",
-               trainer=dict(model_min_rows=4096)),
+               trainer=dict(model_min_rows=4096), ckpt=True),
 }
 MESH_KERNELS = {"blocked": BLOCKED + TABLE + ("project",),
                 "skew": BLOCKED + TABLE + ("project",),
@@ -2331,7 +2336,11 @@ def mesh_rank(state_path: str, picks, device: str, spec: dict):
         census.append(mesh.census.rows())
         seconds.append(trainer.history[-1]["seconds"])
         objectives.append(float(solver.objective(trainer.state)))
+        if spec.get("ckpt") and ep == 1:
+            saved = ckpt_save(trainer, spec["ckpt_dir"], out)
     out["launches"] = kernels.launch_counts()
+    if spec.get("ckpt"):
+        unbroken = _local_tables(trainer.state)
     if spec.get("model_file"):  # every rank gathers, rank 0 writes
         trainer.save_model(spec["model_out"])
     out.update(objectives=objectives, census=census, seconds=seconds,
@@ -2383,7 +2392,129 @@ def mesh_rank(state_path: str, picks, device: str, spec: dict):
         ref = rank_topk(full, 10)[1].cpu().numpy()
         same += int((ref == ids[sl]).all(axis=1).sum())
     out["ids_same"], out["ids_checked"] = same, users
+    if spec.get("ckpt"):
+        ckpt_resume(trainer, spec["ckpt_dir"], saved, unbroken, out)
     return out
+
+
+def _local_tables(state):
+    """Copies of the tables as this rank's state holds them."""
+    return {f12: {n: t.clone() for n, t in blk.items()}
+            for f12, blk in state["params"].items()}
+
+
+def _max_diff(a, b) -> float:
+    return max(float((a[f12][n].double() - b[f12][n].double()).abs().max())
+               for f12 in a for n in a[f12])
+
+
+def _max_rel(a, b):
+    """(max|d|/max|ref|, name) of the worst table of ``a`` against ``b``."""
+    return max((float((a[f12][n].double() - b[f12][n].double()).abs().max())
+                / (float(b[f12][n].abs().max()) or 1.0), f"{n}[{f12}]")
+               for f12 in a for n in a[f12])
+
+
+def ckpt_save(trainer, path: str, out: dict):
+    """A sharded checkpoint of this rank's state (``--ckpt-format orbax``,
+    ``utils.sharded_ckpt``) with the mesh's census read around the save,
+    then the same save again into ``path + "_warm"``; into ``out`` the
+    seconds of importing DCP and DTensor (once a process), the census of
+    both saves, the bytes this rank wrote, the seconds of each, the
+    tables' specs and on world rank 0 the whole tables (gathered after
+    the saves).  Returns this rank's tables."""
+    import dataclasses
+
+    import torch
+
+    from one_class_ffm_torch.solver.convert import params_to_numpy
+
+    mesh = trainer.mesh
+    # the one-time import of DTensor and DCP (op registrations, sympy)
+    # timed apart from the save
+    t0 = time.perf_counter()
+    import torch.distributed.checkpoint  # noqa: F401
+    import torch.distributed.tensor  # noqa: F401
+    out["ckpt_import_s"] = time.perf_counter() - t0
+    trainer.cfg = dataclasses.replace(trainer.cfg, ckpt_dir=path,
+                                      ckpt_format="orbax")
+    mesh.census.reset()
+    trainer.save_checkpoint()
+    out["ckpt_save"] = trainer.ckpt_stats[-1]
+    trainer.cfg = dataclasses.replace(trainer.cfg, ckpt_dir=path + "_warm")
+    trainer.save_checkpoint()
+    out["ckpt_census"] = mesh.census.rows()
+    out["ckpt_save_warm"] = trainer.ckpt_stats[-1]
+    trainer.cfg = dataclasses.replace(trainer.cfg, ckpt_dir=None)
+    out["ckpt_specs"] = trainer.solver.table_specs()
+    out["world_rank"] = torch.distributed.get_rank()
+    held = _local_tables(trainer.state)
+    whole = params_to_numpy(trainer.full_params())
+    out["ckpt_whole"] = whole if out["world_rank"] == 0 else None
+    return held
+
+
+def ckpt_resume(trainer, path: str, saved, unbroken, out: dict) -> None:
+    """The checkpoint of ``ckpt_save`` restored onto this rank (its own
+    rows of each model-sharded table) and trained on to epoch 2.  A restore
+    re-derives the caches from the tables, as the JAX package's
+    ``load_checkpoint`` does: the resumed epoch is held bit for bit to the
+    same epoch run from the saved tables with the caches re-derived in
+    place (``refresh_caches``); against the unbroken run, whose caches
+    were carried, its objective and its tables' distance (float32
+    roundings that CG solves at the cap amplify, ROADMAP C1)."""
+    import dataclasses
+
+    solver = trainer.solver
+    state = solver.refresh_caches({"params": saved})
+    refreshed = _local_tables(solver.epoch_stats(state)[0])
+    trainer.cfg = dataclasses.replace(trainer.cfg, ckpt_dir=path,
+                                      ckpt_format="orbax", nr_pass=2)
+    trainer.load_checkpoint()
+    out["ckpt_load"] = trainer.ckpt_stats[-1]
+    out["ckpt_loaded_diff"] = _max_diff(_local_tables(trainer.state), saved)
+    trainer.cfg = dataclasses.replace(trainer.cfg, ckpt_dir=None)
+    trainer.run(log=lambda *_: None)
+    resumed = _local_tables(trainer.state)
+    out["ckpt_resumed_diff"] = _max_diff(resumed, refreshed)
+    out["ckpt_unbroken_rel"] = _max_rel(resumed, unbroken)
+    out["ckpt_objective"] = float(solver.objective(trainer.state))
+
+
+def ckpt_files(path: str, specs, model_of) -> dict:
+    """From DCP's metadata of the step directory under ``path``: per
+    table the row blocks and the world rank that wrote each; fails unless
+    each row block of a model-sharded table was written by a rank of its
+    model index, once, and a replicated table once whole."""
+    from torch.distributed.checkpoint import FileSystemReader
+
+    from one_class_ffm_torch.utils import sharded_ckpt
+
+    step = sharded_ckpt.read_meta(path)["step_dir"]
+    md = FileSystemReader(os.path.join(path, step)).read_metadata()
+    files = {}
+    for f12, blk in specs.items():
+        for name, (rows, sharded) in blk.items():
+            key = f"{f12}.{name}"
+            blocks = []
+            for c in md.state_dict_metadata[key].chunks:
+                idx = next(i for i in md.storage_data if i.fqn == key
+                           and tuple(i.offset) == tuple(c.offsets))
+                writer = int(md.storage_data[idx].relative_path.split("_")[2])
+                blocks.append((int(c.offsets[0]), int(c.sizes[0]), writer))
+            parts = len(set(model_of.values())) if sharded else 1
+            check(sorted(b[0] for b in blocks)
+                  == [i * rows // parts for i in range(parts)]
+                  and all(n == rows // parts for _, n, _ in blocks),
+                  f"checkpoint: {key}'s row blocks {blocks} for {rows} "
+                  f"rows, {'sharded' if sharded else 'replicated'}")
+            if sharded:
+                check(all(model_of[w] * rows // parts == lo
+                          for lo, _, w in blocks),
+                      f"checkpoint: {key}'s row blocks {blocks} written by "
+                      f"ranks of other model indices ({model_of})")
+            files[f"{name}[{f12}]"] = blocks
+    return files
 
 
 def mesh_phase(device, gpu: str, report, spec: dict = MESH_SPEC):
@@ -2430,8 +2561,16 @@ def mesh_phase(device, gpu: str, report, spec: dict = MESH_SPEC):
     state_path = os.path.join(work, "state1.pkl")
     with open(state_path, "wb") as fh:
         pickle.dump(host_arrays(state1), fh, protocol=4)
+    params1 = state1["params"]
     del state1
     single = train_and_validate(ref, spec["epochs"])
+    if spec.get("ckpt"):  # the same 2 epochs, the caches re-derived after 1
+        st = solver.epoch_stats(solver.refresh_caches({"params": params1}))[0]
+        spec = dict(spec, one_refresh=(
+            *_max_rel(st["params"], ref.state["params"]),
+            float(solver.objective(st)), single["objectives"][2]))
+        del st
+    del params1
     ref_model = os.path.join(work, "one_process.txt")
     if spec.get("model_file"):
         save_text_model(ref_model, ref.params_numpy(), data.layout,
@@ -2443,7 +2582,13 @@ def mesh_phase(device, gpu: str, report, spec: dict = MESH_SPEC):
           f"(--mesh {spec['mesh']}) on {device} over gloo: ranks sharing "
           f"one card, not a scaling number [{gpu}]")
     t0 = time.perf_counter()
-    spec = dict(spec, model_out=os.path.join(work, "rank0.txt"))
+    spec = dict(spec, model_out=os.path.join(work, "rank0.txt"),
+                ckpt_dir=os.path.join(work, "ckpt"))
+    for old in (spec["ckpt_dir"], spec["ckpt_dir"] + "_warm"):
+        if os.path.isdir(old):
+            import shutil
+
+            shutil.rmtree(old)
     outs = spawn("chip_smoke:mesh_rank", spec["ranks"],
                  args=(state_path, picks, str(device), spec),
                  backend="gloo", workdir=work, timeout=900)
@@ -2568,7 +2713,84 @@ def mesh_phase(device, gpu: str, report, spec: dict = MESH_SPEC):
           f"{tag}: the ranks' CG counts differ")
     check(any(o["model"] for o in outs) == bool(spec.get("model_file")),
           f"{tag}: rank 0 wrote no model file")
+    if spec.get("ckpt"):
+        ckpt_checks(tag, spec, outs, gpu)
     return launches
+
+
+def ckpt_checks(tag: str, spec: dict, outs, gpu: str) -> None:
+    """The sharded checkpoint of a mesh path (``ckpt_save`` after epoch 1,
+    ``ckpt_resume`` to epoch 2 on each rank): each rank's bytes written and
+    save and load seconds; no model-axis all-gather in the census of the
+    save; each row block of a model-sharded table written once, by a rank
+    of its model index (``ckpt_files``); the restore equal to the saved
+    tables and the resumed epoch to the refreshed one bit for bit; the
+    resumed objective within ``MESH_OBJ_TOL`` of the unbroken run's, its
+    tables' distance beside the one process's when it re-derives its
+    caches after epoch 1 likewise; a one-process restore (no mesh) equal
+    to the mesh's whole tables bit for bit."""
+    import numpy as np
+
+    from one_class_ffm_torch.utils import sharded_ckpt
+
+    path = spec["ckpt_dir"]
+    specs = outs[0]["ckpt_specs"]
+    total = 0
+    for o in outs:
+        r = f"{o['rank']}.{o['model_rank']}"
+        sv, ld = o["ckpt_save"], o["ckpt_load"]
+        total += sv["bytes"]
+        gathers = [row for row in o["ckpt_census"]
+                   if row[0] == "all_gather@model"]
+        obj, ref_obj = o["ckpt_objective"], o["objectives"][2]
+        one = spec["one_refresh"]
+        print(f"[{tag}] rank {r} sharded checkpoint after epoch 1: "
+              f"{sv['bytes']} bytes written, save {sv['seconds']:.4f} s "
+              f"(the process's first; before it the import of DCP and "
+              f"DTensor {o['ckpt_import_s']:.4f} s, the DeviceMesh "
+              f"{sv['mesh_seconds']:.4f} s), again "
+              f"{o['ckpt_save_warm']['seconds']:.4f} s, load "
+              f"{ld['seconds']:.4f} s; census of both saves "
+              f"{o['ckpt_census']}; restore vs saved max|d| "
+              f"{o['ckpt_loaded_diff']:.3e}, resumed epoch 2 vs the same "
+              f"epoch from the saved tables (caches re-derived) max|d| "
+              f"{o['ckpt_resumed_diff']:.3e}; vs the unbroken run: "
+              f"objective {obj:.6f} / {ref_obj:.6f}, worst table "
+              f"max|d|/max|ref| {o['ckpt_unbroken_rel'][0]:.3e} "
+              f"({o['ckpt_unbroken_rel'][1]}); one process, caches "
+              f"re-derived after epoch 1 likewise: objective {one[2]:.6f} / "
+              f"{one[3]:.6f}, worst table {one[0]:.3e} ({one[1]}) [{gpu}]")
+        check(not gathers, f"{tag} rank {r}: the save gathered over the "
+                           f"model axis: {gathers}")
+        check(o["ckpt_loaded_diff"] == 0.0 and o["ckpt_resumed_diff"] == 0.0,
+              f"{tag} rank {r}: restore off by {o['ckpt_loaded_diff']}, "
+              f"resumed epoch off by {o['ckpt_resumed_diff']}")
+        check(abs(obj - ref_obj) <= MESH_OBJ_TOL * abs(ref_obj),
+              f"{tag} rank {r}: resumed objective {obj} vs the unbroken "
+              f"run's {ref_obj}")
+    model_of = {o["world_rank"]: o["model_rank"] for o in outs}
+    files = ckpt_files(path, specs, model_of)
+    ref = next(o["ckpt_whole"] for o in outs if o["ckpt_whole"] is not None)
+    whole = sum(a.nbytes for blk in ref.values() for a in blk.values())
+    print(f"[{tag}] checkpoint row blocks (first row, rows, world rank that "
+          f"wrote it) {files}; bytes written by the ranks together {total}, "
+          f"the whole tables {whole}")
+    t0 = time.perf_counter()
+    tables, epoch = sharded_ckpt.load(path)
+    load_s = time.perf_counter() - t0
+    diff = 0.0
+    for f12, blk in ref.items():
+        for name, want in blk.items():
+            got = tables[f12][name].float().numpy()
+            check(got.shape[0] >= want.shape[0] and not np.any(
+                got[want.shape[0]:]), f"{tag}: one-process restore of "
+                                      f"{name}[{f12}]: pad rows not zero")
+            diff = max(diff, float(np.abs(got[: want.shape[0]] - want).max()))
+    print(f"[{tag}] one-process restore (no mesh) of the checkpoint: epoch "
+          f"{epoch}, {load_s:.4f} s, max|d| against the mesh's whole tables "
+          f"{diff:.3e} [{gpu}]")
+    check(epoch == 1 and diff == 0.0,
+          f"{tag}: one-process restore at epoch {epoch} off by {diff}")
 
 
 def main() -> int:

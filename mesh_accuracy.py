@@ -21,6 +21,8 @@ Full width (200,000 x 20,000) by default; give a device with a small size
 on the CPU, e.g. ``cpu 40000 4000``.
 
     python3 mesh_accuracy.py trace [cuda:0|cpu] [n_users n_items]
+    python3 mesh_accuracy.py dtypes [cuda:0|cpu] [n_users n_items [epochs]]
+    python3 mesh_accuracy.py bf16-sizes [cuda:0|cpu] [NxM ...]
 
 ``trace``: the headline FFM of ``[mesh ffm]`` (one process on the flat
 stream, 2 data ranks on the shard-aligned one, both from the seed's
@@ -33,6 +35,17 @@ smallest margin of a stop test ``r2 > cg_eps * g2`` in either run (in
 units of the float32 epsilon: a flip of the rounding decides a test within
 one or two).  Then the objectives and the tables' distance after each
 epoch: where the model file's distance comes from.
+
+``dtypes`` (ROADMAP C3): one process, MF ``--ns`` on ``[bf16 mf]``'s data
+(k=32, 5 positives per user) at float32 and bfloat16 storage from the
+seed's tables, stepped half-solve by half-solve (``dtype_trace``): after
+each, per dtype, the CG count, the gradient's norm and the last stop test,
+the objective at the solver's dtype, of its carried state at float64 and
+of its tables at float64, the carried residual's distance from the one
+re-derived from the tables; the bf16 table's distance from the float32
+one; the AUC after each epoch.  ``bf16-sizes``: ``[bf16 mf]`` (11 epochs
+of each dtype, the AUC after each; the divergence tripwire off) at each
+size given.
 """
 import os
 import pickle
@@ -370,9 +383,139 @@ def trace(device, nu, ni):
     return rows, outs
 
 
+# ---------------------------------------------------------------------------
+# dtypes: one process, float32 and bfloat16 storage side by side
+# ---------------------------------------------------------------------------
+
+DTYPE_EPOCHS = 6
+
+
+def _dtype_stats(solver, state, ref64):
+    """The tracked and recomputed quantities of one state: the objective of
+    the carried caches and residual, evaluated at float64 (``ref64``'s
+    solver on the CPU), the objective of the tables alone (caches and
+    residual re-derived from them at float64), and the carried residual's
+    distance from the one re-derived at the state's own dtype
+    (``refresh_caches``): max and mean |d| over the real slots of each
+    side."""
+    st64 = {k: cast64(v) for k, v in state.items()}
+    st64["params"] = cast64(solver.full_params(state["params"]))
+    s64 = ref64.solver
+    tracked = float(s64.objective(st64))
+    exact = float(s64.objective(s64.refresh_caches(
+        {"params": st64["params"]})))
+    fresh = solver.refresh_caches({"params": state["params"]})
+    carry = {}
+    for s in ("u", "v"):
+        w = solver.data[f"blk_{s}_w"] > 0
+        dlt = (state["yt_" + s].double() - fresh["yt_" + s].double())[w]
+        carry[s] = (float(dlt.abs().max()), float(dlt.abs().mean()))
+    return dict(tracked=tracked, exact=exact, carry=carry,
+                own=float(solver.objective(state)))
+
+
+def dtype_trace(device, nu, ni, epochs=DTYPE_EPOCHS):
+    """MF ``--ns`` at ``nu`` x ``ni`` (``[bf16 mf]``'s data, k=32), float32
+    and bfloat16 storage from the seed's tables, stepped half-solve by
+    half-solve; the AUC after each epoch.  Returns the rows."""
+    import dataclasses
+
+    device = torch.device(device)
+    data = cs.build_data(nu, ni, 5.0, seed=0)
+    trs = {dt: cs.make_trainer(data, device, dtype=dt, epochs=epochs)
+           for dt in ("float32", "bfloat16")}
+    ref64 = cs.make_trainer(data, torch.device("cpu"), dtype="float64",
+                            epochs=epochs)
+    states = {dt: tr.init_state() for dt, tr in trs.items()}
+    tests = {dt: [] for dt in trs}
+    for dt, tr in trs.items():
+        tr.solver._cg_loop = types.MethodType(_traced_cg_loop(tests[dt]),
+                                              tr.solver)
+    blocks = ref64.solver.meta.layout.epoch_order()
+    cap = ref64.solver.meta.hp.cg_max_iter
+    eps = ref64.solver.meta.hp.cg_eps
+    print(f"== dtypes MF --ns {nu}x{ni}, k=32 on {device}: float32 and "
+          f"bfloat16 storage from the seed's tables, half-solve by "
+          f"half-solve.  obj: own = the solver's objective at its dtype; "
+          f"tracked = of its carried caches and residual at float64; exact "
+          f"= of its tables at float64.  carry: max / mean |yt carried - yt "
+          f"re-derived| per side.  |G|: the gradient's norm; r2/g2: the "
+          f"solve's last stop test (cg_eps {eps}).")
+    rows = []
+    h = 0
+    for ep in range(1, epochs + 1):
+        sas = {dt: trs[dt].solver.sasb(states[dt]) for dt in trs}
+        for b in blocks:
+            for first in (True, False):
+                row = dict(h=h, epoch=ep, table="W" if first else "H")
+                for dt, tr in trs.items():
+                    tests[dt].clear()
+                    states[dt], it = tr.solver._solve_half(
+                        states[dt], b, first, *sas[dt])
+                    r2, thr = tests[dt][-1]
+                    row[dt] = dict(_dtype_stats(tr.solver, states[dt],
+                                                ref64),
+                                   iters=int(it), g=(thr / eps) ** 0.5,
+                                   r2g2=r2 / (thr / eps) if thr else 0.0)
+                key = "W" if first else "H"
+                t32, t16 = (trs[dt].solver.full_params(
+                    states[dt]["params"])[b.f12][key].double().cpu().numpy()
+                    for dt in ("float32", "bfloat16"))
+                row["dist"] = rel(t16, t32)
+                rows.append(row)
+                for dt in trs:
+                    r = row[dt]
+                    print(f"dtypes {h:2d} ep {ep:2d} {row['table']} {dt:8s} "
+                          f"CG {r['iters']:2d}{' cap' if r['iters'] >= cap else ''}"
+                          f" |G| {r['g']:.4e} r2/g2 {r['r2g2']:.3e} obj own "
+                          f"{r['own']:.6e} tracked {r['tracked']:.6e} exact "
+                          f"{r['exact']:.6e} carry u {r['carry']['u'][0]:.3e}"
+                          f" / {r['carry']['u'][1]:.3e} v "
+                          f"{r['carry']['v'][0]:.3e} / "
+                          f"{r['carry']['v'][1]:.3e}")
+                print(f"dtypes {h:2d} ep {ep:2d} {row['table']} bf16 table "
+                      f"vs f32 {row['dist']:.4e}")
+                h += 1
+        aucs = {}
+        for dt, tr in trs.items():
+            tr.state, tr.epoch_idx = states[dt], ep
+            tr.cfg = dataclasses.replace(tr.cfg, nr_pass=ep)
+            aucs[dt] = tr.validate()["auc"]
+        print(f"dtypes epoch {ep}: AUC float32 {aucs['float32']:.4f} "
+              f"bfloat16 {aucs['bfloat16']:.4f}")
+        sys.stdout.flush()
+    return rows
+
+
 if __name__ == "__main__":
     args = sys.argv[1:]
-    mode = args.pop(0) if args and args[0] == "trace" else "accuracy"
+    mode = (args.pop(0) if args and args[0] in ("trace", "dtypes",
+                                                 "bf16-sizes")
+            else "accuracy")
+    if mode == "bf16-sizes":
+        dev = torch.device(args[0] if args else "cuda:0")
+        gpu = cs.gpu_line() if dev.type == "cuda" else "cpu"
+        if dev.type == "cpu":
+            torch.set_num_threads(4)
+        for size in args[1:] or [f"{cs.N_USERS}x{cs.N_ITEMS}"]:
+            nu, ni = (int(x) for x in size.split("x"))
+            print(f"== bf16-sizes MF --ns {nu}x{ni}, k=32, 5 positives per "
+                  f"user on {dev}")
+            cs.bf16_mf_phase(cs.build_data(nu, ni, 5.0, seed=0), dev, gpu,
+                             nan_guard=False)
+            sys.stdout.flush()
+        sys.exit(0)
+    if mode == "dtypes":
+        dev = args[0] if args else "cuda:0"
+        if dev.startswith("cuda"):
+            print("[device]", cs.gpu_line())
+        else:
+            torch.set_num_threads(4)
+        nu, ni = ((int(args[1]), int(args[2])) if len(args) > 2
+                  else (cs.N_USERS, cs.N_ITEMS))
+        dtype_trace(dev, nu, ni,
+                    int(args[3]) if len(args) > 3 else DTYPE_EPOCHS)
+        sys.exit(0)
     dev = args[0] if args else "cuda:0"
     nu, ni = (int(args[1]), int(args[2])) if len(args) > 2 \
         else (cs.N_USERS, cs.N_ITEMS)

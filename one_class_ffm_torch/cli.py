@@ -67,7 +67,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="resume from --ckpt if a checkpoint exists")
     p.add_argument("--ckpt-format", default="npz", choices=["npz", "orbax"],
                    help="checkpoint format: npz (single-host) or orbax "
-                        "(sharded-native, async-capable)")
+                        "(sharded-native: each rank writes its own rows, "
+                        "through torch.distributed.checkpoint; not orbax's "
+                        "files)")
     p.add_argument("--jsonl", dest="jsonl_path", default=None,
                    help="append structured metrics JSONL here")
     p.add_argument("--predict-topk", type=int, default=0,
@@ -218,7 +220,8 @@ def main(argv=None) -> int:
         print(f"{PROG}: error: not supported by the PyTorch port: {e}",
               file=sys.stderr)
         return 1
-    except ValueError as e:  # a mesh the run's ranks cannot form
+    except ValueError as e:  # a mesh the ranks cannot form, a foreign
+        # checkpoint
         print(f"{PROG}: error: {e}", file=sys.stderr)
         return 1
     # on a mesh rank 0 prints (every rank computes the same rows)

@@ -103,6 +103,20 @@ class Mesh:
                         and max(self.size, self.n_model) > 1
                         and dist.get_backend(group) == "gloo")
 
+    def device_mesh(self):
+        """torch's ``DeviceMesh`` of the same ranks, dims ``("data",
+        "model")``: ``init_device_mesh``'s row-major order puts rank ``r``
+        at ``(r // n_model, r % n_model)``, as ``make_mesh2`` does.  For
+        ``DTensor`` placements (``utils.sharded_ckpt``); made at the first
+        call, which every rank makes."""
+        if getattr(self, "_device_mesh", None) is None:
+            from torch.distributed.device_mesh import init_device_mesh
+
+            self._device_mesh = init_device_mesh(
+                self.device.type, (self.size, self.n_model),
+                mesh_dim_names=("data", "model"))
+        return self._device_mesh
+
     def rows(self, n: int) -> slice:
         """This rank's slice of ``n`` rows (``n`` divisible by the size)."""
         return _part(n, self.size, self.rank, self.axis)

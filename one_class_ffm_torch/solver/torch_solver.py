@@ -579,6 +579,14 @@ class FFMSolver:
                 out[b.f12][key] = T
         return out
 
+    def table_specs(self):
+        """{f12: {"W" | "H": (padded rows, row-sharded on the model axis?)}}
+        of every block table (a sharded checkpoint's placements)."""
+        return {b.f12: {key: (self._rows(b, first),
+                              self._sharded(self._rows(b, first)))
+                        for key, first in (("W", True), ("H", False))}
+                for b in self.blocks}
+
     def _place_params(self, params):
         """Tables as a state holds them, on this rank's device: given whole
         (true or padded dims, zero pad rows appended) or as this rank's
@@ -676,12 +684,17 @@ class FFMSolver:
     def _ident_scat(self, b: BlockInfo, first: bool, Z: Tensor,
                     dim: int) -> Tensor:
         """X^T Z of an identity field: row d receives row d (under a mesh
-        this rank's rows, at their place in the table, zero elsewhere)."""
+        this rank's rows, at their place in the table, zero elsewhere).  The
+        rows at and past the field's true row count are the data's pad
+        rows, whose omega terms are not zero: a table padded past that
+        count (``d_multiple``) keeps them out, as the JAX package's
+        ``_scat`` masks them, so that its pad rows stay zero."""
+        true = min(dim, b.d1 if first else b.d2)
         if self.mesh is None:
-            return _rows_to(Z, dim)
+            return _rows_to(_rows_to(Z, true), dim)
         lo = self._lo(self._u_field(b, first)[0])
         out = Z.new_zeros((dim, Z.shape[1]))
-        hi = min(lo + Z.shape[0], dim)
+        hi = min(lo + Z.shape[0], true)
         if hi > lo:
             out[lo:hi] = Z[: hi - lo]
         return out

@@ -10,10 +10,13 @@ nothing of it (``tests/test_torch_copies.py`` holds each copy equal to its
 original): the run configuration (``TrainConfig``), the data pipeline
 (``load_problem``), the text model and npz checkpoint formats, and the
 header / log-row / JSONL formatting, so the port's output is
-byte-compatible with the reference's log tools.
+byte-compatible with the reference's log tools.  ``--ckpt-format orbax``
+writes the sharded-native checkpoints of ``utils.sharded_ckpt``
+(``torch.distributed.checkpoint``; not orbax's files).
 
-``dtype="auto"`` means float32 here on every device, until bfloat16 storage
-is measured on the GPU.
+``dtype="auto"`` means float32 here on every device: bfloat16 MF stops
+learning above a size, as the JAX package's own bfloat16 does (ROADMAP
+C3), and its throughput on the GPU is not measured yet.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ from .parallel.mesh import resolve_mesh, shard_data, shard_state
 from .solver.convert import pad_table, params_from_numpy, params_to_numpy
 from .solver.params import HyperParams
 from .solver.torch_solver import FFMSolver, make_device_data
+from .utils import sharded_ckpt
 from .utils.device import resolve_device
 from .utils.profiling import PhaseTimer, trace_profile
 
@@ -242,8 +246,8 @@ _DTYPES = {"float32": torch.float32, "float64": torch.float64,
 
 
 def resolve_dtype(name: str) -> torch.dtype:
-    """Storage dtype by name; "auto" is float32 (bfloat16 has not been
-    measured on the GPU yet)."""
+    """Storage dtype by name; "auto" is float32 (ROADMAP C3: bfloat16
+    MF stops learning above a size, in the JAX package too)."""
     return torch.float32 if name == "auto" else _DTYPES[name]
 
 
@@ -264,10 +268,14 @@ class Trainer:
 
     def __init__(self, cfg: TrainConfig, data: Optional[LoadedData] = None,
                  device: torch.device | str = "cuda", head_chunk: int = 512):
-        if cfg.ckpt_format != "npz":
-            raise NotImplementedError(
-                f"--ckpt-format {cfg.ckpt_format} (JAX-only): the port "
-                "writes npz checkpoints")
+        if (cfg.resume and cfg.ckpt_format == "orbax" and cfg.ckpt_dir
+                and sharded_ckpt.has_jax_checkpoint(cfg.ckpt_dir)):
+            raise ValueError(
+                f"--resume: {cfg.ckpt_dir} holds an orbax checkpoint of the "
+                f"JAX package ({sharded_ckpt.JAX_META}); the port's "
+                "--ckpt-format orbax is written by torch.distributed."
+                "checkpoint and cannot read orbax's files (resume it with "
+                "the JAX package, or pass its text model as --init-model)")
         self.device = resolve_device(device)
         # mesh resolution BEFORE the data layout: the padding multiples
         # must divide the data axis (train.py:250-296 of the JAX package)
@@ -333,6 +341,10 @@ class Trainer:
         else:
             self.refresh_every = 10 if self.dtype == torch.bfloat16 else 0
         self.timer = PhaseTimer()
+        # per sharded checkpoint saved or loaded on this rank: {"op": "save"
+        # | "load", "epoch", "bytes" (of the files written; 0 on a load),
+        # "seconds"; a save's "mesh_seconds": making the DeviceMesh}
+        self.ckpt_stats: List[Dict[str, Any]] = []
         # per trained epoch: {"epoch", "seconds", "cg_iters"} (the per-solve
         # CG iteration counts in epoch_order, f1 then f2 half of each block)
         self.history: List[Dict[str, Any]] = []
@@ -358,7 +370,11 @@ class Trainer:
 
     def init_state(self):
         cfg = self.cfg
-        if cfg.resume and cfg.ckpt_dir and has_checkpoint(cfg.ckpt_dir):
+        if cfg.ckpt_format == "orbax":
+            found = cfg.ckpt_dir and sharded_ckpt.has_checkpoint(cfg.ckpt_dir)
+        else:
+            found = cfg.ckpt_dir and has_checkpoint(cfg.ckpt_dir)
+        if cfg.resume and found:
             self.load_checkpoint()
         elif cfg.init_model:
             self.warm_start(cfg.init_model)
@@ -397,17 +413,67 @@ class Trainer:
         self.epoch_idx = 0
 
     def load_checkpoint(self):
+        if self.cfg.ckpt_format == "orbax":
+            self._load_sharded()
+            return
         params_np, epoch = load_checkpoint(self.cfg.ckpt_dir)
         self._load_params(params_np)
         self.epoch_idx = epoch
 
+    def _ckpt_mesh(self):
+        """The mesh a sharded checkpoint is saved and restored on, or None
+        for one process (a mesh of one rank included)."""
+        m = self.mesh
+        return m if m is not None and m.size * m.n_model > 1 else None
+
+    def _load_sharded(self):
+        """A sharded checkpoint restored onto this run's topology (on a mesh
+        each rank reads its own model rows of a row-sharded table), then the
+        caches re-derived from the tables.  Without a mesh the whole tables
+        come back at the padded dims they were saved at: cut to true dims
+        here (pad rows are zero), padded again by the solver."""
+        self._sync()
+        t0 = time.perf_counter()
+        if self._ckpt_mesh() is not None:
+            params, epoch = sharded_ckpt.load(
+                self.cfg.ckpt_dir, mesh=self.mesh,
+                specs=self.solver.table_specs(), dtype=self.dtype)
+        else:
+            tables, epoch = sharded_ckpt.load(self.cfg.ckpt_dir)
+            params = {b.f12: {
+                name: tables[b.f12][name][:d].to(self.device, self.dtype)
+                for name, d in (("W", b.d1), ("H", b.d2))}
+                for b in self.data.layout.all_blocks()}
+        self.state = self.solver.refresh_caches({"params": params})
+        self.epoch_idx = epoch
+        self._sync()
+        self.ckpt_stats.append(dict(op="load", epoch=epoch, bytes=0,
+                                    seconds=time.perf_counter() - t0))
+
     def save_checkpoint(self):
-        params = self.params_numpy()  # every rank: a model axis gathers
-        if not self.is_writer:
-            return
         lay = self.data.layout
         layout_doc = dict(fu=lay.fu, fv=lay.fv, Du=list(lay.Du),
                           Dv=list(lay.Dv), self_side=lay.self_side)
+        if self.cfg.ckpt_format == "orbax":
+            # every rank: DCP's save is collective, and each rank writes its
+            # own rows of a model-sharded table (no gather)
+            self._sync()
+            t0 = time.perf_counter()
+            mesh = self._ckpt_mesh()
+            if mesh is not None:
+                mesh.device_mesh()  # made at the first save
+            t1 = time.perf_counter()
+            nbytes = sharded_ckpt.save(
+                self.cfg.ckpt_dir, self.state["params"], self.epoch_idx,
+                meta=dict(k=self.cfg.k, layout=layout_doc), mesh=mesh,
+                specs=self.solver.table_specs())
+            self.ckpt_stats.append(dict(op="save", epoch=self.epoch_idx,
+                                        bytes=nbytes, mesh_seconds=t1 - t0,
+                                        seconds=time.perf_counter() - t1))
+            return
+        params = self.params_numpy()  # every rank: a model axis gathers
+        if not self.is_writer:
+            return
         save_checkpoint(self.cfg.ckpt_dir, params, self.epoch_idx, self.cfg,
                         layout=layout_doc)
 

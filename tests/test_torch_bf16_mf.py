@@ -8,8 +8,11 @@ bf16 default) from one JAX-written model on a small MF and holds their
 AUCs within 0.02 of each other at every epoch;
 ``python tests/test_torch_bf16_mf.py [n_users n_items epochs seconds]``
 runs the JAX package alone at bf16 on the CPU on chip_smoke's MF data
-(200,000 x 20,000 by default), printing the AUC after each epoch until
-the time box (1800 s) ends."""
+(200,000 x 20,000 by default), printing the AUC and the objective after
+each epoch until the time box (1800 s) ends;
+``python tests/test_torch_bf16_mf.py grad n_users n_items halves`` holds
+the port's and the JAX package's bf16 gradients to float64 on the same
+tables (``gradient_errors``)."""
 
 import dataclasses
 import os
@@ -70,11 +73,69 @@ def test_port_bf16_mf_tracks_the_jax_package(tmp_path):
     np.testing.assert_allclose(got, ref, atol=0.02)
 
 
+def gradient_errors(nu: int, ni: int, halves: int):
+    """The port steps bf16 MF ``halves`` half-solves from the seed; on the
+    tables it reaches, the next half-solve's gradient is formed at bf16 by
+    the port and by the JAX package (jitted, as in its epoch) and at
+    float64 by the port, the caches of each re-derived from the same
+    tables.  Prints each bf16 gradient's distance from float64,
+    |d| / |G64| over the whole table."""
+    import jax
+    import jax.numpy as jnp
+
+    import chip_smoke as cs
+
+    torch.set_num_threads(4)
+    data = cs.build_data(nu, ni, 5.0, seed=0)
+    cpu = torch.device("cpu")
+    port = {dt: cs.make_trainer(data, cpu, dtype=dt, epochs=1)
+            for dt in ("bfloat16", "float64")}
+    solver = port["bfloat16"].solver
+    state = port["bfloat16"].init_state()
+    order = [(b, first) for b in solver.meta.layout.epoch_order()
+             for first in (True, False)]
+    for h in range(halves):
+        if h % len(order) == 0:
+            sa, sb = solver.sasb(state)
+        b, first = order[h % len(order)]
+        state, _ = solver._solve_half(state, b, first, sa, sb)
+    b, first = order[halves % len(order)]
+    tables = {f12: {n: t.float().numpy() for n, t in blk.items()}
+              for f12, blk in state["params"].items()}
+    grads = {}
+    for dt, tr in port.items():
+        st = tr.solver.refresh_caches({"params": {
+            f12: {n: torch.from_numpy(t).to(tr.dtype)
+                  for n, t in blk.items()} for f12, blk in tables.items()}})
+        grads[f"port {dt}"] = tr.solver.solve_inputs(
+            st, b, first, *tr.solver.sasb(st))[0].double()
+    js = _jax_trainer(data, 1).solver
+    jst = js.refresh_caches({"params": {
+        f12: {n: jnp.asarray(t, jnp.bfloat16) for n, t in blk.items()}
+        for f12, blk in tables.items()}})
+    jb = next(x for x in js.meta.layout.epoch_order() if x.f12 == b.f12)
+    gj = jax.jit(lambda st: js._grad_cross(st, jb, first))(jst)
+    grads["JAX bfloat16"] = torch.from_numpy(
+        np.asarray(gj, np.float64))[: grads["port float64"].shape[0]]
+    ref = grads["port float64"]
+    print(f"bf16 MF {nu} x {ni}, k=32: the gradient of half-solve {halves} "
+          f"(table {'W' if first else 'H'}) on the port's bf16 tables; "
+          f"|G64| {float(ref.norm()):.4e}")
+    for name in ("port bfloat16", "JAX bfloat16"):
+        print(f"{name}: |G - G64| / |G64| "
+              f"{float((grads[name] - ref).norm() / ref.norm()):.4e}",
+              flush=True)
+
+
 if __name__ == "__main__":
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     sys.path.insert(0, ROOT)
     import conftest  # noqa: F401  (JAX on the CPU)
     import chip_smoke as cs
+
+    if sys.argv[1:2] == ["grad"]:
+        gradient_errors(*(int(a) for a in sys.argv[2:5]))
+        sys.exit(0)
 
     nu, ni, epochs, box = ((int(sys.argv[1]), int(sys.argv[2]),
                             int(sys.argv[3]), float(sys.argv[4]))
@@ -87,5 +148,6 @@ if __name__ == "__main__":
           f"{tr.refresh_every}, CPU; set-up {time.perf_counter() - t0:.1f} s",
           flush=True)
     aucs_per_epoch(tr, epochs, deadline=t0 + box, log=lambda ep, a: print(
-        f"epoch {ep}: AUC {a:.4f} ({time.perf_counter() - t0:.0f} s)",
-        flush=True))
+        f"epoch {ep}: AUC {a:.4f} objective "
+        f"{float(tr.solver.objective(tr.state)):.6e} "
+        f"({time.perf_counter() - t0:.0f} s)", flush=True))

@@ -203,8 +203,9 @@ def _options(parser):
 
 def test_parser_options_match_but_the_platform():
     """The same options; ``--platform`` takes cuda or cpu, and the helps of
-    ``--profile-dir`` and ``--distributed`` name the port's profiler and
-    torchrun's environment."""
+    ``--profile-dir``, ``--distributed`` and ``--ckpt-format`` name the
+    port's profiler, torchrun's environment and the sharded format's
+    writer."""
     got, ref = _options(torch_cli.build_parser()), _options(
         jax_cli.build_parser())
     assert got.pop("platform")[3] == ["cuda", "cpu"]
@@ -215,6 +216,9 @@ def test_parser_options_match_but_the_platform():
     *got_dist, help_ = got.pop("distributed")
     assert "torchrun" in help_ and "jax" not in help_.lower()
     assert got_dist == list(ref.pop("distributed")[:-1])
+    *got_ckpt, help_ = got.pop("ckpt_format")
+    assert "torch.distributed.checkpoint" in help_
+    assert got_ckpt == list(ref.pop("ckpt_format")[:-1])
     assert got == ref
     argv = ["items", "train", "-p", "va", "-k", "8", "-t", "3", "-l", "0.2",
             "-w", "0.05", "-r", "-0.5", "--ns", "--freq", "--seed", "4",

@@ -419,8 +419,9 @@ def test_chip_smoke_mesh_2d_rehearsed_on_the_cpu(tmp_path, monkeypatch,
     """``[mesh ffm-2d]`` at toy size on the CPU: the FFM on the 2x2 mesh
     (4 ranks, tables of 512 rows or more row-sharded on the model axis)
     after ``[mesh ffm]`` on the same problem, rank 0's model file after
-    the epochs equal to the 2-rank data mesh's, every check but the
-    kernels'."""
+    the epochs equal to the 2-rank data mesh's, the sharded checkpoint
+    after epoch 1 resumed on the mesh and restored on one process, every
+    check but the kernels'."""
     sys.path.insert(0, os.path.dirname(TESTS))
     import chip_smoke
 
@@ -440,3 +441,7 @@ def test_chip_smoke_mesh_2d_rehearsed_on_the_cpu(tmp_path, monkeypatch,
     assert "rank 0.0 model file after epoch 2" in out
     assert "against [mesh ffm] rank 0's file 0.000e+00" in out
     assert "'W[0]': (300, 32)" in out  # the user id table, half its rows
+    # the sharded checkpoint after epoch 1, resumed on the 2x2 mesh
+    assert out.count("sharded checkpoint after epoch 1") == 4
+    assert "census of both saves []" in out
+    assert "one-process restore (no mesh) of the checkpoint: epoch 1" in out

@@ -159,3 +159,63 @@ def fail_on(rank_to_fail):
         raise RuntimeError(f"rank {rank_to_fail} fails on purpose")
     dist.barrier()
     return dist.get_rank()
+
+
+def sharded_ckpt_run(kw, ck, froms, epochs=(2, 4)):
+    """Sharded checkpoints (``--ckpt-format orbax``) on this rank's mesh:
+    a run of ``epochs[0]`` epochs saving to ``ck`` (the census and the
+    bytes of each save recorded), a resume from ``ck`` to ``epochs[1]``,
+    the unbroken run to ``epochs[1]``, and a resume from each checkpoint
+    of ``froms`` (written on other topologies).  Returns the tables (true
+    dims, and as this rank holds them) after each."""
+    import dataclasses
+
+    from one_class_ffm_torch.train import TrainConfig, Trainer
+
+    torch.set_num_threads(1)
+    base = TrainConfig(**kw)
+
+    def trainer(**over):
+        return Trainer(dataclasses.replace(base, **over), device="cpu")
+
+    first = trainer(nr_pass=epochs[0], ckpt_dir=ck, ckpt_format="orbax")
+    saves = []
+    save = first.save_checkpoint
+
+    def traced_save():
+        first.mesh.census.reset()
+        save()
+        saves.append(first.mesh.census.rows())
+
+    first.save_checkpoint = traced_save
+    first.run(log=lambda *_: None)
+    out = dict(rank=first.mesh.rank, model_rank=first.mesh.model_rank,
+               world=torch.distributed.get_rank(),
+               specs=first.solver.table_specs(), saves=saves,
+               stats=first.ckpt_stats, saved=first.params_numpy(),
+               held=params_to_numpy(first.state["params"]))
+
+    def resumed(path):
+        tr = trainer(nr_pass=epochs[1], ckpt_dir=path, ckpt_format="orbax",
+                     resume=True)
+        tr.init_state()
+        got = dict(epoch=tr.epoch_idx, loaded=tr.params_numpy(),
+                   held=params_to_numpy(tr.state["params"]))
+        # train on without saving: other topologies read the checkpoint
+        tr.cfg = dataclasses.replace(tr.cfg, ckpt_dir=None)
+        tr.run(log=lambda *_: None)
+        got["final"] = tr.params_numpy()
+        return got
+
+    out["resumed"] = resumed(ck)
+    straight = trainer(nr_pass=epochs[1])
+    straight.run(log=lambda *_: None)
+    out["straight"] = straight.params_numpy()
+    true = {b.f12: dict(W=b.d1, H=b.d2)
+            for b in straight.data.layout.all_blocks()}
+    out["pad_max"] = max(
+        float(t[true[f12][name]:].abs().max()) if t.shape[0] > true[f12][name]
+        else 0.0 for f12, blk in straight.full_params().items()
+        for name, t in blk.items())
+    out["froms"] = {name: resumed(path) for name, path in froms.items()}
+    return out
