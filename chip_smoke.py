@@ -37,7 +37,12 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
    and on the skewed FFM without the head tier under Jacobi (its v side
    COO), with ``Tensor.index_add_`` as the list passes' library yardstick
    (none for the fused Hv and ``pos_dot``: the Hv's line gives its two-call
-   form's time instead), timed at float32 and bfloat16.
+   form's time instead), timed at float32 and bfloat16; then the CG
+   recurrence (``cg_init``, ``cg_step``: csrc/cg_ops.cu) on the G, D and
+   first Hv of the MF solves (200,000 x 32 and 20,000 x 32 vectors, timed,
+   with the eager torch sequence it replaced beside it) and of the FFM's
+   categorical cross solves under Jacobi (compared only), the vectors and
+   scalars bit for bit after the start and after a step, f32 and bf16.
    Before them, ``[data]`` lines give the static plans the redesigned
    kernels read: each stream side's row runs (mean and longest), each COO
    side's list of the stream and each feature-major list's single-chunk,
@@ -76,7 +81,13 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
    width-1 sums, the fused Hv and ``pos_dot``; u blocked: its blocked and
    fused Jacobi kernels), each also run twice from one state.  Every main
    path refreshes its residual through ``pos_dot`` (the FFM's must have
-   launched it);
+   launched it), and runs its CG as CUDA graph replays of the recurrence
+   kernel with each Hv (``cg_init`` and ``cg_step`` must have launched;
+   each replay counts the launches it recorded); after each, one epoch
+   from the same state on that device loop and on the host loop (one
+   eager iteration per host test) must give the same bits and CG counts,
+   with each loop's host reads, the replays and the masked iterations'
+   device time printed;
 8. serving: the headline FFM of phase 6 saved as a text model and a
    checkpoint, its items' and its 111,963 test users' feature rows written
    to files; ``predict_topk_from_model`` ranks every test user over the
@@ -114,7 +125,8 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
    equal to the 2-rank data mesh's (true dims, every value: the model
    axis only gathers exact copies), each within ``MESH_FILE_TOL`` of the
    one process's;
-11. entry points: ``python -m one_class_ffm_torch`` on small text
+11. entry points (from phase 10 on, a failed phase is reported and the
+   next one runs; the run fails at the end): ``python -m one_class_ffm_torch`` on small text
    datasets, MF with --ns, FFM without, FM with its user field above the
    cap, and MF with --ns --blocked-bm 0, must exit 0;
    ``python -m one_class_ffm_torch.predict --scores`` on the FFM run's text
@@ -125,6 +137,11 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
    on the card on its output (finite metrics); ``[bf16 mf]``: MF --ns at
    full width, 11 epochs at bf16 and at float32, the AUC of each epoch
    side by side (finite).
+
+``python3 chip_smoke.py cg-bench ROOT [ROOT ...]`` trains MF, the FFM,
+the skewed FFM and the both-COO FFM in each tree in turn (3 epochs, peak
+memory, host reads of the CG stop test, a profiled epoch);
+``groups:ROOT`` at each CG group size.
 
 The line before the last is a JSON object with one entry per kernel: its
 launches summed over the eight main paths, the serving path and the mesh
@@ -183,6 +200,11 @@ REPLACES = {
     "pos_seg_sum": "one_class_ffm_tpu/solver/jax_solver.py:1215",
     "pos_hv_coo": "one_class_ffm_tpu/solver/jax_solver.py:1900",
     "pos_dot": f"{_JAX_OPS}:215",
+    # the CG recurrence of a Newton solve: the while_loop's start (S0, V0,
+    # g2, rz0) and its body with the cond (XLA ops inside the jitted
+    # epoch there)
+    "cg_init": "one_class_ffm_tpu/solver/jax_solver.py:2044",
+    "cg_step": "one_class_ffm_tpu/solver/jax_solver.py:2018",
 }
 BLOCKED = ("pos_hv_blocked", "pos_scatter_blocked", "pos_gap_blocked")
 TABLE = ("pos_hv_tbl", "grad_cross_tbl", "hv_self_tbl", "grad_self_tbl")
@@ -192,6 +214,7 @@ DIAG = ("pos_scatter_blocked_diag", "grad_cross_tbl_diag",
 VARIANTS = ("pos_hv_packed", "pos_hv_blocked_g")
 COO = ("pos_scatter", "pos_scatter_pair", "pos_seg_sum", "pos_hv_coo")
 DOT = ("pos_dot",)
+CG = ("cg_init", "cg_step")
 _CSRC = "one_class_ffm_torch/csrc/"
 # (B5's row stage runs on B2's body in blocked_ops.cu, its X^T stage in
 # table_ops.cu)
@@ -202,6 +225,7 @@ SOURCE = {name: _CSRC + (
     else "project_ops.cu" if name == "project"
     else "hv_variants.cu" if name in VARIANTS
     else "coo_ops.cu" if name in COO + DOT
+    else "cg_ops.cu" if name in CG
     else "table_ops.cu") for name in REPLACES}
 BOUND = {"float32": 1e-5, "bfloat16": 5e-3}  # max-rel, scripts/kt_debug.py
 # the H100 SXM's published peaks (NVIDIA's H100 datasheet): device memory
@@ -358,13 +382,14 @@ def build_data(n_users: int, n_items: int, avg_pos: float, seed: int,
 
 def make_trainer(data, device, k: int = 32, dtype: str = "float32",
                  epochs: int = 3, cg_precond: str = "auto",
-                 blocked_bm: int = 256, head_chunk: int = 512, **cfg_kw):
+                 blocked_bm: int = 256, head_chunk: int = 512, seed: int = 0,
+                 **cfg_kw):
     from one_class_ffm_torch.train import TrainConfig, Trainer
 
     cfg = TrainConfig(item_path="<memory>", train_path="<memory>", k=k,
                       lam=0.05, omega=0.1, r=-1.0, nr_pass=epochs,
                       self_side=data.layout.self_side, dtype=dtype,
-                      eval_every=epochs, seed=0, cg_precond=cg_precond,
+                      eval_every=epochs, seed=seed, cg_precond=cg_precond,
                       blocked_bm=blocked_bm, **cfg_kw)
     return Trainer(cfg, data=data, device=device, head_chunk=head_chunk)
 
@@ -1064,6 +1089,20 @@ def _cast(a, dt):
     return a
 
 
+@contextlib.contextmanager
+def eager_cg(solver):
+    """The solver's CG as one eager iteration per host read of the stop
+    flag while the block runs: a phase that records the arguments the
+    kernel wrappers receive needs them called, which a CUDA graph's replay
+    does not."""
+    saved = solver.cg_host_loop
+    solver.cg_host_loop = True
+    try:
+        yield solver
+    finally:
+        solver.cg_host_loop = saved
+
+
 def kernel_phase(trainer, cases, tag: str, gpu: str, report,
                  timed: bool = True) -> None:
     """Each kernel vs its plain version on the arguments the solver gives
@@ -1076,7 +1115,7 @@ def kernel_phase(trainer, cases, tag: str, gpu: str, report,
     state = trainer.init_state()
     sa, sb = solver.sasb(state)
     for names, b, first, side in cases:
-        with first_calls(names) as seen:
+        with first_calls(names) as seen, eager_cg(solver):
             solver._solve_half(state, b, first, sa, sb)
         check(set(seen) == set(names),
               f"{tag} block {b.f12} {side}: launched {sorted(seen)}, not "
@@ -1275,7 +1314,8 @@ def record_head_ops(trainer):
     fu = lay.fu
     mod = [n for _, n in HEAD_OPS if not n.startswith("_")]
     meth = [n for _, n in HEAD_OPS if n.startswith("_")]
-    with recorded(ts, mod) as calls, recorded(solver, meth) as mcalls:
+    with recorded(ts, mod) as calls, recorded(solver, meth) as mcalls, \
+            eager_cg(solver):
         for b, first in ((blocks[(0, fu)], False),
                          (blocks[(1, fu + 1)], False),
                          (blocks[(fu + 1, fu + 1)], True)):
@@ -1307,6 +1347,32 @@ def head_op_phase(trainer, gpu: str) -> None:
               f"[{gpu}]")
 
 
+def _same_state(a, b) -> bool:
+    """Two states' tables, caches, side sums and residuals bit for bit."""
+    import torch
+
+    def same(x, y):
+        return x.dtype == y.dtype and torch.equal(_bits(x), _bits(y))
+
+    ok = True
+    for key in ("P", "Q"):
+        ok = ok and all(same(a[key][f], b[key][f]) for f in a[key])
+    for f12, blk in a["params"].items():
+        ok = ok and all(same(t, b["params"][f12][n]) for n, t in blk.items())
+    for key, t in a.items():
+        if isinstance(t, torch.Tensor):
+            ok = ok and same(t, b[key])
+    return ok
+
+
+def _bits(t):
+    """A tensor's bit patterns (torch.equal holds -0.0 equal to +0.0)."""
+    import torch
+
+    view = {8: torch.int64, 4: torch.int32, 2: torch.int16}
+    return t.contiguous().view(view[t.element_size()])
+
+
 def check_repeatable(tag: str, trainer) -> None:
     """Two runs of one epoch from the same state give the same bits (no
     float atomics on the path)."""
@@ -1314,18 +1380,226 @@ def check_repeatable(tag: str, trainer) -> None:
 
     a, ia = trainer.solver.epoch_stats(trainer.state)
     b, ib = trainer.solver.epoch_stats(trainer.state)
-    same = torch.equal(ia, ib)
-    for key in ("P", "Q"):
-        same = same and all(torch.equal(a[key][f], b[key][f]) for f in a[key])
-    for f12, blk in a["params"].items():
-        same = same and all(torch.equal(t, b["params"][f12][n])
-                            for n, t in blk.items())
-    for key, t in a.items():
-        if isinstance(t, torch.Tensor):
-            same = same and torch.equal(t, b[key])
+    same = torch.equal(ia, ib) and _same_state(a, b)
     print(f"[main {tag}] one epoch twice from the same state: the same bits "
           f"{same}")
     check(same, f"{tag}: two runs of one epoch differ")
+
+
+def loop_check(tag: str, trainer, gpu: str) -> dict:
+    """One epoch from the trainer's state on the device loop (CUDA graph
+    replays of ``cg_group`` iterations, a host read of the stop flag per
+    replay) and on the host loop (one eager iteration per host read): the
+    same tables, caches, residuals and CG counts, bit for bit.  Prints each
+    loop's epoch seconds and host reads, the replays, the iterations run
+    after their solve's stop and their device time: each graph replayed on
+    a stopped solve (its Hv runs, the recurrence writes nothing), by CUDA
+    events, times its masked iterations in the epoch."""
+    import torch
+
+    solver = trainer.solver
+    check(solver._graph_path(), f"{tag}: the solver is not on the CUDA "
+                                "graph path")
+    graphs = solver._graphs.graphs
+    masked0 = {k: e.masked for k, e in graphs.items()}
+    c0 = dict(solver.cg_counts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dev, dev_it = solver.epoch_stats(trainer.state)
+    torch.cuda.synchronize()
+    t_dev = time.perf_counter() - t0
+    c1 = dict(solver.cg_counts)
+    with eager_cg(solver):
+        t0 = time.perf_counter()
+        host, host_it = solver.epoch_stats(trainer.state)
+        torch.cuda.synchronize()
+        t_host = time.perf_counter() - t0
+    c2 = dict(solver.cg_counts)
+    same = torch.equal(dev_it, host_it) and _same_state(dev, host)
+    masked_ms = 0.0
+    for key, e in graphs.items():
+        n = e.masked - masked0.get(key, 0)
+        if n:
+            masked_ms += n * time_ms(e.graph.replay, reps=5, rounds=3,
+                                     warm_ms=2.0) / e.group
+    out = dict(dev_s=t_dev, host_s=t_host,
+               reads=c1["reads"] - c0["reads"],
+               host_reads=c2["reads"] - c1["reads"],
+               replays=c1["replays"] - c0["replays"],
+               masked=c1["masked"] - c0["masked"], masked_ms=masked_ms,
+               iters=int(dev_it.sum()), solves=dev_it.numel())
+    print(f"[main {tag}] device loop vs host loop, one epoch from one state: "
+          f"the same bits and CG counts {same}; device loop "
+          f"{t_dev:.4f} s, {out['reads']} host reads of the stop flag, "
+          f"{out['replays']} graph replays of {solver.cg_group} iterations, "
+          f"{out['masked']} masked iterations ({masked_ms:.4f} ms of device "
+          f"time); host loop {t_host:.4f} s, {out['host_reads']} host "
+          f"reads; {out['iters']} iterations in {out['solves']} solves "
+          f"[{gpu}]")
+    check(same, f"{tag}: the device loop's epoch is not the host loop's")
+    return out
+
+
+def cg_work(name: str, n: int, storage_bytes: int, jacobi: bool):
+    """(bytes, operations) of the recurrence on n elements: cg_init reads G
+    (and D) and writes S, R and V (and V at storage below float32); an
+    iteration (cg_step) reads S, R, V and Hv (and D) and writes S, R and V
+    (and V at storage), with the products and sums of den, S, R, r2 and V
+    (and Z = R / D and rz), each counted once."""
+    low = storage_bytes < 4  # V at storage is its own array
+    if name == "cg_init":
+        nbytes = n * (4 + 4 * jacobi + 12 + storage_bytes * low)
+        return nbytes, n * (2 + 3 * jacobi)
+    nbytes = n * (12 + storage_bytes + 4 * jacobi + 12 + storage_bytes * low)
+    return nbytes, n * (10 + 3 * jacobi)
+
+
+def _eager_step(st, Hv, storage):
+    """The port's recurrence before the kernel: the eager torch operations
+    of one iteration after the Hv (its host read of the stop test left
+    out), the yardstick of cg_step."""
+    import torch
+
+    ct = st.S.dtype
+    one = torch.ones((), dtype=ct, device=Hv.device)
+    zero = torch.zeros((), dtype=ct, device=Hv.device)
+    rz = torch.ones((), dtype=ct, device=Hv.device)
+    D = st.D
+
+    def call():
+        Hc = Hv.to(ct)
+        den = (st.V * Hc).sum()
+        ok = den > 0
+        alpha = torch.where(ok, rz / torch.where(ok, den, one), zero)
+        S = st.S + alpha * st.V
+        R = st.R - alpha * Hc
+        r2 = torch.where(ok, (R * R).sum(), zero)
+        rz_safe = torch.where(rz > 0, rz, one)
+        if D is None:
+            V = R + (r2 / rz_safe) * st.V
+        else:
+            Z = R / D
+            V = Z + ((R * Z).sum() / rz_safe) * st.V
+        return S, V.to(storage)
+    return call
+
+
+def cg_phase(trainer, b, sides, tag: str, gpu: str, report,
+             timed: bool = True) -> None:
+    """The recurrence kernels (cg_ops.cu) against their plain versions on
+    the arguments real half-solves of block ``b`` give them, each side of
+    ``sides`` from a fresh init: cg_init's G (and D) and the first cg_step's
+    Hv, at float32 and bfloat16 storage; the vectors and the scalars after
+    the start and after one step bit for bit.  At float32 (``timed``) the
+    kernel, plain and eager-sequence times and the bound of the work: the
+    step on a state re-armed before each call (its done flag cleared, which
+    is timed alone and taken off), so every timed step does its whole
+    work."""
+    import torch
+
+    from one_class_ffm_torch.ops import kernels
+    from one_class_ffm_torch.ops import sparse_ops as ops
+
+    solver = trainer.solver
+    state = trainer.init_state()
+    sa, sb = solver.sasb(state)
+    for first in sides:
+        side = "u" if first else "v"
+        with recorded(kernels, CG, first_only=True) as calls, \
+                eager_cg(solver):
+            solver._solve_half(state, b, first, sa, sb)
+        check(calls["cg_init"] and calls["cg_step"],
+              f"{tag} {side}: the recurrence kernels were not called")
+        G0, D, _, eps, cap = calls["cg_init"][0][0]
+        Hv0 = calls["cg_step"][0][0][1]
+        n = G0.numel()
+        cfg = kernels.cg_config(n, G0.device)
+        print(f"[kernels] {tag} {side} side, {b.kind} block {b.f12}: CG "
+              f"vectors {tuple(G0.shape)} ({n} elements, {cfg.ctas} CTAs "
+              f"of {cfg.threads}, loads of {4 if cfg.vec else 1}), Jacobi "
+              f"{D is not None}")
+        for dt_name, dt in (("float32", torch.float32),
+                            ("bfloat16", torch.bfloat16)):
+            G, Hv = G0.to(dt), Hv0.to(dt)
+            st_k = kernels.cg_init(G, D, dt, eps, cap)
+            st_p = ops.cg_init_plain(G, D, dt, eps, cap)
+            eq_init, err_init = _cg_agree(st_k, st_p)
+            kernels.cg_step(st_k, Hv)
+            ops.cg_step_plain(st_p, Hv)
+            eq_step, err_step = _cg_agree(st_k, st_p)
+            for name, eq, err in (("cg_init", eq_init, err_init),
+                                  ("cg_step", eq_step, err_step)):
+                r = report[name]
+                r["max_abs_err"] = max(r["max_abs_err"], err)
+                line = (f"[kernels] {name:24s} {tag} {side} {dt_name:8s} "
+                        f"bit-equal {eq} max-abs {err:.3e}")
+                if timed and dt_name == "float32":
+                    line += _cg_times(name, G, D, Hv, dt, eps, cap, r, gpu)
+                print(line)
+                check(eq, f"{name} {tag} {side} {dt_name}: not its plain "
+                          "version's bits")
+
+
+def _cg_agree(st_k, st_p):
+    """(bit-equal, max |difference|) of the kernel's and the plain
+    version's S, R, V, V at storage and scalars."""
+    import torch
+
+    from one_class_ffm_torch.ops import kernels
+    from one_class_ffm_torch.ops import sparse_ops as ops
+
+    torch.cuda.synchronize()
+    eq, err = True, 0.0
+    for name in ("S", "R", "V", "Vs"):
+        a, b = getattr(st_k, name), getattr(st_p, name)
+        eq = eq and a.dtype == b.dtype and torch.equal(_bits(a), _bits(b))
+        err = max(err, (a.double() - b.double()).abs().max().item())
+    sk, sp = kernels.cg_scalars(st_k), ops.cg_scalars(st_p)
+    return eq and all(sk[k] == sp[k] for k in ("g2", "r2", "rz", "thr",
+                                                "it", "done")), err
+
+
+def _cg_times(name, G, D, Hv, dt, eps, cap, r, gpu) -> str:
+    """Times of cg_init or cg_step (kernel, plain, the eager sequence) and
+    the bound, added to the report ``r``; returns the line's tail."""
+    from one_class_ffm_torch.ops import kernels
+    from one_class_ffm_torch.ops import sparse_ops as ops
+
+    n = G.numel()
+    st = kernels.cg_state(tuple(G.shape), dt, D is not None, 1 << 30,
+                          G.device)
+    kernels.cg_init(G, D, dt, 0.0, 1 << 30, out=st)
+    st_p = ops.cg_init_plain(G, D, dt, 0.0, 1 << 30)
+    if name == "cg_init":
+        def kern():
+            kernels.cg_init(G, D, dt, eps, 1 << 30, out=st)
+        ms, dms = time_ms(kern), device_ms(kern)
+        pms = time_ms(lambda: ops.cg_init_plain(G, D, dt, eps, cap))
+        eager = None
+    else:
+        done = st.sc[kernels._DONE:kernels._DONE + 1]
+
+        def kern():
+            done.zero_()
+            kernels.cg_step(st, Hv)
+        ms = time_ms(kern) - time_ms(done.zero_)
+        dms = device_ms(kern) - device_ms(done.zero_)
+
+        def plain():
+            st_p.sc["done"] = False
+            ops.cg_step_plain(st_p, Hv)
+        pms = time_ms(plain)
+        eager = time_ms(_eager_step(st_p, Hv, dt))
+    nbytes, nops = cg_work(name, n, Hv.element_size(), D is not None)
+    bms, by = bound_of(nbytes, nops)
+    r["ms"] += ms
+    r["plain_ms"] += pms
+    r["nbytes"] += nbytes
+    r["ops"] += nops
+    return (f"  kernel {ms:.4f} ms (device {dms:.4f} ms)  plain {pms:.4f} "
+            f"ms  eager sequence "
+            f"{'none' if eager is None else f'{eager:.4f} ms'}  bound "
+            f"{bms:.4f} ms by {by} ({nbytes} B, {nops} ops)  [{gpu}]")
 
 
 def variant_phase(trainer, gpu: str, report) -> None:
@@ -1344,7 +1618,7 @@ def variant_phase(trainer, gpu: str, report) -> None:
     state = trainer.init_state()
     b = solver.meta.layout.cross_blocks()[0]
     for first, side in ((True, "u"), (False, "v")):
-        with first_calls(("pos_hv_blocked",)) as seen:
+        with first_calls(("pos_hv_blocked",)) as seen, eager_cg(solver):
             solver._solve_half(state, b, first, None, None)
         args, kw = seen["pos_hv_blocked"]
         groups = 2 if args[1].shape[0] % 2 == 0 else 1
@@ -1547,6 +1821,30 @@ def profile_epoch(tag: str, trainer, gpu: str) -> None:
     device_profile(f"main {tag}", "profiled epoch", epoch, gpu)
 
 
+def _busy_window(prof):
+    """(busy, window) in us of a torch.profiler trace: the union of its
+    device events' intervals, and the span of all its events; (None, None)
+    without device events."""
+    import torch
+
+    events = list(prof.events())
+    dev = sorted((e.time_range.start, e.time_range.end) for e in events
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not dev:
+        return None, None
+    busy, cur_s, cur_e = 0.0, dev[0][0], dev[0][1]
+    for s, e in dev[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    lo = min(e.time_range.start for e in events)
+    hi = max(e.time_range.end for e in events)
+    return busy, hi - lo
+
+
 def device_profile(label: str, what: str, fn, gpu: str) -> None:
     """``fn()`` under torch.profiler: the device's idle share (1 - the
     union of the kernels' intervals over the window) and the kernels that
@@ -1562,26 +1860,14 @@ def device_profile(label: str, what: str, fn, gpu: str) -> None:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = list(prof.events())
-    dev = sorted((e.time_range.start, e.time_range.end) for e in events
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
-    if not dev:
+    busy, window = _busy_window(prof)
+    if busy is None:
         print(f"[{label}] {what} {wall:.4f} s: no device events "
               f"in the trace, idle share not measured [{gpu}]")
         return
-    busy, cur_s, cur_e = 0.0, dev[0][0], dev[0][1]
-    for s, e in dev[1:]:
-        if s > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    busy += cur_e - cur_s
-    lo = min(e.time_range.start for e in events)
-    hi = max(e.time_range.end for e in events)
     print(f"[{label}] {what} {wall:.4f} s: device busy "
-          f"{busy / 1e3:.3f} ms of {(hi - lo) / 1e3:.3f} ms, idle share "
-          f"{1.0 - busy / (hi - lo):.4f} [{gpu}]")
+          f"{busy / 1e3:.3f} ms of {window / 1e3:.3f} ms, idle share "
+          f"{1.0 - busy / window:.4f} [{gpu}]")
     rows = sorted(prof.key_averages(),
                   key=lambda a: a.self_device_time_total, reverse=True)
     # the top eight, then the rest of the kernels in anonymous namespaces:
@@ -2925,6 +3211,14 @@ def main() -> int:
                         ("FFM skew-coo", skew_coo)):
             print_static_plan(tag, tr.solver.data)
         kernel_phase(mf_trainer, mf_cases(mf_trainer), "MF", gpu, report)
+        # the CG recurrence on the MF solves' vectors (200,000 x 32 and
+        # 20,000 x 32), and under Jacobi on the FFM's categorical cross
+        # solves (fused fields, D=1000 / 500), compared only
+        cg_phase(mf_trainer, mf_trainer.solver.meta.layout.cross_blocks()[0],
+                 (True, False), "MF", gpu, report)
+        jb = {(x.f1, x.f2): x for x in ffm_jac.solver.meta.layout.all_blocks()}
+        cg_phase(ffm_jac, jb[(1, ffm_jac.solver.meta.layout.fu + 1)],
+                 (True, False), "FFM jacobi", gpu, report, timed=False)
         variant_phase(mf_trainer, gpu, report)
         kernel_phase(ffm_trainer, ffm_cases(ffm_trainer), "FFM", gpu, report)
         kernel_phase(fm_trainer, fm_cases(fm_trainer), "FM", gpu, report)
@@ -2978,9 +3272,10 @@ def main() -> int:
                     "grad_self_tbl_diag"))):
             if tag.endswith("coo"):
                 print(f"[main {tag}] COO sides: {coo_sides(trainer.solver)}")
-            got, results[tag] = main_path(tag, trainer, names, gpu)
+            got, results[tag] = main_path(tag, trainer, names + CG, gpu)
             for name in REPLACES:
                 launches[name] += got[name]
+            results[tag]["loops"] = loop_check(tag, trainer, gpu)
         check(not any(results["ffm-coo"]["launches"][name]
                       for name in BLOCKED + TABLE + DIAG),
               "ffm-coo: a blocked or fused kernel launched with both sides "
@@ -3027,20 +3322,37 @@ def main() -> int:
         skew_path = os.path.join(WORK, "skew_mesh.pkl")
         with open(skew_path, "wb") as fh:
             pickle.dump(reshard(skew, MESH_ROWS, MESH_RANKS), fh, protocol=4)
-        for spec in (MESH_SPEC, dict(MESH_PATHS["skew"], data=skew_path),
-                     MESH_PATHS["coo"], MESH_PATHS["2d"]):
+        # each phase from here on runs even when an earlier one failed (the
+        # 2x2 mesh reads [mesh ffm]'s file, written before its checks); a
+        # failure is reported after the last, and the run fails
+        late = []
+
+        def late_phase(tag: str, fn) -> None:
+            try:
+                fn()
+            except Exception as e:  # reported below; the run fails
+                print(f"[{tag}] FAIL: {type(e).__name__}: {e}", flush=True)
+                late.append(f"{tag}: {type(e).__name__}: {e}")
+
+        def mesh(spec) -> None:
             got = mesh_phase(device, gpu, report, spec)
             for name in REPLACES:
                 launches[name] += got[name]
 
+        for spec in (MESH_SPEC, dict(MESH_PATHS["skew"], data=skew_path),
+                     MESH_PATHS["coo"], MESH_PATHS["2d"]):
+            late_phase(spec["tag"], lambda: mesh(spec))
+
         # 11. the command-line entry points
-        cli_phase(device)
+        late_phase("cli", lambda: cli_phase(device))
 
         # 12. the raw-data pipeline's output trained on the card, and bf16
         # MF's AUC beside f32's over 11 epochs
-        prep_phase(device, gpu)
-        bf16_mf_phase(mf, device, gpu)
+        late_phase("prep", lambda: prep_phase(device, gpu))
+        late_phase("bf16 mf", lambda: bf16_mf_phase(mf, device, gpu))
+        check(not late, "failed phases: " + "; ".join(late))
     except SmokeFailure as e:
+        print(f"[done] {time.perf_counter() - t_start:.1f} s, failed")
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
@@ -3308,10 +3620,186 @@ def coo_bench(roots) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# python3 chip_smoke.py cg-bench ROOT [ROOT ...]: the main paths' epochs of
+# two trees on one card (the CG loop on the card against the host loop)
+# ---------------------------------------------------------------------------
+
+CG_BENCH_PATHS = ("mf", "ffm", "ffm-skew", "ffm-coo")
+# ``groups:``: every main path, the group sizes there and back again, so
+# that a drift of the card over the run falls on both sides of each pair
+CG_GROUP_PATHS = ("mf", "ffm", "fm", "ffm-jacobi", "fm-jacobi", "ffm-skew",
+                  "ffm-coo", "ffm-skew-coo")
+CG_BENCH_GROUPS = (1, 2, 4, 4, 2, 1)
+
+
+def _cg_bench_trainer(tag: str, data, device):
+    """The trainer of main path ``tag`` (as ``main`` builds it)."""
+    mf, ffm, skew, fm = data
+    if tag == "mf":
+        return make_trainer(mf, device)
+    if tag == "ffm-skew":
+        return make_trainer(skew, device)
+    if tag == "ffm-skew-coo":
+        return make_trainer(skew, device, cg_precond="jacobi", head_chunk=0)
+    jac = "jacobi" if tag.endswith("jacobi") else "auto"
+    if tag.startswith("fm"):
+        return make_trainer(fm, device, cg_precond=jac)
+    return make_trainer(ffm, device, cg_precond=jac,
+                        blocked_bm=0 if tag == "ffm-coo" else 256)
+
+
+def _stop_reads(solver, its, before) -> int:
+    """Host reads of the CG stop test in an epoch: the solver's count where
+    it keeps one, else the host loop's, one per test (a test before every
+    iteration and the last, none where the count reached the cap)."""
+    if hasattr(solver, "cg_counts"):
+        return solver.cg_counts["reads"] - before
+    cap = solver.meta.hp.cg_max_iter
+    return int(sum(it + (it < cap) for it in its.tolist()))
+
+
+def _cg_bench_profile(label: str, trainer, gpu: str) -> None:
+    """One epoch under torch.profiler: busy time (the union of the device
+    events' intervals), idle share, and the device time of the eager
+    elementwise ops the recurrence kernel replaced (aten::mul, aten::add,
+    aten::sum)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.state, _ = trainer.solver.epoch_stats(trainer.state)
+        torch.cuda.synchronize()
+    busy, window = _busy_window(prof)
+    check(busy is not None, f"{label}: no device events in the trace")
+    ops = {a.key: (a.self_device_time_total / 1e3, a.count)
+           for a in prof.key_averages()
+           if a.key in ("aten::mul", "aten::add", "aten::sum")}
+    graph_kernels = sum(a.count for a in prof.key_averages()
+                        if "cg_dot_kernel" in a.key)
+    print(f"[cg bench] {label} profiled epoch: device busy "
+          f"{busy / 1e3:.3f} ms of {window / 1e3:.3f} ms, idle share "
+          f"{1.0 - busy / window:.4f}; "
+          + ", ".join(f"{k} {ms:.3f} ms in {c} calls"
+                      for k, (ms, c) in sorted(ops.items()))
+          + f"; cg_dot_kernel events {graph_kernels} [{gpu}]", flush=True)
+
+
+def cg_bench_one(root: str, cache: str) -> None:
+    """One tree's main paths (MF --ns, the FFM headline, the skewed FFM,
+    the FFM with both sides COO; ``CG_BENCH_PATHS``) at full width from
+    the seed's tables: 3 epochs through the Trainer (seconds, CG counts),
+    the peak device memory of those epochs (allocated and reserved), one
+    more epoch's host reads of the stop test, then one profiled epoch.
+    ``groups:ROOT``: this tree's main paths (``CG_GROUP_PATHS``) at each
+    CG group size of ``CG_BENCH_GROUPS`` in turn instead (3 epochs each
+    after one that captures the graphs: seconds, reads, masked
+    iterations).  The data is cached in
+    ``cache`` by the first run."""
+    import gc
+    import pickle
+
+    import torch
+
+    mode, _, root = root.rpartition(":")
+    sys.path.insert(0, os.path.abspath(root))
+    from one_class_ffm_torch.ops import kernels
+
+    device = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gpu = gpu_line()
+    kernels.load()
+    if os.path.exists(cache):
+        with open(cache, "rb") as fh:
+            data = pickle.load(fh)
+    else:
+        data = (build_data(N_USERS, N_ITEMS, 5.0, seed=0),
+                build_data(N_USERS, N_ITEMS, 5.0, seed=0, self_side=True,
+                           **FFM_DIMS),
+                build_data(N_USERS, N_ITEMS, 5.0, seed=0, self_side=True,
+                           pop_skew=1.0, **FFM_DIMS),
+                build_data(N_USERS, N_ITEMS, 5.0, seed=0, self_side=True,
+                           fm=True, **FFM_DIMS))
+        os.makedirs(os.path.dirname(cache), exist_ok=True)
+        with open(cache, "wb") as fh:
+            pickle.dump(data, fh, protocol=4)
+    label = (f"{mode} " if mode else "") + os.path.abspath(root)
+    for tag in CG_GROUP_PATHS if mode == "groups" else CG_BENCH_PATHS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        tr = _cg_bench_trainer(tag, data, device)
+        solver = tr.solver
+        if mode == "groups":
+            state0 = tr.init_state()
+            for g in CG_BENCH_GROUPS:
+                solver.cg_group = g
+                state, _ = solver.epoch_stats(state0)  # captures
+                c0 = dict(solver.cg_counts)
+                secs, its = [], []
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    state, it = solver.epoch_stats(state)
+                    torch.cuda.synchronize()
+                    secs.append(time.perf_counter() - t0)
+                    its.append(int(it.sum()))
+                c1 = solver.cg_counts
+                print(f"[cg bench] {label} {tag} group {g}: epochs "
+                      f"{', '.join(f'{x:.4f}' for x in secs)} s, "
+                      f"iterations {its}, host reads "
+                      f"{c1['reads'] - c0['reads']}, masked iterations "
+                      f"{c1['masked'] - c0['masked']} (3 epochs) [{gpu}]",
+                      flush=True)
+            continue
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res = train_and_validate(tr, epochs=3)
+        peak = torch.cuda.max_memory_allocated()
+        reserved = torch.cuda.max_memory_reserved()
+        for i, (sec, its) in enumerate(zip(res["seconds"], res["iters"])):
+            print(f"[cg bench] {label} {tag} epoch {i + 1}: {sec:.4f} s, CG "
+                  f"iterations per solve {its} [{gpu}]", flush=True)
+        print(f"[cg bench] {label} {tag} peak device memory of the 3 epochs "
+              f"and validation: allocated {peak} B, reserved {reserved} B "
+              f"[{gpu}]", flush=True)
+        before = getattr(solver, "cg_counts", {}).get("reads", 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.state, its = solver.epoch_stats(tr.state)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        print(f"[cg bench] {label} {tag} epoch 4: {sec:.4f} s, "
+              f"{int(its.sum())} CG iterations in {its.numel()} solves, "
+              f"{_stop_reads(solver, its, before)} host reads of the stop "
+              f"test [{gpu}]", flush=True)
+        _cg_bench_profile(f"{label} {tag}", tr, gpu)
+        del tr, solver
+
+
+def cg_bench(roots) -> int:
+    """Each tree in its own process, in the order given (e.g. parent, this
+    tree, this tree, parent; ``groups:ROOT`` for the CG group sizes on
+    ROOT), on the data the first one builds."""
+    cache = os.path.join(WORK, "cg_bench_data.pkl")
+    for root in roots:
+        rc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                             "cg-bench-one", root, cache]).returncode
+        if rc:
+            return rc
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["coo-bench"]:
         sys.exit(coo_bench(sys.argv[2:]))
     if sys.argv[1:2] == ["coo-bench-one"]:
         coo_bench_one(*sys.argv[2:4])
+        sys.exit(0)
+    if sys.argv[1:2] == ["cg-bench"]:
+        sys.exit(cg_bench(sys.argv[2:]))
+    if sys.argv[1:2] == ["cg-bench-one"]:
+        cg_bench_one(*sys.argv[2:4])
         sys.exit(0)
     sys.exit(main())

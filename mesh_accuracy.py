@@ -21,8 +21,10 @@ Full width (200,000 x 20,000) by default; give a device with a small size
 on the CPU, e.g. ``cpu 40000 4000``.
 
     python3 mesh_accuracy.py trace [cuda:0|cpu] [n_users n_items]
+    python3 mesh_accuracy.py loops [cuda:0|cpu] [n_users n_items]
     python3 mesh_accuracy.py dtypes [cuda:0|cpu] [n_users n_items [epochs]]
     python3 mesh_accuracy.py bf16-sizes [cuda:0|cpu] [NxM ...]
+    python3 mesh_accuracy.py seeds [cuda:0|cpu] [SEEDS [ORDERS [WHAT [NxM]]]]
 
 ``trace``: the headline FFM of ``[mesh ffm]`` (one process on the flat
 stream, 2 data ranks on the shard-aligned one, both from the seed's
@@ -36,6 +38,17 @@ units of the float32 epsilon: a flip of the rounding decides a test within
 one or two).  Then the objectives and the tables' distance after each
 epoch: where the model file's distance comes from.
 
+``loops``: the headline FFM on one process from the seed's tables,
+epoch 1 three ways: the host loop (one eager iteration per host test of
+the stop rule), the device loop with its CUDA graphs' captures, and the
+device loop again (replays only; on the CPU the grouped loop, 3
+iterations a read): the same tables, caches, residuals and CG counts or
+not.  Then, on the host loop's own states, each half-solve's first CG
+stop test r2 / (cg_eps g2) from the same G and Hv, summed three ways: by
+the recurrence kernel (on the CPU its plain version), by torch's ``sum``
+and at float64, with sum|V Hv| / V.Hv (1 where no term cancels): whether
+the order of the recurrence's own sums can flip a test.
+
 ``dtypes`` (ROADMAP C3): one process, MF ``--ns`` on ``[bf16 mf]``'s data
 (k=32, 5 positives per user) at float32 and bfloat16 storage from the
 seed's tables, stepped half-solve by half-solve (``dtype_trace``): after
@@ -46,6 +59,17 @@ re-derived from the tables; the bf16 table's distance from the float32
 one; the AUC after each epoch.  ``bf16-sizes``: ``[bf16 mf]`` (11 epochs
 of each dtype, the AUC after each; the divergence tripwire off) at each
 size given.
+
+``seeds`` (ROADMAP C4, C5): for each seed of the tables' init (``0,1,2``)
+and each order of the CG recurrence's sums (``own``: the solver's;
+``torch``: ``_torch_cg_loop``, torch's eager operations and sums), WHAT
+``mesh``: ``[mesh ffm]``'s comparison (one process on the flat stream
+and 2 data ranks from the seed's tables, 2 epochs): the model-file gate's
+distance, the solves whose CG counts differ, the objectives, and one
+process in one order against itself in the other; ``bf16``: ``[bf16
+mf]`` (float32, and bfloat16 in each order, 11 epochs, the tripwire off):
+the epoch at which the divergence tripwire would stop the run, the AUC and
+ploss after each epoch.
 """
 import os
 import pickle
@@ -213,44 +237,24 @@ TRACE_EPOCHS = 2
 
 
 def _traced_cg_loop(tests):
-    """``FFMSolver._cg_loop`` under plain CG, which also appends each stop
-    test's (r2, cg_eps * g2) to ``tests``: the same operations in the same
-    order (the loop already reads the test on the host)."""
+    """``FFMSolver._cg_loop`` under plain CG with one iteration per host
+    test, which also appends each stop test's (r2, cg_eps * g2) to
+    ``tests``: the solver's recurrence (``sparse_ops.cg_step``, on the card
+    its kernel) in the solver's order, so its steps and counts are the
+    solver's bit for bit."""
     def loop(self, hv, G, D=None):
-        import torch
+        from one_class_ffm_torch.ops import sparse_ops as ops
 
         assert D is None, "trace: plain CG only"
         hp = self.meta.hp
-        storage = self.meta.dtype
-        ct = torch.promote_types(G.dtype, torch.float32)
-        Gc = G.to(ct)
-        g2 = (Gc * Gc).sum()
-        S = torch.zeros_like(Gc)
-        R = -Gc
-        V = -Gc
-        r2 = g2
-        rz = g2
-        it = 0
-        one = torch.ones((), dtype=ct, device=Gc.device)
-        zero = torch.zeros((), dtype=ct, device=Gc.device)
+        st = ops.cg_init(G, None, self.meta.dtype, hp.cg_eps,
+                         hp.cg_max_iter)
         while True:
-            thr = hp.cg_eps * g2
-            tests.append((float(r2), float(thr)))
-            if not (it < hp.cg_max_iter and bool(r2 > thr)):
-                break
-            Hv = hv(V.to(storage)).to(ct)
-            den = (V * Hv).sum()
-            ok = den > 0
-            alpha = torch.where(ok, rz / torch.where(ok, den, one), zero)
-            S = S + alpha * V
-            R = R - alpha * Hv
-            r2_new = torch.where(ok, (R * R).sum(), zero)
-            rz_safe = torch.where(rz > 0, rz, one)
-            rz_new = r2_new
-            V = R + (rz_new / rz_safe) * V
-            r2, rz = r2_new, rz_new
-            it += 1
-        return S, it
+            sc = ops.cg_scalars(st)
+            tests.append((sc["r2"], sc["thr"]))
+            if sc["done"]:
+                return st.S, sc["it"]
+            ops.cg_step(st, hv(st.Vs))
     return loop
 
 
@@ -390,6 +394,57 @@ def trace(device, nu, ni):
 DTYPE_EPOCHS = 6
 
 
+def loops(device, nu, ni):
+    """``loops`` (module docstring): prints one line for the three epochs
+    and one per half-solve."""
+    from one_class_ffm_torch.ops import sparse_ops as ops
+
+    dev = torch.device(device)
+    dims = (cs.FFM_DIMS if nu == cs.N_USERS
+            else dict(dims_u=(nu, 1000), dims_v=(ni, 500)))
+    tr = cs.make_trainer(cs.build_data(nu, ni, 5.0, seed=0, self_side=True,
+                                       **dims), dev)
+    solver, state0 = tr.solver, tr.init_state()
+    with cs.eager_cg(solver):
+        host, it_h = solver.epoch_stats(state0)
+    if dev.type == "cpu":
+        solver.cg_group = 3
+    first, it_1 = solver.epoch_stats(state0)
+    again, it_2 = solver.epoch_stats(state0)
+    same = [torch.equal(it, it_h) and cs._same_state(st, host)
+            for st, it in ((first, it_1), (again, it_2))]
+    print(f"== loops {nu}x{ni} on {device}: epoch 1 from the seed's tables, "
+          f"CG {it_h.tolist()}; the device loop's first epoch (captures) "
+          f"the host loop's bits {same[0]}, its second (replays) {same[1]}")
+    hp, storage = solver.meta.hp, solver.meta.dtype
+    state = state0
+    sa, sb = solver.sasb(state)
+    order = [(b, f) for b in solver.meta.layout.epoch_order()
+             for f in (True, False)]
+    with cs.eager_cg(solver):
+        for i, (b, f) in enumerate(order):
+            G, hv, _, _, _ = solver.solve_inputs(state, b, f, sa, sb)
+            st = ops.cg_init(G, None, storage, hp.cg_eps, hp.cg_max_iter)
+            Hv = hv(st.Vs)
+            ops.cg_step(st, Hv)
+            sc = ops.cg_scalars(st)
+            V, H, Gf = -G.float(), Hv.float(), G.float()
+            a_t = (Gf * Gf).sum() / (V * H).sum()
+            r2_t = ((-Gf - a_t * H) ** 2).sum() / (hp.cg_eps * (Gf * Gf).sum())
+            Vd, Hd, Gd = V.double(), H.double(), G.double()
+            vh = Vd * Hd
+            a_d = (Gd * Gd).sum() / vh.sum()
+            r2_d = ((-Gd - a_d * Hd) ** 2).sum() / (hp.cg_eps
+                                                   * (Gd * Gd).sum())
+            state, it = solver._solve_half(state, b, f, sa, sb)
+            print(f"loops {i:2d} {b.kind} {b.f12} {'W' if f else 'H'}: first "
+                  f"stop test r2/thr recurrence {sc['r2'] / sc['thr']:.6f} "
+                  f"torch {float(r2_t):.6f} float64 {float(r2_d):.6f}; "
+                  f"sum|V Hv|/V.Hv {float(vh.abs().sum() / vh.sum()):.3e}; "
+                  f"CG {it}")
+            sys.stdout.flush()
+
+
 def _dtype_stats(solver, state, ref64):
     """The tracked and recomputed quantities of one state: the objective of
     the carried caches and residual, evaluated at float64 (``ref64``'s
@@ -487,11 +542,231 @@ def dtype_trace(device, nu, ni, epochs=DTYPE_EPOCHS):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# seeds: how far [mesh ffm]'s model file and [bf16 mf] move with the seed
+# ---------------------------------------------------------------------------
+
+SEED_EPOCHS = 2
+
+
+def _torch_cg_loop(self, hv, G, D=None):
+    """``FFMSolver._cg_loop`` with the recurrence in torch's eager
+    operations, its sums in torch's ``sum`` order, and one host test of
+    the stop rule per iteration: the port's loop before the recurrence
+    kernel, to set against the kernel's order from the same seeds."""
+    hp = self.meta.hp
+    storage = self.meta.dtype
+    ct = torch.promote_types(G.dtype, torch.float32)
+    Gc = G.to(ct)
+    Dc = None if D is None else D.to(ct)
+    g2 = (Gc * Gc).sum()
+    S = torch.zeros_like(Gc)
+    R = -Gc
+    V = -Gc if Dc is None else -Gc / Dc
+    r2 = g2
+    rz = g2 if Dc is None else (Gc * (Gc / Dc)).sum()
+    it = 0
+    one = torch.ones((), dtype=ct, device=Gc.device)
+    zero = torch.zeros((), dtype=ct, device=Gc.device)
+    while it < hp.cg_max_iter and bool(r2 > hp.cg_eps * g2):
+        Hv = hv(V.to(storage)).to(ct)
+        den = (V * Hv).sum()
+        ok = den > 0
+        alpha = torch.where(ok, rz / torch.where(ok, den, one), zero)
+        S = S + alpha * V
+        R = R - alpha * Hv
+        r2_new = torch.where(ok, (R * R).sum(), zero)
+        rz_safe = torch.where(rz > 0, rz, one)
+        if Dc is None:
+            rz_new = r2_new
+            V = R + (rz_new / rz_safe) * V
+        else:
+            Z = R / Dc
+            rz_new = (R * Z).sum()
+            V = Z + (rz_new / rz_safe) * V
+        r2, rz = r2_new, rz_new
+        it += 1
+    return S, it
+
+
+def _with_order(solver, order: str):
+    """``order`` "own": the solver's own CG loop; "torch": the loop with
+    the recurrence in torch's order (``_torch_cg_loop``)."""
+    if order == "torch":
+        solver._cg_loop = types.MethodType(_torch_cg_loop, solver)
+    return solver
+
+
+def _tables(solver, state):
+    return {f"{n}[{f12}]": t.float().cpu().numpy()
+            for f12, blk in solver.full_params(state["params"]).items()
+            for n, t in blk.items()}
+
+
+def seed_rank(jobs, device, spec):
+    """One rank of ``seeds``: for each job (state, one process's tables,
+    order) the state placed on its part of the 2-rank mesh and trained
+    ``SEED_EPOCHS`` epochs; rank 0 measures its tables against the one
+    process's as ``[mesh ffm]``'s file gate does (max over the tables of
+    max|d|/max|ref|)."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    torch.set_num_threads(2)
+    data = cs._mesh_data(spec, 2)
+    out = []
+    for state_path, ref_path, order in jobs:
+        tr = cs.make_trainer(data, device, epochs=SEED_EPOCHS,
+                             mesh_shape="2", distributed=True)
+        solver = _with_order(tr.solver, order)
+        with open(state_path, "rb") as fh:
+            state = tr._place_state(pickle.load(fh))
+        iters, objs = [], []
+        for _ in range(SEED_EPOCHS):
+            state, it = solver.epoch_stats(state)
+            iters.append([int(i) for i in it])
+            objs.append(float(solver.objective(state)))
+        tables = _tables(solver, state)
+        res = dict(rank=tr.mesh.rank, iters=iters, objectives=objs)
+        if tr.mesh.rank == 0:
+            with open(ref_path, "rb") as fh:
+                ref = pickle.load(fh)
+            res["dist"] = {k: rel(tables[k], ref[k]) for k in ref}
+        out.append(res)
+        del tr, solver, state
+    return out
+
+
+def seed_mesh(device, seeds, orders, nu=cs.N_USERS, ni=cs.N_ITEMS):
+    """[mesh ffm]'s comparison for each seed of the tables' init and each
+    order of the recurrence's sums: one process on the flat stream and 2
+    data ranks, both from the seed's tables, ``SEED_EPOCHS`` epochs; the
+    file gate's distance, the worst table, the objectives and the solves
+    whose CG counts differ."""
+    from one_class_ffm_torch.parallel.distributed import spawn
+    from one_class_ffm_torch.parallel.mesh import host_arrays
+
+    spec = dict(cs.MESH_SPEC, tag="seeds", n_users=nu, n_items=ni,
+                dims=(cs.FFM_DIMS if nu == cs.N_USERS
+                      else dict(dims_u=(nu, 1000), dims_v=(ni, 500))))
+    work = os.path.join(cs.WORK, "accuracy_seeds")
+    os.makedirs(work, exist_ok=True)
+    data = cs._mesh_data(spec, spec["ref_shards"])
+    dev = torch.device(device)
+    for seed in seeds:
+        jobs, ones = [], []
+        for order in orders:
+            tr = cs.make_trainer(data, dev, epochs=SEED_EPOCHS, seed=seed)
+            solver = _with_order(tr.solver, order)
+            state = tr.init_state()
+            state_path = os.path.join(work, f"state0_{seed}_{order}.pkl")
+            with open(state_path, "wb") as fh:
+                pickle.dump(host_arrays(state), fh, protocol=4)
+            iters, objs = [], []
+            for _ in range(SEED_EPOCHS):
+                state, it = solver.epoch_stats(state)
+                iters.append([int(i) for i in it])
+                objs.append(float(solver.objective(state)))
+            ref_path = os.path.join(work, f"one_{seed}_{order}.pkl")
+            with open(ref_path, "wb") as fh:
+                pickle.dump(_tables(solver, state), fh, protocol=4)
+            jobs.append((state_path, ref_path, order))
+            ones.append(dict(iters=iters, objectives=objs))
+            del tr, solver, state
+        if len(jobs) > 1:  # one process against itself in the other order
+            with open(jobs[0][1], "rb") as fh:
+                first = pickle.load(fh)
+            with open(jobs[1][1], "rb") as fh:
+                second = pickle.load(fh)
+            d = {k: rel(first[k], second[k]) for k in first}
+            worst = max(d, key=d.get)
+            print(f"seeds one-process seed {seed}: order {orders[0]} against "
+                  f"order {orders[1]}: distance {d[worst]:.4e} (worst table "
+                  f"{worst})")
+            del first, second
+        outs = spawn("mesh_accuracy:seed_rank", 2, args=(jobs, device, spec),
+                     backend="gloo", workdir=work, timeout=1800)
+        for j, (order, one) in enumerate(zip(orders, ones)):
+            r0 = outs[0][j]
+            worst = max(r0["dist"], key=r0["dist"].get)
+            flips = [sum(a != b for a, b in zip(one["iters"][e],
+                                                r0["iters"][e]))
+                     for e in range(SEED_EPOCHS)]
+            objs = " ".join(f"{a:.6f}/{b:.6f}" for a, b in
+                            zip(one["objectives"], r0["objectives"]))
+            print(f"seeds mesh seed {seed} order {order:5s}: file distance "
+                  f"{r0['dist'][worst]:.4e} (worst table {worst}; gate "
+                  f"{cs.MESH_FILE_TOL:g}); solves whose CG counts differ "
+                  f"per epoch {flips}; CG per epoch one "
+                  f"{[sum(i) for i in one['iters']]} ranks "
+                  f"{[sum(i) for i in r0['iters']]}; objectives one/ranks "
+                  f"{objs}")
+        sys.stdout.flush()
+
+
+def seed_bf16(device, seeds, orders, epochs, nu=cs.N_USERS,
+              ni=cs.N_ITEMS):
+    """[bf16 mf] for each seed of the tables' init: float32 (its own loop)
+    and bfloat16 storage in each order of the recurrence's sums, ``epochs``
+    epochs with the divergence tripwire off; per run the AUC and ploss
+    after each epoch and the first epoch where the tripwire
+    (ploss > max_ploss, or a non-finite metric) would stop the run."""
+    import dataclasses
+    import math
+
+    dev = torch.device(device)
+    data = cs.build_data(nu, ni, 5.0, seed=0)
+    for seed in seeds:
+        for dt, order in [("float32", "own")] + [("bfloat16", o)
+                                                 for o in orders]:
+            tr = cs.make_trainer(data, dev, dtype=dt, epochs=1,
+                                 nan_guard=False, seed=seed)
+            _with_order(tr.solver, order)
+            tr.init_state()
+            aucs, plosses, trip = [], [], None
+            for ep in range(1, epochs + 1):
+                tr.cfg = dataclasses.replace(tr.cfg, nr_pass=ep)
+                tr.run(log=lambda *_: None)
+                m = tr.validate()
+                aucs.append(m["auc"])
+                plosses.append(float(m["ploss"]))
+                bad = not all(math.isfinite(float(v)) for v in m.values()
+                              if isinstance(v, (int, float)))
+                if trip is None and (bad or plosses[-1] > tr.cfg.max_ploss):
+                    trip = ep
+            print(f"seeds bf16 seed {seed} {dt:8s} order {order:5s}: "
+                  f"tripwire at epoch {trip}; objective "
+                  f"{float(tr.solver.objective(tr.state)):.6e}; AUC "
+                  f"{' '.join(f'{a:.4f}' for a in aucs)}; ploss "
+                  f"{' '.join(f'{p:.3g}' for p in plosses)}")
+            sys.stdout.flush()
+            del tr
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+
+
 if __name__ == "__main__":
     args = sys.argv[1:]
-    mode = (args.pop(0) if args and args[0] in ("trace", "dtypes",
-                                                 "bf16-sizes")
+    mode = (args.pop(0) if args and args[0] in ("trace", "loops", "dtypes",
+                                                 "bf16-sizes", "seeds")
             else "accuracy")
+    if mode == "seeds":
+        dev = args[0] if args else "cuda:0"
+        seeds = [int(x) for x in (args[1] if len(args) > 1
+                                  else "0,1,2,3,4").split(",")]
+        orders = (args[2] if len(args) > 2 else "own,torch").split(",")
+        what = args[3] if len(args) > 3 else "mesh,bf16"
+        nu, ni = ((int(x) for x in args[4].split("x")) if len(args) > 4
+                  else (cs.N_USERS, cs.N_ITEMS))
+        if dev.startswith("cuda"):
+            print("[device]", cs.gpu_line())
+        else:
+            torch.set_num_threads(4)
+        if "mesh" in what:
+            seed_mesh(dev, seeds, orders, nu, ni)
+        if "bf16" in what:
+            seed_bf16(dev, seeds, orders, cs.BF16_EPOCHS, nu, ni)
+        sys.exit(0)
     if mode == "bf16-sizes":
         dev = torch.device(args[0] if args else "cuda:0")
         gpu = cs.gpu_line() if dev.type == "cuda" else "cpu"
@@ -523,6 +798,10 @@ if __name__ == "__main__":
         print("[device]", cs.gpu_line())
     if mode == "trace":
         trace(dev, nu, ni)
+    elif mode == "loops":
+        if dev == "cpu":
+            torch.set_num_threads(4)
+        loops(dev, nu, ni)
     else:
         for kind in ("coo", "blocked"):
             run(kind, dev, nu, ni)

@@ -20,13 +20,16 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
 import tempfile
 import time
+from contextlib import contextmanager
+from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 
@@ -35,7 +38,7 @@ from .layout import FeatureMajor, seg_sum_lanes, xt_plan
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / name for name in (
     "blocked_ops.cu", "table_ops.cu", "project_ops.cu", "hv_variants.cu",
-    "coo_ops.cu"))
+    "coo_ops.cu", "cg_ops.cu"))
 HEADERS = (_PKG / "csrc" / "common.cuh",)
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -51,13 +54,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # over the side's list of the positive stream, coo_ops.cu: the gradient's
 # scatter, with the Jacobi payload from the same read or that payload
 # alone, the self blocks' per-row sums, and the fused cross Hv), and the
-# stream's gather-and-dot pos_dot (the residual refresh, a COO side's gaps)
+# stream's gather-and-dot pos_dot (the residual refresh, a COO side's gaps),
+# and the CG recurrence of a Newton solve (cg_ops.cu: its start, and one
+# iteration after the Hv with the stop test on the card)
 KERNELS = ("pos_hv_blocked", "pos_scatter_blocked", "pos_gap_blocked",
            "pos_hv_tbl", "grad_cross_tbl", "hv_self_tbl", "grad_self_tbl",
            "project", "scatter", "pos_scatter_blocked_diag",
            "grad_cross_tbl_diag", "grad_self_tbl_diag", "pos_hv_packed",
            "pos_hv_blocked_g", "pos_scatter", "pos_scatter_pair",
-           "pos_seg_sum", "pos_hv_coo", "pos_dot")
+           "pos_seg_sum", "pos_hv_coo", "pos_dot", "cg_init", "cg_step")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # Launches per kernel since the last reset: a run reads them to show that
@@ -75,6 +80,13 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for name in _launches:
         _launches[name] = 0
+
+
+def count_launches(delta: Dict[str, int]) -> None:
+    """Add launches made outside the wrappers: a CUDA graph's replay counts
+    the launches its capture recorded (its capture launched nothing)."""
+    for name, n in delta.items():
+        _launches[name] += n
 
 
 def _nvcc() -> str:
@@ -173,11 +185,16 @@ def load() -> ctypes.CDLL:
         vp, vp, vp, vp, vp, i32, i32, vp]
     lib.ocffm_pos_dot.argtypes = [i32, vp, vp, i32, vp, vp, i32, vp, i64, i32,
                                   vp]
+    lib.ocffm_cg_init.argtypes = [i32, vp, vp, vp, vp, vp, vp, vp, vp, i64,
+                                  i32, i32, i32, f32, i32, vp]
+    lib.ocffm_cg_step.argtypes = [i32, vp, vp, vp, vp, vp, vp, vp, vp, i64,
+                                  i32, i32, i32, i32, vp]
     for fn in (lib.ocffm_pos_hv_tbl_rows, lib.ocffm_grad_cross_tbl_rows,
                lib.ocffm_hv_self_tbl_rows, lib.ocffm_grad_self_tbl_rows,
                lib.ocffm_xt_scatter, lib.ocffm_project,
                lib.ocffm_pos_hv_packed, lib.ocffm_pos_hv_blocked_g,
-               lib.ocffm_coo_list, lib.ocffm_pos_dot):
+               lib.ocffm_coo_list, lib.ocffm_pos_dot, lib.ocffm_cg_init,
+               lib.ocffm_cg_step):
         fn.restype = i32
     _lib = lib
     _max_k = lib.ocffm_max_k()
@@ -424,6 +441,29 @@ class _XtPlan:
 # plan holds the list, so that its id stays its own.  The lists are static,
 # so a solver's checks run once, not on every call.
 _xt_checked: Dict[tuple, _XtPlan] = {}
+# while a CUDA graph is captured: every plan its launches read (``hold_plans``)
+_held: Optional[List[_XtPlan]] = None
+
+
+@contextmanager
+def hold_plans():
+    """Collect every list plan the launches inside the block read.  A CUDA
+    graph captured there writes the plans' scratch (tickets, partial rows)
+    at every replay, so its owner keeps them: the cache above drops its
+    entries at 64 lists, and a freed scratch would be written by a replay
+    without an error."""
+    global _held
+    saved, _held = _held, []
+    try:
+        yield _held
+    finally:
+        _held = saved
+
+
+def _hold(plan: _XtPlan) -> _XtPlan:
+    if _held is not None:
+        _held.append(plan)
+    return plan
 
 
 def _xt_inputs(xt: FeatureMajor, dt, dev, squared: bool,
@@ -434,7 +474,7 @@ def _xt_inputs(xt: FeatureMajor, dt, dev, squared: bool,
     key = (id(xt), dt, dev, squared)
     hit = _xt_checked.get(key)
     if hit is not None and hit.xt is xt:
-        return hit
+        return _hold(hit)
     if xt.val is None or xt.pos is not None:
         raise ValueError(f"{name}: a list of the positive stream, not of a "
                          "field's X")
@@ -450,7 +490,7 @@ def _xt_inputs(xt: FeatureMajor, dt, dev, squared: bool,
                      xt_plan(xt.feat_ptr.cpu().numpy()))
     _check("xt.val_sq" if squared else "xt.val", vals, dt,
            (xt.row.numel(),), dev)
-    return _plan_of(key, xt, vals, plan, dev)
+    return _hold(_plan_of(key, xt, vals, plan, dev))
 
 
 def _plan_of(key, xt: FeatureMajor, vals, plan, dev, cls=None) -> _XtPlan:
@@ -756,7 +796,7 @@ def _coo_plan(coo: FeatureMajor, dt, dev, n_stream: Optional[int],
     key = (id(coo), "coo", dt, dev, n_stream)
     hit = _xt_checked.get(key)
     if hit is not None and hit.xt is coo:
-        return hit
+        return _hold(hit)
     nnz = coo.row.numel()
     _check("coo.pos", coo.pos, torch.int32, (nnz,), dev)
     if coo.val is not None:
@@ -773,7 +813,7 @@ def _coo_plan(coo: FeatureMajor, dt, dev, n_stream: Optional[int],
     if any(a is None for a in plan):
         plan = tuple(torch.from_numpy(a).to(dev) for a in
                      xt_plan(coo.feat_ptr.cpu().numpy()))
-    return _plan_of(key, coo, coo.val, plan, dev, _CooPlan)
+    return _hold(_plan_of(key, coo, coo.val, plan, dev, _CooPlan))
 
 
 def _storage(x: float, dt) -> float:
@@ -989,3 +1029,208 @@ def pos_hv_blocked_g(phi, rows, own, w_blk, dense_mat, num_out: int,
     _raise_on(err, "pos_hv_blocked_g")
     _launches["pos_hv_blocked_g"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# the CG recurrence of a Newton solve (cg_ops.cu): its start, and one
+# iteration after the Hv with the stop test on the card
+# ---------------------------------------------------------------------------
+
+CG_WORDS = 16  # 4-byte words of a solve's scalar block (cg_ops.cu CgScalars)
+_CG_F32 = ("g2", "r2", "rz", "alpha", "beta", "thr")  # words 0-5
+_CG_INT = ("it", "done", "active", "ok")  # words 6-9
+_IT, _DONE = 6, 7
+# The recurrence's sums take the order of torch's CUDA sum of a contiguous
+# float32 tensor (ATen/native/cuda/Reduce.cuh, one output), so that the
+# loop on the card gives the bits of the eager torch loop it replaced.
+# That order depends on the card's multiprocessors and threads per
+# multiprocessor; on the CPU it is the H100's.
+CG_MAX_THREADS = 512  # Reduce.cuh's threads per CTA at most
+CG_VEC = 4  # elements per vectorized load
+H100_SMS, H100_SM_THREADS = 132, 2048
+_sm_shape: Dict[Any, tuple] = {}
+
+
+@dataclass(frozen=True)
+class CgConfig:
+    """The launch of one sum over n elements: ``vec``: 4 elements a load
+    (n >= 128), ``threads`` per CTA (one row of them), ``ctas`` CTAs (more
+    than one: the last CTA adds the others' partials)."""
+
+    vec: bool
+    threads: int
+    ctas: int
+
+
+def _sm(device) -> tuple:
+    """(multiprocessors, threads per multiprocessor) of the card the sum
+    runs on, the H100's off the card."""
+    if device is None or torch.device(device).type != "cuda":
+        return H100_SMS, H100_SM_THREADS
+    dev = torch.device(device)
+    hit = _sm_shape.get(dev)
+    if hit is None:
+        prop = torch.cuda.get_device_properties(dev)
+        hit = _sm_shape[dev] = (prop.multi_processor_count,
+                                prop.max_threads_per_multi_processor)
+    return hit
+
+
+def cg_config(n: int, device=None) -> CgConfig:
+    """Reduce.cuh's setReduceConfig for the sum of n contiguous float32
+    elements into one output: 4 elements a load from n = 128, the CTA as
+    wide as the loads (a power of two, at most 512), split over CTAs when
+    each thread would add 256 or more."""
+    def last_pow2(x: int) -> int:
+        return 1 << (max(int(x), 1).bit_length() - 1)
+
+    vec = n >= 128
+    dim0 = n // CG_VEC if vec else n
+    threads = (last_pow2(dim0) if dim0 < CG_MAX_THREADS
+               else CG_MAX_THREADS)
+    per_thread = -(-n // threads)
+    ctas = 1
+    if per_thread >= 256:
+        sms, sm_threads = _sm(device)
+        target = sms * (sm_threads // threads)
+        ctas = max(min(target, -(-per_thread // 16)),
+                   -(-per_thread // 256))
+    return CgConfig(vec, threads, ctas)
+
+
+@dataclass
+class CgState:
+    """One Newton solve's CG recurrence: S, R, V at the float32 floor
+    (float64 at float64, which runs only on the CPU), V at storage dtype for
+    the Hv (``Vs``: V itself where storage is the floor), Jacobi's D at the
+    floor or None, and the scalars.  On the card ``sc`` is the solve's
+    scalar block (CG_WORDS int32 words, cg_ops.cu CgScalars) and ``part``
+    the CTAs' partial sums; in the plain version ``sc`` is a dict of 0-dim
+    tensors (g2, r2, rz, thr) and ints (it, done) and ``part`` None."""
+
+    S: torch.Tensor
+    R: torch.Tensor
+    V: torch.Tensor
+    Vs: torch.Tensor
+    D: Optional[torch.Tensor]
+    sc: Any
+    part: Optional[torch.Tensor]
+    max_iter: int
+
+
+def cg_state(shape, storage, jacobi: bool, max_iter: int,
+             device: torch.device) -> CgState:
+    """A state's buffers for vectors of ``shape`` (a CUDA graph's, which
+    ``cg_init(out=)`` starts each solve in)."""
+    n = math.prod(shape)
+    V = torch.empty(shape, dtype=torch.float32, device=device)
+    return CgState(
+        S=torch.empty_like(V), R=torch.empty_like(V), V=V,
+        Vs=V if storage == torch.float32 else torch.empty(
+            shape, dtype=storage, device=device),
+        D=torch.empty_like(V) if jacobi else None,
+        sc=torch.zeros(CG_WORDS, dtype=torch.int32, device=device),
+        part=torch.empty(2 * cg_config(n, device).ctas, dtype=torch.float32,
+                         device=device),
+        max_iter=max_iter)
+
+
+def cg_init(G: torch.Tensor, D: Optional[torch.Tensor], storage,
+            eps: float, max_iter: int,
+            out: Optional[CgState] = None) -> CgState:
+    """The solve's start (cg_init_kernel): S = 0, R = -G, V = -G (Jacobi:
+    -G / D) and V at storage, g2, rz, the threshold eps g2, the count and
+    the done flag.  ``out``: a state whose buffers to start in (D copied
+    into its own), else new ones."""
+    if G.device.type != "cuda":
+        raise ValueError(f"G must be a CUDA tensor, got {G.device}")
+    if G.dtype not in _DTYPE_CODE or storage not in _DTYPE_CODE:
+        raise TypeError(f"kernels take float32 or bfloat16, got {G.dtype} "
+                        f"and storage {storage}")
+    if G.dim() != 2 or G.numel() == 0:
+        raise ValueError(f"G must be a non-empty (rows, k) table, got "
+                         f"{tuple(G.shape)}")
+    lib, dev = load(), G.device
+    Gc = G.to(torch.float32).contiguous()
+    if out is None:
+        out = cg_state(tuple(G.shape), storage, D is not None, max_iter, dev)
+    if (D is None) != (out.D is None) or out.max_iter != max_iter:
+        raise ValueError("the state's Jacobi D or cap is not this solve's")
+    _cg_check(out, tuple(G.shape), storage, dev)
+    if D is not None:
+        if tuple(D.shape) != tuple(G.shape):
+            raise ValueError(f"D has shape {tuple(D.shape)}, G "
+                             f"{tuple(G.shape)}")
+        out.D.copy_(D)
+    n = G.numel()
+    cfg = cg_config(n, dev)
+    err = lib.ocffm_cg_init(
+        _DTYPE_CODE[storage], Gc.data_ptr(), _ptr(out.D), out.S.data_ptr(),
+        out.R.data_ptr(), out.V.data_ptr(), out.Vs.data_ptr(),
+        out.part.data_ptr(), out.sc.data_ptr(), n, cfg.ctas, cfg.threads,
+        int(cfg.vec), float(eps), int(max_iter), _stream(dev))
+    _raise_on(err, "cg_init")
+    _launches["cg_init"] += 1
+    return out
+
+
+def _cg_check(st: CgState, shape, storage, dev) -> None:
+    n = math.prod(shape)
+    for name in ("S", "R", "V", "D"):
+        t = getattr(st, name)
+        if t is not None:
+            _check(name, t, torch.float32, shape, dev)
+    _check("Vs", st.Vs, storage, shape, dev)
+    if storage == torch.float32 and st.Vs.data_ptr() != st.V.data_ptr():
+        raise ValueError("at float32 storage Vs is V itself")
+    _check("sc", st.sc, torch.int32, (CG_WORDS,), dev)
+    _check("part", st.part, torch.float32, (2 * cg_config(n, dev).ctas,),
+           dev)
+
+
+def cg_step(st: CgState, Hv: torch.Tensor) -> None:
+    """One iteration after the Hv (cg_dot_kernel, cg_update_kernel,
+    cg_dir_kernel), in place on the state's buffers; a solve already
+    stopped keeps every bit."""
+    dev, storage = st.S.device, st.Vs.dtype
+    shape = tuple(st.S.shape)
+    _check("Hv", Hv, storage, shape, dev)
+    _cg_check(st, shape, storage, dev)
+    n = st.S.numel()
+    cfg = cg_config(n, dev)
+    err = load().ocffm_cg_step(
+        _DTYPE_CODE[storage], Hv.data_ptr(), _ptr(st.D), st.S.data_ptr(),
+        st.R.data_ptr(), st.V.data_ptr(), st.Vs.data_ptr(),
+        st.part.data_ptr(), st.sc.data_ptr(), n, cfg.ctas, cfg.threads,
+        int(cfg.vec), st.max_iter, _stream(dev))
+    _raise_on(err, "cg_step")
+    _launches["cg_step"] += 1
+
+
+_read_host: Dict[Any, tuple] = {}
+
+
+def cg_read(st: CgState):
+    """(done, it): the stop flag and the count, copied through pinned
+    memory and waited for (the host's one read of a group of
+    iterations)."""
+    dev = st.sc.device
+    host, ev = _read_host.get(dev, (None, None))
+    if host is None:
+        host = torch.empty(2, dtype=torch.int32, pin_memory=True)
+        ev = torch.cuda.Event()
+        _read_host[dev] = (host, ev)
+    host.copy_(st.sc[_IT:_DONE + 1], non_blocking=True)
+    ev.record(torch.cuda.current_stream(dev))
+    ev.synchronize()
+    it, done = host.tolist()
+    return bool(done), it
+
+
+def cg_scalars(st: CgState) -> Dict[str, Any]:
+    """Every scalar of the state's block (a synchronous copy): floats and
+    ints by name."""
+    words = st.sc.cpu()
+    f = words[:len(_CG_F32)].view(torch.float32).tolist()
+    i = words[len(_CG_F32):len(_CG_F32) + len(_CG_INT)].tolist()
+    return {**dict(zip(_CG_F32, f)), **dict(zip(_CG_INT, i))}

@@ -49,6 +49,8 @@ feature's chunk sums in chunk order.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from . import kernels
@@ -114,13 +116,18 @@ def pos_dot(A: torch.Tensor, u_ids: torch.Tensor, B: torch.Tensor,
     return kernels.pos_dot(A, u_ids, B, v_ids)
 
 
-def gather_blocked_rows(B: torch.Tensor, take: torch.Tensor) -> torch.Tensor:
+def gather_blocked_rows(B: torch.Tensor, take: torch.Tensor,
+                        out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The solve's pre-gathered stream (n_blocks, MAXC, k): B is constant
     across a solve, so its random row gather is paid once and every pass
-    streams the result."""
+    streams the result.  ``out``: a contiguous (n_blocks, MAXC, k) tensor
+    to gather into (a CUDA graph's stream buffer)."""
     nb, maxc = take.shape
-    return B.index_select(0, take.reshape(-1).long()).reshape(
-        nb, maxc, B.shape[1])
+    idx = take.reshape(-1).long()
+    if out is None:
+        return B.index_select(0, idx).reshape(nb, maxc, B.shape[1])
+    torch.index_select(B, 0, idx, out=out.view(nb * maxc, B.shape[1]))
+    return out
 
 
 def _slot_rows(own: torch.Tensor, block_rows: int):
@@ -962,3 +969,93 @@ def pos_hv_blocked_g(phi, rows, own, w_blk, dense_mat, num_out: int,
     return kernels.pos_hv_blocked_g(phi, rows, own, w_blk, dense_mat,
                                     num_out, block_rows, groups, w_scale,
                                     runs=runs)
+
+
+# ---------------------------------------------------------------------------
+# the CG recurrence of a Newton solve (the reference's while_loop body and
+# cond, jax_solver.py FFMSolver._cg): its start and one iteration after the
+# Hv, with the stop flag beside the scalars; on the card cg_ops.cu (K2).
+# The plain versions sum with torch's own ``sum``, whose order on a CUDA
+# tensor the kernels reproduce (``kernels.cg_config``): on the card the two
+# agree bit for bit, and on either device a solve gives the bits of the
+# eager torch loop the kernels replaced.
+# ---------------------------------------------------------------------------
+
+CgState = kernels.CgState
+
+
+def cg_init_plain(G: torch.Tensor, D, storage, eps: float,
+                  max_iter: int) -> CgState:
+    """The plain version of ``kernels.cg_init`` (cg_init_kernel)."""
+    ct = acc_dtype(G.dtype)
+    Gc = G.to(ct)
+    Dc = None if D is None else D.to(ct)
+    Z = Gc if Dc is None else Gc / Dc
+    g2 = (Gc * Gc).sum()
+    rz = g2 if Dc is None else (Gc * Z).sum()
+    thr = torch.tensor(eps, dtype=ct, device=G.device) * g2
+    V = -Z
+    sc = dict(g2=g2, r2=g2, rz=rz, thr=thr, it=0,
+              done=not (0 < max_iter and bool(g2 > thr)))
+    return CgState(S=torch.zeros_like(Gc), R=-Gc, V=V, Vs=V.to(storage),
+                   D=Dc, sc=sc, part=None, max_iter=max_iter)
+
+
+def cg_step_plain(st: CgState, Hv: torch.Tensor) -> None:
+    """The plain version of ``kernels.cg_step``: one iteration of the
+    reference's body after the Hv, its sums by torch's ``sum``, in place
+    on ``st``; an iteration entered after the stop writes nothing."""
+    sc = st.sc
+    if sc["done"]:
+        return
+    Hc = Hv.to(st.S.dtype)
+    one = torch.ones((), dtype=Hc.dtype, device=Hc.device)
+    zero = torch.zeros((), dtype=Hc.dtype, device=Hc.device)
+    den = (st.V * Hc).sum()
+    # the degenerate-denominator guard (jax_solver.py FFMSolver._cg): a
+    # converged f32 block can underflow V.Hv to 0: no step, and the stop
+    ok = den > 0
+    alpha = torch.where(ok, sc["rz"] / torch.where(ok, den, one), zero)
+    st.S = st.S + alpha * st.V
+    R = st.R = st.R - alpha * Hc
+    r2 = torch.where(ok, (R * R).sum(), zero)
+    Z = R if st.D is None else R / st.D
+    rz = r2 if st.D is None else (R * Z).sum()
+    beta = rz / torch.where(sc["rz"] > 0, sc["rz"], one)
+    st.V = Z + beta * st.V
+    st.Vs = st.V.to(st.Vs.dtype)
+    it = sc["it"] + 1
+    sc.update(r2=r2, rz=rz, it=it,
+              done=not (it < st.max_iter and bool(r2 > sc["thr"])))
+
+
+def cg_init(G: torch.Tensor, D, storage, eps: float, max_iter: int,
+            out: Optional[CgState] = None) -> CgState:
+    """The solve's start: plain on a CPU tensor, ``kernels.cg_init`` on a
+    CUDA one (``out``: a CUDA graph's buffers to start in)."""
+    if _plain_device(G):
+        return cg_init_plain(G, D, storage, eps, max_iter)
+    return kernels.cg_init(G, D, storage, eps, max_iter, out=out)
+
+
+def cg_step(st: CgState, Hv: torch.Tensor) -> None:
+    """One iteration after the Hv (``Hv`` at the state's storage dtype)."""
+    if _plain_device(Hv):
+        return cg_step_plain(st, Hv)
+    return kernels.cg_step(st, Hv)
+
+
+def cg_read(st: CgState):
+    """(done, it): the host's read of the stop flag and the count."""
+    if isinstance(st.sc, dict):
+        return st.sc["done"], st.sc["it"]
+    return kernels.cg_read(st)
+
+
+def cg_scalars(st: CgState):
+    """The state's scalars as Python numbers by name (r2, rz, thr, g2, it,
+    done, ...)."""
+    if isinstance(st.sc, dict):
+        return {k: v.item() if isinstance(v, torch.Tensor) else v
+                for k, v in st.sc.items()}
+    return kernels.cg_scalars(st)

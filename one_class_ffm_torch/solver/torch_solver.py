@@ -45,6 +45,13 @@ on the model axis: a half-solve gathers its table once over the model
 group and keeps its own rows of the new table; the caches' refresh, the
 objective and the callers' ``full_params`` gather the tables they read.
 
+Each solve's CG runs the reference's device-resident loop (its
+``lax.while_loop``): the recurrence after each Hv is one kernel
+(``sparse_ops.cg_step``, csrc/cg_ops.cu) whose stop flag stays on the
+card; on one process on the card each table's solve replays a CUDA graph
+of ``cg_group`` iterations (``cg_graph``) and the host reads the flag once
+a replay; under a mesh, one eager iteration per host read.
+
 The state is a dict of tensors, as in the JAX package: ``params`` ({f12:
 {"W", "H"}}), the caches ``P``/``Q`` ({f12: (rows, k)}), the side sums
 ``a``/``b``, and the residual carried in each side's order, ``yt_u``/
@@ -77,6 +84,9 @@ from ..ops.layout import (
 )
 from ..ops.sparse_ops import (
     acc_dtype,
+    cg_init,
+    cg_read,
+    cg_step,
     expand_rows_blocked,
     gather_blocked_rows,
     grad_cross_tbl,
@@ -104,6 +114,7 @@ from ..ops.sparse_ops import (
 )
 from ..parallel.mesh import model_sharded
 from ..utils.device import resolve_device
+from .cg_graph import CgGraphs
 from .params import HyperParams
 
 Tensor = torch.Tensor
@@ -115,6 +126,10 @@ _PAD_RATIO = 2.0
 # package's OCFFM_FUSED_TBL_D default); a wider non-identity field projects
 # and scatters around the blocked passes
 FUSED_TBL_D = 4096
+# CG iterations per host read of the stop flag (on the card one CUDA graph
+# replay): 1, since on the H100 no larger group ran any main path's epoch
+# faster (chip_smoke.py cg-bench groups:); the tests set others
+CG_GROUP = 1
 
 
 @dataclass(frozen=True)
@@ -519,6 +534,16 @@ class FFMSolver:
         # to this rank's rows (int32, as its kernel reads them)
         self._pos_ids = ((data["pos_u"] - self.lo_u).to(torch.int32),
                          data["pos_v"].to(torch.int32))
+        # CG: ``cg_group`` iterations per host read of the stop flag (on the
+        # card one CUDA graph replay of them); set ``cg_host_loop`` for one
+        # eager iteration per host read instead, as a mesh always runs
+        on_card = self.device.type == "cuda"
+        self.cg_group = CG_GROUP
+        self.cg_host_loop = False
+        self._graphs = CgGraphs(self.device) if on_card else None
+        # host reads of the stop flag, graph replays and iterations run
+        # after their solve's stop, since the solver was made
+        self.cg_counts = dict(reads=0, replays=0, masked=0)
 
     # -- collectives (a data mesh; no-ops on one device) ----------------------
 
@@ -1107,6 +1132,16 @@ class FFMSolver:
             return (1.0 - hp.omega) * d["cnt_u"] + hp.omega * meta.n_true
         return (1.0 - hp.omega) * d["cnt_v"] + hp.omega * meta.m_true
 
+    @staticmethod
+    def _hv_closure(key, inputs: Dict[str, Tensor], make):
+        """``make(inputs)``, the Hv closure of one solve, which reads the
+        solve's own tensors only through ``inputs``; it carries its key,
+        its inputs and ``make``, from which the CUDA graph path builds the
+        same closure on buffers that stay put (``cg_graph.CgGraphs``)."""
+        hv = make(inputs)
+        hv.cg_key, hv.cg_inputs, hv.cg_make = key, inputs, make
+        return hv
+
     def _hv_cross(self, state, b: BlockInfo, first: bool, rows_pre: Tensor,
                   rows_hd: Optional[Tensor] = None):
         """Hv closure for a cross-block table (hs_cross, ffm.cpp:706-742):
@@ -1126,18 +1161,22 @@ class FFMSolver:
         B1 = state["Q"][b.f12] if first else state["P"][b.f12]
         dim = state["params"][b.f12]["W" if first else "H"].shape[0]
         coo = self._coo(first)
+        key = ("uv", b.f12, first)
         if coo is not None:
             B1d = B1.double()
             qtq, = self._row_sums([B1d.T @ B1d], "gram")  # pad rows are zero
             Bs = B1 if rows_pre is None else rows_pre
 
-            def hv_coo(V: Tensor) -> Tensor:
-                phi = self._proj(b, first, V)
-                zp = pos_hv_coo(phi, Bs, coo, 1.0 - hp.omega)
-                return hp.lam * reg[:, None] * V + self._scat(
-                    b, first, hp.omega * (phi @ qtq) + zp, dim, "hv")
+            def make_coo(x):
+                def hv_coo(V: Tensor) -> Tensor:
+                    phi = self._proj(b, first, V)
+                    zp = pos_hv_coo(phi, x["B"], coo, 1.0 - hp.omega)
+                    return hp.lam * reg[:, None] * V + self._scat(
+                        b, first, hp.omega * (phi @ x["qtq"]) + zp, dim,
+                        "hv")
+                return hv_coo
 
-            return hv_coo
+            return self._hv_closure(key, dict(B=Bs, qtq=qtq), make_coo)
         pre, num, bm = self._blk(first)
         B1d = B1.double()
         dmat = (hp.omega * self._row_sums([B1d.T @ B1d], "gram")[0]
@@ -1149,25 +1188,32 @@ class FFMSolver:
 
         hpre = pre + "hd_"
         wq_hd = self._hd_wq.get("u" if first else "v")
+        inputs = dict(rows_pre=rows_pre, dmat=dmat)
+        if rows_hd is not None:
+            inputs["rows_hd"] = rows_hd
 
-        def hv(V: Tensor) -> Tensor:
-            if fused:
-                G = pos_hv_tbl(V, idx, val, xf, rows_pre, own, w_blk, dmat,
-                               bm, w_scale, runs=runs)
-                if rows_hd is not None:
-                    G = G + self._hd_hv_tbl(b, first, V, rows_hd)
-                G = self._allreduce(G, "hv")
-                return hp.lam * reg[:, None] * V + G.to(V.dtype)
-            phi = self._proj(b, first, V)
-            zp = pos_hv_blocked(phi, rows_pre, own, w_blk, dmat, num, bm,
-                                w_scale, runs=runs)
-            if rows_hd is not None:
-                zp = zp + head_hv(phi, rows_hd, wq_hd, d[hpre + "row"],
-                                  d[hpre + "tab"], d[hpre + "rows"], num)
-            return hp.lam * reg[:, None] * V + self._scat(b, first, zp, dim,
-                                                          "hv")
+        def make(x):
+            rows, dense, rows_h = x["rows_pre"], x["dmat"], x.get("rows_hd")
 
-        return hv
+            def hv(V: Tensor) -> Tensor:
+                if fused:
+                    G = pos_hv_tbl(V, idx, val, xf, rows, own, w_blk, dense,
+                                   bm, w_scale, runs=runs)
+                    if rows_h is not None:
+                        G = G + self._hd_hv_tbl(b, first, V, rows_h)
+                    G = self._allreduce(G, "hv")
+                    return hp.lam * reg[:, None] * V + G.to(V.dtype)
+                phi = self._proj(b, first, V)
+                zp = pos_hv_blocked(phi, rows, own, w_blk, dense, num, bm,
+                                    w_scale, runs=runs)
+                if rows_h is not None:
+                    zp = zp + head_hv(phi, rows_h, wq_hd, d[hpre + "row"],
+                                      d[hpre + "tab"], d[hpre + "rows"], num)
+                return hp.lam * reg[:, None] * V + self._scat(b, first, zp,
+                                                              dim, "hv")
+            return hv
+
+        return self._hv_closure(key, inputs, make)
 
     def _hd_hv_tbl(self, b: BlockInfo, first: bool, V: Tensor,
                    rows_hd: Tensor) -> Tensor:
@@ -1193,21 +1239,25 @@ class FFMSolver:
         hp = self.meta.hp
         reg, _, _ = self._side(b, first)
         Q1 = state["Q"][b.f12] if first else state["P"][b.f12]
-        dd = self._self_dd(b)
         dim = state["params"][b.f12]["W" if first else "H"].shape[0]
         idx, val, xf = self._x(b, first)
         fused = self._fused(b, first)
 
-        def hv(V: Tensor) -> Tensor:
-            if fused:
-                G = self._allreduce(hv_self_tbl(V, idx, val, xf, Q1, dd),
-                                    "hv")
-                return hp.lam * reg[:, None] * V + G.to(V.dtype)
-            s = dd * (Q1 * self._proj(b, first, V)).sum(dim=1)
-            return hp.lam * reg[:, None] * V + self._scat(
-                b, first, s[:, None] * Q1, dim, "hv")
+        def make(x):
+            Q1, dd = x["Q1"], x["dd"]
 
-        return hv
+            def hv(V: Tensor) -> Tensor:
+                if fused:
+                    G = self._allreduce(hv_self_tbl(V, idx, val, xf, Q1, dd),
+                                        "hv")
+                    return hp.lam * reg[:, None] * V + G.to(V.dtype)
+                s = dd * (Q1 * self._proj(b, first, V)).sum(dim=1)
+                return hp.lam * reg[:, None] * V + self._scat(
+                    b, first, s[:, None] * Q1, dim, "hv")
+            return hv
+
+        return self._hv_closure((b.kind, b.f12, first),
+                                dict(Q1=Q1, dd=self._self_dd(b)), make)
 
     # -- Jacobi preconditioner ------------------------------------------------
 
@@ -1258,53 +1308,56 @@ class FFMSolver:
         cg_eps ||g||^2 or after cg_max_iter iterations.  With ``D``,
         Jacobi-preconditioned CG on the same system with the same
         true-residual stop rule: only the search directions change.  The
-        recurrence runs at a float32 floor; Hv is evaluated at storage
-        dtype.  One host sync per iteration reads the stop condition.
-        Under a mesh every rank runs the same recurrence on the replicated
-        variable (its dot products local, the same bits on every rank), and
-        each Hv makes the iteration's one all-reduce."""
+        recurrence runs at a float32 floor (``sparse_ops.cg_step``, on the
+        card the kernel cg_ops.cu, its stop flag beside its scalars); Hv is
+        evaluated at storage dtype.  Under a mesh every rank runs the same
+        recurrence on the replicated variable (its dot products local, the
+        same bits on every rank), and each Hv makes the iteration's one
+        all-reduce."""
         if self.mesh is not None:
             with self.mesh.scope("cg"):
                 return self._cg_loop(hv, G, D)
         return self._cg_loop(hv, G, D)
 
+    def _graph_path(self) -> bool:
+        """One process on the card, not asked for the host loop: each
+        solve's CG runs as CUDA graph replays of ``cg_group`` iterations."""
+        return (self._graphs is not None and self.mesh is None
+                and not self.cg_host_loop)
+
     def _cg_loop(self, hv, G: Tensor, D: Optional[Tensor] = None):
+        """(S at the CG floor, iteration count).  Under a mesh (or with
+        ``cg_host_loop``) one eager iteration per host read of the stop
+        flag: a masked iteration there would cost a mesh an Hv all-reduce.
+        On one process ``cg_group`` iterations per read, those after the
+        stop exact no-ops: on the card one CUDA graph replay each
+        (``cg_graph``), on the CPU eager.  The count and S are those of a
+        host test before every iteration, bit for bit."""
         hp = self.meta.hp
-        storage = self.meta.dtype
-        ct = torch.promote_types(G.dtype, torch.float32)
-        Gc = G.to(ct)
-        Dc = None if D is None else D.to(ct)
-        g2 = (Gc * Gc).sum()
-        S = torch.zeros_like(Gc)
-        R = -Gc
-        V = -Gc if Dc is None else -Gc / Dc
-        r2 = g2
-        rz = g2 if Dc is None else (Gc * (Gc / Dc)).sum()
-        it = 0
-        one = torch.ones((), dtype=ct, device=Gc.device)
-        zero = torch.zeros((), dtype=ct, device=Gc.device)
-        while it < hp.cg_max_iter and bool(r2 > hp.cg_eps * g2):
-            Hv = hv(V.to(storage)).to(ct)
-            den = (V * Hv).sum()
-            # degenerate-denominator guard (jax_solver.py:2022-2029): a
-            # converged f32 block can underflow V.Hv to 0 — take no step
-            # and force the stop instead of writing inf/nan
-            ok = den > 0
-            alpha = torch.where(ok, rz / torch.where(ok, den, one), zero)
-            S = S + alpha * V
-            R = R - alpha * Hv
-            r2_new = torch.where(ok, (R * R).sum(), zero)
-            rz_safe = torch.where(rz > 0, rz, one)
-            if Dc is None:
-                rz_new = r2_new
-                V = R + (rz_new / rz_safe) * V
-            else:
-                Z = R / Dc
-                rz_new = (R * Z).sum()
-                V = Z + (rz_new / rz_safe) * V
-            r2, rz = r2_new, rz_new
-            it += 1
-        return S, it
+        args = (G, D, self.meta.dtype, hp.cg_eps, hp.cg_max_iter)
+        counts = self.cg_counts
+        if self._graph_path():
+            S, it, replays = self._graphs.solve(hv, *args, self.cg_group)
+            counts["reads"] += replays
+            counts["replays"] += replays
+            counts["masked"] += replays * self.cg_group - it
+            return S, it
+        st = cg_init(*args)
+        host = self.mesh is not None or self.cg_host_loop
+        group = 1 if host else self.cg_group
+        done, it = cg_read(st) if host else (False, 0)
+        counts["reads"] += host
+        groups = 0
+        while not done:
+            if groups * group > hp.cg_max_iter:
+                raise RuntimeError("CG ran past its cap without its stop")
+            for _ in range(group):
+                cg_step(st, hv(st.Vs))
+            groups += 1
+            done, it = cg_read(st)
+            counts["reads"] += 1
+        counts["masked"] += groups * group - it
+        return st.S, it
 
     # -- block update -----------------------------------------------------------
 
@@ -1406,7 +1459,8 @@ class FFMSolver:
         its blocked stream is gathered once and every pass streams it."""
         return self.solve_inputs(state, b, first, sa, sb)[:3]
 
-    def solve_inputs(self, state, b: BlockInfo, first: bool, sa, sb):
+    def solve_inputs(self, state, b: BlockInfo, first: bool, sa, sb,
+                     stream_buffers: bool = False):
         """(G, Hv closure, stream, head stream, D): ``grad_and_hv`` plus
         the head stream of a cross solve on a two-tier side (else None),
         gathered once per solve as the tail stream is, and the Jacobi
@@ -1428,12 +1482,20 @@ class FFMSolver:
         # the stream's rows are any rank's: gathered once per solve (a COO
         # side's passes read the gathered cache itself)
         rows_pre = None
+
+        def stream(name: str, take: Tensor) -> Tensor:
+            out = None
+            if stream_buffers:
+                out = self._graphs.buffer(name, (*take.shape, B1.shape[1]),
+                                          B1.dtype)
+            return gather_blocked_rows(B1, take, out=out)
+
         if self._coo(first) is None:
             B1 = self._gather(B1, "rows_pre")
-            rows_pre = gather_blocked_rows(B1, self.data[pre + "take"])
+            rows_pre = stream("rows_pre", self.data[pre + "take"])
         elif self.mesh is not None:
             B1 = rows_pre = self._gather(B1, "rows_pre")
-        rows_hd = (gather_blocked_rows(B1, self.data[pre + "hd_take"])
+        rows_hd = (stream("rows_hd", self.data[pre + "hd_take"])
                    if self._hd_side(first) else None)
         res = self._grad_cross(state, b, first, rows_pre, with_diag_pos=jac,
                                rows_hd=rows_hd)
@@ -1446,8 +1508,8 @@ class FFMSolver:
         model-sharded table is gathered once before and cut back to this
         rank's rows after."""
         state = self._with_table(state, b, first)
-        G, hv, rows_pre, rows_hd, D = self.solve_inputs(state, b, first, sa,
-                                                        sb)
+        G, hv, rows_pre, rows_hd, D = self.solve_inputs(
+            state, b, first, sa, sb, stream_buffers=self._graph_path())
         S, it = self._cg(hv, G, D)
         state = self._apply_step(state, b, first, S, rows_pre, rows_hd)
         return self._keep_rows(state, b, first), it

@@ -1304,3 +1304,294 @@ def test_serve_bench_at_tiny_sizes(device, monkeypatch, capsys):
     srt = z.sort(dim=1).values
     assert (srt[:, 1:] == srt[:, :-1]).any()  # bfloat16 scores tie
     assert torch.equal(ids.cpu(), want)
+
+
+# ---------------------------------------------------------------------------
+# the CG recurrence (cg_ops.cu) and a solve's CUDA graphs
+# ---------------------------------------------------------------------------
+
+
+def _cg_equal(st_k, st_p) -> None:
+    """The kernel's state against the plain version's: every vector and
+    the scalars the loop reads, bit for bit."""
+    for name in ("S", "R", "V", "Vs"):
+        a, b = getattr(st_k, name), getattr(st_p, name)
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert torch.equal(_bits(a), _bits(b)), name
+    sk, sp = kernels.cg_scalars(st_k), ops.cg_scalars(st_p)
+    for key in ("g2", "r2", "rz", "thr", "it", "done"):
+        assert sk[key] == sp[key], (key, sk[key], sp[key])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("jacobi", [False, True])
+@pytest.mark.parametrize("rows,k", [(12, 3), (5000, 32), (300_000, 32)])
+def test_cg_kernels_match_plain(device, dtype, jacobi, rows, k):
+    """cg_init and cg_step bit-equal to their plain versions (torch's own
+    sums, the kernels' order) below 128 elements, at several CTAs and at the
+    card's most (grid-strided loads); a step whose Hv is zero stops the
+    solve by the den > 0 guard, and the steps after it write nothing."""
+    rng = np.random.default_rng(rows + k)
+
+    def T(a, dt=dtype):
+        return torch.as_tensor(a).to(device=device, dtype=dt).contiguous()
+
+    G = T(rng.normal(size=(rows, k)))
+    D = T(rng.uniform(0.5, 2.0, size=(rows, k)), torch.float32) \
+        if jacobi else None
+    st_k = kernels.cg_init(G, D, dtype, 1e-6, 20)
+    st_p = ops.cg_init_plain(G, D, dtype, 1e-6, 20)
+    torch.cuda.synchronize()
+    _cg_equal(st_k, st_p)
+    for step in range(6):
+        noise = T(rng.normal(size=(rows, k)), torch.float32)
+        Hv = (torch.zeros_like(st_p.V) if step == 3
+              else 2.0 * st_p.V + 0.1 * noise).to(dtype)
+        kernels.cg_step(st_k, Hv)
+        ops.cg_step_plain(st_p, Hv)
+        torch.cuda.synchronize()
+        _cg_equal(st_k, st_p)
+        assert kernels.cg_read(st_k) == (step >= 3, min(step, 3) + 1)
+
+
+def _cta_sum(v):
+    """(rows, threads) -> (rows,): Reduce.cuh's block_x_reduce of each row:
+    halving through shared memory down to a warp, then the warp's shuffles
+    down at offsets 16 .. 1 (halving too)."""
+    w = v.shape[1]
+    while w > 1:
+        w //= 2
+        v = v[:, :w] + v[:, w:2 * w]
+    return v[:, 0]
+
+
+def _strided(p, span: int):
+    """Thread t's sum of rows t, t + span, ... of p in order, from 0."""
+    n = p.shape[0]
+    pad = torch.zeros((-(-n // span) * span - n, *p.shape[1:]),
+                      dtype=p.dtype, device=p.device)
+    p = torch.cat([p, pad])
+    acc = torch.zeros((span, *p.shape[1:]), dtype=p.dtype, device=p.device)
+    for j in range(p.shape[0] // span):
+        acc = acc + p[j * span:(j + 1) * span]
+    return acc
+
+
+def reduce_model(p):
+    """The order of torch's CUDA sum of a contiguous float32 tensor, which
+    the recurrence kernels take (cg_ops.cu), at ``kernels.cg_config``'s
+    launch for p's device: from n = 128 each thread adds its grid-strided
+    loads of 4 in 4 accumulators, the first n % 4 threads the tail into the
+    first, then ((a0 + a1) + a2) + a3; below it elements t and t +
+    threads; then each CTA's ``_cta_sum``, and past one CTA, thread t of
+    the last adds the partials t, t + threads, ... and halves again."""
+    p = p.reshape(-1)
+    n = p.numel()
+    cfg = kernels.cg_config(n, p.device)
+    span = cfg.threads * cfg.ctas
+    if cfg.vec:
+        nv = n // 4
+        lanes = _strided(p[:nv * 4].view(nv, 4), span)
+        if n % 4:
+            lanes[:n % 4, 0] = lanes[:n % 4, 0] + p[nv * 4:]
+    else:
+        lanes = torch.zeros(span, 4, dtype=p.dtype, device=p.device)
+        lanes[:, 0] = lanes[:, 0] + p[:span]
+        lanes[:n - span, 1] = lanes[:n - span, 1] + p[span:]
+    acc = ((lanes[:, 0] + lanes[:, 1]) + lanes[:, 2]) + lanes[:, 3]
+    part = _cta_sum(acc.view(cfg.ctas, cfg.threads))
+    if cfg.ctas == 1:
+        return part[0]
+    return _cta_sum(_strided(part, cfg.threads).view(1, cfg.threads))[0]
+
+
+def test_cg_sum_order_is_torch_sum(device):
+    """The order the recurrence kernels add in (``reduce_model`` at
+    ``kernels.cg_config``'s launch) gives the bits of torch's own sum on
+    the card, at every launch shape: single elements, loads of 4 with a
+    tail, one CTA, several, the most."""
+    rng = np.random.default_rng(5)
+    sizes = list(range(1, 260)) + [500 * 32, 1000 * 32, 5000 * 32 + 3,
+                                   20000 * 32, 200000 * 32, 9_600_001]
+    sizes += [int(x) for x in np.exp(rng.uniform(np.log(300), np.log(1e7),
+                                                 40))]
+    for n in sizes:
+        a = torch.from_numpy(rng.normal(size=n).astype(np.float32))
+        b = torch.from_numpy(rng.normal(size=n).astype(np.float32))
+        x = (a.to(device) * b.to(device)).contiguous()
+        assert torch.equal(_bits(reduce_model(x).view(1)),
+                           _bits(x.sum().view(1))), n
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("jacobi", [False, True])
+def test_cg_loop_is_the_eager_torch_loop(device, dtype, jacobi):
+    """A solve on the recurrence kernels gives the S and the count of the
+    eager torch loop they replaced (mesh_accuracy._torch_cg_loop: torch's
+    operations and sums), bit for bit."""
+    import os
+    import sys
+    import types
+
+    from one_class_ffm_torch.solver.params import HyperParams
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, root)
+    try:
+        import mesh_accuracy
+    finally:
+        sys.path.remove(root)
+    rng = np.random.default_rng(7)
+    rows, k = 3000, 32
+    A = torch.from_numpy(rng.normal(size=(k, k)) / k).float().to(device)
+    A = A @ A.T + 0.05 * torch.eye(k, device=device)
+    w = torch.from_numpy(rng.uniform(0.5, 4.0, size=(rows, 1))).float().to(
+        device)
+
+    def hv(V):
+        return (w * (V.float() @ A)).to(dtype)
+
+    G = torch.from_numpy(rng.normal(size=(rows, k))).float().to(device)
+    D = (w * torch.diagonal(A)[None, :]).contiguous() if jacobi else None
+    hp = HyperParams(cg_eps=1e-8, cg_max_iter=12)
+    ns = types.SimpleNamespace(meta=types.SimpleNamespace(hp=hp,
+                                                          dtype=dtype))
+    S_t, it_t = mesh_accuracy._torch_cg_loop(ns, hv, G, D)
+    st = kernels.cg_init(G, D, dtype, hp.cg_eps, hp.cg_max_iter)
+    while not kernels.cg_read(st)[0]:
+        kernels.cg_step(st, hv(st.Vs))
+    assert kernels.cg_read(st)[1] == it_t
+    assert torch.equal(_bits(st.S), _bits(S_t))
+
+
+def _small_trainer(device, case: str):
+    """A small chip_smoke trainer on the card: FFM with self blocks
+    (identity and fused fields), under Jacobi, at bfloat16, FM above a
+    lowered fused cap, both sides COO, and the head tier on both sides."""
+    import contextlib
+    import os
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, root)
+    try:
+        import chip_smoke as cs
+    finally:
+        sys.path.remove(root)
+    kw = dict(k=8)
+    fm = case == "fm"
+    data = cs.build_data(1024, 256, 5.0, seed=3, dims_u=(1024, 40),
+                         dims_v=(256, 24), self_side=True, fm=fm,
+                         power=2 if case == "skew" else 0)
+    if case == "jacobi":
+        kw["cg_precond"] = "jacobi"
+        data = cs._without_repeated_ids(data)
+    elif case == "bf16":
+        kw["dtype"] = "bfloat16"
+    elif case == "coo":
+        kw["blocked_bm"] = 0
+    elif case == "skew":
+        kw.update(blocked_bm=32, head_chunk=16)
+    with cs.fused_cap(8) if fm else contextlib.nullcontext():
+        tr = cs.make_trainer(data, device, **kw)
+    if case == "skew":
+        assert tr.solver.hd_u and tr.solver.hd_v
+    return tr
+
+
+def _state_bits(a, b) -> bool:
+    same = True
+    for key, t in a.items():
+        if isinstance(t, torch.Tensor):
+            same = same and torch.equal(_bits(t), _bits(b[key]))
+        elif key in ("P", "Q"):
+            same = same and all(torch.equal(_bits(x), _bits(b[key][f]))
+                                for f, x in t.items())
+        elif key == "params":
+            same = same and all(
+                torch.equal(_bits(x), _bits(b[key][f][n]))
+                for f, blk in t.items() for n, x in blk.items())
+    return same
+
+
+@pytest.mark.parametrize("case", ["ffm", "jacobi", "bf16", "fm", "coo",
+                                  "skew"])
+@pytest.mark.parametrize("group", [1, 3, 20])
+def test_graph_replays_equal_the_eager_loop(device, case, group):
+    """Two epochs from one state through the CUDA graph path (captured in
+    the first, replayed in both) against the eager loop with a host test
+    per iteration: the same tables, caches, residuals and CG counts, bit
+    for bit; every launch of a replay counted, the recurrence kernel's
+    among them; the masked iterations those of the groups."""
+    tr = _small_trainer(device, case)
+    solver = tr.solver
+    state = tr.init_state()
+    solver.cg_host_loop = True
+    eager1, it1 = solver.epoch_stats(state)
+    eager2, it2 = solver.epoch_stats(eager1)
+    solver.cg_host_loop, solver.cg_group = False, group
+    assert solver._graph_path()
+    kernels.reset_launch_counts()
+    before = dict(solver.cg_counts)
+    graph1, jt1 = solver.epoch_stats(state)
+    graph2, jt2 = solver.epoch_stats(graph1)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    assert torch.equal(jt1, it1) and torch.equal(jt2, it2)
+    assert _state_bits(graph1, eager1) and _state_bits(graph2, eager2)
+    its = torch.cat([it1, it2])
+    groups = ((its + group - 1) // group).clamp(min=1)
+    assert solver.cg_counts["replays"] - before["replays"] == int(
+        groups.sum())
+    assert solver.cg_counts["masked"] - before["masked"] == int(
+        (groups * group - its).sum())
+    assert launches["cg_step"] == int(groups.sum()) * group
+    assert launches["cg_init"] == its.numel()
+    assert len(solver._graphs.graphs) == 2 * len(solver.blocks)
+
+
+def test_graph_refuses_buffers_it_was_not_captured_on(device):
+    """A closure key whose input changes shape would read another buffer
+    than its graph does: the solve raises instead of replaying on stale
+    data."""
+    from one_class_ffm_torch.solver.torch_solver import FFMSolver
+
+    solver = _small_trainer(device, "ffm").solver
+
+    def make(x):
+        return lambda V: x["scale"] * V
+
+    def hv(rows):
+        return FFMSolver._hv_closure(("moved",), dict(
+            scale=torch.full((rows, 8), 2.0, device=device)), make)
+
+    G = torch.randn(64, 8, device=device)
+    S, it = solver._cg_loop(hv(64), G)
+    assert it == 1 and torch.allclose(S, -G / 2.0)
+    with pytest.raises(RuntimeError, match="captured on"):
+        solver._cg_loop(hv(32), G[:32])
+
+
+def test_graph_path_raises_instead_of_falling_back(device):
+    """A closure that cannot be captured (it reads the card from the host)
+    raises on the graph path; the eager loop runs it."""
+    from one_class_ffm_torch.solver.torch_solver import FFMSolver
+
+    tr = _small_trainer(device, "ffm")
+    solver = tr.solver
+    G = torch.randn(64, 8, device=device)
+
+    def make(x):
+        def hv(V):
+            if float(V.abs().sum()) < 0:  # a host read: refused in a capture
+                return -V
+            return x["scale"] * V
+        return hv
+
+    hv = FFMSolver._hv_closure(("host-read",), dict(
+        scale=torch.full((64, 8), 2.0, device=device)), make)
+    with pytest.raises(RuntimeError):
+        solver._cg_loop(hv, G)
+    solver.cg_host_loop = True
+    S, it = solver._cg_loop(hv, G)
+    assert it == 1 and torch.allclose(S, -G / 2.0)
