@@ -141,7 +141,9 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
 ``python3 chip_smoke.py cg-bench ROOT [ROOT ...]`` trains MF, the FFM,
 the skewed FFM and the both-COO FFM in each tree in turn (3 epochs, peak
 memory, host reads of the CG stop test, a profiled epoch);
-``groups:ROOT`` at each CG group size.
+``groups:ROOT`` at each CG group size.  ``python3 chip_smoke.py cg-kernels
+ROOT [ROOT ...]`` times each tree's recurrence kernels (``cg_init``,
+``cg_step``) at the MF solves' shapes, f32 and bf16, plain CG and Jacobi.
 
 The line before the last is a JSON object with one entry per kernel: its
 launches summed over the eight main paths, the serving path and the mesh
@@ -787,6 +789,9 @@ def gpu_line() -> str:
     return out.strip().splitlines()[0]
 
 
+_REGS: dict = {}  # kernel_registers of this process's library, once read
+
+
 def kernel_registers(lib_path: str):
     """{(kernel, dtype, Jacobi variant?, integer template arguments):
     (registers per thread, bytes of static shared memory, bytes of stack
@@ -853,26 +858,33 @@ def time_ms(fn, reps: int = 10, rounds: int = 5,
     return statistics.median(out)
 
 
-def device_ms(fn, reps: int = 20) -> float:
+def device_ms(fn, reps: int = 20, events=()):
     """Mean device time per call of ``fn``: the summed durations of the
     device operations its ``reps`` calls run, by torch.profiler.  A call
     whose wrapper takes longer on the host than its kernel on the card is
     timed by ``time_ms`` at the host's launch rate; this is the card's own
-    share."""
+    share.  ``events``: kernel names, and the launches per call of kernels
+    so named are returned too, as (ms, launches)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.time_range.end - e.time_range.start for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               ) / 1e3 / reps
+    for _ in range(3):  # a trace without device events is the profiler's miss
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        if dev:
+            break
+    ms = sum(e.time_range.end - e.time_range.start for e in dev) / 1e3 / reps
+    if not events:
+        return ms
+    return ms, sum(any(k in e.name for k in events) for e in dev) / reps
 
 
 def new_report():
@@ -1573,7 +1585,8 @@ def _cg_times(name, G, D, Hv, dt, eps, cap, r, gpu) -> str:
     if name == "cg_init":
         def kern():
             kernels.cg_init(G, D, dt, eps, 1 << 30, out=st)
-        ms, dms = time_ms(kern), device_ms(kern)
+        ms = time_ms(kern)
+        dms, calls = device_ms(kern, events=CG_KERNELS[name])
         pms = time_ms(lambda: ops.cg_init_plain(G, D, dt, eps, cap))
         eager = None
     else:
@@ -1583,7 +1596,8 @@ def _cg_times(name, G, D, Hv, dt, eps, cap, r, gpu) -> str:
             done.zero_()
             kernels.cg_step(st, Hv)
         ms = time_ms(kern) - time_ms(done.zero_)
-        dms = device_ms(kern) - device_ms(done.zero_)
+        dms, calls = device_ms(kern, events=CG_KERNELS[name])
+        dms -= device_ms(done.zero_)
 
         def plain():
             st_p.sc["done"] = False
@@ -1599,7 +1613,51 @@ def _cg_times(name, G, D, Hv, dt, eps, cap, r, gpu) -> str:
     return (f"  kernel {ms:.4f} ms (device {dms:.4f} ms)  plain {pms:.4f} "
             f"ms  eager sequence "
             f"{'none' if eager is None else f'{eager:.4f} ms'}  bound "
-            f"{bms:.4f} ms by {by} ({nbytes} B, {nops} ops)  [{gpu}]")
+            f"{bms:.4f} ms by {by} ({nbytes} B, {nops} ops); "
+            f"{calls:g} launches per "
+            f"{'start' if name == 'cg_init' else 'iteration'}; "
+            f"{_cg_launch(name, n, dt, D is not None)}  [{gpu}]")
+
+
+# the kernels of each recurrence entry, this tree's and the three-launch
+# step's before it (which chip_smoke.py cg-kernels times beside it)
+CG_KERNELS = {"cg_init": ("cg_init_kernel",),
+              "cg_step": ("cg_iter_kernel", "cg_dot_kernel",
+                          "cg_update_kernel", "cg_dir_kernel")}
+
+
+def _cg_launch(name: str, n: int, dt, jacobi: bool) -> str:
+    """The launch of cg_init or cg_step at n elements: the hardware grid
+    (the step's plan: virtual CTAs a CTA, V's loads kept in shared
+    memory), CTAs an SM on the card, and each kernel's registers and
+    stack (a spill) from cuobjdump."""
+    import torch
+
+    from one_class_ffm_torch.ops import kernels
+
+    dev = torch.device("cuda", 0)
+    cfg = kernels.cg_config(n, dev)
+    if not hasattr(kernels, "cg_plan"):  # the three-launch step
+        out = f"virtual launch {cfg.ctas} x {cfg.threads}"
+    elif name == "cg_init":
+        blocks = kernels.cg_blocks(False, cfg.threads, 0, dt, jacobi, dev)
+        out = (f"grid {cfg.ctas} x {cfg.threads} (the virtual launch), "
+               f"{blocks} CTAs an SM")
+    else:
+        plan = kernels.cg_plan(n, dev)
+        blocks = kernels.cg_blocks(True, cfg.threads, plan.smem, dt, jacobi,
+                                   dev)
+        out = (f"grid {plan.grid} x {cfg.threads} for {cfg.ctas} virtual "
+               f"CTAs ({plan.per} a CTA), V of {plan.cache} of {plan.loads} "
+               f"loads in {plan.smem} B of shared memory, {blocks} CTAs an "
+               f"SM")
+    if not _REGS:
+        _REGS.update(kernel_registers(str(kernels.library_path())) or {})
+    dt_name = "bf16" if dt == torch.bfloat16 else "f32"
+    regs = [f"{k} {v[0]} registers, {v[2]} B stack"
+            for (k, d, jac, _), v in sorted(_REGS.items())
+            if k in CG_KERNELS[name] and d == dt_name and jac == jacobi]
+    return out + "; " + (", ".join(regs) or "registers not measured")
 
 
 def variant_phase(trainer, gpu: str, report) -> None:
@@ -3129,6 +3187,7 @@ def main() -> int:
               f"{kernels.build_seconds:.2f} s; native/libocffm.so (make "
               f"exit 0)")
         regs = kernel_registers(str(kernels.library_path()))
+        _REGS.update(regs or {})
         for (kname, dt_name, diag, targs), (n, shared, stack) in sorted(
                 (regs or {}).items()):
             plan = f"<{','.join(map(str, targs))}>" if targs else ""
@@ -3661,9 +3720,10 @@ def _stop_reads(solver, its, before) -> int:
 
 def _cg_bench_profile(label: str, trainer, gpu: str) -> None:
     """One epoch under torch.profiler: busy time (the union of the device
-    events' intervals), idle share, and the device time of the eager
+    events' intervals), idle share, the device time of the eager
     elementwise ops the recurrence kernel replaced (aten::mul, aten::add,
-    aten::sum)."""
+    aten::sum), and the recurrence's own kernels' device time and
+    launches (``CG_KERNELS``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3677,14 +3737,20 @@ def _cg_bench_profile(label: str, trainer, gpu: str) -> None:
     ops = {a.key: (a.self_device_time_total / 1e3, a.count)
            for a in prof.key_averages()
            if a.key in ("aten::mul", "aten::add", "aten::sum")}
-    graph_kernels = sum(a.count for a in prof.key_averages()
-                        if "cg_dot_kernel" in a.key)
+    cg = {}
+    for a in prof.key_averages():
+        for k in CG_KERNELS["cg_init"] + CG_KERNELS["cg_step"]:
+            if k in a.key:
+                ms, c = cg.get(k, (0.0, 0))
+                cg[k] = (ms + a.self_device_time_total / 1e3, c + a.count)
     print(f"[cg bench] {label} profiled epoch: device busy "
           f"{busy / 1e3:.3f} ms of {window / 1e3:.3f} ms, idle share "
           f"{1.0 - busy / window:.4f}; "
           + ", ".join(f"{k} {ms:.3f} ms in {c} calls"
                       for k, (ms, c) in sorted(ops.items()))
-          + f"; cg_dot_kernel events {graph_kernels} [{gpu}]", flush=True)
+          + "; " + ", ".join(f"{k} {ms:.3f} ms in {c} launches"
+                             for k, (ms, c) in sorted(cg.items()))
+          + f" [{gpu}]", flush=True)
 
 
 def cg_bench_one(root: str, cache: str) -> None:
@@ -3778,6 +3844,67 @@ def cg_bench_one(root: str, cache: str) -> None:
         del tr, solver
 
 
+# python3 chip_smoke.py cg-kernels ROOT [ROOT ...]: the recurrence kernels
+# of several trees on one card, each tree in its own process
+CG_KERNEL_SHAPES = ((N_USERS, 32), (N_ITEMS, 32))  # MF's u and v tables
+
+
+def cg_kernels_one(root: str) -> None:
+    """cg_init and cg_step of the tree at ROOT at the MF solves' shapes,
+    f32 and bf16 storage, plain CG and Jacobi, on G, D and an Hv made from
+    a seed (Hv = 2 V + 0.1 noise after the start): bit-equality with the
+    plain versions after the start and one step, then ``_cg_times``' times,
+    bound, launches and launch (f32; bf16 beside it)."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.abspath(root))
+    from one_class_ffm_torch.ops import kernels
+    from one_class_ffm_torch.ops import sparse_ops as ops
+
+    device = torch.device("cuda", 0)
+    gpu = gpu_line()
+    kernels.load()
+    label = os.path.abspath(root)
+    rng = np.random.default_rng(0)
+    for rows, k in CG_KERNEL_SHAPES:
+        def T(a):
+            return torch.from_numpy(a.astype(np.float32)).to(device)
+
+        G32 = T(rng.normal(size=(rows, k)))
+        D32 = T(rng.uniform(0.5, 2.0, size=(rows, k)))
+        noise = T(rng.normal(size=(rows, k)))
+        for jacobi in (False, True):
+            for dt_name, dt in (("float32", torch.float32),
+                                ("bfloat16", torch.bfloat16)):
+                G, D = G32.to(dt), D32 if jacobi else None
+                st_p = ops.cg_init_plain(G, D, dt, 1e-6, 20)
+                Hv = (2.0 * st_p.V + 0.1 * noise).to(dt)
+                st_k = kernels.cg_init(G, D, dt, 1e-6, 20)
+                eq_init, _ = _cg_agree(st_k, st_p)
+                kernels.cg_step(st_k, Hv)
+                ops.cg_step_plain(st_p, Hv)
+                eq_step, _ = _cg_agree(st_k, st_p)
+                for name, eq in (("cg_init", eq_init), ("cg_step", eq_step)):
+                    r = dict(ms=0.0, plain_ms=0.0, nbytes=0, ops=0)
+                    print(f"[cg kernels] {label} {name} {rows}x{k} "
+                          f"{dt_name} jacobi {jacobi}: bit-equal {eq};"
+                          + _cg_times(name, G, D, Hv, dt, 1e-6, 20, r, gpu),
+                          flush=True)
+                    check(eq, f"{label} {name}: not its plain version's bits")
+
+
+def cg_kernels(roots) -> int:
+    """Each tree in its own process, in the order given (e.g. parent, this
+    tree, this tree, parent)."""
+    for root in roots:
+        rc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                             "cg-kernels-one", root]).returncode
+        if rc:
+            return rc
+    return 0
+
+
 def cg_bench(roots) -> int:
     """Each tree in its own process, in the order given (e.g. parent, this
     tree, this tree, parent; ``groups:ROOT`` for the CG group sizes on
@@ -3801,5 +3928,10 @@ if __name__ == "__main__":
         sys.exit(cg_bench(sys.argv[2:]))
     if sys.argv[1:2] == ["cg-bench-one"]:
         cg_bench_one(*sys.argv[2:4])
+        sys.exit(0)
+    if sys.argv[1:2] == ["cg-kernels"]:
+        sys.exit(cg_kernels(sys.argv[2:]))
+    if sys.argv[1:2] == ["cg-kernels-one"]:
+        cg_kernels_one(sys.argv[2])
         sys.exit(0)
     sys.exit(main())

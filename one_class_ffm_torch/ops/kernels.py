@@ -188,13 +188,15 @@ def load() -> ctypes.CDLL:
     lib.ocffm_cg_init.argtypes = [i32, vp, vp, vp, vp, vp, vp, vp, vp, i64,
                                   i32, i32, i32, f32, i32, vp]
     lib.ocffm_cg_step.argtypes = [i32, vp, vp, vp, vp, vp, vp, vp, vp, i64,
-                                  i32, i32, i32, i32, vp]
+                                  i32, i32, i32, i32, i32, i32, i32, i32, vp]
+    lib.ocffm_cg_blocks.argtypes = [i32, i32, i32, i32, i32,
+                                    ctypes.POINTER(i32)]
     for fn in (lib.ocffm_pos_hv_tbl_rows, lib.ocffm_grad_cross_tbl_rows,
                lib.ocffm_hv_self_tbl_rows, lib.ocffm_grad_self_tbl_rows,
                lib.ocffm_xt_scatter, lib.ocffm_project,
                lib.ocffm_pos_hv_packed, lib.ocffm_pos_hv_blocked_g,
                lib.ocffm_coo_list, lib.ocffm_pos_dot, lib.ocffm_cg_init,
-               lib.ocffm_cg_step):
+               lib.ocffm_cg_step, lib.ocffm_cg_blocks):
         fn.restype = i32
     _lib = lib
     _max_k = lib.ocffm_max_k()
@@ -1048,6 +1050,17 @@ _IT, _DONE = 6, 7
 CG_MAX_THREADS = 512  # Reduce.cuh's threads per CTA at most
 CG_VEC = 4  # elements per vectorized load
 H100_SMS, H100_SM_THREADS = 132, 2048
+# The step kernel (cg_iter_kernel) runs the three stages of an iteration in
+# one launch, split by grid-wide barriers, so its whole grid must be
+# resident: built for two CTAs of 512 threads an SM (__launch_bounds__(512,
+# 2): at most 64 registers a thread), each with at most half the SM's 228
+# KB of shared memory, less the KB the card keeps for each CTA and a KB of
+# margin (CG_SMEM_RESERVE); a lone CTA may take a CTA's most, less that.
+CG_STEP_REGS = 64
+H100_SM_REGS = 65536
+H100_SM_SMEM = 233472  # bytes of shared memory an SM gives its CTAs
+H100_CTA_SMEM = 232448  # a CTA's most (227 KB)
+CG_SMEM_RESERVE = 2048  # bytes: the card's KB a CTA and a KB of margin
 _sm_shape: Dict[Any, tuple] = {}
 
 
@@ -1055,7 +1068,7 @@ _sm_shape: Dict[Any, tuple] = {}
 class CgConfig:
     """The launch of one sum over n elements: ``vec``: 4 elements a load
     (n >= 128), ``threads`` per CTA (one row of them), ``ctas`` CTAs (more
-    than one: the last CTA adds the others' partials)."""
+    than one: the CTAs' partials are added in a last CTA's order)."""
 
     vec: bool
     threads: int
@@ -1098,6 +1111,99 @@ def cg_config(n: int, device=None) -> CgConfig:
     return CgConfig(vec, threads, ctas)
 
 
+@dataclass(frozen=True)
+class CgPlan:
+    """The step kernel's hardware launch for torch's virtual one (``cfg``):
+    ``grid`` CTAs of ``cfg.threads``, each carrying ``per`` virtual CTAs
+    (virtual CTA j * grid + b in hardware CTA b, j < per), one halving tree
+    each; ``cache`` loads of 4 per virtual thread whose V stays in shared
+    memory from stage 1 to 3 (of ``loads``, the most a virtual thread
+    makes); ``smem`` bytes of dynamic shared memory a CTA (V's cache, then
+    two values per virtual thread); ``per_sm`` CTAs an SM holds by threads
+    and registers."""
+
+    cfg: CgConfig
+    per: int
+    grid: int
+    loads: int
+    cache: int
+    smem: int
+    per_sm: int
+
+
+def cg_plan(n: int, device=None) -> CgPlan:
+    """The hardware launch of one iteration over n elements: torch's
+    virtual CTAs (``cg_config``) dealt over as few resident CTAs as hold
+    them (one where there is one virtual CTA), and as many of each virtual
+    thread's loads of V kept in shared memory as the CTA's share of it
+    allows.  The order of every sum is the virtual launch's whatever the
+    plan."""
+    key = (n, device)
+    hit = _cg_plans.get(key)
+    if hit is not None:
+        return hit
+    cfg = cg_config(n, device)
+    sms, sm_threads = _sm(device)
+    nt = cfg.threads
+    per_sm = max(1, min(sm_threads // nt,
+                        H100_SM_REGS // (nt * CG_STEP_REGS)))
+    if cfg.ctas == 1:
+        per, grid = 1, 1
+        budget = H100_CTA_SMEM - CG_SMEM_RESERVE
+    else:
+        per = -(-cfg.ctas // (sms * per_sm))
+        grid = -(-cfg.ctas // per)
+        budget = min(H100_CTA_SMEM, H100_SM_SMEM // per_sm) - CG_SMEM_RESERVE
+    vals = 2 * per * nt * 4
+    span = cfg.ctas * nt
+    loads = -(-(n // CG_VEC) // span) if cfg.vec else 0
+    cache = min(loads, max(0, budget - vals) // (per * nt * 16))
+    plan = CgPlan(cfg, per, grid, loads, cache, vals + per * cache * nt * 16,
+                  per_sm)
+    _cg_plans[key] = plan
+    return plan
+
+
+_cg_plans: Dict[Any, CgPlan] = {}
+_cg_blocks: Dict[Any, int] = {}
+
+
+def cg_blocks(step: bool, threads: int, smem: int, storage, jacobi: bool,
+              device) -> int:
+    """The CTAs an SM of the step kernel (else cg_init_kernel) at
+    ``threads`` threads and ``smem`` bytes of dynamic shared memory on the
+    card (cudaOccupancyMaxActiveBlocksPerMultiprocessor, after raising the
+    kernel's shared memory cap to ``smem``)."""
+    dev = torch.device(device)
+    key = (dev, bool(step), storage, bool(jacobi), threads, smem)
+    hit = _cg_blocks.get(key)
+    if hit is None:
+        blocks = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            err = load().ocffm_cg_blocks(
+                int(bool(step)), _DTYPE_CODE[storage], int(bool(jacobi)),
+                threads, smem, ctypes.byref(blocks))
+        _raise_on(err, "cg occupancy")
+        hit = _cg_blocks[key] = blocks.value
+    return hit
+
+
+def cg_step_blocks(plan: CgPlan, storage, jacobi: bool, device) -> int:
+    """The step kernel's CTAs an SM at the plan's width and shared memory
+    (``cg_blocks``); raises where the plan's grid would not be resident,
+    which its barriers need.  Called where a state is made, outside any
+    stream capture."""
+    dev = torch.device(device)
+    hit = cg_blocks(True, plan.cfg.threads, plan.smem, storage, jacobi, dev)
+    sms = _sm(dev)[0]
+    if hit < 1 or plan.grid > hit * sms:
+        raise RuntimeError(
+            f"cg_step: a grid of {plan.grid} CTAs of {plan.cfg.threads} "
+            f"threads with {plan.smem} B of shared memory is not resident "
+            f"({hit} CTAs an SM on {sms} SMs)")
+    return hit
+
+
 @dataclass
 class CgState:
     """One Newton solve's CG recurrence: S, R, V at the float32 floor
@@ -1121,8 +1227,12 @@ class CgState:
 def cg_state(shape, storage, jacobi: bool, max_iter: int,
              device: torch.device) -> CgState:
     """A state's buffers for vectors of ``shape`` (a CUDA graph's, which
-    ``cg_init(out=)`` starts each solve in)."""
+    ``cg_init(out=)`` starts each solve in); on the card the step kernel's
+    residency at this shape is checked here (``cg_step_blocks``)."""
     n = math.prod(shape)
+    if torch.device(device).type == "cuda":
+        cg_step_blocks(cg_plan(n, torch.device(device)), storage, jacobi,
+                       device)
     V = torch.empty(shape, dtype=torch.float32, device=device)
     return CgState(
         S=torch.empty_like(V), R=torch.empty_like(V), V=V,
@@ -1130,7 +1240,7 @@ def cg_state(shape, storage, jacobi: bool, max_iter: int,
             shape, dtype=storage, device=device),
         D=torch.empty_like(V) if jacobi else None,
         sc=torch.zeros(CG_WORDS, dtype=torch.int32, device=device),
-        part=torch.empty(2 * cg_config(n, device).ctas, dtype=torch.float32,
+        part=torch.empty(3 * cg_config(n, device).ctas, dtype=torch.float32,
                          device=device),
         max_iter=max_iter)
 
@@ -1184,25 +1294,27 @@ def _cg_check(st: CgState, shape, storage, dev) -> None:
     if storage == torch.float32 and st.Vs.data_ptr() != st.V.data_ptr():
         raise ValueError("at float32 storage Vs is V itself")
     _check("sc", st.sc, torch.int32, (CG_WORDS,), dev)
-    _check("part", st.part, torch.float32, (2 * cg_config(n, dev).ctas,),
+    _check("part", st.part, torch.float32, (3 * cg_config(n, dev).ctas,),
            dev)
 
 
 def cg_step(st: CgState, Hv: torch.Tensor) -> None:
-    """One iteration after the Hv (cg_dot_kernel, cg_update_kernel,
-    cg_dir_kernel), in place on the state's buffers; a solve already
-    stopped keeps every bit."""
+    """One iteration after the Hv, one launch of cg_iter_kernel (on the
+    plan's grid, ``cg_plan``), in place on the state's buffers; a solve
+    already stopped keeps every bit."""
     dev, storage = st.S.device, st.Vs.dtype
     shape = tuple(st.S.shape)
     _check("Hv", Hv, storage, shape, dev)
     _cg_check(st, shape, storage, dev)
     n = st.S.numel()
-    cfg = cg_config(n, dev)
+    plan = cg_plan(n, dev)
+    cfg = plan.cfg
     err = load().ocffm_cg_step(
         _DTYPE_CODE[storage], Hv.data_ptr(), _ptr(st.D), st.S.data_ptr(),
         st.R.data_ptr(), st.V.data_ptr(), st.Vs.data_ptr(),
         st.part.data_ptr(), st.sc.data_ptr(), n, cfg.ctas, cfg.threads,
-        int(cfg.vec), st.max_iter, _stream(dev))
+        int(cfg.vec), plan.per, plan.grid, plan.cache, plan.smem,
+        st.max_iter, _stream(dev))
     _raise_on(err, "cg_step")
     _launches["cg_step"] += 1
 

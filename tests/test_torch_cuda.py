@@ -1323,15 +1323,15 @@ def _cg_equal(st_k, st_p) -> None:
         assert sk[key] == sp[key], (key, sk[key], sp[key])
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("jacobi", [False, True])
-@pytest.mark.parametrize("rows,k", [(12, 3), (5000, 32), (300_000, 32)])
-def test_cg_kernels_match_plain(device, dtype, jacobi, rows, k):
-    """cg_init and cg_step bit-equal to their plain versions (torch's own
-    sums, the kernels' order) below 128 elements, at several CTAs and at the
-    card's most (grid-strided loads); a step whose Hv is zero stops the
-    solve by the den > 0 guard, and the steps after it write nothing."""
-    rng = np.random.default_rng(rows + k)
+def _cg_match(device, dtype, jacobi, rows, k, seed, steps=6, stop=3,
+              converges=False):
+    """cg_init and ``steps`` cg_steps on a (rows, k) system against the
+    plain versions, bit for bit after each; the step numbered ``stop`` has
+    a zero Hv (the den > 0 guard stops the solve; the steps after it write
+    nothing).  ``converges``: a system small enough to meet the stop rule
+    before that step (n = 1 does in one), whose count and flag are then
+    the plain version's."""
+    rng = np.random.default_rng(seed)
 
     def T(a, dt=dtype):
         return torch.as_tensor(a).to(device=device, dtype=dt).contiguous()
@@ -1343,15 +1343,101 @@ def test_cg_kernels_match_plain(device, dtype, jacobi, rows, k):
     st_p = ops.cg_init_plain(G, D, dtype, 1e-6, 20)
     torch.cuda.synchronize()
     _cg_equal(st_k, st_p)
-    for step in range(6):
+    for step in range(steps):
         noise = T(rng.normal(size=(rows, k)), torch.float32)
-        Hv = (torch.zeros_like(st_p.V) if step == 3
+        Hv = (torch.zeros_like(st_p.V) if step == stop
               else 2.0 * st_p.V + 0.1 * noise).to(dtype)
         kernels.cg_step(st_k, Hv)
         ops.cg_step_plain(st_p, Hv)
         torch.cuda.synchronize()
         _cg_equal(st_k, st_p)
-        assert kernels.cg_read(st_k) == (step >= 3, min(step, 3) + 1)
+        assert kernels.cg_read(st_k) == (st_p.sc["done"], st_p.sc["it"])
+        if not converges:
+            assert kernels.cg_read(st_k) == (step >= stop,
+                                             min(step, stop) + 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("jacobi", [False, True])
+@pytest.mark.parametrize("rows,k", [(12, 3), (5000, 32), (300_000, 32),
+                                    (5000 * 32 + 3, 1), (640_003, 1),
+                                    (3_000_001, 1), (200_000, 32),
+                                    (9_600_001, 1)])
+def test_cg_kernels_match_plain(device, dtype, jacobi, rows, k):
+    """cg_init and cg_step bit-equal to their plain versions (torch's own
+    sums, the kernels' order) below 128 elements, with a tail, at several
+    CTAs, with two virtual CTAs to all hardware CTAs but the last
+    (3,000,001), at the card's most with V kept in shared memory (200,000 x
+    32), and past what shared memory holds (9,600,001: grid-strided loads
+    read again); a step whose Hv is zero
+    stops the solve by the den > 0 guard, and the steps after it write
+    nothing."""
+    _cg_match(device, dtype, jacobi, rows, k, rows + k)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("jacobi", [False, True])
+def test_cg_kernels_match_plain_at_every_small_size(device, dtype, jacobi):
+    """Every n from 1 to 259 (single elements below 128, loads of 4 with
+    each tail above), three steps, the second stopped by the guard."""
+    for n in range(1, 260):
+        _cg_match(device, dtype, jacobi, n, 1, n, steps=3, stop=1,
+                  converges=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("jacobi", [False, True])
+@pytest.mark.parametrize("n", [200, 32_000, 640_003, 6_400_000])
+def test_cg_step_graph_replays_bit_equal(device, dtype, jacobi, n):
+    """cg_step captured in a CUDA graph with an Hv of torch operations (one
+    CTA, several, two virtual CTAs a hardware CTA) and replayed: the state
+    after each replay is that of the same steps launched eagerly, bit for
+    bit, up to the stop and past it (replays after the stop are no-ops);
+    the replay's kernel is one launch."""
+    rng = np.random.default_rng(n)
+    G = torch.from_numpy(rng.normal(size=(n, 1))).to(device=device,
+                                                       dtype=dtype)
+    D = torch.from_numpy(rng.uniform(0.5, 2.0, size=(n, 1))).float().to(
+        device) if jacobi else None
+    noise = torch.from_numpy(rng.normal(size=(n, 1))).float().to(device)
+
+    def hv(V):
+        return (2.0 * V.float() + 0.1 * noise).to(dtype)
+
+    cap = 5
+    st_e = kernels.cg_init(G, D, dtype, 1e-30, cap)
+    st_g = kernels.cg_init(G, D, dtype, 1e-30, cap)
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream(device)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    before = kernels.launch_counts()["cg_step"]
+    with torch.cuda.stream(stream):
+        graph.capture_begin()
+        kernels.cg_step(st_g, hv(st_g.Vs))
+        graph.capture_end()
+    torch.cuda.current_stream(device).wait_stream(stream)
+    assert kernels.launch_counts()["cg_step"] == before + 1
+    for step in range(cap + 2):
+        graph.replay()
+        kernels.cg_step(st_e, hv(st_e.Vs))
+        torch.cuda.synchronize()
+        _cg_equal(st_g, st_e)
+        assert kernels.cg_read(st_g) == (step + 1 >= cap,
+                                         min(step + 1, cap))
+    from torch.profiler import ProfilerActivity, profile
+
+    Hv = hv(st_e.Vs)
+    for _ in range(3):  # a trace without device events is the profiler's miss
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(4):
+                kernels.cg_step(st_e, Hv)
+            torch.cuda.synchronize()
+        kern = [e.name for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        if kern:
+            break
+    assert len(kern) == 4 and all("cg_iter_kernel" in k for k in kern), kern
 
 
 def _cta_sum(v):
@@ -1405,6 +1491,69 @@ def reduce_model(p):
     return _cta_sum(_strided(part, cfg.threads).view(1, cfg.threads))[0]
 
 
+def plan_model(p, plan=None):
+    """The same sum as the step kernel adds it on its hardware launch
+    (``kernels.cg_plan``, cg_ops.cu cg_iter_kernel): hardware CTA b's thread
+    t runs virtual thread t of virtual CTAs j * grid + b, j < per, one after
+    the other, each over its loads k = 0, 1, ... in order (the first
+    ``cache`` of them kept in shared memory, the rest read again: the same
+    values), the tail in virtual CTA 0; the CTA halves one row of values per
+    virtual CTA; each virtual CTA's sum goes to its slot of the partials;
+    then every hardware CTA forms the grid's sum from all the partials.
+    Returns the sum (every CTA's, which must agree) and the plan."""
+    p = p.reshape(-1)
+    n = p.numel()
+    plan = plan or kernels.cg_plan(n, p.device)
+    cfg = plan.cfg
+    nt, C, H, P = cfg.threads, cfg.ctas, plan.grid, plan.per
+    span = C * nt
+    t = torch.arange(nt)
+    vals = torch.zeros(H, P, nt, dtype=p.dtype)
+    seen = torch.zeros(n, dtype=torch.int32)
+    for j in range(P):
+        c = j * H + torch.arange(H)
+        valid = (c < C)[:, None]
+        gt = c[:, None] * nt + t[None, :]
+        lanes = torch.zeros(H, nt, 4, dtype=p.dtype)
+        if cfg.vec:
+            nv = n // 4
+            p4 = p[:nv * 4].view(nv, 4)
+            for k in range(plan.loads):
+                idx = gt + k * span
+                live = valid & (idx < nv)
+                x = p4[idx.clamp(max=nv - 1)]
+                lanes = torch.where(live[..., None], lanes + x, lanes)
+                e = (idx[live] * 4)[:, None] + torch.arange(4)
+                seen.index_add_(0, e.reshape(-1),
+                                torch.ones(e.numel(), dtype=torch.int32))
+            tail = n % 4
+            if tail and j == 0:  # virtual CTA 0 is hardware CTA 0's first
+                lanes[0, :tail, 0] = lanes[0, :tail, 0] + p[n - tail:]
+                seen[n - tail:] += 1
+        else:
+            for lane in range(2):
+                e = gt + lane * span
+                live = valid & (e < n)
+                x = p[e.clamp(max=n - 1)]
+                lanes[..., lane] = torch.where(live, lanes[..., lane] + x,
+                                               lanes[..., lane])
+                seen.index_add_(0, e[live], torch.ones(
+                    int(live.sum()), dtype=torch.int32))
+        vals[:, j] = ((lanes[..., 0] + lanes[..., 1]) + lanes[..., 2]) \
+            + lanes[..., 3]
+    assert torch.equal(seen, torch.ones_like(seen)), "an element twice"
+    trees = _cta_sum(vals.view(H * P, nt)).view(H, P)
+    if C == 1:
+        return trees[0, 0], plan
+    part = torch.zeros(C, dtype=p.dtype)
+    for j in range(P):
+        c = j * H + torch.arange(H)
+        part[c[c < C]] = trees[c < C, j]
+    sums = [_cta_sum(_strided(part, nt).view(1, nt))[0] for _ in range(H)]
+    assert all(torch.equal(s.view(1), sums[0].view(1)) for s in sums)
+    return sums[0], plan
+
+
 def test_cg_sum_order_is_torch_sum(device):
     """The order the recurrence kernels add in (``reduce_model`` at
     ``kernels.cg_config``'s launch) gives the bits of torch's own sum on
@@ -1425,10 +1574,12 @@ def test_cg_sum_order_is_torch_sum(device):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("jacobi", [False, True])
-def test_cg_loop_is_the_eager_torch_loop(device, dtype, jacobi):
+@pytest.mark.parametrize("rows", [3000, 200_000])
+def test_cg_loop_is_the_eager_torch_loop(device, dtype, jacobi, rows):
     """A solve on the recurrence kernels gives the S and the count of the
     eager torch loop they replaced (mesh_accuracy._torch_cg_loop: torch's
-    operations and sums), bit for bit."""
+    operations and sums), bit for bit, on one CTA and on the card's most
+    (200,000 x 32: two virtual CTAs a hardware CTA)."""
     import os
     import sys
     import types
@@ -1442,7 +1593,7 @@ def test_cg_loop_is_the_eager_torch_loop(device, dtype, jacobi):
     finally:
         sys.path.remove(root)
     rng = np.random.default_rng(7)
-    rows, k = 3000, 32
+    k = 32
     A = torch.from_numpy(rng.normal(size=(k, k)) / k).float().to(device)
     A = A @ A.T + 0.05 * torch.eye(k, device=device)
     w = torch.from_numpy(rng.uniform(0.5, 4.0, size=(rows, 1))).float().to(
