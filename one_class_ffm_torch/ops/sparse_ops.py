@@ -53,6 +53,7 @@ from typing import Optional
 
 import torch
 
+from ..utils.profiling import span
 from . import kernels
 from .layout import FeatureMajor, seg_sum_lanes
 
@@ -1046,10 +1047,12 @@ def cg_step(st: CgState, Hv: torch.Tensor) -> None:
 
 
 def cg_read(st: CgState):
-    """(done, it): the host's read of the stop flag and the count."""
-    if isinstance(st.sc, dict):
-        return st.sc["done"], st.sc["it"]
-    return kernels.cg_read(st)
+    """(done, it): the host's read of the stop flag and the count, a span
+    ``cg.read`` in a trace (on the card the host's wait for the card)."""
+    with span("cg.read"):
+        if isinstance(st.sc, dict):
+            return st.sc["done"], st.sc["it"]
+        return kernels.cg_read(st)
 
 
 def cg_scalars(st: CgState):

@@ -11,28 +11,33 @@ and the recurrence's vectors and scalars, shared by every key of the same
 shape.  A solve copies its inputs into those buffers, starts the
 recurrence there (``kernels.cg_init``, eager), then replays the graph and
 reads the done flag and the count through pinned memory once per replay
-until the flag is set.  Iterations after the stop are exact no-ops on the
-card, so the table and the count equal those of one iteration per host
-test.  The graphs share one memory pool: nothing a capture allocates
-outlives it, so a replay's temporaries never hold another graph's data.
+(``sparse_ops.cg_read``) until the flag is set.  Iterations after the stop
+are exact no-ops on the card, so the table and the count equal those of
+one iteration per host test.  The graphs share one memory pool: nothing a
+capture allocates outlives it, so a replay's temporaries never hold
+another graph's data.
 
 A capture records launches, not the wrappers' Python: every list plan a
 captured launch reads is held by its graph (``kernels.hold_plans``), each
 replay adds the captured launches to the launch counts, and a failed
-capture or replay raises.  Nothing here runs on the CPU or under a mesh,
-whose Hv's all-reduce a graph cannot hold.
+capture or replay raises.  Each capture is counted, with the host seconds
+of its eager warm Hv and the capture, and is a span ``cg.capture`` in a
+trace.  Nothing here runs on the CPU or under a mesh, whose Hv's
+all-reduce a graph cannot hold.
 """
 
 from __future__ import annotations
 
 import contextlib
+import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Tuple
 
 import torch
 
 from ..ops import kernels
-from ..ops.sparse_ops import cg_init, cg_step
+from ..ops.sparse_ops import cg_init, cg_read, cg_step
+from ..utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -60,6 +65,10 @@ class CgGraphs:
     buffers: Dict[Tuple, Tensor] = field(default_factory=dict)
     pool: Any = None
     stream: Any = None
+    # captures made and the host seconds they took (a solver hands its
+    # ``cg_counts``)
+    counts: Dict[str, Any] = field(
+        default_factory=lambda: dict(captures=0, capture_s=0.0))
 
     def buffer(self, name: str, shape, dtype) -> Tensor:
         """The persistent buffer of an input ``name`` of this shape and
@@ -114,7 +123,7 @@ class CgGraphs:
         for replays in range(1, limit + 1):
             entry.graph.replay()
             kernels.count_launches(entry.launches)
-            done, it = kernels.cg_read(st)
+            done, it = cg_read(st)
             if done:
                 entry.masked += replays * group - it
                 return st.S.clone(), it, replays
@@ -127,25 +136,30 @@ class CgGraphs:
         state's buffers, after one eager Hv that builds the lists' plans
         (their first use reads the card from the host, which a capture
         refuses)."""
+        t0 = time.perf_counter()
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
             self.stream = torch.cuda.Stream(self.device)
-        hv(st.Vs)
-        graph = torch.cuda.CUDAGraph()
-        before = kernels.launch_counts()
-        cur = torch.cuda.current_stream(self.device)
-        self.stream.wait_stream(cur)
-        with kernels.hold_plans() as plans, torch.cuda.stream(self.stream):
-            graph.capture_begin(pool=self.pool)
-            try:
-                for _ in range(group):
-                    cg_step(st, hv(st.Vs))
-            except BaseException:
-                with contextlib.suppress(Exception):
-                    graph.capture_end()
-                raise
-            graph.capture_end()
-        cur.wait_stream(self.stream)
+        with span("cg.capture"):
+            hv(st.Vs)
+            graph = torch.cuda.CUDAGraph()
+            before = kernels.launch_counts()
+            cur = torch.cuda.current_stream(self.device)
+            self.stream.wait_stream(cur)
+            with kernels.hold_plans() as plans, \
+                    torch.cuda.stream(self.stream):
+                graph.capture_begin(pool=self.pool)
+                try:
+                    for _ in range(group):
+                        cg_step(st, hv(st.Vs))
+                except BaseException:
+                    with contextlib.suppress(Exception):
+                        graph.capture_end()
+                    raise
+                graph.capture_end()
+            cur.wait_stream(self.stream)
+        self.counts["captures"] += 1
+        self.counts["capture_s"] += time.perf_counter() - t0
         after = kernels.launch_counts()
         launches = {k: after[k] - before[k] for k in after
                     if after[k] != before[k]}

@@ -114,6 +114,7 @@ from ..ops.sparse_ops import (
 )
 from ..parallel.mesh import model_sharded
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from .cg_graph import CgGraphs
 from .params import HyperParams
 
@@ -540,10 +541,13 @@ class FFMSolver:
         on_card = self.device.type == "cuda"
         self.cg_group = CG_GROUP
         self.cg_host_loop = False
-        self._graphs = CgGraphs(self.device) if on_card else None
-        # host reads of the stop flag, graph replays and iterations run
-        # after their solve's stop, since the solver was made
-        self.cg_counts = dict(reads=0, replays=0, masked=0)
+        # host reads of the stop flag, graph replays, iterations run after
+        # their solve's stop, graph captures and the host seconds they took,
+        # since the solver was made
+        self.cg_counts = dict(reads=0, replays=0, masked=0, captures=0,
+                              capture_s=0.0)
+        self._graphs = CgGraphs(self.device, counts=self.cg_counts) \
+            if on_card else None
 
     # -- collectives (a data mesh; no-ops on one device) ----------------------
 
@@ -1504,15 +1508,22 @@ class FFMSolver:
                 rows_pre, rows_hd, self._diag_H(state, b, first, term))
 
     def _solve_half(self, state, b: BlockInfo, first: bool, sa, sb):
-        """Gradient, (P)CG and step for one table of a block; a
-        model-sharded table is gathered once before and cut back to this
-        rank's rows after."""
-        state = self._with_table(state, b, first)
-        G, hv, rows_pre, rows_hd, D = self.solve_inputs(
-            state, b, first, sa, sb, stream_buffers=self._graph_path())
-        S, it = self._cg(hv, G, D)
-        state = self._apply_step(state, b, first, S, rows_pre, rows_hd)
-        return self._keep_rows(state, b, first), it
+        """Gradient, (P)CG and step for one table of a block, each a span
+        inside the half-solve's; a model-sharded table is gathered once
+        before and cut back to this rank's rows after."""
+        with span("solve", f"f12={b.f12} kind={b.kind} "
+                           f"table={'W' if first else 'H'}"):
+            state = self._with_table(state, b, first)
+            with span("grad"):
+                G, hv, rows_pre, rows_hd, D = self.solve_inputs(
+                    state, b, first, sa, sb,
+                    stream_buffers=self._graph_path())
+            with span("cg"):
+                S, it = self._cg(hv, G, D)
+            with span("step"):
+                state = self._apply_step(state, b, first, S, rows_pre,
+                                         rows_hd)
+            return self._keep_rows(state, b, first), it
 
     # -- epoch ------------------------------------------------------------------
 
@@ -1523,7 +1534,8 @@ class FFMSolver:
         self-block gradients read them, and a model without self blocks
         skips them."""
         lay = self.meta.layout
-        sa, sb = self.sasb(state)
+        with span("sasb"):
+            sa, sb = self.sasb(state)
         iters = []
         for b in lay.epoch_order():
             state, it1 = self._solve_half(state, b, True, sa, sb)
