@@ -42,7 +42,11 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
    first Hv of the MF solves (200,000 x 32 and 20,000 x 32 vectors, timed,
    with the eager torch sequence it replaced beside it) and of the FFM's
    categorical cross solves under Jacobi (compared only), the vectors and
-   scalars bit for bit after the start and after a step, f32 and bf16.
+   scalars bit for bit after the start and after a step, f32 and bf16;
+   then each row's top K (``topk_rows``: csrc/topk_ops.cu) at the rank
+   cell's shape, 1,024 x 359,966 scores, K = 10 and 80, float32 and
+   bfloat16, ids and value bits against the stable descending sort, with
+   ``torch.topk`` as the library yardstick.
    Before them, ``[data]`` lines give the static plans the redesigned
    kernels read: each stream side's row runs (mean and longest), each COO
    side's list of the stream and each feature-major list's single-chunk,
@@ -91,9 +95,10 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
 8. serving: the headline FFM of phase 6 saved as a text model and a
    checkpoint, its items' and its 111,963 test users' feature rows written
    to files; ``predict_topk_from_model`` ranks every test user over the
-   full 20,000-item catalog, top 10, from the checkpoint (B8 must have
-   launched), with the ids of the same call on ``project_plain``
-   (identical), of ``Trainer.predict_topk`` (at least 0.99 shared) and of
+   full 20,000-item catalog, top 10, from the checkpoint (B8 and
+   ``topk_rows`` must have launched), with the ids of the same call on
+   ``project_plain`` (identical), of ``Trainer.predict_topk`` (at least
+   0.99 shared) and of
    the text model (printed); users/s over its device work, best of 3,
    split into projection, scoring and ranking; then the scoring entry
    point (``one_class_ffm_torch.entry``) on the card and ``serve_bench``
@@ -144,6 +149,8 @@ memory, host reads of the CG stop test, a profiled epoch);
 ``groups:ROOT`` at each CG group size.  ``python3 chip_smoke.py cg-kernels
 ROOT [ROOT ...]`` times each tree's recurrence kernels (``cg_init``,
 ``cg_step``) at the MF solves' shapes, f32 and bf16, plain CG and Jacobi.
+``python3 chip_smoke.py topk-kernels`` runs phase 3's ``topk_rows`` lines
+alone, then ``topk_rows`` at 1 to 1,024 rows against one segment a row.
 
 The line before the last is a JSON object with one entry per kernel: its
 launches summed over the eight main paths, the serving path and the mesh
@@ -207,6 +214,8 @@ REPLACES = {
     # epoch there)
     "cg_init": "one_class_ffm_tpu/solver/jax_solver.py:2044",
     "cg_step": "one_class_ffm_tpu/solver/jax_solver.py:2018",
+    # each row's top K of the scores (jax.lax.top_k in ranking)
+    "topk_rows": "one_class_ffm_tpu/predict.py:114",
 }
 BLOCKED = ("pos_hv_blocked", "pos_scatter_blocked", "pos_gap_blocked")
 TABLE = ("pos_hv_tbl", "grad_cross_tbl", "hv_self_tbl", "grad_self_tbl")
@@ -217,6 +226,7 @@ VARIANTS = ("pos_hv_packed", "pos_hv_blocked_g")
 COO = ("pos_scatter", "pos_scatter_pair", "pos_seg_sum", "pos_hv_coo")
 DOT = ("pos_dot",)
 CG = ("cg_init", "cg_step")
+TOPK = ("topk_rows",)
 _CSRC = "one_class_ffm_torch/csrc/"
 # (B5's row stage runs on B2's body in blocked_ops.cu, its X^T stage in
 # table_ops.cu)
@@ -228,6 +238,7 @@ SOURCE = {name: _CSRC + (
     else "hv_variants.cu" if name in VARIANTS
     else "coo_ops.cu" if name in COO + DOT
     else "cg_ops.cu" if name in CG
+    else "topk_ops.cu" if name in TOPK
     else "table_ops.cu") for name in REPLACES}
 BOUND = {"float32": 1e-5, "bfloat16": 5e-3}  # max-rel, scripts/kt_debug.py
 # the H100 SXM's published peaks (NVIDIA's H100 datasheet): device memory
@@ -546,11 +557,16 @@ def work(name: str, args, out, kw=None):
     entries these inputs hold (valid slots, nonzero X entries), not of
     padding.  A Jacobi variant adds its second payload (rows^2 scaled and
     summed per slot, or dd Q1 Q1 per row) and its X^2 pass.  A COO pass
-    and ``pos_dot``: ``coo_work``."""
+    and ``pos_dot``: ``coo_work``.  ``topk_rows``: the scores read once,
+    the values and int64 ids written once, a comparison an element."""
     import torch
 
     if name in COO + DOT:
         return coo_work(name, args, out)
+    if name == "topk_rows":
+        z, k = args
+        return (z.numel() * z.element_size()
+                + z.shape[0] * min(k, z.shape[1]) * 12, z.numel())
     diag = name.endswith("_diag")
     nbytes = (sum(_nbytes(a, squared=diag) for a in args) + _nbytes(out))
     runs = (kw or {}).get("runs")
@@ -691,7 +707,8 @@ def library_call(name: str, args):
     weighted sum of embedding rows for B8, a sparse product for the
     blocked gradient scatter and the general scatter, ``Tensor.index_add_``
     of the scaled gathered rows (float atomics: not deterministic) for the
-    COO passes, cuSPARSE's sampled product (SDDMM) for ``pos_dot``.  Index
+    COO passes, cuSPARSE's sampled product (SDDMM) for ``pos_dot``,
+    ``torch.topk`` (no order among equal values) for ``topk_rows``.  Index
     conversion and the sparse matrix's structure are built here, outside
     the timing; returns the call or None."""
     import warnings
@@ -700,6 +717,9 @@ def library_call(name: str, args):
 
     if name == "pos_hv_coo":  # no one call computes it
         return None
+    if name == "topk_rows":
+        z, k = args
+        return lambda: torch.topk(z, k)
     if name in COO:
         coo = next(a for a in args if hasattr(a, "feat_ptr"))
         d = coo.feat_ptr.numel() - 1
@@ -905,8 +925,8 @@ def compare(name: str, side: str, dt_name: str, args, kw, report, gpu: str,
     bound; ``same_as``: a tensor the kernel must reproduce bit for bit (B1's
     output, for its variants).  At float32 (where ``timed``) also the
     kernel, plain and library times and the work's bound, which the report
-    sums; a COO pass and ``pos_dot`` are timed at bfloat16 too (printed,
-    not summed), and the fused Hv beside its two-call form."""
+    sums; a COO pass, ``pos_dot`` and ``topk_rows`` are timed at bfloat16
+    too (printed, not summed), and the fused Hv beside its two-call form."""
     import torch
 
     from one_class_ffm_torch.ops import kernels
@@ -945,7 +965,7 @@ def compare(name: str, side: str, dt_name: str, args, kw, report, gpu: str,
         b1_equal = torch.equal(_outputs(got)[0], same_as)
         line += f" B1-bits {b1_equal}"
         check(b1_equal, f"{name} {side} {dt_name}: not B1's bits")
-    if timed and (dt_name == "float32" or name in COO + DOT):
+    if timed and (dt_name == "float32" or name in COO + DOT + TOPK):
         ms = time_ms(lambda: kern(*args, **kw))
         pms = time_ms(lambda: plain(*args, **pkw))
         nbytes, nops = work(name, args, got, kw)
@@ -996,6 +1016,50 @@ def two_call_hv(phi, B, coo, w_scale):
         pq = ops.pos_dot(phi, own, B, coo.row) * coo.val
         return ops.pos_scatter(ops.storage_scale(pq, w_scale), B, ident)
     return call
+
+
+# the rank cell's shape (ocffm_bench kkbox-ffm-k64.rank-b1024): a request of
+# 1,024 users over the 359,966 songs, its top 10, and the item-sharded
+# evaluator's largest K (P@80); float32 as the cell and predict, bfloat16 as
+# serve_bench and a bfloat16 evaluator
+TOPK_SHAPE = (1024, 359_966)
+TOPK_KS = (10, 80)
+
+
+def topk_phase(device, gpu: str, report) -> None:
+    """``topk_rows`` against its plain version (the stable descending
+    sort's first K) on standard normal scores at ``TOPK_SHAPE``, for each
+    of ``TOPK_KS``, float32 and bfloat16: ``compare``'s line (ids and
+    values, two launches bit-identical, kernel / plain / ``torch.topk`` /
+    bound times), then the value bits and the launches of its calls."""
+    import torch
+
+    from one_class_ffm_torch.ops import kernels
+    from one_class_ffm_torch.ops import sparse_ops as ops
+
+    g = torch.Generator(device=device).manual_seed(0)
+    z32 = torch.randn(TOPK_SHAPE, generator=g, device=device)
+    for dt_name in ("float32", "bfloat16"):
+        z = z32 if dt_name == "float32" else z32.bfloat16()
+        for k in TOPK_KS:
+            side = f"{TOPK_SHAPE[0]}x{TOPK_SHAPE[1]} k={k}"
+            before = kernels.launch_counts()["topk_rows"]
+            compare("topk_rows", side, dt_name, (z, k), {}, report, gpu)
+            vals, ids = ops.topk_rows(z, k)
+            want_v, want_i = ops.topk_rows_plain(z, k)
+            bits = (torch.equal(ids, want_i)
+                    and torch.equal(vals.view(torch.int16),
+                                    want_v.contiguous().view(torch.int16)))
+            launches = kernels.launch_counts()["topk_rows"] - before
+            print(f"[kernels] topk_rows {side} {dt_name}: ids and value "
+                  f"bits equal to the stable sort's {bits}; {launches} "
+                  f"launches; segments a row "
+                  f"{kernels.topk_segs(*TOPK_SHAPE, k, z.dtype)} [{gpu}]")
+            check(bits, f"topk_rows {side} {dt_name}: not the stable sort's "
+                        f"first K")
+            check(launches > 0, f"topk_rows {side} {dt_name}: no launch")
+        del z
+    del z32
 
 
 # the table passes whose [kernels] line gives their X^T stage's time alone
@@ -2108,6 +2172,8 @@ def serve_phase(trainer, device, gpu: str, reps: int = 3):
     if torch.device(device).type == "cuda":  # (the CPU runs the plain ops)
         check(launches["project"] > 0, "project (B8) never launched on the "
                                        "serving path")
+        check(launches["topk_rows"] > 0, "topk_rows never launched on the "
+                                         "serving path")
     plain_ids, _ = call((None, ckpt), plain=True)
     same = bool(np.array_equal(ids, plain_ids))
     print(f"[serve ffm] ids equal to the project_plain route's: {same}")
@@ -2181,15 +2247,24 @@ def entry_phase(device, gpu: str):
 
 
 def serve_bench_phase(device, gpu: str) -> None:
-    """serve_bench at its defaults, in process: its JSON line and the
-    torch.topk yardstick's."""
-    from one_class_ffm_torch import serve_bench
+    """serve_bench at its defaults, in process: its JSON line, the
+    torch.topk yardstick's and the ``topk_rows`` launches of its bfloat16
+    ranking (on the card every chunk's)."""
+    import torch
 
+    from one_class_ffm_torch import serve_bench
+    from one_class_ffm_torch.ops import kernels
+
+    before = kernels.launch_counts()["topk_rows"]
     rec, lib, ids = serve_bench.run(device, **serve_bench.knobs())
+    launches = kernels.launch_counts()["topk_rows"] - before
     print(f"[serve bench] {json.dumps(rec)}")
     print(f"[serve bench] library yardstick {json.dumps(lib)}")
+    print(f"[serve bench] topk_rows launches {launches}")
     check(rec["value"] > 0 and ids is not None and int(ids.max()) <
           rec["catalog"], "serve bench: no ranking")
+    if torch.device(device).type == "cuda":
+        check(launches > 0, "serve bench: topk_rows never launched")
 
 
 def write_fm_dataset(work: str, spec):
@@ -3297,6 +3372,7 @@ def main() -> int:
                      report)
         kernel_phase(skew_coo, skew_coo_cases(skew_coo), "FFM skew-coo",
                      gpu, report)
+        topk_phase(device, gpu, report)
 
         # 4. small-input references
         for tag in ("MF", "FFM", "FM", "skew", "coo", "mixed"):
@@ -3894,6 +3970,84 @@ def cg_kernels_one(root: str) -> None:
                     check(eq, f"{label} {name}: not its plain version's bits")
 
 
+def topk_segments(device, gpu: str) -> None:
+    """``topk_rows`` at 1 to 1,024 rows of the catalog's 359,966 columns,
+    K = 10 and 80, float32 and bfloat16: the launch at the segments a row
+    that ``kernels.topk_segs`` chooses against one segment a row and a few
+    other counts (``time_ms``), the ids the same at every count."""
+    import torch
+
+    from one_class_ffm_torch.ops import kernels
+
+    lib = kernels.load()
+    n = TOPK_SHAPE[1]
+    g = torch.Generator(device=device).manual_seed(1)
+    z32 = torch.randn((1024, n), generator=g, device=device)
+    tickets = torch.zeros(1024, dtype=torch.int32, device=device)
+    for dt in (torch.float32, torch.bfloat16):
+        zz = z32 if dt == torch.float32 else z32.bfloat16()
+        for rows in (1, 16, 64, 256, 1024):
+            for k in TOPK_KS:
+                z = zz[:rows]
+                chosen = kernels.topk_segs(rows, n, k, dt)
+                vals = torch.empty((rows, k), dtype=dt, device=device)
+                ids = torch.empty((rows, k), dtype=torch.int64,
+                                  device=device)
+                first, times = None, {}
+                for segs in sorted({1, 2, 4, 16, chosen}):
+                    part = torch.empty(rows * segs * k, dtype=torch.int64,
+                                       device=device)
+
+                    def launch(segs=segs, part=part):
+                        check(lib.ocffm_topk_rows(
+                            kernels._DTYPE_CODE[dt], z.data_ptr(),
+                            z.stride(0), rows, n, k, segs, vals.data_ptr(),
+                            ids.data_ptr(), part.data_ptr(),
+                            tickets.data_ptr(),
+                            kernels._stream(device)) == 0,
+                            f"topk_rows {segs} segments: launch failed")
+
+                    times[segs] = time_ms(launch)
+                    first = ids.clone() if first is None else first
+                    check(torch.equal(ids, first),
+                          f"topk_rows {rows} rows {segs} segments: ids "
+                          f"differ")
+                print(f"[kernels] topk_rows segments {rows}x{n} k={k} "
+                      f"{str(dt)[6:]}: chosen {chosen}; "
+                      + ", ".join(f"{s_} {ms:.4f} ms"
+                                  for s_, ms in times.items())
+                      + f"; one a row over chosen "
+                      f"{times[1] / times[chosen]:.2f} [{gpu}]")
+
+
+def topk_kernels() -> int:
+    """``topk_phase`` and ``topk_segments`` alone, then the entry's JSON
+    line."""
+    import torch
+
+    from one_class_ffm_torch.ops import kernels
+
+    device = torch.device("cuda", 0)
+    gpu = gpu_line()
+    kernels.load()
+    print(f"[build] {kernels.library_path().name} in "
+          f"{kernels.build_seconds:.2f} s")
+    report = new_report()
+    try:
+        topk_phase(device, gpu, report)
+        topk_segments(device, gpu)
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
+        return 1
+    r = report["topk_rows"]
+    bms, by = bound_of(r["nbytes"], r["ops"])
+    print(json.dumps(dict(name="topk_rows", source=SOURCE["topk_rows"],
+                          replaces=REPLACES["topk_rows"], ms=r["ms"],
+                          plain_ms=r["plain_ms"], bound_ms=bms, bound_by=by,
+                          library_ms=r["library_ms"])))
+    return 0
+
+
 def cg_kernels(roots) -> int:
     """Each tree in its own process, in the order given (e.g. parent, this
     tree, this tree, parent)."""
@@ -3934,4 +4088,6 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["cg-kernels-one"]:
         cg_kernels_one(sys.argv[2])
         sys.exit(0)
+    if sys.argv[1:2] == ["topk-kernels"]:
+        sys.exit(topk_kernels())
     sys.exit(main())

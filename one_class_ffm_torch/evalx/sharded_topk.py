@@ -9,9 +9,10 @@ candidates: a payload of K per rank per user instead of the catalog.
 
 Ties resolve to the lowest global item id, as the reference's first-max
 destructive argmax does (ffm.cpp:1033-1037): the local top-K is the port's
-tie-exact ``predict.rank_topk`` (a stable descending sort: lower local
-index first), the gather concatenates the ranks' candidates in rank order
-(= global id order), and the merge is another stable descending sort.
+tie-exact ``predict.rank_topk`` (a stable descending sort's first K, lower
+local index first; on the card the top-K kernel), the gather
+concatenates the ranks' candidates in rank order (= global id order), and
+the merge is ``rank_topk`` again over the (users, ranks * K) candidates.
 """
 
 from __future__ import annotations
@@ -26,7 +27,8 @@ Tensor = torch.Tensor
 def _merge(mesh, vals: Tensor, gids: Tensor, k: int,
            site: str) -> Tuple[Tensor, Tensor]:
     """The global top ``k`` of every rank's (vals, global ids) candidates:
-    all-gathered in rank order, then a stable descending sort."""
+    all-gathered in rank order, then ``rank_topk`` (ties to the earlier
+    candidate: the lower rank, then the lower id)."""
     from ..predict import rank_topk
 
     all_vals = mesh.all_gather(vals, site, dim=1)

@@ -38,7 +38,7 @@ from .layout import FeatureMajor, seg_sum_lanes, xt_plan
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / name for name in (
     "blocked_ops.cu", "table_ops.cu", "project_ops.cu", "hv_variants.cu",
-    "coo_ops.cu", "cg_ops.cu"))
+    "coo_ops.cu", "cg_ops.cu", "topk_ops.cu"))
 HEADERS = (_PKG / "csrc" / "common.cuh",)
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -55,14 +55,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # scatter, with the Jacobi payload from the same read or that payload
 # alone, the self blocks' per-row sums, and the fused cross Hv), and the
 # stream's gather-and-dot pos_dot (the residual refresh, a COO side's gaps),
-# and the CG recurrence of a Newton solve (cg_ops.cu: its start, and one
-# iteration after the Hv with the stop test on the card)
+# the CG recurrence of a Newton solve (cg_ops.cu: its start, and one
+# iteration after the Hv with the stop test on the card), and each row's
+# top K of a score matrix (topk_ops.cu: ranking and the evaluator's top-K)
 KERNELS = ("pos_hv_blocked", "pos_scatter_blocked", "pos_gap_blocked",
            "pos_hv_tbl", "grad_cross_tbl", "hv_self_tbl", "grad_self_tbl",
            "project", "scatter", "pos_scatter_blocked_diag",
            "grad_cross_tbl_diag", "grad_self_tbl_diag", "pos_hv_packed",
            "pos_hv_blocked_g", "pos_scatter", "pos_scatter_pair",
-           "pos_seg_sum", "pos_hv_coo", "pos_dot", "cg_init", "cg_step")
+           "pos_seg_sum", "pos_hv_coo", "pos_dot", "cg_init", "cg_step",
+           "topk_rows")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # Launches per kernel since the last reset: a run reads them to show that
@@ -191,12 +193,16 @@ def load() -> ctypes.CDLL:
                                   i32, i32, i32, i32, i32, i32, i32, i32, vp]
     lib.ocffm_cg_blocks.argtypes = [i32, i32, i32, i32, i32,
                                     ctypes.POINTER(i32)]
+    lib.ocffm_topk_segs.argtypes = [i32, i64, i32, i32]
+    lib.ocffm_topk_rows.argtypes = [i32, vp, i64, i64, i32, i32, i32, vp, vp,
+                                    vp, vp, vp]
     for fn in (lib.ocffm_pos_hv_tbl_rows, lib.ocffm_grad_cross_tbl_rows,
                lib.ocffm_hv_self_tbl_rows, lib.ocffm_grad_self_tbl_rows,
                lib.ocffm_xt_scatter, lib.ocffm_project,
                lib.ocffm_pos_hv_packed, lib.ocffm_pos_hv_blocked_g,
                lib.ocffm_coo_list, lib.ocffm_pos_dot, lib.ocffm_cg_init,
-               lib.ocffm_cg_step, lib.ocffm_cg_blocks):
+               lib.ocffm_cg_step, lib.ocffm_cg_blocks, lib.ocffm_topk_segs,
+               lib.ocffm_topk_rows):
         fn.restype = i32
     _lib = lib
     _max_k = lib.ocffm_max_k()
@@ -1346,3 +1352,80 @@ def cg_scalars(st: CgState) -> Dict[str, Any]:
     f = words[:len(_CG_F32)].view(torch.float32).tolist()
     i = words[len(_CG_F32):len(_CG_F32) + len(_CG_INT)].tolist()
     return {**dict(zip(_CG_F32, f)), **dict(zip(_CG_INT, i))}
+
+
+# ---------------------------------------------------------------------------
+# each row's top K (topk_ops.cu): predict's ranking, the evaluator's top-K
+# ---------------------------------------------------------------------------
+
+TOPK_MAX_K = 256  # the largest K the kernel takes (its buckets 16 .. 256)
+_topk_segs: Dict[Any, int] = {}
+_topk_tickets: Dict[Any, torch.Tensor] = {}
+
+
+def topk_segs(rows: int, n: int, k: int,
+              dtype: torch.dtype = torch.float32) -> int:
+    """The segments a row of the launch for (rows, n, k) at ``dtype``: a
+    row is split only where the rows alone leave SMs idle (csrc/
+    topk_ops.cu ``kCtasPerSmK16``), each warp at least four rounds of
+    loads."""
+    key = (rows, n, k, dtype)
+    hit = _topk_segs.get(key)
+    if hit is None:
+        hit = _topk_segs[key] = load().ocffm_topk_segs(_DTYPE_CODE[dtype],
+                                                       rows, n, k)
+    return hit
+
+
+def _tickets(rows: int, dev, stream: int) -> torch.Tensor:
+    """A row's ticket each, zero between launches (the last CTA of a row
+    resets its own); shared by the launches on one stream, which run in
+    order."""
+    key = (dev, stream)
+    t = _topk_tickets.get(key)
+    if t is None or t.numel() < rows:
+        t = _topk_tickets[key] = torch.zeros(max(rows, 1024),
+                                             dtype=torch.int32, device=dev)
+    return t
+
+
+def topk_rows(z: torch.Tensor, k: int):
+    """(values (rows, min(k, n)) at z's dtype, ids int64) of each row of the
+    float32 or bfloat16 (rows, n) ``z``: the first columns of
+    ``torch.sort(z, dim=1, descending=True, stable=True)``, bit for bit.
+    The rows may be a column slice of a wider matrix (unit column stride,
+    any row stride of at least n)."""
+    if z.dtype not in _DTYPE_CODE:
+        raise TypeError(f"topk_rows takes float32 or bfloat16, got {z.dtype}")
+    if z.dim() != 2:
+        raise ValueError(f"z must be (rows, n), got {tuple(z.shape)}")
+    if not 1 <= k <= TOPK_MAX_K:
+        raise ValueError(f"k={k} outside the kernel's range (1..{TOPK_MAX_K})")
+    rows, n = z.shape
+    if z.stride(1) != 1 or (rows > 1 and z.stride(0) < n):
+        raise ValueError(f"z's rows must be unit-stride and apart, got "
+                         f"strides {z.stride()}")
+    if n >= 1 << 31:
+        raise ValueError(f"rows of {n} elements: columns past 2**31")
+    if z.device.type != "cuda":
+        raise ValueError(f"z must be a CUDA tensor, got {z.device}")
+    k = min(k, n)
+    dev = z.device
+    vals = torch.empty((rows, k), dtype=z.dtype, device=dev)
+    ids = torch.empty((rows, k), dtype=torch.int64, device=dev)
+    if rows == 0 or k == 0:
+        return vals, ids
+    lib = load()
+    segs = topk_segs(rows, n, k, z.dtype)
+    if rows * segs >= 1 << 31:
+        raise ValueError(f"{rows} rows x {segs} segments: grid too large")
+    part = (torch.empty(rows * segs * k, dtype=torch.int64, device=dev)
+            if segs > 1 else None)
+    stream = _stream(dev)
+    err = lib.ocffm_topk_rows(
+        _DTYPE_CODE[z.dtype], z.data_ptr(), z.stride(0), rows, n, k, segs,
+        vals.data_ptr(), ids.data_ptr(), _ptr(part),
+        _tickets(rows, dev, stream).data_ptr(), stream)
+    _raise_on(err, "topk_rows")
+    _launches["topk_rows"] += 1
+    return vals, ids

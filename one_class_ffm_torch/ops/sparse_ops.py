@@ -27,9 +27,10 @@ form ``pos_scatter_sq``, ``pos_seg_sum``, and the fused cross Hv
 ``pos_hv_coo``) sum through the side's destination-major list of the
 stream, on the card by one kernel with five sources; ``pos_dot``, the
 stream's gather-and-dot (the residual refresh, a COO side's gaps), has a
-kernel of its own.  The dispatching function takes the plain version only
-because its tensors lie on the CPU; on a CUDA tensor it launches the kernel
-or raises.
+kernel of its own, as has ``topk_rows``, each row's top K of a score
+matrix in a stable sort's order (predict's ranking).  The dispatching
+function takes the plain version only because its tensors lie on the CPU;
+on a CUDA tensor it launches the kernel or raises.
 Storage is float32 or bfloat16 (float64 on the CPU), sums run at a
 float32 floor, and the plain versions round where the kernels round: pq
 to storage, the output to storage, and for the table passes phi = X V
@@ -1062,3 +1063,32 @@ def cg_scalars(st: CgState):
         return {k: v.item() if isinstance(v, torch.Tensor) else v
                 for k, v in st.sc.items()}
     return kernels.cg_scalars(st)
+
+
+# ---------------------------------------------------------------------------
+# each row's top K (jax.lax.top_k in the JAX package's ranking): the first
+# K of a stable descending sort, ties to the lowest column; on the card
+# topk_ops.cu
+# ---------------------------------------------------------------------------
+
+def topk_rows_plain(z: torch.Tensor, k: int):
+    """(values, ids) of each row's top k: the first k columns of a stable
+    descending sort of the row."""
+    srt = torch.sort(z, dim=1, descending=True, stable=True)
+    return srt.values[:, :k], srt.indices[:, :k]
+
+
+def topk_rows(z: torch.Tensor, k: int):
+    """(values, ids int64) of each row's top k of the 2-d ``z``, highest
+    first and the lowest column first among equal values, bit for bit
+    ``topk_rows_plain``: the plain version on the CPU; on a CUDA tensor the
+    top-K kernel (float32 or bfloat16, 1 <= k <= 256, else it raises; rows
+    that are not unit-stride are copied first).  The kernel's launch is a
+    span ``topk`` in a trace: a launch through ctypes has no torch operation
+    that the profiler could charge its device time to."""
+    if _plain_device(z):
+        return topk_rows_plain(z, k)
+    if z.stride(1) != 1 or (z.shape[0] > 1 and z.stride(0) < z.shape[1]):
+        z = z.contiguous()
+    with span("topk"):
+        return kernels.topk_rows(z, k)

@@ -6,8 +6,10 @@ file over the full item catalog, and emit top-K item ids (optionally with
 scores), with the same cold-user popularity fallback as evaluation.  Every
 projection is the port's ``project`` (B8 on the card, its plain version on
 the CPU); the score product is a true float32 matmul.  Ties rank the lowest
-item id first, as ``jax.lax.top_k`` does: ``torch.topk`` promises no tie
-order, so ranking is a stable descending sort (as in the evaluator).
+item id first, as ``jax.lax.top_k`` does (``torch.topk`` promises no tie
+order): ranking is ``sparse_ops.topk_rows``, on the card a top-K kernel
+(csrc/topk_ops.cu) whose ids and values are those of a stable descending
+sort of the row, bit for bit; on the CPU that sort itself.
 
 Usage:
     python -m one_class_ffm_torch.predict model.txt items.ffm users.ffm -k 10
@@ -28,7 +30,7 @@ import torch
 
 from .data.dataset import pad_fields, read_data, split_fields
 from .models.blocks import BlockLayout
-from .ops.sparse_ops import project
+from .ops.sparse_ops import project, topk_rows
 from .solver.convert import params_from_numpy
 from .train import load_checkpoint, load_text_model
 from .utils.device import resolve_device
@@ -90,10 +92,12 @@ def catalog_scores(layout: BlockLayout, P: Dict[int, Tensor],
 
 def rank_topk(z: Tensor, top_k: int) -> Tuple[Tensor, Tensor]:
     """(values, ids) of each row's top_k, highest first and the lowest id
-    first among equal values (``jax.lax.top_k``'s order): a stable
-    descending sort of the row."""
-    srt = torch.sort(z, dim=1, descending=True, stable=True)
-    return srt.values[:, :top_k], srt.indices[:, :top_k]
+    first among equal values (``jax.lax.top_k``'s order): the first top_k
+    of a stable descending sort of the row, bit for bit.  On a CUDA tensor
+    (float32 or bfloat16, top_k <= 256) the top-K kernel selects them in
+    one read of the row (a column slice such as ``z[:, :catalog]`` needs no
+    copy); on the CPU the sort itself runs (``sparse_ops.topk_rows``)."""
+    return topk_rows(z, top_k)
 
 
 def predict_topk_from_model(

@@ -9,7 +9,9 @@ The counterpart of ``scripts/serve_bench.py``, with its knobs and defaults
 item sums ``bt``, random normal tables from a seeded generator, bfloat16 on
 the card and float32 on the CPU.  Each chunk of users is scored against the
 whole catalog and ranked with predict's tie-exact top-K (``rank_topk``:
-the lowest id first among equal scores).  A pass ends in
+the lowest id first among equal scores: on the card its top-K kernel,
+which reads the bfloat16 scores in place, on the CPU the stable
+descending sort).  A pass ends in
 ``torch.cuda.synchronize()`` and a host scalar fetch inside the timed
 window; the metric is the best of ``SB_REPS`` passes after one warm-up.
 
